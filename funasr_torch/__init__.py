@@ -1,0 +1,14 @@
+"""funasr_torch: the PyTorch/CUDA port of funasr_tpu for NVIDIA Hopper.
+
+Plain tensor code is PyTorch; every Pallas kernel of the JAX package on the
+ported path is a hand-written CUDA C++ kernel under ``csrc/``, built with
+``nvcc`` for ``sm_90a`` at first use (``ops/cuda_build.py``) and bound with
+``ctypes``.  The package imports ``torch``, numpy and the standard library
+only; the JAX package stays the reference its tests compare against.
+
+Entry points (``auto.engines.ParaformerEngine``,
+``models.paraformer.model.Paraformer``) run on ``cuda`` by default and raise
+without a GPU unless the caller asks for ``device="cpu"``.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,262 @@
+// Masked-softmax attention for Hopper (sm_90a), bf16 or float32 inputs.
+//
+// Replaces the TPU kernel funasr_tpu/ops/attention_pallas.py `_attn_kernel`
+// (pallas_call at :84).  Same function, per (batch b, head h):
+//
+//   s   = q_h k_h^T + key_bias[b]     float32 (q pre-scaled by d^-0.5)
+//   p   = softmax(s) in float32, normalised, THEN cast to v's dtype
+//   out = p v_h                       float32 accumulation, cast to q's dtype
+//
+// with q (B, U, H*d), k/v (B, T, H*d) in their natural layout (a row stride
+// per tensor, so k and v may be column slices of one fused projection) and
+// key_bias (B, T) float32, 0 for valid keys and -1e30 for padding.  A row
+// whose keys are all masked gets uniform weights, as the TPU kernel does
+// (the serving path never builds one).
+//
+// Design.  One block per (64-query tile, head, batch), 256 threads.  The
+// query tile stays in shared memory (float32, rows padded to d + 4); keys
+// and values stream through one shared buffer in 64-key tiles.  To apply
+// the normalised, rounded p of the contract exactly, the kernel makes two
+// passes over the keys: pass 1 keeps the running row max and the rescaled
+// row sum (online softmax, float32); pass 2 recomputes each score tile,
+// forms p = exp(s - m) / l, rounds it to v's dtype, stages it in shared
+// memory and accumulates p v.  Each thread holds a 4 x 4 score tile and a
+// 4-row x (4 d/64)-column output tile; all arithmetic is float32 FMA on the
+// CUDA cores.
+//
+// Bound on the H100 SXM, encoder self-attention (B=64, T=256, H=4, d=128,
+// bf16, every key valid): q, k, v and out are 4 x 16.8 MB = 67 MB -> 20 us
+// at 3.35 TB/s; the two products are 8.6 GFLOP -> 8.7 us at 989 TFLOP/s
+// bf16, so it is bound by bytes.  Decoder cross-attention (U=128): 50 MB ->
+// 15 us.  Keys past a row's length need neither bytes nor products, so at
+// ragged lengths the bound falls with the valid keys.  This
+// kernel runs the products on the CUDA cores (67 TFLOP/s float32) and
+// computes q k^T twice, so it sits far above that bound; tensor-core
+// (mma/wgmma) tiles are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BQ = 64;   // queries per block
+constexpr int BK = 64;   // keys per tile
+constexpr int NT = 256;  // threads per block
+constexpr int LP = BK + 4;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even
+}
+
+// rows [r0, r0 + 64) of a (rows, D) head slice with row stride `rs` into a
+// float32 tile with row stride D + 4; rows past `nrows` are zero
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(float* dst, const T* src, int64_t rs,
+                                          int r0, int nrows) {
+  constexpr int LD = D + 4;
+  for (int i = threadIdx.x; i < 64 * D; i += NT) {
+    const int r = i / D, c = i % D;
+    const int row = r0 + r;
+    dst[r * LD + c] = (row < nrows) ? to_f(src[(int64_t)row * rs + c]) : 0.f;
+  }
+}
+
+// s[i][j] = q[4 ty + i] . k[tx + 16 j] over the d columns
+template <int D>
+__device__ __forceinline__ void scores(const float* sQ, const float* sK, int tx,
+                                       int ty, float s[4][4]) {
+  constexpr int LD = D + 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < D; c += 4) {
+    float4 qv[4], kv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      qv[i] = *reinterpret_cast<const float4*>(&sQ[(4 * ty + i) * LD + c]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      kv[j] = *reinterpret_cast<const float4*>(&sK[(tx + 16 * j) * LD + c]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float a = s[i][j];
+        a = fmaf(qv[i].x, kv[j].x, a);
+        a = fmaf(qv[i].y, kv[j].y, a);
+        a = fmaf(qv[i].z, kv[j].z, a);
+        a = fmaf(qv[i].w, kv[j].w, a);
+        s[i][j] = a;
+      }
+  }
+}
+
+// reductions over the 16 lanes (tx) that share a query row
+__device__ __forceinline__ float row_max(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off, 16));
+  return x;
+}
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off, 16);
+  return x;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT, 2)
+attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const float* __restrict__ bias,
+                 T* __restrict__ out, int U, int Tk, int64_t q_bs, int64_t q_rs,
+                 int64_t k_bs, int64_t k_rs, int64_t v_bs, int64_t v_rs,
+                 int64_t o_bs, int64_t o_rs) {
+  constexpr int LD = D + 4;
+  constexpr int NG = D / 64;  // output column groups of 64
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;            // BQ x LD
+  float* sKV = sQ + BQ * LD;   // BK x LD (keys, then values)
+  float* sP = sKV + BK * LD;   // BQ x LP
+  float* sB = sP + BQ * LP;    // BK key biases
+
+  const int u0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const T* qh = q + b * q_bs + (int64_t)h * D;
+  const T* kh = k + b * k_bs + (int64_t)h * D;
+  const T* vh = v + b * v_bs + (int64_t)h * D;
+  const float* bb = bias + (int64_t)b * Tk;
+
+  load_tile<T, D>(sQ, qh, q_rs, u0, U);
+
+  // ---- pass 1: row max m and row sum l of exp(s - m)
+  float m_i[4], l_i[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m_i[i] = -INFINITY;
+    l_i[i] = 0.f;
+  }
+  float s[4][4];
+  for (int k0 = 0; k0 < Tk; k0 += BK) {
+    __syncthreads();
+    load_tile<T, D>(sKV, kh, k_rs, k0, Tk);
+    if (tid < BK) sB[tid] = (k0 + tid < Tk) ? bb[k0 + tid] : -INFINITY;
+    __syncthreads();
+    scores<D>(sQ, sKV, tx, ty, s);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] += sB[tx + 16 * j];
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m_i[i], row_max(mx));
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sum += expf(s[i][j] - m_new);
+      l_i[i] = l_i[i] * expf(m_i[i] - m_new) + row_sum(sum);
+      m_i[i] = m_new;
+    }
+  }
+
+  // ---- pass 2: p = exp(s - m) / l rounded to v's dtype, out = p v
+  float o[4][4 * NG];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4 * NG; ++c) o[i][c] = 0.f;
+  for (int k0 = 0; k0 < Tk; k0 += BK) {
+    __syncthreads();
+    load_tile<T, D>(sKV, kh, k_rs, k0, Tk);
+    if (tid < BK) sB[tid] = (k0 + tid < Tk) ? bb[k0 + tid] : -INFINITY;
+    __syncthreads();
+    scores<D>(sQ, sKV, tx, ty, s);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(s[i][j] + sB[tx + 16 * j] - m_i[i]) / l_i[i];
+        sP[(4 * ty + i) * LP + tx + 16 * j] = to_f(from_f<T>(p));
+      }
+    __syncthreads();
+    load_tile<T, D>(sKV, vh, v_rs, k0, Tk);
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      float p[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[i] = sP[(4 * ty + i) * LP + kk];
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        const float4 vv = *reinterpret_cast<const float4*>(&sKV[kk * LD + 64 * g + 4 * tx]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          o[i][4 * g + 0] = fmaf(p[i], vv.x, o[i][4 * g + 0]);
+          o[i][4 * g + 1] = fmaf(p[i], vv.y, o[i][4 * g + 1]);
+          o[i][4 * g + 2] = fmaf(p[i], vv.z, o[i][4 * g + 2]);
+          o[i][4 * g + 3] = fmaf(p[i], vv.w, o[i][4 * g + 3]);
+        }
+      }
+    }
+  }
+
+  T* oh = out + b * o_bs + (int64_t)h * D;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int u = u0 + 4 * ty + i;
+    if (u >= U) continue;
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        oh[(int64_t)u * o_rs + 64 * g + 4 * tx + e] = from_f<T>(o[i][4 * g + e]);
+  }
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, const float* bias, void* out,
+           int B, int U, int Tk, int H, const long long* strides, cudaStream_t stream) {
+  constexpr int LD = D + 4;
+  const size_t smem = sizeof(float) * (BQ * LD + BK * LD + BQ * LP + BK);
+  auto kern = attention_kernel<T, D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((U + BQ - 1) / BQ, H, B);
+  kern<<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
+      static_cast<T*>(out), U, Tk, strides[0], strides[1], strides[2], strides[3],
+      strides[4], strides[5], strides[6], strides[7]);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry point, called through ctypes.  `strides` holds the batch and
+// row strides (in elements) of q, k, v and out, in that order.  dtype: 0 =
+// float32, 1 = bfloat16; the head size d must be 128.  Returns
+// cudaGetLastError() (0 on success); 1 (cudaErrorInvalidValue) for another
+// head size or dtype.
+extern "C" int attention_forward(const void* q, const void* k, const void* v,
+                                 const float* bias, void* out, int B, int U, int Tk,
+                                 int H, int d, int dtype, const long long* strides,
+                                 void* stream) {
+  if (B <= 0 || U <= 0 || H <= 0) return (int)cudaSuccess;
+  if (Tk <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (d != 128) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return launch<float, 128>(q, k, v, bias, out, B, U, Tk, H, strides, st);
+  if (dtype == 1) return launch<__nv_bfloat16, 128>(q, k, v, bias, out, B, U, Tk, H, strides, st);
+  return (int)cudaErrorInvalidValue;
+}

@@ -1,0 +1,172 @@
+"""Paraformer SANM decoder (port of funasr_tpu/models/paraformer/decoder.py;
+reference funasr/models/paraformer/decoder.py:225).
+
+Bidirectional decoder over the CIF acoustic-embedding grid: each layer is
+FFN -> FSMN memory ("self-attention", attention.py:471) -> cross-attention
+into the encoder memory.  ``att_layer_num`` full layers, then optional
+FSMN-only layers (``decoders2``), then one FFN-only layer (``decoders3``)
+whose output replaces its input (no residual), ``after_norm`` and the
+output projection.  Parameter names are FunASR's (``decoders.{i}``,
+``decoders3.0``, ``src_attn.linear_k_v``...).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from funasr_torch.models.sanm import (
+    Dense,
+    LayerNormF32,
+    fsmn_memory,
+    fsmn_padding,
+)
+from funasr_torch.ops import attention as A
+from funasr_torch.ops.masks import key_bias, sequence_mask
+from funasr_torch.registry import tables
+
+
+class FeedForwardDecoderSANM(nn.Module):
+    """w_2(norm(relu(w_1 x))), w_2 without bias
+    (sanm/positionwise_feed_forward.py ``PositionwiseFeedForwardDecoderSANM``)."""
+
+    def __init__(self, idim: int, hidden_units: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.w_1 = Dense(idim, hidden_units, dtype=dtype)
+        self.norm = LayerNormF32(hidden_units, dtype)
+        self.w_2 = Dense(hidden_units, idim, bias=False, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.w_2(self.norm(torch.relu(self.w_1(x))))
+
+
+class FsmnSelfAttention(nn.Module):
+    """Decoder 'self-attention': the FSMN depthwise memory alone
+    (attention.py:471 ``MultiHeadedAttentionSANMDecoder``)."""
+
+    def __init__(self, n_feat: int, kernel_size: int = 11, sanm_shift: int = 0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.fsmn_block = nn.Conv1d(n_feat, n_feat, kernel_size, groups=n_feat,
+                                    bias=False, dtype=dtype)
+        self.left, self.right = fsmn_padding(kernel_size, sanm_shift)
+
+    def forward(self, x: torch.Tensor, tgt_mask: torch.Tensor) -> torch.Tensor:
+        return fsmn_memory(x, self.fsmn_block.weight, tgt_mask, self.left,
+                           self.right)
+
+
+class CrossAttention(nn.Module):
+    """Cross-attention with a fused KV projection
+    (attention.py:568 ``MultiHeadedAttentionCrossAtt``)."""
+
+    def __init__(self, n_head: int, n_feat: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.n_head = n_head
+        self.n_feat = n_feat
+        self.linear_q = Dense(n_feat, n_feat, dtype=dtype)
+        self.linear_k_v = Dense(n_feat, 2 * n_feat, dtype=dtype)
+        self.linear_out = Dense(n_feat, n_feat, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, memory: torch.Tensor,
+                bias: torch.Tensor) -> torch.Tensor:
+        """x (B, U, D); memory (B, T, D); bias (B, T) float32 key bias."""
+        d_k = self.n_feat // self.n_head
+        q = self.linear_q(x)
+        k, v = self.linear_k_v(memory).split(self.n_feat, dim=-1)
+        ctx = A.fused_attention(q * (d_k ** -0.5), k, v, bias, self.n_head)
+        return self.linear_out(ctx)
+
+
+class DecoderLayerSANM(nn.Module):
+    """FFN -> FSMN memory -> cross-attention, pre-norm
+    (paraformer/decoder.py:26 ``DecoderLayerSANM``, :78-121)."""
+
+    def __init__(self, size: int, n_head: int, linear_units: int,
+                 kernel_size: int = 11, sanm_shift: int = 0,
+                 has_self_attn: bool = True, has_src_attn: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.norm1 = LayerNormF32(size, dtype)
+        self.feed_forward = FeedForwardDecoderSANM(size, linear_units, dtype)
+        self.self_attn = None
+        self.src_attn = None
+        if has_self_attn:
+            self.norm2 = LayerNormF32(size, dtype)
+            self.self_attn = FsmnSelfAttention(size, kernel_size, sanm_shift,
+                                               dtype)
+        if has_src_attn:
+            self.norm3 = LayerNormF32(size, dtype)
+            self.src_attn = CrossAttention(n_head, size, dtype)
+
+    def forward(self, tgt: torch.Tensor, tgt_mask: torch.Tensor,
+                memory: torch.Tensor, mem_bias: torch.Tensor) -> torch.Tensor:
+        """tgt (B, U, D); tgt_mask (B, U, 1); memory (B, T, D);
+        mem_bias (B, T) float32."""
+        x = self.feed_forward(self.norm1(tgt))
+        if self.self_attn is not None:
+            x = tgt + self.self_attn(self.norm2(x), tgt_mask)
+        if self.src_attn is not None:
+            x = x + self.src_attn(self.norm3(x), memory, mem_bias)
+        return x
+
+
+@tables.register("decoder_classes", "ParaformerSANMDecoder")
+class ParaformerSANMDecoder(nn.Module):
+    """Stack of DecoderLayerSANM + FFN-only tail layer + output projection
+    (paraformer/decoder.py:225 ``ParaformerSANMDecoder``).
+
+    ``embed`` (the training sampler's token embedding, FunASR's
+    ``decoder.embed.0``) is kept so reference checkpoints load strictly;
+    inference does not use it.
+    """
+
+    def __init__(self, vocab_size: int, encoder_output_size: int,
+                 attention_heads: int = 4, linear_units: int = 2048,
+                 num_blocks: int = 6, att_layer_num: int = 6,
+                 kernel_size: int = 11, sanm_shift: int = 0,
+                 dtype: torch.dtype = torch.float32,
+                 dropout_rate: float = 0.0,
+                 self_attention_dropout_rate: float = 0.0,
+                 src_attention_dropout_rate: float = 0.0):
+        """The dropout rates are the reference's training-only settings;
+        inference ignores them."""
+        super().__init__()
+        d = encoder_output_size
+        self.dtype = dtype
+        self.embed = nn.Sequential(nn.Embedding(vocab_size, d))
+        self.decoders = nn.ModuleList([
+            DecoderLayerSANM(d, attention_heads, linear_units, kernel_size,
+                             sanm_shift, True, True, dtype)
+            for _ in range(att_layer_num)])
+        self.decoders2: Optional[nn.ModuleList] = None
+        if num_blocks - att_layer_num > 0:
+            self.decoders2 = nn.ModuleList([
+                DecoderLayerSANM(d, attention_heads, linear_units, kernel_size,
+                                 0, True, False, dtype)
+                for _ in range(num_blocks - att_layer_num)])
+        self.decoders3 = nn.ModuleList([DecoderLayerSANM(
+            d, attention_heads, linear_units, kernel_size, sanm_shift,
+            False, False, dtype)])
+        self.after_norm = LayerNormF32(d, dtype)
+        self.output_layer = Dense(d, vocab_size, dtype=dtype)
+
+    def forward(self, memory: torch.Tensor, memory_lengths: torch.Tensor,
+                semantic_embeds: torch.Tensor,
+                token_lengths: torch.Tensor) -> torch.Tensor:
+        """-> logits (B, U, vocab) in the compute dtype."""
+        B, U, _ = semantic_embeds.shape
+        T = memory.shape[1]
+        tgt_mask = sequence_mask(token_lengths, U)[:, :, None]
+        mem_bias = key_bias(memory_lengths, T)
+        memory = memory.to(self.dtype)
+        x = semantic_embeds.to(self.dtype)
+        layers = list(self.decoders) + list(self.decoders2 or []) + list(
+            self.decoders3)
+        for layer in layers:
+            x = layer(x, tgt_mask, memory, mem_bias)
+        return self.output_layer(self.after_norm(x))

@@ -1,0 +1,139 @@
+"""Paraformer: non-autoregressive ASR, inference path (port of
+funasr_tpu/models/paraformer/model.py; reference
+funasr/models/paraformer/model.py:30).
+
+encoder -> CIF predictor (one acoustic embedding per token) -> one
+bidirectional decoder pass -> argmax.  The token grid is padded to
+``max_tokens``; real counts travel as lengths.  No training forward.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import torch
+from torch import nn
+
+from funasr_torch.device import resolve_device
+from funasr_torch.models.paraformer.decoder import ParaformerSANMDecoder
+from funasr_torch.models.paraformer.predictor import CifPredictorV2
+from funasr_torch.models.sanm import LayerNormF32, SANMEncoder
+from funasr_torch.ops.masks import sequence_mask
+from funasr_torch.registry import tables
+
+
+# training-only fields of funasr_tpu's Paraformer (and the reference template)
+_TRAINING_FIELDS = {"ctc_weight", "lsm_weight", "length_normalized_loss",
+                    "predictor_weight", "predictor_bias", "sampling_ratio",
+                    "ignore_id"}
+
+
+@tables.register("model_classes", "Paraformer")
+class Paraformer(nn.Module):
+    """Config fields mirror the reference template.yaml.  Builds on
+    ``device`` (default: the GPU, raising without one; ``"cpu"`` only when
+    asked).  ``dtype`` is the compute dtype (bfloat16 in serving)."""
+
+    def __init__(self, vocab_size: int, input_size: int = 560,
+                 encoder_conf: Optional[Dict[str, Any]] = None,
+                 decoder_conf: Optional[Dict[str, Any]] = None,
+                 predictor_conf: Optional[Dict[str, Any]] = None,
+                 blank_id: int = 0, sos: int = 1, eos: int = 2,
+                 dtype: torch.dtype = torch.float32, device=None,
+                 **training_conf):
+        """``training_conf`` takes the template's training-only settings
+        (``lsm_weight``, ``sampling_ratio``, ``predictor_bias``...), which
+        the inference path ignores."""
+        unknown = set(training_conf) - _TRAINING_FIELDS
+        if unknown:
+            raise TypeError(f"Paraformer: unexpected arguments {sorted(unknown)}")
+        super().__init__()
+        self.vocab_size = vocab_size
+        self.blank_id = blank_id
+        self.sos = sos
+        self.eos = eos
+        self.dtype = dtype
+        dev = resolve_device(device)
+
+        enc_conf = dict(encoder_conf or {})
+        for key in ("pos_enc_class", "selfattention_layer_type",
+                    "positional_dropout_rate"):
+            enc_conf.pop(key, None)
+        enc_conf["sanm_shift"] = enc_conf.pop("sanm_shfit", enc_conf.get("sanm_shift", 0))
+        dec_conf = dict(decoder_conf or {})
+        dec_conf.pop("positional_dropout_rate", None)
+        if "sanm_shfit" in dec_conf:  # reference template spelling
+            dec_conf["sanm_shift"] = dec_conf.pop("sanm_shfit")
+        pred_conf = dict(predictor_conf or {})
+
+        with torch.device(dev):
+            self.encoder = SANMEncoder(input_size=input_size, dtype=dtype,
+                                       **enc_conf)
+            d_model = self.encoder.output_size()
+            self.decoder = ParaformerSANMDecoder(
+                vocab_size=vocab_size, encoder_output_size=d_model,
+                dtype=dtype, **dec_conf)
+            pred_conf.setdefault("idim", d_model)
+            self.predictor = CifPredictorV2(dtype=dtype, **pred_conf)
+        self.eval()
+
+    def encode(self, speech: torch.Tensor, speech_lengths: torch.Tensor):
+        return self.encoder(speech, speech_lengths)
+
+    def _infer_raw_logits(self, speech, speech_lengths, max_tokens: int = 128):
+        enc, enc_lens = self.encode(speech, speech_lengths)
+        pred = self.predictor(enc, enc_lens, max_tokens)
+        token_lengths = torch.clamp(torch.round(pred.token_num).to(torch.int32),
+                                    0, max_tokens)
+        logits = self.decoder(enc, enc_lens, pred.acoustic_embeds, token_lengths)
+        return logits, token_lengths, pred
+
+    @torch.inference_mode()
+    def inference_logits(self, speech: torch.Tensor,
+                         speech_lengths: torch.Tensor, max_tokens: int = 128):
+        """-> (log_probs (B, U, V) float32, token_lengths (B,), predictor
+        outputs).  Greedy decode = argmax over log_probs within
+        token_lengths."""
+        logits, token_lengths, pred = self._infer_raw_logits(
+            speech, speech_lengths, max_tokens)
+        return (torch.log_softmax(logits.to(torch.float32), dim=-1),
+                token_lengths, pred)
+
+    @torch.inference_mode()
+    def greedy_decode(self, speech: torch.Tensor, speech_lengths: torch.Tensor,
+                      max_tokens: int = 128):
+        """argmax decode (reference model.py:539-546) -> (tokens (B, U),
+        token_lengths, scores); tokens past token_lengths are blank."""
+        logits, token_lengths, _ = self._infer_raw_logits(
+            speech, speech_lengths, max_tokens)
+        tokens = torch.argmax(logits, dim=-1)
+        lf = logits.to(torch.float32)
+        tok_logp = lf.max(dim=-1).values - torch.logsumexp(lf, dim=-1)
+        valid = sequence_mask(token_lengths, tokens.shape[1], torch.bool)
+        tokens = torch.where(valid, tokens, torch.full_like(tokens, self.blank_id))
+        scores = (tok_logp * valid.to(torch.float32)).sum(dim=-1)
+        return tokens, token_lengths, scores
+
+
+def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded random weights, in place: LeCun-normal Linear/Conv weights
+    (flax's default), zero biases, unit/zero layer norms, N(0, 1)
+    embeddings.  Draws on ``generator``'s device in float32."""
+    def normal_(p: torch.Tensor, std: float):
+        p.copy_(torch.randn(p.shape, generator=generator,
+                            device=generator.device) * std)
+
+    with torch.no_grad():
+        for mod in module.modules():
+            if isinstance(mod, (nn.Linear, nn.Conv1d)):
+                w = mod.weight
+                normal_(w, 1.0 / math.sqrt(w[0].numel()))  # fan_in = Din * K
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, nn.Embedding):
+                normal_(mod.weight, 1.0)
+            elif isinstance(mod, LayerNormF32):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+    return module

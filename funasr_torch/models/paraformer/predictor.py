@@ -1,0 +1,73 @@
+"""CIF predictor (port of funasr_tpu/models/paraformer/predictor.py;
+reference ``CifPredictorV2``, cif_predictor.py:173).
+
+conv1d (k = l_order + r_order + 1) -> relu -> linear -> sigmoid -> alphas,
+then the interval-overlap CIF (``ops/cif.py``).  The alpha head runs in
+float32 on the unmasked hidden state, its parameters stay float32 whatever
+the model dtype, and the conv is evaluated as one float32 matmul over the
+unfolded window (``torch.matmul`` keeps full float32 on the card; a cuDNN
+conv would default to TF32).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from funasr_torch.ops.cif import cif, cif_tail
+from funasr_torch.ops.masks import sequence_mask
+from funasr_torch.registry import tables
+
+
+class PredictorOutput(NamedTuple):
+    acoustic_embeds: torch.Tensor  # (B, U, D)
+    token_num: torch.Tensor  # (B,) float
+    alphas: torch.Tensor  # (B, T') per-frame weights (incl. tail frame)
+    fires: torch.Tensor  # (B, T') cif fire track
+    peaks: torch.Tensor  # (B, T') bool fire indicator
+
+
+@tables.register("predictor_classes", "CifPredictorV2")
+class CifPredictorV2(nn.Module):
+    def __init__(self, idim: int, l_order: int = 1, r_order: int = 1,
+                 threshold: float = 1.0, smooth_factor: float = 1.0,
+                 noise_threshold: float = 0.0, tail_threshold: float = 0.45,
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
+        """``dropout`` is the reference's training-only setting; inference
+        ignores it."""
+        super().__init__()
+        if threshold != 1.0:
+            raise NotImplementedError("the interval-overlap CIF needs threshold 1.0")
+        self.l_order = l_order
+        self.r_order = r_order
+        self.smooth_factor = smooth_factor
+        self.noise_threshold = noise_threshold
+        self.tail_threshold = tail_threshold
+        self.dtype = dtype
+        self.cif_conv1d = nn.Conv1d(idim, idim, l_order + r_order + 1)
+        self.cif_output = nn.Linear(idim, 1)
+
+    def forward(self, hidden: torch.Tensor, lengths: torch.Tensor,
+                max_tokens: int) -> PredictorOutput:
+        """hidden (B, T, D) encoder output; lengths (B,)."""
+        B, T, D = hidden.shape
+        h = hidden.to(torch.float32)
+        K = self.l_order + self.r_order + 1
+        win = F.pad(h, (0, 0, self.l_order, self.r_order)).unfold(1, K, 1)
+        q = F.linear(win.reshape(B, T, D * K),
+                     self.cif_conv1d.weight.reshape(D, D * K),
+                     self.cif_conv1d.bias)
+        alphas = torch.sigmoid(self.cif_output(torch.relu(q))[..., 0])
+        alphas = torch.relu(alphas * self.smooth_factor - self.noise_threshold)
+        alphas = alphas * sequence_mask(lengths, T)
+
+        token_num = alphas.sum(dim=-1)
+        if self.tail_threshold > 0.0:
+            h, alphas, token_num = cif_tail(h, alphas, lengths,
+                                            self.tail_threshold)
+        out = cif(h, alphas, max_tokens)
+        return PredictorOutput(out.embeds.to(self.dtype), token_num, alphas,
+                               out.fires, out.peaks)

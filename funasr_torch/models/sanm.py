@@ -1,0 +1,208 @@
+"""SAN-M: self-attention with an FSMN memory branch (port of
+funasr_tpu/models/sanm.py; reference funasr/models/sanm/attention.py:140
+``MultiHeadedAttentionSANM``, funasr/models/sanm/encoder.py:44/188).
+
+- fused QKV projection, FSMN memory (depthwise conv over V, plus V, masked),
+- attention through the fused kernel wrapper (``ops/attention.py``) with a
+  float32 key bias; softmax and layer norms in float32, everything else in
+  the module ``dtype`` (bfloat16 in serving),
+- parameter names are FunASR's torch names (``linear_q_k_v``,
+  ``fsmn_block``, ``linear_out``, ``norm1``, ``encoders0.0``,
+  ``encoders.{i}``...), so a reference ``model.pt`` loads with
+  ``load_state_dict``.
+
+Dense and FSMN weights are stored in the compute ``dtype`` (the JAX modules
+cast their float32 parameters to it at use); layer-norm parameters stay
+float32.  Inference only: no dropout, no int8 or pipeline-parallel branch.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from funasr_torch.ops import attention as A
+from funasr_torch.ops.masks import key_bias, sequence_mask
+from funasr_torch.ops.posenc import sinusoidal_encoding
+from funasr_torch.registry import tables
+
+
+def ln_f32(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+           eps: float = 1e-12) -> torch.Tensor:
+    """Layer norm with float32 statistics and output (torch eps 1e-12)."""
+    return F.layer_norm(x.to(torch.float32), (x.shape[-1],),
+                        weight.to(torch.float32), bias.to(torch.float32), eps)
+
+
+class LayerNormF32(nn.Module):
+    """Layer norm computed in float32, cast back to the compute dtype;
+    parameters ``weight``/``bias`` in float32."""
+
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32,
+                 eps: float = 1e-12):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.dtype = dtype
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return ln_f32(x, self.weight, self.bias, self.eps).to(self.dtype)
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` whose weights live in the compute dtype; the input is
+    cast to it (flax ``nn.Dense(dtype=...)``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+
+
+def fsmn_memory(v: torch.Tensor, weight: torch.Tensor,
+                mask: Optional[torch.Tensor], left: int,
+                right: int) -> torch.Tensor:
+    """Depthwise FSMN block (attention.py:207 ``forward_fsmn``):
+    mask -> depthwise conv1d (no bias) -> + residual -> mask.
+
+    v (B, T, D); weight (D, 1, K) depthwise filters; mask (B, T, 1) or None.
+    A float32 conv on the card goes through cuDNN, which uses TF32 unless
+    ``torch.backends.cudnn.allow_tf32`` is False: float32 references set it.
+    """
+    if mask is not None:
+        mask = mask.to(v.dtype)
+        v = v * mask
+    x = F.pad(v.transpose(1, 2), (left, right))
+    out = F.conv1d(x, weight.to(v.dtype), groups=v.shape[-1]).transpose(1, 2)
+    out = out + v
+    if mask is not None:
+        out = out * mask
+    return out
+
+
+def fsmn_padding(kernel_size: int, sanm_shift: int):
+    """(left, right) FSMN padding: left = (k-1)//2 + max(shift, 0)."""
+    left = (kernel_size - 1) // 2 + max(sanm_shift, 0)
+    return left, kernel_size - 1 - left
+
+
+class MultiHeadedAttentionSANM(nn.Module):
+    """Self-attention + FSMN memory: out = linear_out(attn(QKV)) + FSMN(V)."""
+
+    def __init__(self, n_head: int, in_feat: int, n_feat: int,
+                 kernel_size: int = 11, sanm_shift: int = 0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.n_head = n_head
+        self.n_feat = n_feat
+        self.linear_q_k_v = Dense(in_feat, 3 * n_feat, dtype=dtype)
+        self.fsmn_block = nn.Conv1d(n_feat, n_feat, kernel_size, groups=n_feat,
+                                    bias=False, dtype=dtype)
+        self.linear_out = Dense(n_feat, n_feat, dtype=dtype)
+        self.left, self.right = fsmn_padding(kernel_size, sanm_shift)
+
+    def forward(self, x: torch.Tensor, mask_t: torch.Tensor,
+                bias: torch.Tensor) -> torch.Tensor:
+        """x (B, T, in_feat); mask_t (B, T, 1) float; bias (B, T) float32."""
+        d_k = self.n_feat // self.n_head
+        q, k, v = self.linear_q_k_v(x).split(self.n_feat, dim=-1)
+        mem = fsmn_memory(v, self.fsmn_block.weight, mask_t, self.left,
+                          self.right)
+        ctx = A.fused_attention(q * (d_k ** -0.5), k, v, bias, self.n_head)
+        return self.linear_out(ctx) + mem
+
+
+class PositionwiseFeedForward(nn.Module):
+    """w_2(relu(w_1(x))) — transformer/positionwise_feed_forward.py."""
+
+    def __init__(self, idim: int, hidden_units: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.w_1 = Dense(idim, hidden_units, dtype=dtype)
+        self.w_2 = Dense(hidden_units, idim, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.w_2(torch.relu(self.w_1(x)))
+
+
+class EncoderLayerSANM(nn.Module):
+    """Pre-norm SANM encoder layer (sanm/encoder.py:44).  When
+    ``in_size != size`` (the first layer, 560 -> 512 for Paraformer-large)
+    the attention residual is skipped (encoder.py:120-137)."""
+
+    def __init__(self, in_size: int, size: int, n_head: int, linear_units: int,
+                 kernel_size: int = 11, sanm_shift: int = 0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.in_size = in_size
+        self.size = size
+        self.norm1 = LayerNormF32(in_size, dtype)
+        self.self_attn = MultiHeadedAttentionSANM(
+            n_head, in_size, size, kernel_size, sanm_shift, dtype)
+        self.norm2 = LayerNormF32(size, dtype)
+        self.feed_forward = PositionwiseFeedForward(size, linear_units, dtype)
+
+    def forward(self, x: torch.Tensor, mask_t: torch.Tensor,
+                bias: torch.Tensor) -> torch.Tensor:
+        attn = self.self_attn(self.norm1(x), mask_t, bias)
+        x = x + attn if self.in_size == self.size else attn
+        return x + self.feed_forward(self.norm2(x))
+
+
+@tables.register("encoder_classes", "SANMEncoder")
+class SANMEncoder(nn.Module):
+    """SAN-M encoder (sanm/encoder.py:188 ``SANMEncoder``):
+    x * sqrt(d) -> sinusoidal PE at the input width -> encoders0
+    (input_size -> output_size) -> encoders (num_blocks - 1 layers) ->
+    after_norm."""
+
+    def __init__(self, input_size: int, output_size: int = 256,
+                 attention_heads: int = 4, linear_units: int = 2048,
+                 num_blocks: int = 6, kernel_size: int = 11,
+                 sanm_shift: int = 0, input_layer: Optional[str] = "pe",
+                 normalize_before: bool = True,
+                 dtype: torch.dtype = torch.float32,
+                 dropout_rate: float = 0.0,
+                 attention_dropout_rate: float = 0.0):
+        """The dropout rates are the reference's training-only settings;
+        inference ignores them."""
+        super().__init__()
+        if input_layer not in ("pe", None):
+            raise NotImplementedError(
+                f"input_layer={input_layer!r} (only 'pe'/None for SANM)")
+        self.input_size = input_size
+        self._output_size = output_size
+        self.input_layer = input_layer
+        self.normalize_before = normalize_before
+        self.dtype = dtype
+        self.encoders0 = nn.ModuleList([EncoderLayerSANM(
+            input_size, output_size, attention_heads, linear_units,
+            kernel_size, sanm_shift, dtype)])
+        self.encoders = nn.ModuleList([
+            EncoderLayerSANM(output_size, output_size, attention_heads,
+                             linear_units, kernel_size, sanm_shift, dtype)
+            for _ in range(num_blocks - 1)])
+        if normalize_before:
+            self.after_norm = LayerNormF32(output_size, dtype)
+
+    def output_size(self) -> int:
+        return self._output_size
+
+    def forward(self, xs: torch.Tensor, lengths: torch.Tensor):
+        """xs (B, T, input_size); lengths (B,) -> (out (B, T, D), lengths)."""
+        B, T, _ = xs.shape
+        mask_t = sequence_mask(lengths, T)[:, :, None]  # (B, T, 1)
+        bias = key_bias(lengths, T)  # (B, T) float32
+        x = xs.to(self.dtype) * (self._output_size ** 0.5)
+        if self.input_layer == "pe":
+            pe = sinusoidal_encoding(T, self.input_size, device=xs.device)
+            x = x + pe[None].to(self.dtype)
+        for layer in self.encoders0:
+            x = layer(x, mask_t, bias)
+        for layer in self.encoders:
+            x = layer(x, mask_t, bias)
+        if self.normalize_before:
+            x = self.after_norm(x)
+        return x, lengths

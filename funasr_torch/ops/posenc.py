@@ -1,0 +1,27 @@
+"""Position encodings (port of funasr_tpu/ops/posenc.py).
+
+``sinusoidal_encoding`` reproduces the reference's
+``SinusoidalPositionEncoder`` (funasr/models/transformer/embedding.py:383):
+positions start at 1, the timescale uses ``depth/2 - 1`` in the denominator,
+and the encoding is ``concat([sin, cos], -1)`` (not interleaved).  Built in
+float64, then cast.  Paraformer's SANM encoder adds it at the input
+feature width (560 for LFR-stacked features).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def sinusoidal_encoding(length: int, depth: int, start: int = 1,
+                        dtype: torch.dtype = torch.float32,
+                        device=None) -> torch.Tensor:
+    """(length, depth) funasr-style sinusoidal position encoding."""
+    positions = np.arange(start, start + length, dtype=np.float64)
+    log_timescale_increment = np.log(10000.0) / (depth / 2 - 1)
+    inv_timescales = np.exp(
+        np.arange(depth // 2, dtype=np.float64) * -log_timescale_increment)
+    scaled = positions[:, None] * inv_timescales[None, :]
+    enc = np.concatenate([np.sin(scaled), np.cos(scaled)], axis=-1)
+    return torch.as_tensor(enc.astype(np.float32), device=device).to(dtype)

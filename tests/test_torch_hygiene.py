@@ -1,0 +1,94 @@
+"""Rules of the port: no JAX at run time, no silent CPU fallback."""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+BANNED = ("jax", "jaxlib", "flax", "optax", "funasr_tpu")
+
+
+def _port_files():
+    return sorted((ROOT / "funasr_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", None)
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+
+
+def test_port_imports_no_jax():
+    files = _port_files()
+    assert len(files) > 10 and all(p.exists() for p in files)
+    bad = [(str(p.relative_to(ROOT)), name) for p in files
+           for name in _imports(p) if name.split(".")[0] in BANNED]
+    assert not bad, bad
+
+
+def _no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from funasr_torch.auto.engines import FrontendConfig, ParaformerEngine
+    from funasr_torch.device import resolve_device
+    from funasr_torch.models.paraformer.model import Paraformer
+    from funasr_torch.tokenizer.char_tokenizer import CharTokenizer
+
+    _no_gpu(monkeypatch)
+    conf = dict(vocab_size=8, input_size=16,
+                encoder_conf=dict(output_size=8, attention_heads=2,
+                                  linear_units=8, num_blocks=1, kernel_size=3),
+                decoder_conf=dict(attention_heads=2, linear_units=8,
+                                  num_blocks=1, att_layer_num=1, kernel_size=3))
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no GPU"):
+            resolve_device(device)
+        with pytest.raises(RuntimeError, match="no GPU"):
+            Paraformer(**conf, device=device)
+    model = Paraformer(**conf, device="cpu")
+    tok = CharTokenizer(["<blank>", "<s>", "</s>", "a"])
+    with pytest.raises(RuntimeError, match="no GPU"):
+        ParaformerEngine(model, FrontendConfig(lfr_m=1, lfr_n=1, n_mels=16),
+                         tok)
+    engine = ParaformerEngine(model, FrontendConfig(lfr_m=1, lfr_n=1,
+                                                    n_mels=16), tok,
+                              device="cpu")
+    assert engine.device.type == "cpu"
+
+
+def test_unknown_model_arguments_raise():
+    from funasr_torch.models.paraformer.model import Paraformer
+
+    with pytest.raises(TypeError):
+        Paraformer(vocab_size=8, input_size=16, device="cpu", lsm_weigth=0.1)
+
+
+def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
+    from funasr_torch.ops import cuda_build
+
+    monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "kernels")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_build.build(["attention"])
+
+
+def test_kernel_library_path_tracks_sources():
+    from funasr_torch.ops import cuda_build
+
+    path = cuda_build.library_path("fbank")
+    assert path.parent == cuda_build.BUILD_DIR
+    assert path.name.startswith("libfbank-") and path.suffix == ".so"
+    assert all((cuda_build.CSRC / f"{n}.cu").exists()
+               for n in cuda_build.SOURCES)
