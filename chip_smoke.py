@@ -11,23 +11,32 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    ``funasr_torch/csrc`` with ``nvcc`` for ``sm_90a`` (one process per
    source, in parallel);
 2. hold each kernel against its plain PyTorch twin on the card at the main
-   path's shapes (fbank at 64 x 15 s, ragged, with and without the energy
-   column; encoder self-attention and decoder cross-attention in bf16 and
-   float32) and time kernel, twin and, for attention, the library call
-   ``scaled_dot_product_attention`` (a yardstick the port never calls);
+   paths' shapes and time kernel, twin and, where one exists, a library
+   call the port never calls (the yardstick):
+   - fbank at 64 x 15 s, ragged, with and without the energy column;
+     encoder self-attention and decoder cross-attention in bf16 and
+     float32 (yardstick ``scaled_dot_product_attention``);
+   - the int8 GEMM at every (M, K, N) of the int8 path, its int32
+     accumulator and its epilogue bit-equal to the twin (yardstick
+     ``torch._int_mm`` where its shape rules allow);
+   - the int8 SANM encoder layer (B=64, T=256, lengths 250/200), the int8
+     decoder layer (B=64, U=128, T=256) and the int8 FFN (M=16384,
+     512 -> 2048 -> 512);
+   - edge shapes: ragged T and U, one frame, lengths of 0;
 3. build full-width Paraformer-large (vocab 8404, 50 + 16 layers, D=512)
    with seeded random weights and serve three batches of mixed 2-15 s
-   requests through ``ParaformerEngine.transcribe`` in bf16, with the
-   kernels' launch counters set to 0 just before and read just after;
-   run the same weights in float32 with kernels and with plain twins and
-   compare log-probs, tokens and token lengths; time the bf16 device
-   program at B=64 x 15 s (the shape of ``bench.py``);
+   requests through ``ParaformerEngine.transcribe``, first in bf16, then
+   int8 (``quantize=True``), each with the kernels' launch counters set to
+   0 just before and read just after; compare float32 kernels against
+   twins and int8 kernels against their twins on the same weights; time
+   both device programs at B=64 x 15 s (the shape of ``bench.py``);
 4. print one ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
-``--profile DIR`` also writes a ``torch.profiler`` table of one B=64 x 15 s
-batch to ``DIR/profile_e2e.txt`` and prints device time by kernel group and
-the share of the batch's device span spent in kernels.
+``--profile DIR`` also writes ``torch.profiler`` tables of one B=64 x 15 s
+batch, bf16 and int8, to ``DIR/profile_e2e.txt`` and
+``DIR/profile_e2e_int8.txt`` and prints device time by kernel group and
+the share of each batch's device span spent in kernels.
 Without CUDA, or without the rest of the repository beside it, the script
 exits non-zero before printing any result.
 """
@@ -44,12 +53,23 @@ import time
 
 # H100 SXM peaks (NVIDIA data sheet; dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 
 FBANK_TOL = 1e-3  # log-mel and dB, abs (the JAX package's "highest" bar)
 ATTN_TOL = {"float32": 1e-4, "bfloat16": 3e-2}  # abs, output in that dtype
 E2E_F32_LOGP_TOL = 1e-2  # kernels vs twins through 66 float32 layers
 E2E_F32_MIN_AGREE = 0.99  # greedy-token agreement, kernels vs twins
+# int8 layers against their twins, bf16 output, abs.  Kernel and twin do the
+# same float32 operations and sum in float64 where order could matter, so
+# they are expected bit-equal; the bar allows one bf16 ulp at |x| < 16 for a
+# float64 sum that lands on a float32 rounding tie.
+INT8_LAYER_TOL = 0.0625
+# int8 model, this slice's kernels against their twins (fbank and attention
+# kernels in both runs): expected bit-equal, so a near-zero bar.  An int8
+# rounding tie that lands apart spreads through the later layers, so any
+# difference at all shows up as a large one.
+E2E_INT8_LOGP_TOL = 1e-3
+E2E_INT8_MIN_AGREE = 0.99
 
 FLAGSHIP = dict(  # __graft_entry__.py:13 _flagship (Paraformer-large)
     vocab_size=8404, input_size=560,
@@ -95,9 +115,12 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, ops: float, dtype: str):
+def bound_ms(nbytes: float, ops: dict):
+    """Least time for the work: the larger of the bytes over the memory rate
+    and the operations over the peak rate of their type, the operation
+    times of several types added (``ops``: {dtype: count})."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    t_ops = sum(n / PEAK_OPS[dt] for dt, n in ops.items()) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -158,7 +181,7 @@ def check_fbank(torch, FK, rng):
         n_out = 80 + (1 if with_energy else 0)
         nbytes = B * N * 4 + B * T * n_out * 4 + 2 * B * 4  # + lengths in, out
         ops = B * T * fbank_ops_per_frame(80, with_energy)
-        bnd, by = bound_ms(nbytes, ops, "float32")
+        bnd, by = bound_ms(nbytes, {"float32": ops})
         case = dict(case=f"B=64 x 15 s ragged, with_energy={with_energy}",
                     max_abs_err=err, tolerance=FBANK_TOL, ms=ms, plain_ms=plain,
                     library_ms=None, bound_ms=bnd, bound_by=by)
@@ -209,7 +232,7 @@ def check_attention(torch, A):
             el = q.element_size()
             nbytes = el * (2 * B * U * D + 2 * n_keys * D) + 4 * B * T
             ops = 4.0 * U * D * n_keys
-            bnd, by = bound_ms(nbytes, ops, dn)
+            bnd, by = bound_ms(nbytes, {dn: ops})
             case = dict(case=f"{name} q({B},{U},{D}) kv({B},{T},{D}) {dn}, "
                              "keys 250/200",
                         max_abs_err=err, tolerance=ATTN_TOL[dn], ms=ms,
@@ -272,19 +295,238 @@ def check_edges(torch, FK, A, rng):
     return worst
 
 
+# (M, K, N) of every int8 GEMM of the int8 path at B=64 x 15 s: 64 x 256
+# encoder frames, 64 x 128 decoder tokens
+GEMM_SHAPES = (
+    (16384, 560, 1536, "encoders0 QKV (QDense, K=560)"),
+    (16384, 512, 1536, "SANM layer QKV"),
+    (16384, 512, 512, "SANM layer out"),
+    (16384, 512, 2048, "FFN w1"),
+    (16384, 2048, 512, "FFN w2"),
+    (8192, 512, 2048, "decoder FFN w1, decoders3 w_1"),
+    (8192, 2048, 512, "decoder FFN w2"),
+    (8192, 512, 512, "decoder q, out"),
+    (16384, 512, 1024, "decoder memory K/V"),
+    (8192, 512, 8404, "output layer (QDense, N=8404)"),
+    (37, 560, 100, "edge: ragged M, K and N"),
+)
+
+
+def check_int8_gemm(torch, G):
+    """The int8 GEMM against its twin at every shape of the int8 path: the
+    int32 accumulator (unit scales) and the full epilogue (scales, bias,
+    relu, a bf16 residual, a float32 addend, bf16 out) must be bit-equal;
+    the QDense epilogue too (round before the bias)."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cases = []
+    for M, K, N, where in GEMM_SHAPES:
+        a = torch.randint(-127, 128, (M, K), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        b = torch.randint(-127, 128, (N, K), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        sa = torch.rand(M, generator=gen, device="cuda") * 0.01
+        sb = torch.rand(N, generator=gen, device="cuda") * 0.01
+        bias = torch.randn(N, generator=gen, device="cuda")
+        res = torch.randn((M, N), generator=gen, device="cuda").to(torch.bfloat16)
+        add = torch.randn((M, N), generator=gen, device="cuda")
+        one = lambda n: torch.ones(n, device="cuda")
+        acc_equal = torch.equal(G.int8_gemm(a, one(M), b, one(N)),
+                                G.int8_gemm_ref(a, one(M), b, one(N)))
+        full = dict(bias=bias, relu=True, res=res, add=add, out_dtype=torch.bfloat16)
+        epi_equal = torch.equal(G.int8_gemm(a, sa, b, sb, **full),
+                                G.int8_gemm_ref(a, sa, b, sb, **full))
+        qd = dict(bias=bias, round_bf16=True, out_dtype=torch.bfloat16)
+        qdense_equal = torch.equal(G.int8_gemm(a, sa, b, sb, **qd),
+                                   G.int8_gemm_ref(a, sa, b, sb, **qd))
+        torch.cuda.synchronize()
+        check(acc_equal and epi_equal and qdense_equal,
+              f"int8 GEMM {where} ({M}, {K}, {N}) bit-equal to its twin: acc "
+              f"{acc_equal}, epilogue {epi_equal}, QDense {qdense_equal}")
+        ms = cuda_ms(lambda: G.int8_gemm(a, sa, b, sb, bias=bias))
+        plain = cuda_ms(lambda: G.int8_gemm_ref(a, sa, b, sb, bias=bias), iters=3)
+        lib = None
+        if M > 16 and K % 8 == 0 and N % 8 == 0:  # torch._int_mm's shape rules
+            lib = cuda_ms(lambda: torch._int_mm(a, b.t()))
+        nbytes = M * K + N * K + 4 * (M + 2 * N) + 4 * M * N
+        bnd, by = bound_ms(nbytes, {"int8": 2.0 * M * N * K})
+        case = dict(case=f"{where}: ({M}, {K}) x ({N}, {K}) int8 -> f32",
+                    max_abs_err=0.0, tolerance=0.0, ms=ms, plain_ms=plain,
+                    library_ms=lib, bound_ms=bnd, bound_by=by,
+                    tops=2.0 * M * N * K / ms / 1e9)
+        log(f"int8 gemm {case}")
+        cases.append(case)
+    return cases
+
+
+def int8_layer_weights(torch, SL, DL, FF, D=512, H=2048, K=11, seed=3):
+    """Seeded random float32 parameters of one SANM layer, one decoder layer
+    and one FFN, quantized as the model quantizes them.  Weights are
+    LeCun-normal over their last (input) axis; vectors are scaled by sc."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*shape, sc=None):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * (shape[-1] ** -0.5 if sc is None else sc))
+    ln = lambda w: (1 + r(w, sc=0.1), r(w, sc=0.1))
+    sanm = SL.quantize_sanm_layer(ln(D), r(3 * D, D), r(3 * D, sc=0.1),
+                                  r(D, 1, K, sc=0.3), r(D, D), r(D, sc=0.1), ln(D),
+                                  r(H, D), r(H, sc=0.1), r(D, H), r(D, sc=0.1))
+    dec = DL.quantize_decoder_layer(ln(D), r(H, D), r(H, sc=0.1), ln(H), r(D, H),
+                                    ln(D), r(D, 1, K, sc=0.3), ln(D), r(D, D),
+                                    r(D, sc=0.1), r(2 * D, D), r(2 * D, sc=0.1),
+                                    r(D, D), r(D, sc=0.1))
+    ffn = FF.quantize_ffn(r(H, D), r(H, sc=0.1), r(D, H), r(D, sc=0.1))
+    return sanm, dec, ffn
+
+
+def _layer_case(torch, name, got, want, valid, ms, plain, nbytes, ops):
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs() * valid
+    err = float(diff.max())
+    n_diff = int(((got != want) & valid.bool()).sum())
+    check(bool(torch.isfinite(got).all()), f"{name} finite")
+    check(err <= INT8_LAYER_TOL, f"{name} max err {err} > {INT8_LAYER_TOL}")
+    bnd, by = bound_ms(nbytes, ops)
+    return dict(case=name, max_abs_err=err, elements_differing=n_diff,
+                tolerance=INT8_LAYER_TOL, ms=ms, plain_ms=plain, library_ms=None,
+                bound_ms=bnd, bound_by=by)
+
+
+def check_int8_layers(torch, SL, DL, FF):
+    """The three int8 layer kernels against their twins: the main path's
+    shapes (bench.py's B=64 batch) and edge shapes.  On the main shapes the
+    decoder layer takes its memory row-quantized, as the decoder stack
+    passes it (once per batch); on the edges it quantizes the memory itself.
+    Bounds count the valid rows only (frames within the lengths, tokens
+    within the token lengths, and for attention each valid query row against
+    its valid keys): padded rows are not part of the layers' contract."""
+    from funasr_torch.ops import rowquant as RQ
+    from funasr_torch.ops.masks import key_bias
+
+    D, H, K, NH, LEFT = 512, 2048, 11, 4, 5
+    sanm_w, dec_w, ffn_w = int8_layer_weights(torch, SL, DL, FF)
+    wbytes_sanm = 4 * D * D + 2 * D * H + 4 * (3 * D + D + H + D) * 2 + 4 * K * D
+    wbytes_dec = 4 * D * D + 2 * D * H + 4 * (2 * D + 2 * D + H) * 2 + 4 * K * D
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases = {"sanm_layer": [], "decoder_layer": [], "ffn": []}
+
+    def run(B, T, U, lens, tlens, timed):
+        lens_d = torch.tensor(lens, device="cuda", dtype=torch.int32)
+        tl_d = torch.tensor(tlens, device="cuda", dtype=torch.int32)
+        x = torch.randn((B, T, D), generator=gen, device="cuda").to(torch.bfloat16)
+        tgt = torch.randn((B, U, D), generator=gen, device="cuda").to(torch.bfloat16)
+        mem = torch.randn((B, T, D), generator=gen, device="cuda").to(torch.bfloat16)
+        kb = key_bias(lens_d, T)
+        frames = lens_d.clamp(max=T).double()
+        toks = tl_d.clamp(max=U).double()
+        n_rows, n_tok = float(frames.sum()), float(toks.sum())
+        t_rng = torch.arange(T, device="cuda")[None, :, None]
+        u_rng = torch.arange(U, device="cuda")[None, :, None]
+        tag = f"B={B} T={T} U={U} lengths {sorted(set(lens))[:4]}"
+
+        sanm = lambda f: f(x, lens_d, sanm_w, NH, LEFT, kb)
+        got, want = sanm(SL.fused_sanm_layer), sanm(SL.sanm_layer_ref)
+        ms = cuda_ms(lambda: sanm(SL.fused_sanm_layer)) if timed else None
+        plain = cuda_ms(lambda: sanm(SL.sanm_layer_ref), iters=3) if timed else None
+        ops = {"int8": 2.0 * n_rows * (3 * D * D + D * D + 2 * D * H),
+               "bfloat16": 4.0 * D * float((frames * frames).sum()),
+               "float32": 2.0 * K * D * n_rows}  # the FSMN taps
+        cases["sanm_layer"].append(_layer_case(
+            torch, f"SANM layer {tag}", got, want, t_rng < lens_d[:, None, None],
+            ms, plain, 2 * 2 * n_rows * D + 4 * B * T + wbytes_sanm, ops))
+
+        # the main shapes take the memory quantized as the decoder stack does
+        mq_k = DL.quantize_memory(mem) if timed else None
+        mq_r = RQ.rowquant_ref(mem.reshape(B * T, D)) if timed else None
+        dec = lambda f, mq: f(tgt, mem, tl_d, lens_d, dec_w, NH, LEFT, kb, mq)
+        got = dec(DL.fused_decoder_layer, mq_k)
+        want = dec(DL.decoder_layer_ref, mq_r)
+        ms = cuda_ms(lambda: dec(DL.fused_decoder_layer, mq_k)) if timed else None
+        plain = (cuda_ms(lambda: dec(DL.decoder_layer_ref, mq_r), iters=3)
+                 if timed else None)
+        mem_bytes = (D + 4) * n_rows if timed else 2 * D * n_rows
+        ops = {"int8": 2.0 * n_tok * (2 * D * H + 2 * D * D) + 2.0 * n_rows * D * 2 * D,
+               "bfloat16": 4.0 * D * float((toks * frames).sum()),
+               "float32": 2.0 * K * D * n_tok}
+        cases["decoder_layer"].append(_layer_case(
+            torch, f"decoder layer {tag} token lengths {sorted(set(tlens))[:4]}"
+            + (", memory quantized once per batch" if timed else ""),
+            got, want, u_rng < tl_d[:, None, None], ms, plain,
+            2 * 2 * n_tok * D + mem_bytes + 4 * B * T + wbytes_dec, ops))
+
+        x2 = x.reshape(B * T, D)
+        got, want = FF.fused_ffn_int8(x2, ffn_w), FF.ffn_int8_ref(x2, ffn_w)
+        ms = cuda_ms(lambda: FF.fused_ffn_int8(x2, ffn_w)) if timed else None
+        plain = cuda_ms(lambda: FF.ffn_int8_ref(x2, ffn_w), iters=3) if timed else None
+        cases["ffn"].append(_layer_case(
+            torch, f"FFN M={B * T} {D} -> {H} -> {D}", got, want,
+            torch.ones_like(got, dtype=torch.float32), ms, plain,
+            2 * 2 * B * T * D + 2 * D * H + 4 * (2 * H + 2 * D),
+            {"int8": 2.0 * B * T * 2 * D * H}))
+
+    # the main path: bench.py's batch, 15 s rows (250 frames), every other 12 s
+    run(64, 256, 128, [250, 200] * 32, [110, 90] * 32, timed=True)
+    # edges: ragged T and U, an empty utterance, a token length of 0, one frame
+    run(3, 250, 37, [250, 137, 0], [37, 0, 20], timed=False)
+    run(2, 1, 1, [1, 1], [1, 0], timed=False)
+    # the layers' attention launched one batch row at a time (its scratch
+    # cap made small) is bit-equal to one launch and to its twin
+    from funasr_torch.ops import attention as A
+    q = torch.randn((3, 40, D), generator=gen, device="cuda")
+    kv = torch.randn((3, 70, 2 * D), generator=gen, device="cuda")
+    lens3 = torch.tensor([70, 33, 0], device="cuda", dtype=torch.int32)
+    args = (q, kv[..., :D], kv[..., D:], key_bias(lens3, 70), NH, 128 ** -0.5, lens3)
+    whole = A.attention_f32ctx(*args)
+    saved, A.F32CTX_SCRATCH_BYTES = A.F32CTX_SCRATCH_BYTES, 4 * NH * 40 * 70
+    try:
+        chunked = A.attention_f32ctx(*args)
+    finally:
+        A.F32CTX_SCRATCH_BYTES = saved
+    check(torch.equal(whole, chunked) and torch.equal(whole, A.attention_f32ctx_ref(*args)),
+          "float32-context attention: row-chunked launches, one launch and twin equal")
+    for group in cases.values():
+        for case in group:
+            log(f"int8 layer {case}")
+    return cases
+
+
 # ------------------------------------------------------------------ phase 3
 @contextlib.contextmanager
-def plain_twins(FK, A):
-    """Route the model through the kernels' plain twins (reference run)."""
-    saved = FK.fused_fbank, A.fused_attention
-    FK.fused_fbank, A.fused_attention = FK.fbank_ref, A.attention_ref
+def swapped(pairs):
+    """Route the model through plain twins: (module, name, twin) triples."""
+    saved = [(m, n, getattr(m, n)) for m, n, _ in pairs]
+    for m, n, twin in pairs:
+        setattr(m, n, twin)
     try:
         yield
     finally:
-        FK.fused_fbank, A.fused_attention = saved
+        for m, n, fn in saved:
+            setattr(m, n, fn)
 
 
-def end_to_end(torch, rng, FK, A, profile_dir, card):
+def plain_twins(FK, A):
+    """The PR 1 kernels' twins: fbank and attention."""
+    return swapped([(FK, "fused_fbank", FK.fbank_ref),
+                    (A, "fused_attention", A.attention_ref)])
+
+
+def int8_twins():
+    """This slice's kernels' twins: the three int8 layers and, for the QDense
+    projections, the rowquant and int8 GEMM building blocks."""
+    from funasr_torch.ops import decoder_layer as DL
+    from funasr_torch.ops import ffn as FF
+    from funasr_torch.ops import int8_gemm as G
+    from funasr_torch.ops import rowquant as RQ
+    from funasr_torch.ops import sanm_layer as SL
+
+    return swapped([(SL, "fused_sanm_layer", SL.sanm_layer_ref),
+                    (DL, "fused_decoder_layer", DL.decoder_layer_ref),
+                    (FF, "fused_ffn_int8", FF.ffn_int8_ref),
+                    (RQ, "rowquant", RQ.rowquant_ref),
+                    (G, "int8_gemm", G.int8_gemm_ref)])
+
+
+def end_to_end(torch, rng, FK, A, profile_dir, card, shared):
     import numpy as np
 
     from funasr_torch.auto.engines import FrontendConfig, ParaformerEngine
@@ -393,11 +635,125 @@ def end_to_end(torch, rng, FK, A, profile_dir, card):
         f"incl. host {host_s * 1e3:.1f} ms")
     if profile_dir:
         e2e["profile"] = profile(torch, engine, wav_d, lens_d, max_tokens,
-                                 profile_dir, ms)
+                                 profile_dir, ms, "profile_e2e.txt")
+    shared.update(f32_state=f32.state_dict(), tok=tok, batches=batches,
+                  engine_bf16=engine, b64=(wav_d, lens_d, max_tokens, audio_s))
     return launches, e2e
 
 
-def profile(torch, engine, wav_d, lens_d, max_tokens, out_dir, batch_ms):
+def end_to_end_int8(torch, FK, A, profile_dir, card, shared):
+    """int8 Paraformer-large (``quantize=True``) on the same random weights:
+    three served batches with the launch counters read, kernels against
+    twins, and the B=64 x 15 s device program beside the bf16 one."""
+    from funasr_torch.auto.engines import FrontendConfig, ParaformerEngine
+    from funasr_torch.models.paraformer.model import Paraformer
+    from funasr_torch.ops import decoder_layer as DL
+    from funasr_torch.ops import ffn as FF
+    from funasr_torch.ops import sanm_layer as SL
+
+    t0 = time.time()
+    model = Paraformer(**FLAGSHIP, dtype=torch.bfloat16, quantize=True)
+    model.load_state_dict(shared["f32_state"], strict=True)
+    model.quantize_weights()
+    engine = ParaformerEngine(model, FrontendConfig(), shared["tok"])
+    batches = shared["batches"]
+    log(f"e2e int8: model built and quantized in {time.time() - t0:.1f} s")
+    engine.transcribe(batches[0][:2])  # warm-up
+    torch.cuda.synchronize()
+
+    # ---- the int8 main path: counters at 0 just before, read just after
+    counters = {"fbank": FK.fused_fbank, "attention": A.fused_attention,
+                "sanm_layer": SL.fused_sanm_layer,
+                "decoder_layer": DL.fused_decoder_layer, "ffn": FF.fused_ffn_int8}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.time()
+    results = [engine.transcribe(b) for b in batches]
+    torch.cuda.synchronize()
+    serve_s = time.time() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    log(f"e2e int8: served {sum(map(len, batches))} requests in 3 batches in "
+        f"{serve_s:.3f} s; kernel launches {launches}")
+    per_batch = {"sanm_layer": 49, "decoder_layer": 16, "ffn": 1, "attention": 1,
+                 "fbank": 1}
+    for name, n in per_batch.items():
+        check(launches[name] == n * len(batches),
+              f"int8 path: {name} launched {launches[name]} times, want "
+              f"{n} per batch")
+    for batch, res in zip(batches, results):
+        check(len(res) == len(batch) and all(isinstance(r.get("text"), str)
+                                             for r in res), "int8 results")
+
+    # ---- kernels against twins on the same weights
+    b = batches[1]
+    wav_d, lens_d = engine._pack(b)
+    max_tokens = engine._max_tokens(wav_d.shape[1])
+
+    def logits(eng):
+        feats, flens = eng.frontend.device_features(wav_d, lens_d)
+        return eng.module.inference_logits(feats, flens, max_tokens=max_tokens)
+
+    lp_k, tl_k, pred_k = logits(engine)
+    with int8_twins():
+        lp_r, tl_r, pred_r = logits(engine)
+    with int8_twins(), plain_twins(FK, A):
+        lp_a, tl_a, _ = logits(engine)
+    lp_b, tl_b, _ = logits(shared["engine_bf16"])
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(lp_k).all()), "int8 log-probs finite")
+    check(lp_k.shape == (len(b), max_tokens, FLAGSHIP["vocab_size"]),
+          f"int8 log-prob shape {tuple(lp_k.shape)}")
+    check(torch.equal(tl_k, tl_r), f"int8 token lengths kernels {tl_k.tolist()} "
+          f"vs twins {tl_r.tolist()}")
+    valid = torch.arange(max_tokens, device="cuda")[None] < tl_k[:, None]
+    logp_err = float((lp_k - lp_r).abs()[valid].max())
+    agree = float((lp_k.argmax(-1) == lp_r.argmax(-1))[valid].float().mean())
+    both = valid & (torch.arange(max_tokens, device="cuda")[None] < tl_a[:, None])
+    agree_all = float((lp_k.argmax(-1) == lp_a.argmax(-1))[both].float().mean())
+    both = valid & (torch.arange(max_tokens, device="cuda")[None] < tl_b[:, None])
+    agree_bf16 = float((lp_k.argmax(-1) == lp_b.argmax(-1))[both].float().mean())
+    log(f"e2e int8 kernels vs twins: max |dlogp| {logp_err:.3e} (tol "
+        f"{E2E_INT8_LOGP_TOL}), token agreement {agree:.5f}, peaks equal "
+        f"{bool(torch.equal(pred_k.peaks, pred_r.peaks))}; with the fbank and "
+        f"attention twins too: token agreement {agree_all:.5f}, token lengths "
+        f"equal {bool(torch.equal(tl_k, tl_a))}; int8 vs bf16 token agreement "
+        f"{agree_bf16:.5f}, token lengths equal {bool(torch.equal(tl_k, tl_b))}")
+    check(logp_err <= E2E_INT8_LOGP_TOL, "int8 log-probs kernels vs twins")
+    check(agree >= E2E_INT8_MIN_AGREE, "int8 token agreement kernels vs twins")
+    e2e = dict(int8_logp_max_abs_diff=logp_err, int8_token_agreement=agree,
+               int8_peaks_equal=bool(torch.equal(pred_k.peaks, pred_r.peaks)),
+               int8_vs_all_twins_token_agreement=agree_all,
+               int8_vs_bf16_token_agreement=agree_bf16,
+               int8_serve_3_batches_s=serve_s)
+
+    # ---- B=64 x 15 s: int8 and bf16 device programs in turns
+    wav64, lens64, mt64, audio_s = shared["b64"]
+    times = {}
+    engines = {"bf16": shared["engine_bf16"], "int8": engine}
+    for name in ("bf16", "int8", "int8", "bf16"):
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: engines[name].run(wav64, lens64, mt64), iters=5)
+        times.setdefault(name, []).append(ms)
+        e2e[f"{name}_activation_peak_gb"] = (torch.cuda.max_memory_allocated()
+                                             - base) / 1e9
+    e2e["all_models_allocated_gb"] = torch.cuda.memory_allocated() / 1e9
+    for name, ts in times.items():
+        e2e[f"{name}_batch_ms"] = ts
+        e2e[f"{name}_audio_s_per_s"] = audio_s / (min(ts) / 1e3)
+    log(f"e2e B=64 x 15 s device program on {card}: bf16 {times['bf16']} ms, "
+        f"int8 {times['int8']} ms (runs in turns bf16, int8, int8, bf16)")
+    if profile_dir:
+        e2e["profile_int8"] = profile(torch, engine, wav64, lens64, mt64,
+                                      profile_dir, min(times["int8"]),
+                                      "profile_e2e_int8.txt")
+        check(e2e["profile_int8"]["aten::round calls"] == 1,
+              "int8 batch: the token count is the only round (weights are "
+              "quantized once per model load, not per batch)")
+    return launches, e2e
+
+
+def profile(torch, engine, wav_d, lens_d, max_tokens, out_dir, batch_ms, fname):
     """Device kernel time by group for one B=64 x 15 s batch, and the share
     of the batch's device span (``batch_ms``, CUDA events) spent in kernels."""
     from torch.autograd import DeviceType
@@ -410,15 +766,23 @@ def profile(torch, engine, wav_d, lens_d, max_tokens, out_dir, batch_ms):
         torch.cuda.synchronize()
     events = p.key_averages()
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile_e2e.txt"), "w") as f:
+    with open(os.path.join(out_dir, fname), "w") as f:
         f.write(events.table(sort_by="self_cuda_time_total", row_limit=60))
     groups = {}
     for ev in events:  # kernels only: a CPU op's device time repeats them
         if ev.device_type != DeviceType.CUDA or not ev.self_device_time_total:
             continue
         name = ev.key.lower()
-        if "attention_kernel" in name:
+        if "attention_f32ctx_kernel" in name:
+            g = "attention (int8 layers) kernel"
+        elif "attention_kernel" in name:
             g = "attention kernel"
+        elif "int8_gemm_kernel" in name:
+            g = "int8 GEMM kernel"
+        elif "rowquant_kernel" in name:
+            g = "rowquant kernel"
+        elif "fsmn_kernel" in name:
+            g = "FSMN kernel"
         elif "fbank_kernel" in name:
             g = "fbank kernel"
         elif any(s in name for s in ("gemm", "nvjet", "cutlass", "xmma")):
@@ -437,7 +801,9 @@ def profile(torch, engine, wav_d, lens_d, max_tokens, out_dir, batch_ms):
     busy = sum(groups.values())
     groups["kernels total"] = busy
     groups["kernel share of batch_ms"] = busy / batch_ms
-    log(f"profile device ms by group: {json.dumps(groups, sort_keys=True)}")
+    groups["aten::round calls"] = sum(ev.count for ev in events
+                                      if ev.key == "aten::round")
+    log(f"profile ({fname}) device ms by group: {json.dumps(groups, sort_keys=True)}")
     return groups
 
 
@@ -456,7 +822,11 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from funasr_torch.ops import attention as A
     from funasr_torch.ops import cuda_build
+    from funasr_torch.ops import decoder_layer as DL
     from funasr_torch.ops import fbank_kernel as FK
+    from funasr_torch.ops import ffn as FF
+    from funasr_torch.ops import int8_gemm as G
+    from funasr_torch.ops import sanm_layer as SL
 
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 means float32
     torch.backends.cudnn.allow_tf32 = False
@@ -481,26 +851,42 @@ def main(argv=None) -> int:
     fbank_cases = check_fbank(torch, FK, rng)
     attn_cases = check_attention(torch, A)
     check_edges(torch, FK, A, rng)
+    gemm_cases = check_int8_gemm(torch, G)
+    layer_cases = check_int8_layers(torch, SL, DL, FF)
     log(f"kernel checks done in {time.time() - t0:.1f} s")
 
     t0 = time.time()
-    launches, e2e = end_to_end(torch, rng, FK, A, args.profile, smi)
+    shared = {}
+    launches_bf16, e2e = end_to_end(torch, rng, FK, A, args.profile, smi, shared)
+    launches_int8, e2e8 = end_to_end_int8(torch, FK, A, args.profile, smi, shared)
+    e2e.update(e2e8)
     log(f"end to end done in {time.time() - t0:.1f} s")
     log(f"e2e summary {json.dumps(e2e, sort_keys=True)}")
 
-    def entry(name, source, replaces, main_case, cases):
+    def entry(name, sources, replaces, main_case, cases):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")
-        return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=launches[name], shape=main_case["case"],
+        by_path = {"bf16": launches_bf16.get(name, 0),
+                   "int8": launches_int8.get(name, 0)}
+        return dict(name=name, route="cuda", source=sources[0], sources=sources,
+                    replaces=replaces, launches=sum(by_path.values()),
+                    launches_by_path=by_path, shape=main_case["case"],
                     tolerance=main_case["tolerance"],
                     **{k: main_case[k] for k in keys}, cases=cases)
 
+    blocks = ["funasr_torch/csrc/int8_gemm.cu", "funasr_torch/csrc/rowquant.cu",
+              "funasr_torch/csrc/fsmn.cu", "funasr_torch/csrc/attention.cu"]
     kernels = [
-        entry("fbank", "funasr_torch/csrc/fbank.cu",
+        entry("fbank", ["funasr_torch/csrc/fbank.cu"],
               "funasr_tpu/ops/fbank_pallas.py:97", fbank_cases[0], fbank_cases),
-        entry("attention", "funasr_torch/csrc/attention.cu",
+        entry("attention", ["funasr_torch/csrc/attention.cu"],
               "funasr_tpu/ops/attention_pallas.py:37", attn_cases[0], attn_cases),
+        entry("sanm_layer", blocks, "funasr_tpu/ops/sanm_layer_pallas.py:189",
+              layer_cases["sanm_layer"][0], layer_cases["sanm_layer"]),
+        entry("decoder_layer", blocks, "funasr_tpu/ops/decoder_layer_pallas.py:165",
+              layer_cases["decoder_layer"][0], layer_cases["decoder_layer"]),
+        entry("ffn", blocks[:2], "funasr_tpu/ops/ffn_pallas.py:113",
+              layer_cases["ffn"][0], layer_cases["ffn"] + gemm_cases),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -7,7 +7,10 @@ fbank -> LFR -> CMVN -> encoder -> CIF -> decoder -> argmax on the device,
 and detokenize on the host.  The fbank runs through the fused kernel
 wrapper (``ops/fbank_kernel.py``) and attention through
 ``ops/attention.py``: the CUDA kernels on the card, their plain twins on
-the CPU.  Timestamps, meshes and sequence parallelism are later slices.
+the CPU.  A module built with ``quantize=True`` and quantized
+(``Paraformer.quantize_weights``) is served the same way, through its
+int8 layer kernels.  Timestamps, meshes and sequence parallelism are later
+slices.
 """
 
 from __future__ import annotations

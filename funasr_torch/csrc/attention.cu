@@ -33,6 +33,28 @@
 // kernel runs the products on the CUDA cores (67 TFLOP/s float32) and
 // computes q k^T twice, so it sits far above that bound; tensor-core
 // (mma/wgmma) tiles are later work.
+//
+// Second kernel, `attention_forward_f32ctx`: the attention inside the int8
+// layers (sanm_layer_pallas.py:118-127, decoder_layer_pallas.py:97-106).
+// q, k, v arrive in float32 (column slices of an int8 projection's output)
+// and are rounded to bf16 as they are loaded: q after the d^-0.5 scale (in
+// float32), v after zeroing its rows past vlen[b] (the masked v of the SANM
+// layer; no vlen for the decoder's memory).  p is normalised, rounded to
+// bf16, and the context is written in float32 (the layer row-quantizes it
+// without a bf16 round first).
+//
+// Its sums do not depend on their order, so the plain twin gets the same
+// bits: every score q.k, the softmax sum and every p.v are summed in float64
+// (a product of two bf16 values is exact, so those sums are exact in
+// practice) and rounded once to float32; exp is taken in float64 and
+// rounded once; the rest are IEEE float32 operations.  The int8 layers need
+// this: one ulp of the context can move an int8 rounding tie in the next
+// row-quantize, and such a tie spreads through every later layer.  Three
+// passes over the keys: (1) the scores, on the float64 units (half the
+// float32 rate), into a float32 scratch (B, H, U, T) that the wrapper
+// allocates, and the row max; (2) exp(s - m) in place and the row sum;
+// (3) p, rounded, and p v.  A thread reads back only the scratch entries
+// it wrote.  Tensor-core tiles that keep the exact sums are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -241,6 +263,194 @@ int launch(const void* q, const void* k, const void* v, const float* bias, void*
   return (int)cudaGetLastError();
 }
 
+// ---- the int8 layers' attention: float32 in, bf16-rounded, exact sums
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// rows [r0, r0 + 64) of a float32 head slice, each value times `scale` and
+// rounded to bf16; rows past `nrows` are zero
+template <int D>
+__device__ __forceinline__ void load_rounded(float* dst, const float* src, int64_t rs,
+                                             int r0, int nrows, float scale) {
+  constexpr int LD = D + 4;
+  for (int i = threadIdx.x; i < 64 * D; i += NT) {
+    const int r = i / D, c = i % D;
+    const int row = r0 + r;
+    dst[r * LD + c] =
+        (row < nrows) ? bf16_round(__fmul_rn(src[(int64_t)row * rs + c], scale)) : 0.f;
+  }
+}
+
+// s[i][j] = q[4 ty + i] . k[tx + 16 j] summed in float64, rounded once, plus
+// the key bias (a float32 add)
+template <int D>
+__device__ __forceinline__ void scores_exact(const float* sQ, const float* sK,
+                                             const float* sB, int tx, int ty,
+                                             float s[4][4]) {
+  constexpr int LD = D + 4;
+  double a[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a[i][j] = 0.0;
+#pragma unroll 2
+  for (int c = 0; c < D; c += 4) {
+    float4 qv[4], kv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      qv[i] = *reinterpret_cast<const float4*>(&sQ[(4 * ty + i) * LD + c]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      kv[j] = *reinterpret_cast<const float4*>(&sK[(tx + 16 * j) * LD + c]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        double t = a[i][j];
+        t = fma((double)qv[i].x, (double)kv[j].x, t);
+        t = fma((double)qv[i].y, (double)kv[j].y, t);
+        t = fma((double)qv[i].z, (double)kv[j].z, t);
+        t = fma((double)qv[i].w, (double)kv[j].w, t);
+        a[i][j] = t;
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = __fadd_rn(__double2float_rn(a[i][j]), sB[tx + 16 * j]);
+}
+
+__device__ __forceinline__ double row_sum64(double x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off, 16);
+  return x;
+}
+
+__device__ __forceinline__ float exp_exact(float x) {  // float64 exp, rounded once
+  return __double2float_rn(exp((double)x));
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+attention_f32ctx_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ bias,
+                        const int* __restrict__ vlen, float* __restrict__ scratch,
+                        float* __restrict__ out, int U, int Tk, float q_scale, int64_t q_bs,
+                        int64_t q_rs, int64_t k_bs, int64_t k_rs, int64_t v_bs, int64_t v_rs,
+                        int64_t o_bs, int64_t o_rs) {
+  constexpr int LD = D + 4;
+  constexpr int NG = D / 64;
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;
+  float* sKV = sQ + BQ * LD;
+  float* sP = sKV + BK * LD;
+  float* sB = sP + BQ * LP;
+
+  const int u0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const float* qh = q + b * q_bs + (int64_t)h * D;
+  const float* kh = k + b * k_bs + (int64_t)h * D;
+  const float* vh = v + b * v_bs + (int64_t)h * D;
+  const float* bb = bias + (int64_t)b * Tk;
+  const int v_rows = vlen ? min(Tk, vlen[b]) : Tk;
+  // this block's (64, Tk) rows of the scratch; rows past U are never touched
+  float* sc = scratch + (((int64_t)b * gridDim.y + h) * U + u0) * Tk;
+  bool row_ok[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) row_ok[i] = u0 + 4 * ty + i < U;
+
+  load_rounded<D>(sQ, qh, q_rs, u0, U, q_scale);
+  float s[4][4];
+
+  // ---- pass 1: the scores into the scratch, and the row max m (exact
+  // whatever the order)
+  float m_i[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+  for (int k0 = 0; k0 < Tk; k0 += BK) {
+    __syncthreads();
+    load_rounded<D>(sKV, kh, k_rs, k0, Tk, 1.f);
+    if (tid < BK) sB[tid] = (k0 + tid < Tk) ? bb[k0 + tid] : -INFINITY;
+    __syncthreads();
+    scores_exact<D>(sQ, sKV, sB, tx, ty, s);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = k0 + tx + 16 * j;
+        if (row_ok[i] && key < Tk) sc[(int64_t)(4 * ty + i) * Tk + key] = s[i][j];
+        m_i[i] = fmaxf(m_i[i], s[i][j]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) m_i[i] = row_max(m_i[i]);
+
+  // ---- pass 2: e = exp(s - m) in place, l = sum e in float64
+  double l64[4] = {0.0, 0.0, 0.0, 0.0};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (!row_ok[i]) continue;
+    float* row = sc + (int64_t)(4 * ty + i) * Tk;
+    for (int key = tx; key < Tk; key += 16) {
+      const float e = exp_exact(__fsub_rn(row[key], m_i[i]));
+      row[key] = e;
+      l64[i] += (double)e;
+    }
+  }
+  float l_i[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) l_i[i] = __double2float_rn(row_sum64(l64[i]));
+
+  // ---- pass 3: p = bf16(e / l), out = p v summed in float64
+  double o[4][4 * NG];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4 * NG; ++c) o[i][c] = 0.0;
+  for (int k0 = 0; k0 < Tk; k0 += BK) {
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = k0 + tx + 16 * j;
+        const float e = (row_ok[i] && key < Tk) ? sc[(int64_t)(4 * ty + i) * Tk + key] : 0.f;
+        sP[(4 * ty + i) * LP + tx + 16 * j] = bf16_round(__fdiv_rn(e, l_i[i]));
+      }
+    load_rounded<D>(sKV, vh, v_rs, k0, v_rows, 1.f);
+    __syncthreads();
+#pragma unroll 2
+    for (int kk = 0; kk < BK; ++kk) {
+      double p[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[i] = (double)sP[(4 * ty + i) * LP + kk];
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        const float4 vv = *reinterpret_cast<const float4*>(&sKV[kk * LD + 64 * g + 4 * tx]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          o[i][4 * g + 0] = fma(p[i], (double)vv.x, o[i][4 * g + 0]);
+          o[i][4 * g + 1] = fma(p[i], (double)vv.y, o[i][4 * g + 1]);
+          o[i][4 * g + 2] = fma(p[i], (double)vv.z, o[i][4 * g + 2]);
+          o[i][4 * g + 3] = fma(p[i], (double)vv.w, o[i][4 * g + 3]);
+        }
+      }
+    }
+  }
+
+  float* oh = out + b * o_bs + (int64_t)h * D;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int u = u0 + 4 * ty + i;
+    if (u >= U) continue;
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        oh[(int64_t)u * o_rs + 64 * g + 4 * tx + e] = __double2float_rn(o[i][4 * g + e]);
+  }
+}
+
 }  // namespace
 
 // Plain C entry point, called through ctypes.  `strides` holds the batch and
@@ -259,4 +469,28 @@ extern "C" int attention_forward(const void* q, const void* k, const void* v,
   if (dtype == 0) return launch<float, 128>(q, k, v, bias, out, B, U, Tk, H, strides, st);
   if (dtype == 1) return launch<__nv_bfloat16, 128>(q, k, v, bias, out, B, U, Tk, H, strides, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The int8 layers' attention (second kernel above): float32 q, k, v rounded
+// to bf16 at load (q times q_scale first; v zero past vlen[b] when vlen is
+// not null), float32 output; `scratch` is float32 (B, H, U, Tk).  Same
+// strides, head size and return codes as attention_forward.
+extern "C" int attention_forward_f32ctx(const float* q, const float* k, const float* v,
+                                        const float* bias, const int* vlen, float* scratch,
+                                        float* out, int B, int U, int Tk, int H, int d,
+                                        float q_scale, const long long* strides,
+                                        void* stream) {
+  if (B <= 0 || U <= 0 || H <= 0) return (int)cudaSuccess;
+  if (Tk <= 0 || d != 128) return (int)cudaErrorInvalidValue;
+  constexpr int D = 128, LD = D + 4;
+  const size_t smem = sizeof(float) * (BQ * LD + BK * LD + BQ * LP + BK);
+  auto kern = attention_f32ctx_kernel<D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((U + BQ - 1) / BQ, H, B);
+  kern<<<grid, NT, smem, (cudaStream_t)stream>>>(
+      q, k, v, bias, vlen, scratch, out, U, Tk, q_scale, strides[0], strides[1], strides[2],
+      strides[3], strides[4], strides[5], strides[6], strides[7]);
+  return (int)cudaGetLastError();
 }

@@ -8,6 +8,14 @@ FSMN-only layers (``decoders2``), then one FFN-only layer (``decoders3``)
 whose output replaces its input (no residual), ``after_norm`` and the
 output projection.  Parameter names are FunASR's (``decoders.{i}``,
 ``decoders3.0``, ``src_attn.linear_k_v``...).
+
+int8 serving (decoder.py:243-269 of the JAX package), after
+``quantize_weights()`` on a model with float32 parameters: the full layers
+run through ``ops/decoder_layer.py`` ``fused_decoder_layer`` on int8
+weights quantized once from the float32 parameters, the encoder memory
+row-quantized once per batch for all of them; the other layers
+(``decoders2``, ``decoders3``) and ``output_layer`` keep the module path,
+whose Dense layers follow the QDense rule (``models/sanm.py`` ``Dense``).
 """
 
 from __future__ import annotations
@@ -22,8 +30,10 @@ from funasr_torch.models.sanm import (
     LayerNormF32,
     fsmn_memory,
     fsmn_padding,
+    int8_buffers,
 )
 from funasr_torch.ops import attention as A
+from funasr_torch.ops import decoder_layer as DL
 from funasr_torch.ops.masks import key_bias, sequence_mask
 from funasr_torch.registry import tables
 
@@ -33,11 +43,13 @@ class FeedForwardDecoderSANM(nn.Module):
     (sanm/positionwise_feed_forward.py ``PositionwiseFeedForwardDecoderSANM``)."""
 
     def __init__(self, idim: int, hidden_units: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.w_1 = Dense(idim, hidden_units, dtype=dtype)
+        self.w_1 = Dense(idim, hidden_units, dtype=dtype, param_dtype=param_dtype)
         self.norm = LayerNormF32(hidden_units, dtype)
-        self.w_2 = Dense(hidden_units, idim, bias=False, dtype=dtype)
+        self.w_2 = Dense(hidden_units, idim, bias=False, dtype=dtype,
+                         param_dtype=param_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.w_2(self.norm(torch.relu(self.w_1(x))))
@@ -48,10 +60,11 @@ class FsmnSelfAttention(nn.Module):
     (attention.py:471 ``MultiHeadedAttentionSANMDecoder``)."""
 
     def __init__(self, n_feat: int, kernel_size: int = 11, sanm_shift: int = 0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.fsmn_block = nn.Conv1d(n_feat, n_feat, kernel_size, groups=n_feat,
-                                    bias=False, dtype=dtype)
+                                    bias=False, dtype=param_dtype or dtype)
         self.left, self.right = fsmn_padding(kernel_size, sanm_shift)
 
     def forward(self, x: torch.Tensor, tgt_mask: torch.Tensor) -> torch.Tensor:
@@ -64,13 +77,15 @@ class CrossAttention(nn.Module):
     (attention.py:568 ``MultiHeadedAttentionCrossAtt``)."""
 
     def __init__(self, n_head: int, n_feat: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.n_head = n_head
         self.n_feat = n_feat
-        self.linear_q = Dense(n_feat, n_feat, dtype=dtype)
-        self.linear_k_v = Dense(n_feat, 2 * n_feat, dtype=dtype)
-        self.linear_out = Dense(n_feat, n_feat, dtype=dtype)
+        self.linear_q = Dense(n_feat, n_feat, dtype=dtype, param_dtype=param_dtype)
+        self.linear_k_v = Dense(n_feat, 2 * n_feat, dtype=dtype,
+                                param_dtype=param_dtype)
+        self.linear_out = Dense(n_feat, n_feat, dtype=dtype, param_dtype=param_dtype)
 
     def forward(self, x: torch.Tensor, memory: torch.Tensor,
                 bias: torch.Tensor) -> torch.Tensor:
@@ -89,24 +104,57 @@ class DecoderLayerSANM(nn.Module):
     def __init__(self, size: int, n_head: int, linear_units: int,
                  kernel_size: int = 11, sanm_shift: int = 0,
                  has_self_attn: bool = True, has_src_attn: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.n_head = n_head
+        self.dtype = dtype
         self.norm1 = LayerNormF32(size, dtype)
-        self.feed_forward = FeedForwardDecoderSANM(size, linear_units, dtype)
+        self.feed_forward = FeedForwardDecoderSANM(size, linear_units, dtype,
+                                                   param_dtype)
         self.self_attn = None
         self.src_attn = None
         if has_self_attn:
             self.norm2 = LayerNormF32(size, dtype)
             self.self_attn = FsmnSelfAttention(size, kernel_size, sanm_shift,
-                                               dtype)
+                                               dtype, param_dtype)
         if has_src_attn:
             self.norm3 = LayerNormF32(size, dtype)
-            self.src_attn = CrossAttention(n_head, size, dtype)
+            self.src_attn = CrossAttention(n_head, size, dtype, param_dtype)
+        self.int8 = None
+
+    def quantize_weights(self) -> None:
+        """int8 operands for the fused layer (FFN + FSMN + cross-attention);
+        a partial layer quantizes its Dense layers for the QDense rule."""
+        if self.self_attn is None or self.src_attn is None:
+            for mod in self.modules():
+                if isinstance(mod, Dense):
+                    mod.quantize_weights()
+            return
+        d = lambda t: t.detach()
+        ln = lambda m: (d(m.weight), d(m.bias))
+        ff, src = self.feed_forward, self.src_attn
+        w = DL.quantize_decoder_layer(
+            ln(self.norm1), d(ff.w_1.weight), d(ff.w_1.bias), ln(ff.norm),
+            d(ff.w_2.weight), ln(self.norm2), d(self.self_attn.fsmn_block.weight),
+            ln(self.norm3), d(src.linear_q.weight), d(src.linear_q.bias),
+            d(src.linear_k_v.weight), d(src.linear_k_v.bias),
+            d(src.linear_out.weight), d(src.linear_out.bias))
+        self.int8 = int8_buffers(self, "dec_", w)
 
     def forward(self, tgt: torch.Tensor, tgt_mask: torch.Tensor,
-                memory: torch.Tensor, mem_bias: torch.Tensor) -> torch.Tensor:
+                memory: torch.Tensor, mem_bias: torch.Tensor,
+                tgt_lengths: Optional[torch.Tensor] = None,
+                mem_lengths: Optional[torch.Tensor] = None,
+                memory_q=None) -> torch.Tensor:
         """tgt (B, U, D); tgt_mask (B, U, 1); memory (B, T, D);
-        mem_bias (B, T) float32."""
+        mem_bias (B, T) float32; the lengths and ``memory_q`` (the memory's
+        ``DL.quantize_memory``) feed the fused int8 layer."""
+        if self.int8 is not None:
+            return DL.fused_decoder_layer(
+                tgt.to(self.dtype), memory.to(self.dtype), tgt_lengths, mem_lengths,
+                self.int8(self), self.n_head, self.self_attn.left, mem_bias,
+                memory_q)
         x = self.feed_forward(self.norm1(tgt))
         if self.self_attn is not None:
             x = tgt + self.self_attn(self.norm2(x), tgt_mask)
@@ -132,28 +180,40 @@ class ParaformerSANMDecoder(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  dropout_rate: float = 0.0,
                  self_attention_dropout_rate: float = 0.0,
-                 src_attention_dropout_rate: float = 0.0):
+                 src_attention_dropout_rate: float = 0.0,
+                 param_dtype: Optional[torch.dtype] = None):
         """The dropout rates are the reference's training-only settings;
-        inference ignores them."""
+        inference ignores them.  ``param_dtype``: storage of the Dense and
+        FSMN weights (default ``dtype``; float32 for int8 serving)."""
         super().__init__()
         d = encoder_output_size
         self.dtype = dtype
+        pd = param_dtype
         self.embed = nn.Sequential(nn.Embedding(vocab_size, d))
         self.decoders = nn.ModuleList([
             DecoderLayerSANM(d, attention_heads, linear_units, kernel_size,
-                             sanm_shift, True, True, dtype)
+                             sanm_shift, True, True, dtype, pd)
             for _ in range(att_layer_num)])
         self.decoders2: Optional[nn.ModuleList] = None
         if num_blocks - att_layer_num > 0:
             self.decoders2 = nn.ModuleList([
                 DecoderLayerSANM(d, attention_heads, linear_units, kernel_size,
-                                 0, True, False, dtype)
+                                 0, True, False, dtype, pd)
                 for _ in range(num_blocks - att_layer_num)])
         self.decoders3 = nn.ModuleList([DecoderLayerSANM(
             d, attention_heads, linear_units, kernel_size, sanm_shift,
-            False, False, dtype)])
+            False, False, dtype, pd)])
         self.after_norm = LayerNormF32(d, dtype)
-        self.output_layer = Dense(d, vocab_size, dtype=dtype)
+        self.output_layer = Dense(d, vocab_size, dtype=dtype, param_dtype=pd)
+
+    def _layers(self):
+        return list(self.decoders) + list(self.decoders2 or []) + list(self.decoders3)
+
+    def quantize_weights(self) -> None:
+        """Quantize every layer's weights and the output projection once."""
+        for layer in self._layers():
+            layer.quantize_weights()
+        self.output_layer.quantize_weights()
 
     def forward(self, memory: torch.Tensor, memory_lengths: torch.Tensor,
                 semantic_embeds: torch.Tensor,
@@ -165,8 +225,10 @@ class ParaformerSANMDecoder(nn.Module):
         mem_bias = key_bias(memory_lengths, T)
         memory = memory.to(self.dtype)
         x = semantic_embeds.to(self.dtype)
-        layers = list(self.decoders) + list(self.decoders2 or []) + list(
-            self.decoders3)
-        for layer in layers:
-            x = layer(x, tgt_mask, memory, mem_bias)
+        memory_q = None
+        if any(layer.int8 is not None for layer in self.decoders):
+            memory_q = DL.quantize_memory(memory)
+        for layer in self._layers():
+            x = layer(x, tgt_mask, memory, mem_bias, token_lengths, memory_lengths,
+                      memory_q)
         return self.output_layer(self.after_norm(x))

@@ -5,6 +5,13 @@ funasr/models/paraformer/model.py:30).
 encoder -> CIF predictor (one acoustic embedding per token) -> one
 bidirectional decoder pass -> argmax.  The token grid is padded to
 ``max_tokens``; real counts travel as lengths.  No training forward.
+
+int8 serving, the JAX package's ``AutoModel(quantize=True)`` path: build
+with ``quantize=True`` (the parameters are then stored in float32 whatever
+the compute ``dtype``), load the float32 weights, then call
+:meth:`Paraformer.quantize_weights` once.  The int8 weights and scales are
+non-persistent buffers: the state dict keeps FunASR's keys, and loading a
+state dict again requires another ``quantize_weights()`` before inference.
 """
 
 from __future__ import annotations
@@ -33,7 +40,8 @@ _TRAINING_FIELDS = {"ctc_weight", "lsm_weight", "length_normalized_loss",
 class Paraformer(nn.Module):
     """Config fields mirror the reference template.yaml.  Builds on
     ``device`` (default: the GPU, raising without one; ``"cpu"`` only when
-    asked).  ``dtype`` is the compute dtype (bfloat16 in serving)."""
+    asked).  ``dtype`` is the compute dtype (bfloat16 in serving);
+    ``quantize`` selects int8 serving (see the module docstring)."""
 
     def __init__(self, vocab_size: int, input_size: int = 560,
                  encoder_conf: Optional[Dict[str, Any]] = None,
@@ -41,7 +49,7 @@ class Paraformer(nn.Module):
                  predictor_conf: Optional[Dict[str, Any]] = None,
                  blank_id: int = 0, sos: int = 1, eos: int = 2,
                  dtype: torch.dtype = torch.float32, device=None,
-                 **training_conf):
+                 quantize: bool = False, **training_conf):
         """``training_conf`` takes the template's training-only settings
         (``lsm_weight``, ``sampling_ratio``, ``predictor_bias``...), which
         the inference path ignores."""
@@ -54,6 +62,9 @@ class Paraformer(nn.Module):
         self.sos = sos
         self.eos = eos
         self.dtype = dtype
+        self.quantize = quantize
+        self._int8_ready = False
+        param_dtype = torch.float32 if quantize else None
         dev = resolve_device(device)
 
         enc_conf = dict(encoder_conf or {})
@@ -69,16 +80,35 @@ class Paraformer(nn.Module):
 
         with torch.device(dev):
             self.encoder = SANMEncoder(input_size=input_size, dtype=dtype,
-                                       **enc_conf)
+                                       param_dtype=param_dtype, **enc_conf)
             d_model = self.encoder.output_size()
             self.decoder = ParaformerSANMDecoder(
                 vocab_size=vocab_size, encoder_output_size=d_model,
-                dtype=dtype, **dec_conf)
+                dtype=dtype, param_dtype=param_dtype, **dec_conf)
             pred_conf.setdefault("idim", d_model)
             self.predictor = CifPredictorV2(dtype=dtype, **pred_conf)
         self.eval()
+        self.register_load_state_dict_post_hook(Paraformer._weights_changed)
+
+    @staticmethod
+    def _weights_changed(module, incompatible_keys) -> None:
+        module._int8_ready = False
+
+    @torch.no_grad()
+    def quantize_weights(self) -> "Paraformer":
+        """Build the int8 weights and scales from the current float32
+        parameters, once per model load (a ``quantize=True`` model only)."""
+        if not self.quantize:
+            raise RuntimeError("quantize_weights() needs Paraformer(quantize=True)")
+        self.encoder.quantize_weights()
+        self.decoder.quantize_weights()
+        self._int8_ready = True
+        return self
 
     def encode(self, speech: torch.Tensor, speech_lengths: torch.Tensor):
+        if self.quantize and not self._int8_ready:
+            raise RuntimeError("Paraformer(quantize=True): call quantize_weights() "
+                               "after loading the weights")
         return self.encoder(speech, speech_lengths)
 
     def _infer_raw_logits(self, speech, speech_lengths, max_tokens: int = 128):

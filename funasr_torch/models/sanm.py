@@ -11,9 +11,25 @@ funasr_tpu/models/sanm.py; reference funasr/models/sanm/attention.py:140
   ``encoders.{i}``...), so a reference ``model.pt`` loads with
   ``load_state_dict``.
 
-Dense and FSMN weights are stored in the compute ``dtype`` (the JAX modules
-cast their float32 parameters to it at use); layer-norm parameters stay
-float32.  Inference only: no dropout, no int8 or pipeline-parallel branch.
+Dense and FSMN weights are stored in ``param_dtype``, by default the
+compute ``dtype`` (the JAX modules cast their float32 parameters to it at
+use); layer-norm parameters stay float32.  Inference only: no dropout, no
+pipeline-parallel branch.
+
+int8 serving (the JAX package's ``quantize=True`` path, sanm.py:329-344,
+:430-467, :503-550): a model built with ``param_dtype=float32`` and then
+``quantize_weights()`` runs
+
+- every layer with ``in_size == size`` (layers 1-49 of Paraformer-large)
+  through ``ops/sanm_layer.py`` ``fused_sanm_layer``, on int8 weights
+  quantized once from the float32 parameters;
+- the FFN of ``encoders0`` through ``ops/ffn.py`` ``fused_ffn_int8``;
+- ``encoders0``'s projections through the QDense rule of :class:`Dense`:
+  int8 (from the compute-dtype weights) when the contraction passes the
+  ``ops/quant.py`` gate, the compute dtype otherwise.
+
+The JAX package keeps TPU VMEM gates on its fused paths (``supported()``);
+the port takes the fused kernels at every shape.
 """
 
 from __future__ import annotations
@@ -25,6 +41,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from funasr_torch.ops import attention as A
+from funasr_torch.ops import ffn as FF
+from funasr_torch.ops import quant as Q
+from funasr_torch.ops import sanm_layer as SL
 from funasr_torch.ops.masks import key_bias, sequence_mask
 from funasr_torch.ops.posenc import sinusoidal_encoding
 from funasr_torch.registry import tables
@@ -54,11 +73,41 @@ class LayerNormF32(nn.Module):
 
 
 class Dense(nn.Linear):
-    """``nn.Linear`` whose weights live in the compute dtype; the input is
-    cast to it (flax ``nn.Dense(dtype=...)``)."""
+    """``nn.Linear`` computing in ``dtype`` (flax ``nn.Dense(dtype=...)``):
+    the input, weight and bias are cast to it.  The weights are stored in
+    ``param_dtype`` (default: ``dtype``).
+
+    After :meth:`quantize_weights` it follows the JAX package's QDense
+    (quant.py ``QDense``): a contraction that passes the ``ops/quant.py``
+    gate runs in int8 from the compute-dtype weights (flax casts before
+    the dot), its result cast to ``dtype`` before the bias is added in
+    ``dtype``; any other runs in ``dtype`` as before."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: Optional[torch.dtype] = None):
+        super().__init__(in_features, out_features, bias, dtype=param_dtype or dtype)
+        self.compute_dtype = dtype
+        for name in ("w8", "sw", "bias_q"):
+            self.register_buffer(name, None, persistent=False)
+
+    def quantize_weights(self) -> None:
+        """Build the int8 weight, its per-channel scales and the bias in
+        compute-dtype values (non-persistent buffers, not in the state dict)."""
+        dt = self.compute_dtype
+        w8, sw = Q.quantize_weight(self.weight.detach().to(dt))
+        self.register_buffer("w8", w8, persistent=False)
+        self.register_buffer("sw", sw, persistent=False)
+        bias = None if self.bias is None else self.bias.detach().to(dt).to(torch.float32)
+        self.register_buffer("bias_q", bias, persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        dt = self.compute_dtype
+        x = x.to(dt)
+        if self.w8 is not None and Q.gate(x.numel() // x.shape[-1], self.out_features):
+            return Q.int8_linear(x, self.w8, self.sw, self.bias_q)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x, self.weight.to(dt), bias)
 
 
 def fsmn_memory(v: torch.Tensor, weight: torch.Tensor,
@@ -93,14 +142,16 @@ class MultiHeadedAttentionSANM(nn.Module):
 
     def __init__(self, n_head: int, in_feat: int, n_feat: int,
                  kernel_size: int = 11, sanm_shift: int = 0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.n_head = n_head
         self.n_feat = n_feat
-        self.linear_q_k_v = Dense(in_feat, 3 * n_feat, dtype=dtype)
+        self.linear_q_k_v = Dense(in_feat, 3 * n_feat, dtype=dtype,
+                                  param_dtype=param_dtype)
         self.fsmn_block = nn.Conv1d(n_feat, n_feat, kernel_size, groups=n_feat,
-                                    bias=False, dtype=dtype)
-        self.linear_out = Dense(n_feat, n_feat, dtype=dtype)
+                                    bias=False, dtype=param_dtype or dtype)
+        self.linear_out = Dense(n_feat, n_feat, dtype=dtype, param_dtype=param_dtype)
         self.left, self.right = fsmn_padding(kernel_size, sanm_shift)
 
     def forward(self, x: torch.Tensor, mask_t: torch.Tensor,
@@ -115,16 +166,38 @@ class MultiHeadedAttentionSANM(nn.Module):
 
 
 class PositionwiseFeedForward(nn.Module):
-    """w_2(relu(w_1(x))) — transformer/positionwise_feed_forward.py."""
+    """w_2(relu(w_1(x))) — transformer/positionwise_feed_forward.py.  After
+    :meth:`quantize_weights`, the fused int8 FFN (``ops/ffn.py``) on int8
+    weights from the float32 parameters (sanm.py:329-344)."""
 
     def __init__(self, idim: int, hidden_units: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.w_1 = Dense(idim, hidden_units, dtype=dtype)
-        self.w_2 = Dense(hidden_units, idim, dtype=dtype)
+        self.w_1 = Dense(idim, hidden_units, dtype=dtype, param_dtype=param_dtype)
+        self.w_2 = Dense(hidden_units, idim, dtype=dtype, param_dtype=param_dtype)
+        self.dtype = dtype
+        self.int8 = None
+
+    def quantize_weights(self) -> None:
+        w = FF.quantize_ffn(self.w_1.weight.detach(), self.w_1.bias.detach(),
+                            self.w_2.weight.detach(), self.w_2.bias.detach())
+        self.int8 = int8_buffers(self, "ffn_", w)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.int8 is not None:
+            return FF.fused_ffn_int8(x.to(self.dtype), self.int8(self))
         return self.w_2(torch.relu(self.w_1(x)))
+
+
+def int8_buffers(module: nn.Module, prefix: str, weights) -> callable:
+    """Store a NamedTuple of kernel operands as non-persistent buffers
+    ``prefix + field`` (they follow ``.to()`` and stay out of the state
+    dict) and return a function that rebuilds the tuple from them."""
+    cls = type(weights)
+    for name, t in zip(weights._fields, weights):
+        module.register_buffer(prefix + name, t, persistent=False)
+    return lambda m: cls(*(getattr(m, prefix + n) for n in cls._fields))
 
 
 class EncoderLayerSANM(nn.Module):
@@ -134,18 +207,44 @@ class EncoderLayerSANM(nn.Module):
 
     def __init__(self, in_size: int, size: int, n_head: int, linear_units: int,
                  kernel_size: int = 11, sanm_shift: int = 0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.in_size = in_size
         self.size = size
+        self.n_head = n_head
+        self.dtype = dtype
         self.norm1 = LayerNormF32(in_size, dtype)
         self.self_attn = MultiHeadedAttentionSANM(
-            n_head, in_size, size, kernel_size, sanm_shift, dtype)
+            n_head, in_size, size, kernel_size, sanm_shift, dtype, param_dtype)
         self.norm2 = LayerNormF32(size, dtype)
-        self.feed_forward = PositionwiseFeedForward(size, linear_units, dtype)
+        self.feed_forward = PositionwiseFeedForward(size, linear_units, dtype,
+                                                    param_dtype)
+        self.int8 = None
+
+    def quantize_weights(self) -> None:
+        """int8 operands for the fused layer (``in_size == size``), else the
+        QDense projections and the fused FFN of the module path."""
+        if self.in_size != self.size:
+            self.self_attn.linear_q_k_v.quantize_weights()
+            self.self_attn.linear_out.quantize_weights()
+            self.feed_forward.quantize_weights()
+            return
+        at, ff = self.self_attn, self.feed_forward
+        d = lambda t: t.detach()
+        w = SL.quantize_sanm_layer(
+            (d(self.norm1.weight), d(self.norm1.bias)), d(at.linear_q_k_v.weight),
+            d(at.linear_q_k_v.bias), d(at.fsmn_block.weight), d(at.linear_out.weight),
+            d(at.linear_out.bias), (d(self.norm2.weight), d(self.norm2.bias)),
+            d(ff.w_1.weight), d(ff.w_1.bias), d(ff.w_2.weight), d(ff.w_2.bias))
+        self.int8 = int8_buffers(self, "sanm_", w)
 
     def forward(self, x: torch.Tensor, mask_t: torch.Tensor,
-                bias: torch.Tensor) -> torch.Tensor:
+                bias: torch.Tensor, lengths: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        if self.int8 is not None:
+            return SL.fused_sanm_layer(x.to(self.dtype), lengths, self.int8(self),
+                                       self.n_head, self.self_attn.left, bias)
         attn = self.self_attn(self.norm1(x), mask_t, bias)
         x = x + attn if self.in_size == self.size else attn
         return x + self.feed_forward(self.norm2(x))
@@ -165,9 +264,11 @@ class SANMEncoder(nn.Module):
                  normalize_before: bool = True,
                  dtype: torch.dtype = torch.float32,
                  dropout_rate: float = 0.0,
-                 attention_dropout_rate: float = 0.0):
+                 attention_dropout_rate: float = 0.0,
+                 param_dtype: Optional[torch.dtype] = None):
         """The dropout rates are the reference's training-only settings;
-        inference ignores them."""
+        inference ignores them.  ``param_dtype``: storage of the Dense and
+        FSMN weights (default ``dtype``; float32 for int8 serving)."""
         super().__init__()
         if input_layer not in ("pe", None):
             raise NotImplementedError(
@@ -179,16 +280,23 @@ class SANMEncoder(nn.Module):
         self.dtype = dtype
         self.encoders0 = nn.ModuleList([EncoderLayerSANM(
             input_size, output_size, attention_heads, linear_units,
-            kernel_size, sanm_shift, dtype)])
+            kernel_size, sanm_shift, dtype, param_dtype)])
         self.encoders = nn.ModuleList([
             EncoderLayerSANM(output_size, output_size, attention_heads,
-                             linear_units, kernel_size, sanm_shift, dtype)
+                             linear_units, kernel_size, sanm_shift, dtype,
+                             param_dtype)
             for _ in range(num_blocks - 1)])
         if normalize_before:
             self.after_norm = LayerNormF32(output_size, dtype)
 
     def output_size(self) -> int:
         return self._output_size
+
+    def quantize_weights(self) -> None:
+        """Quantize every layer's weights once (sanm.py:521-535 hoists the
+        stack's quantization out of the per-batch program the same way)."""
+        for layer in list(self.encoders0) + list(self.encoders):
+            layer.quantize_weights()
 
     def forward(self, xs: torch.Tensor, lengths: torch.Tensor):
         """xs (B, T, input_size); lengths (B,) -> (out (B, T, D), lengths)."""
@@ -200,9 +308,9 @@ class SANMEncoder(nn.Module):
             pe = sinusoidal_encoding(T, self.input_size, device=xs.device)
             x = x + pe[None].to(self.dtype)
         for layer in self.encoders0:
-            x = layer(x, mask_t, bias)
+            x = layer(x, mask_t, bias, lengths)
         for layer in self.encoders:
-            x = layer(x, mask_t, bias)
+            x = layer(x, mask_t, bias, lengths)
         if self.normalize_before:
             x = self.after_norm(x)
         return x, lengths

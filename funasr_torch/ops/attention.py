@@ -21,11 +21,28 @@ builds such a row: every packed utterance has at least 400 samples.
   ``fused_attention.launches``; for CPU tensors it runs
   :func:`attention_ref`.  There is no other path.
 - :func:`attention_ref` is the plain PyTorch version of the same function.
+
+The int8 layers' attention (sanm_layer_pallas.py:118-127,
+decoder_layer_pallas.py:97-106) is a second kernel in the same source,
+:func:`attention_f32ctx` with its twin :func:`attention_f32ctx_ref`: float32
+q, k, v (column slices of an int8 projection's output) rounded to bf16 as
+they are used -- q after the ``q_scale`` multiply in float32, v after its
+rows past ``v_lengths`` are zeroed -- bf16 p, and a float32 context.  Its
+scores, softmax sum and p v are summed in float64 and its exp is taken in
+float64, each rounded once to float32, so the result does not depend on
+the order of the sums and kernel and twin agree bit for bit.  (The TPU kernel
+takes bf16 operands with float32 accumulation; the float64 sums are the
+port's choice, so that the card's int8 model can be held to its twins.)
+The kernel keeps the scores of its batch rows in a float32 (rows, H, U, T)
+scratch; the wrapper launches it on as many batch rows at a time as keep
+that scratch within ``F32CTX_SCRATCH_BYTES`` (one row at least).  Its
+launches count in ``attention_f32ctx.launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -33,6 +50,7 @@ from funasr_torch.ops import cuda_build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_SIZE = 128  # the only head size of the models on the ported path
+F32CTX_SCRATCH_BYTES = 1 << 28  # 256 MiB: B=64 x 15 s (T=U=256) takes 64 MiB
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -50,7 +68,89 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def attention_f32ctx_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         key_bias: torch.Tensor, n_head: int, q_scale: float,
+                         v_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain twin: same inputs and output as :func:`attention_f32ctx`."""
+    B, U, D = q.shape
+    T = k.shape[1]
+    d = D // n_head
+    f64, bf = torch.float64, torch.bfloat16
+    if v_lengths is not None:
+        v = v * (torch.arange(T, device=v.device)[None, :, None]
+                 < v_lengths.to(torch.int64)[:, None, None])
+    heads = lambda x, n: x.reshape(B, n, n_head, d).transpose(1, 2)
+    qb = heads((q.to(torch.float32) * q_scale).to(bf), U).to(f64)
+    kb = heads(k.to(bf), T).to(f64)
+    vb = heads(v.to(bf), T).to(f64)
+    s = (qb @ kb.transpose(-1, -2)).to(torch.float32) + key_bias[:, None, None, :]
+    e = torch.exp((s - s.amax(-1, keepdim=True)).to(f64)).to(torch.float32)
+    p = (e / e.to(f64).sum(-1, keepdim=True).to(torch.float32)).to(bf)
+    out = (p.to(f64) @ vb).to(torch.float32)
+    return out.transpose(1, 2).reshape(B, U, D)
+
+
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+_ARGTYPES_F32CTX = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                    + [ctypes.c_float] + [ctypes.c_void_p] * 2)
+
+
+def _check_qkv(fn: str, q, k, v, key_bias, n_head):
+    B, U, D = q.shape
+    T = k.shape[1]
+    if D // n_head != HEAD_SIZE or HEAD_SIZE * n_head != D:
+        raise ValueError(f"{fn}: head size {D}/{n_head}, the kernel has {HEAD_SIZE}")
+    if k.shape != (B, T, D) or v.shape != (B, T, D) or key_bias.shape != (B, T):
+        raise ValueError(f"{fn}: shape mismatch {tuple(q.shape)} {tuple(k.shape)} "
+                         f"{tuple(v.shape)} {tuple(key_bias.shape)}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError(f"{fn}: q/k/v need a unit column stride")
+    if not all(t.device == q.device for t in (k, v, key_bias)):
+        raise ValueError(f"{fn}: inputs on different devices")
+    return B, U, T, D
+
+
+def attention_f32ctx(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     key_bias: torch.Tensor, n_head: int, q_scale: float,
+                     v_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """float32 q (B, U, H*d), k/v (B, T, H*d) (any row stride, unit column
+    stride), key_bias (B, T) float32, v_lengths None or (B,) -> float32
+    (B, U, H*d)."""
+    if q.device.type == "cpu":
+        return attention_f32ctx_ref(q, k, v, key_bias, n_head, q_scale, v_lengths)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention_f32ctx: unsupported device {q.device}")
+    if any(t.dtype != torch.float32 for t in (q, k, v)):
+        raise ValueError("attention_f32ctx: q/k/v must be float32")
+    B, U, T, D = _check_qkv("attention_f32ctx", q, k, v, key_bias, n_head)
+    bias = key_bias.to(torch.float32).contiguous()
+    vlen = None
+    if v_lengths is not None:
+        if v_lengths.shape != (B,) or v_lengths.device != q.device:
+            raise ValueError("attention_f32ctx: v_lengths must be (B,) on q's device")
+        vlen = v_lengths.to(torch.int32).contiguous()
+    out = torch.empty((B, U, D), dtype=torch.float32, device=q.device)
+    rows = max(1, F32CTX_SCRATCH_BYTES // (4 * n_head * U * max(T, 1)))
+    scratch = torch.empty((min(B, rows), n_head, U, T), dtype=torch.float32,
+                          device=q.device)
+    strides = (ctypes.c_longlong * 8)(q.stride(0), q.stride(1), k.stride(0),
+                                      k.stride(1), v.stride(0), v.stride(1),
+                                      out.stride(0), out.stride(1))
+    fn = cuda_build.function("attention", "attention_forward_f32ctx",
+                             _ARGTYPES_F32CTX)
+    for b0 in range(0, B, rows):
+        b1 = min(B, b0 + rows)
+        status = fn(q[b0].data_ptr(), k[b0].data_ptr(), v[b0].data_ptr(),
+                    bias[b0].data_ptr(), None if vlen is None else vlen[b0:].data_ptr(),
+                    scratch.data_ptr(), out[b0].data_ptr(),
+                    b1 - b0, U, T, n_head, HEAD_SIZE, q_scale, strides,
+                    torch.cuda.current_stream(q.device).cuda_stream)
+        cuda_build.check(status, "attention (float32 context) kernel launch")
+        attention_f32ctx.launches += 1
+    return out
+
+
+attention_f32ctx.launches = 0
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -62,23 +162,10 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_ref(q, k, v, key_bias, n_head)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: unsupported device {q.device}")
-    B, U, D = q.shape
-    T = k.shape[1]
-    d = D // n_head
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"fused_attention: q/k/v must share bf16 or float32, got "
                          f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if d != HEAD_SIZE or d * n_head != D:
-        raise ValueError(f"fused_attention: head size {D}/{n_head}, the kernel "
-                         f"has {HEAD_SIZE}")
-    if k.shape != (B, T, D) or v.shape != (B, T, D) or key_bias.shape != (B, T):
-        raise ValueError("fused_attention: shape mismatch "
-                         f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)} "
-                         f"{tuple(key_bias.shape)}")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("fused_attention: q/k/v need a unit column stride")
-    if not all(t.device == q.device for t in (k, v, key_bias)):
-        raise ValueError("fused_attention: inputs on different devices")
+    B, U, T, D = _check_qkv("fused_attention", q, k, v, key_bias, n_head)
     bias = key_bias.to(torch.float32).contiguous()
     out = torch.empty((B, U, D), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 8)(q.stride(0), q.stride(1), k.stride(0),
@@ -86,7 +173,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                       out.stride(0), out.stride(1))
     fn = cuda_build.function("attention", "attention_forward", _ARGTYPES)
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                out.data_ptr(), B, U, T, n_head, d, _DTYPES[q.dtype], strides,
+                out.data_ptr(), B, U, T, n_head, HEAD_SIZE, _DTYPES[q.dtype], strides,
                 torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(status, "attention kernel launch")
     fused_attention.launches += 1

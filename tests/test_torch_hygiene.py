@@ -92,3 +92,79 @@ def test_kernel_library_path_tracks_sources():
     assert path.name.startswith("libfbank-") and path.suffix == ".so"
     assert all((cuda_build.CSRC / f"{n}.cu").exists()
                for n in cuda_build.SOURCES)
+
+
+def test_quantized_model_raises_without_cuda(monkeypatch):
+    from funasr_torch.models.paraformer.model import Paraformer
+
+    _no_gpu(monkeypatch)
+    conf = dict(vocab_size=8, input_size=16, quantize=True,
+                encoder_conf=dict(output_size=8, attention_heads=2,
+                                  linear_units=8, num_blocks=2, kernel_size=3),
+                decoder_conf=dict(attention_heads=2, linear_units=8,
+                                  num_blocks=1, att_layer_num=1, kernel_size=3))
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no GPU"):
+            Paraformer(**conf, device=device)
+    model = Paraformer(**conf, device="cpu", dtype=torch.bfloat16)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert model.quantize_weights() is model
+
+
+def _meta_cases():
+    """Each new wrapper with tensors on the meta device (neither CPU nor
+    CUDA): shapes are valid, so only the device rule can refuse them."""
+    from funasr_torch.ops import attention as A
+    from funasr_torch.ops import decoder_layer as DL
+    from funasr_torch.ops import ffn as FF
+    from funasr_torch.ops import fsmn as FS
+    from funasr_torch.ops import int8_gemm as G
+    from funasr_torch.ops import quant as Q
+    from funasr_torch.ops import rowquant as RQ
+    from funasr_torch.ops import sanm_layer as SL
+
+    m = lambda *s, dt=torch.float32: torch.empty(s, dtype=dt, device="meta")
+    i8 = lambda *s: m(*s, dt=torch.int8)
+    B, T, D = 2, 8, 256
+    sanm = SL.SanmLayerWeights(*[m(1)] * 17)
+    dec = DL.DecoderLayerWeights(*[m(1)] * 23)
+    ffn = FF.FfnInt8Weights(i8(32, 16), m(32), m(32), i8(16, 32), m(16), m(16))
+    lens = m(B, dt=torch.int32)
+    return [
+        ("int8_gemm", lambda: G.int8_gemm(i8(4, 16), m(4), i8(8, 16), m(8))),
+        ("rowquant", lambda: RQ.rowquant(m(4, 16))),
+        ("fsmn", lambda: FS.fsmn(m(B, T, D), lens, m(3, D), 1)),
+        ("attention_f32ctx", lambda: A.attention_f32ctx(
+            m(B, T, D), m(B, T, D), m(B, T, D), m(B, T), 2, 0.088)),
+        ("int8_linear", lambda: Q.int8_linear(m(4, 16), i8(8, 16), m(8))),
+        ("fused_ffn_int8", lambda: FF.fused_ffn_int8(m(4, 16), ffn)),
+        ("fused_sanm_layer", lambda: SL.fused_sanm_layer(m(B, T, D), lens, sanm, 2, 1)),
+        ("fused_decoder_layer", lambda: DL.fused_decoder_layer(
+            m(B, T, D), m(B, T, D), lens, lens, dec, 2, 1)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(8))
+def test_new_wrappers_refuse_other_devices(case):
+    name, call = _meta_cases()[case]
+    with pytest.raises(ValueError, match="unsupported device"):
+        call()
+
+
+def test_int8_sources_are_built_and_hashed(monkeypatch, tmp_path):
+    from funasr_torch.ops import cuda_build
+
+    for name in ("int8_gemm", "rowquant", "fsmn"):
+        assert name in cuda_build.SOURCES
+        assert (cuda_build.CSRC / f"{name}.cu").exists()
+    before = cuda_build.library_path("int8_gemm").name
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for path in cuda_build.CSRC.glob("*.cu"):
+        text = path.read_text()
+        if path.name == "rowquant.cu":
+            text += "\n// edited\n"
+        (csrc / path.name).write_text(text)
+    monkeypatch.setattr(cuda_build, "CSRC", csrc)
+    after = cuda_build.library_path("int8_gemm").name
+    assert after.startswith("libint8_gemm-") and after != before
