@@ -22,7 +22,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    - the int8 SANM encoder layer (B=64, T=256, lengths 250/200), the int8
      decoder layer (B=64, U=128, T=256) and the int8 FFN (M=16384,
      512 -> 2048 -> 512);
-   - edge shapes: ragged T and U, one frame, lengths of 0;
+   - the CTC prefix recurrence at the beam's shape (B=32, K=10, W=16,
+     T=383), bit-equal to its twin (bar 1e-6 * max(1, |ref|));
+   - edge shapes: ragged T and U, one frame, lengths of 0; for the CTC
+     kernel rows not a multiple of its block, T=1, rows NEG_INF throughout
+     and T=1500 (60 s);
 3. build full-width Paraformer-large (vocab 8404, 50 + 16 layers, D=512)
    with seeded random weights and serve three batches of mixed 2-15 s
    requests through ``ParaformerEngine.transcribe``, first in bf16, then
@@ -30,13 +34,22 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    0 just before and read just after; compare float32 kernels against
    twins and int8 kernels against their twins on the same weights; time
    both device programs at B=64 x 15 s (the shape of ``bench.py``);
+   then build the full-width Conformer of ``configs/conformer_hybrid.yaml``
+   (12 x 256 encoder, 6-layer decoder, vocab 4233) and serve the same three
+   batches through ``HybridEngine.transcribe`` in the serving configuration
+   of ``bench_beam.py`` (bf16, ``quantize=True``, int8 KV cache, beam 10,
+   maxlen 96, CTC weight 0.3) with the counters read the same way (one CTC
+   kernel launch per decode step); compare the float32 beam with the CTC
+   kernel and with its twin; time the beam at B=32 x 15 s;
 4. print one ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` also writes ``torch.profiler`` tables of one B=64 x 15 s
-batch, bf16 and int8, to ``DIR/profile_e2e.txt`` and
-``DIR/profile_e2e_int8.txt`` and prints device time by kernel group and
-the share of each batch's device span spent in kernels.
+batch, bf16 and int8, and of one B=32 x 15 s beam batch to
+``DIR/profile_e2e.txt``, ``DIR/profile_e2e_int8.txt`` and
+``DIR/profile_beam.txt``.  Device time by kernel group, and the share of
+each batch's span spent in kernels, is printed for every batch profiled;
+the beam batch is always profiled (its device time beside its host time).
 Without CUDA, or without the rest of the repository beside it, the script
 exits non-zero before printing any result.
 """
@@ -70,6 +83,10 @@ INT8_LAYER_TOL = 0.0625
 # difference at all shows up as a large one.
 E2E_INT8_LOGP_TOL = 1e-3
 E2E_INT8_MIN_AGREE = 0.99
+# CTC prefix kernel against its twin: the same IEEE operations in the same
+# order with the same expf/logf, so bit-equal is expected
+CTC_REL_TOL = 1e-6  # |kernel - twin| <= CTC_REL_TOL * max(1, |twin|)
+BEAM_F32_SCORE_TOL = 1e-3  # float32 beam, CTC kernel vs twin: |dscore|
 
 FLAGSHIP = dict(  # __graft_entry__.py:13 _flagship (Paraformer-large)
     vocab_size=8404, input_size=560,
@@ -86,6 +103,13 @@ FLAGSHIP = dict(  # __graft_entry__.py:13 _flagship (Paraformer-large)
     lsm_weight=0.1, length_normalized_loss=True, predictor_weight=1.0,
     predictor_bias=1, sampling_ratio=0.75,
 )
+CONFORMER_HYBRID = dict(  # configs/conformer_hybrid.yaml, built as bench_beam.py:51-62
+    vocab_size=4233, input_size=80, ctc_weight=0.3, lsm_weight=0.1,
+    encoder_conf=dict(output_size=256, attention_heads=4, linear_units=2048,
+                      num_blocks=12, cnn_module_kernel=15),
+    decoder_conf=dict(attention_heads=4, linear_units=2048, num_blocks=6),
+)
+BEAM_SERVING = dict(beam=10, maxlen=96, decoding_ctc_weight=0.3, int8_kv=True)
 FS = 16000
 
 
@@ -308,6 +332,7 @@ GEMM_SHAPES = (
     (8192, 512, 512, "decoder q, out"),
     (16384, 512, 1024, "decoder memory K/V"),
     (8192, 512, 8404, "output layer (QDense, N=8404)"),
+    (12256, 256, 2048, "Conformer FFN w_1 (QDense, beam path, B=32 x 383 frames)"),
     (37, 560, 100, "edge: ragged M, K and N"),
 )
 
@@ -490,6 +515,59 @@ def check_int8_layers(torch, SL, DL, FF):
     return cases
 
 
+def ctc_inputs(torch, gen, B, K, W, T, neg_rows=False):
+    """xg, xb, phi_shift as the beam makes them: emission rows of log-probs,
+    a phi whose first column is NEG_INF (a non-empty prefix)."""
+    from funasr_torch.ops.ctc_prefix import NEG_INF
+
+    logp = lambda *s: torch.log_softmax(
+        torch.randn((*s, 16), generator=gen, device="cuda") * 2, -1)[..., 0]
+    xg, xb = logp(B, K, W, T), logp(B, T)
+    phi = torch.randn((B, K, W, T), generator=gen, device="cuda") * 3 - 20
+    phi[..., 0] = NEG_INF
+    if neg_rows:  # candidate slots with no path at all
+        xg[0] = NEG_INF
+        phi[0] = NEG_INF
+    return xg, xb, phi
+
+
+def check_ctc_prefix(torch, CP):
+    """The CTC prefix recurrence against its twin: the beam's shape (B=32 x
+    15 s: K=10, W=16, T=383 frames) and edges.  Bound: bytes, xg and phi
+    read and the (r_nb, r_b) output written once, plus xb."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cases = []
+    for B, K, W, T, neg, what in ((32, 10, 16, 383, False, "beam step, B=32 x 15 s"),
+                                  (3, 5, 7, 45, True, "edge: R=105 rows, not a multiple "
+                                   "of the block; NEG_INF rows"),
+                                  (1, 1, 1, 1, False, "edge: one row, T=1"),
+                                  (2, 3, 5, 1500, True, "edge: T=1500 (60 s)"),
+                                  (2, 10, 16, 383, True, "edge: NEG_INF rows at the "
+                                   "beam's width")):
+        xg, xb, phi = ctc_inputs(torch, gen, B, K, W, T, neg)
+        got, want = CP.ctc_recurrence(xg, xb, phi), CP.ctc_recurrence_ref(xg, xb, phi)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"ctc prefix {what} finite")
+        err = float(((got - want).abs() / want.abs().clamp(min=1.0)).max())
+        check(err <= CTC_REL_TOL, f"ctc prefix {what}: relative err {err} > {CTC_REL_TOL}")
+        case = dict(case=f"{what}: xg/phi ({B}, {K}, {W}, {T}) f32, xb ({B}, {T})",
+                    max_abs_err=float((got - want).abs().max()), max_rel_err=err,
+                    bit_equal=bool(torch.equal(got, want)), tolerance=CTC_REL_TOL)
+        if not cases:  # time the main shape
+            R = B * K * W
+            case.update(ms=cuda_ms(lambda: CP.ctc_recurrence(xg, xb, phi), iters=20),
+                        plain_ms=cuda_ms(lambda: CP.ctc_recurrence_ref(xg, xb, phi),
+                                         iters=3),
+                        library_ms=None)
+            # ~10 float32 operations and 6 exp/log per row and frame
+            bnd, by = bound_ms(4.0 * (2 * R * T + B * T) + 4.0 * 2 * R * T,
+                               {"float32": 16.0 * R * T})
+            case.update(bound_ms=bnd, bound_by=by)
+        log(f"ctc prefix {case}")
+        cases.append(case)
+    return cases
+
+
 # ------------------------------------------------------------------ phase 3
 @contextlib.contextmanager
 def swapped(pairs):
@@ -634,7 +712,7 @@ def end_to_end(torch, rng, FK, A, profile_dir, card, shared):
         f"-> {audio_s / (ms / 1e3):.1f} audio-s/s on {card}; transcribe() "
         f"incl. host {host_s * 1e3:.1f} ms")
     if profile_dir:
-        e2e["profile"] = profile(torch, engine, wav_d, lens_d, max_tokens,
+        e2e["profile"] = profile(torch, lambda: engine.run(wav_d, lens_d, max_tokens),
                                  profile_dir, ms, "profile_e2e.txt")
     shared.update(f32_state=f32.state_dict(), tok=tok, batches=batches,
                   engine_bf16=engine, b64=(wav_d, lens_d, max_tokens, audio_s))
@@ -744,7 +822,7 @@ def end_to_end_int8(torch, FK, A, profile_dir, card, shared):
     log(f"e2e B=64 x 15 s device program on {card}: bf16 {times['bf16']} ms, "
         f"int8 {times['int8']} ms (runs in turns bf16, int8, int8, bf16)")
     if profile_dir:
-        e2e["profile_int8"] = profile(torch, engine, wav64, lens64, mt64,
+        e2e["profile_int8"] = profile(torch, lambda: engine.run(wav64, lens64, mt64),
                                       profile_dir, min(times["int8"]),
                                       "profile_e2e_int8.txt")
         check(e2e["profile_int8"]["aten::round calls"] == 1,
@@ -753,27 +831,179 @@ def end_to_end_int8(torch, FK, A, profile_dir, card, shared):
     return launches, e2e
 
 
-def profile(torch, engine, wav_d, lens_d, max_tokens, out_dir, batch_ms, fname):
-    """Device kernel time by group for one B=64 x 15 s batch, and the share
-    of the batch's device span (``batch_ms``, CUDA events) spent in kernels."""
+def encoder_frames(n_samples: int) -> int:
+    """Encoder frames of a batch padded to ``n_samples``: the bucket, fbank
+    frames padded to a multiple of 128, then two stride-2 3x3 convs."""
+    from funasr_torch.auto.engines import quantize
+
+    nf = (quantize(n_samples) - 400) // 160 + 1
+    t = -(-nf // 128) * 128
+    return ((t - 3) // 2 + 1 - 3) // 2 + 1
+
+
+def end_to_end_beam(torch, FK, CP, profile_dir, card, shared):
+    """Conformer CTC/attention beam serving (``HybridEngine``) at full width
+    on seeded random weights: three served batches with the launch counters
+    read, the float32 beam with the CTC kernel against its twin, and the
+    B=32 x 15 s batch of ``bench_beam.py`` timed and profiled."""
+    import numpy as np
+
+    from funasr_torch.auto.engines import FrontendConfig, HybridEngine
+    from funasr_torch.models.paraformer.model import init_random_
+    from funasr_torch.models.transformer.model import Conformer
+    from funasr_torch.ops import attention as A
+    from funasr_torch.ops import decoder_layer as DL
+    from funasr_torch.ops import ffn as FF
+    from funasr_torch.ops import int8_gemm as G
+    from funasr_torch.ops import quant as Q
+    from funasr_torch.ops import rowquant as RQ
+    from funasr_torch.ops import sanm_layer as SL
+    from funasr_torch.tokenizer.char_tokenizer import CharTokenizer
+
+    t0 = time.time()
+    f32 = Conformer(**CONFORMER_HYBRID, dtype=torch.float32)
+    init_random_(f32, torch.Generator(device="cuda").manual_seed(2025))
+    served = Conformer(**CONFORMER_HYBRID, dtype=torch.bfloat16, quantize=True)
+    served.load_state_dict(f32.state_dict(), strict=True)
+    served.quantize_weights()
+    V = CONFORMER_HYBRID["vocab_size"]
+    tok = CharTokenizer(["<blank>", "<s>", "</s>"]
+                        + [chr(0x4E00 + i) for i in range(V - 4)] + ["<unk>"])
+    frontend = FrontendConfig(n_mels=80, lfr_m=1, lfr_n=1)
+    engine = HybridEngine(served, frontend, tok, **BEAM_SERVING)
+    n_params = sum(p.numel() for p in f32.parameters())
+    log(f"e2e beam: Conformer hybrid {n_params / 1e6:.1f} M params built and "
+        f"quantized in {time.time() - t0:.1f} s; serving {BEAM_SERVING}")
+    batches = shared["batches"]
+    engine.transcribe(batches[0][:2])  # warm-up
+    torch.cuda.synchronize()
+
+    # ---- the beam main path: counters at 0 just before, read just after
+    counters = {"ctc_prefix": CP.ctc_recurrence, "fbank": FK.fused_fbank,
+                "int8_gemm": G.int8_gemm, "rowquant": RQ.rowquant,
+                # Paraformer kernels, off this path
+                "attention": A.fused_attention, "sanm_layer": SL.fused_sanm_layer,
+                "decoder_layer": DL.fused_decoder_layer, "ffn": FF.fused_ffn_int8}
+    for fn in counters.values():
+        fn.launches = 0
+    engine.steps = 0
+    t0 = time.time()
+    results = [engine.transcribe(b, nbest=3 if i == 2 else 1)
+               for i, b in enumerate(batches)]
+    torch.cuda.synchronize()
+    serve_s = time.time() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    steps = engine.steps
+    log(f"e2e beam: served {sum(map(len, batches))} requests in 3 batches in "
+        f"{serve_s:.3f} s, {steps} decode steps; kernel launches {launches}")
+    check(steps > 0 and launches["ctc_prefix"] == steps,
+          f"ctc prefix kernel launched once per decode step: {launches['ctc_prefix']}"
+          f" launches, {steps} steps")
+    check(launches["fbank"] == len(batches), "fbank kernel launched per batch")
+    check(not any(launches[k] for k in ("attention", "sanm_layer", "decoder_layer", "ffn")),
+          f"no Paraformer kernel on the beam path: {launches}")
+    # 24 FFN w_1 per batch (12 layers x 2 FFNs) pass the int8 gate when the
+    # batch has >= MIN_M encoder frames
+    n_ffn = 2 * CONFORMER_HYBRID["encoder_conf"]["num_blocks"]
+    want_int8 = sum(n_ffn for b in batches if Q.gate(
+        len(b) * encoder_frames(max(len(w) for w in b)),
+        CONFORMER_HYBRID["encoder_conf"]["linear_units"]))
+    check(want_int8 > 0 and launches["int8_gemm"] == want_int8
+          and launches["rowquant"] == want_int8,
+          f"int8 GEMM and rowquant launched for every gated FFN w_1: {launches}, "
+          f"want {want_int8}")
+    for batch, res in zip(batches, results):
+        check(len(res) == len(batch) and all(isinstance(r.get("text"), str)
+                                             for r in res), "beam results have texts")
+    for r in results[2]:
+        scores = [h["score"] for h in r["nbest"]]
+        check(len(scores) == 3 and scores == sorted(scores, reverse=True)
+              and all(np.isfinite(scores)), f"nbest=3 sorted: {scores}")
+    log(f"e2e beam: sample texts {[r['text'][:12] for r in results[0][:3]]}, "
+        f"nbest scores {[h['score'] for h in results[2][0]['nbest']]}")
+
+    # ---- float32 beam: CTC kernel against its twin on the same inputs
+    engine32 = HybridEngine(f32, frontend, tok, **dict(BEAM_SERVING, int8_kv=False))
+    wav_d, lens_d = engine32._pack(batches[2])
+    res_k = engine32.run(wav_d, lens_d)
+    with swapped([(CP, "ctc_recurrence", CP.ctc_recurrence_ref)]):
+        res_r = engine32.run(wav_d, lens_d)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(res_k.scores).all()), "float32 beam scores finite")
+    d_score = float((res_k.scores - res_r.scores).abs().max())
+    same = dict(tokens=bool(torch.equal(res_k.tokens, res_r.tokens)),
+                lengths=bool(torch.equal(res_k.lengths, res_r.lengths)),
+                scores=bool(torch.equal(res_k.scores, res_r.scores)))
+    log(f"e2e beam float32, CTC kernel vs twin ({len(batches[2])} requests, "
+        f"{res_k.steps} steps): equal {same}, max |dscore| {d_score:.3e} "
+        f"(tol {BEAM_F32_SCORE_TOL})")
+    check(same["tokens"] and same["lengths"] and res_k.steps == res_r.steps,
+          "float32 beam: tokens and lengths with the CTC kernel equal the twin's")
+    check(d_score <= BEAM_F32_SCORE_TOL, "float32 beam scores, CTC kernel vs twin")
+    e2e = dict(beam_launches=launches, beam_steps_3_batches=steps,
+               beam_serve_3_batches_s=serve_s, beam_f32_equal=same,
+               beam_f32_max_abs_dscore=d_score)
+    del engine32, res_k, res_r
+
+    # ---- B=32 x 15 s (bench_beam.py's headline batch)
+    B, N = 32, 15 * FS
+    rng = np.random.default_rng(1)
+    wavs = [waveform(rng, N, 150.0 + 7 * i) for i in range(B)]
+    wav_d, lens_d = engine._pack(wavs)
+    torch.cuda.reset_peak_memory_stats()
+    # host-bound (one sync per step), so each batch is timed on its own
+    times = [cuda_ms(lambda: engine.run(wav_d, lens_d), iters=1, warmup=2 if i == 0 else 0)
+             for i in range(5)]
+    ms = sum(times) / len(times)
+    res = engine.run(wav_d, lens_d)
+    t0 = time.time()
+    engine.transcribe(wavs)
+    host_ms = (time.time() - t0) * 1e3
+    audio_s = B * N / FS
+    e2e.update(beam_batch_ms=ms, beam_batch_ms_each=times,
+               beam_audio_s_per_s=audio_s / (ms / 1e3),
+               beam_b32_steps=res.steps, beam_ms_per_step=ms / max(res.steps, 1),
+               beam_transcribe_b32_host_ms=host_ms,
+               beam_peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    prof = profile(torch, lambda: engine.run(wav_d, lens_d), profile_dir, ms,
+                   "profile_beam.txt")
+    prof["ctc prefix kernel share of kernel time"] = (
+        prof.get("ctc prefix kernel", 0.0) / prof["kernels total"])
+    e2e["profile_beam"] = prof
+    log(f"e2e beam B=32 x 15 s on {card}: {ms:.2f} ms per batch (CUDA events, mean "
+        f"of 5 batches after 2 warm-ups: {[round(t, 1) for t in times]}) -> "
+        f"{audio_s / (ms / 1e3):.1f} audio-s/s, "
+        f"{res.steps} decode steps ({ms / max(res.steps, 1):.3f} ms per step); "
+        f"device kernels {prof['kernels total']:.2f} ms of it; transcribe() incl. "
+        f"host {host_ms:.1f} ms")
+    return launches, e2e
+
+
+def profile(torch, run, out_dir, batch_ms, fname):
+    """Device kernel time by group for one batch (``run()``), and the share
+    of the batch's span (``batch_ms``, CUDA events) spent in kernels.  The
+    table goes to ``out_dir/fname`` when ``out_dir`` is given."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as prof
 
-    engine.run(wav_d, lens_d, max_tokens)
+    run()
     torch.cuda.synchronize()
     with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-        engine.run(wav_d, lens_d, max_tokens)
+        run()
         torch.cuda.synchronize()
     events = p.key_averages()
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, fname), "w") as f:
-        f.write(events.table(sort_by="self_cuda_time_total", row_limit=60))
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, fname), "w") as f:
+            f.write(events.table(sort_by="self_cuda_time_total", row_limit=60))
     groups = {}
     for ev in events:  # kernels only: a CPU op's device time repeats them
         if ev.device_type != DeviceType.CUDA or not ev.self_device_time_total:
             continue
         name = ev.key.lower()
-        if "attention_f32ctx_kernel" in name:
+        if "ctc_prefix_kernel" in name:
+            g = "ctc prefix kernel"
+        elif "attention_f32ctx_kernel" in name:
             g = "attention (int8 layers) kernel"
         elif "attention_kernel" in name:
             g = "attention kernel"
@@ -789,6 +1019,12 @@ def profile(torch, engine, wav_d, lens_d, max_tokens, out_dir, batch_ms, fname):
             g = "gemm"
         elif "conv_depthwise" in name:
             g = "depthwise conv"
+        elif "sort" in name:
+            g = "sort (top-k)"
+        elif "index" in name or "gather" in name or "scatter" in name:
+            g = "gather / index"
+        elif "softmax" in name:
+            g = "softmax"
         elif "layer_norm" in name:
             g = "layer norm"
         elif "copy" in name:
@@ -821,6 +1057,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from funasr_torch.ops import attention as A
+    from funasr_torch.ops import ctc_prefix as CP
     from funasr_torch.ops import cuda_build
     from funasr_torch.ops import decoder_layer as DL
     from funasr_torch.ops import fbank_kernel as FK
@@ -853,6 +1090,7 @@ def main(argv=None) -> int:
     check_edges(torch, FK, A, rng)
     gemm_cases = check_int8_gemm(torch, G)
     layer_cases = check_int8_layers(torch, SL, DL, FF)
+    ctc_cases = check_ctc_prefix(torch, CP)
     log(f"kernel checks done in {time.time() - t0:.1f} s")
 
     t0 = time.time()
@@ -860,6 +1098,8 @@ def main(argv=None) -> int:
     launches_bf16, e2e = end_to_end(torch, rng, FK, A, args.profile, smi, shared)
     launches_int8, e2e8 = end_to_end_int8(torch, FK, A, args.profile, smi, shared)
     e2e.update(e2e8)
+    launches_beam, e2e_beam = end_to_end_beam(torch, FK, CP, args.profile, smi, shared)
+    e2e.update(e2e_beam)
     log(f"end to end done in {time.time() - t0:.1f} s")
     log(f"e2e summary {json.dumps(e2e, sort_keys=True)}")
 
@@ -867,7 +1107,8 @@ def main(argv=None) -> int:
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")
         by_path = {"bf16": launches_bf16.get(name, 0),
-                   "int8": launches_int8.get(name, 0)}
+                   "int8": launches_int8.get(name, 0),
+                   "beam": launches_beam.get(name, 0)}
         return dict(name=name, route="cuda", source=sources[0], sources=sources,
                     replaces=replaces, launches=sum(by_path.values()),
                     launches_by_path=by_path, shape=main_case["case"],
@@ -887,6 +1128,8 @@ def main(argv=None) -> int:
               layer_cases["decoder_layer"][0], layer_cases["decoder_layer"]),
         entry("ffn", blocks[:2], "funasr_tpu/ops/ffn_pallas.py:113",
               layer_cases["ffn"][0], layer_cases["ffn"] + gemm_cases),
+        entry("ctc_prefix", ["funasr_torch/csrc/ctc_prefix.cu"],
+              "funasr_tpu/ops/ctc_prefix_pallas.py:47", ctc_cases[0], ctc_cases),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,5 @@
-"""Serving engine for offline Paraformer (port of the Paraformer parts of
-funasr_tpu/auto/engines.py).
+"""Serving engines for offline Paraformer and the CTC/attention beam (port of
+the Paraformer and HybridEngine parts of funasr_tpu/auto/engines.py).
 
 The engine owns the model, the frontend and the tokenizer and exposes a
 batched ``transcribe``: pack waveforms into a bucketed (B, N) batch, run
@@ -9,8 +9,10 @@ wrapper (``ops/fbank_kernel.py``) and attention through
 ``ops/attention.py``: the CUDA kernels on the card, their plain twins on
 the CPU.  A module built with ``quantize=True`` and quantized
 (``Paraformer.quantize_weights``) is served the same way, through its
-int8 layer kernels.  Timestamps, meshes and sequence parallelism are later
-slices.
+int8 layer kernels.  ``HybridEngine`` serves the joint CTC/attention beam
+of a Conformer (``models/transformer/model.py``), whose CTC prefix scores run
+through the ``ops/ctc_prefix.py`` kernel once per decode step.  Timestamps,
+meshes and sequence parallelism are later slices.
 """
 
 from __future__ import annotations
@@ -159,4 +161,66 @@ class ParaformerEngine(BatchedAsrEngine):
             text, words = sentence_postprocess(
                 [tk for t, tk in zip(ids, toks) if t not in self._special_ids])
             results.append({"text": text, "raw_tokens": words})
+        return results
+
+
+class HybridEngine(BatchedAsrEngine):
+    """Joint CTC/attention beam serving (Conformer) on ``device`` (default the
+    GPU; raises without one unless ``device="cpu"``): device beam decode,
+    hypotheses detokenized on the host.  ``int8_kv`` stores the decoder's
+    attention K/V as per-row int8 (an argument here, where the JAX package
+    reads ``FUNASR_TPU_INT8_KV``).  ``steps`` counts the decode steps run
+    over all calls."""
+
+    def __init__(self, module, frontend: FrontendConfig, tokenizer, beam: int = 10,
+                 maxlen: int = 96, decoding_ctc_weight: float = 0.3,
+                 int8_kv: bool = False, device=None):
+        super().__init__(frontend, tokenizer, device)
+        self.module = module.to(self.device).eval()
+        self.beam = beam
+        self.maxlen = maxlen
+        self.decoding_ctc_weight = decoding_ctc_weight
+        self.int8_kv = int8_kv
+        self.steps = 0
+
+    @torch.inference_mode()
+    def run(self, wav: torch.Tensor, lens: torch.Tensor):
+        """The device program: (B, N) waveform batch -> BeamResult (tokens
+        (B, K, L), lengths, scores, steps)."""
+        feats, flens = self.frontend.device_features(wav, lens)
+        return self.module.decode_beam(
+            feats, flens, beam=self.beam, maxlen=self.maxlen,
+            decoding_ctc_weight=self.decoding_ctc_weight, int8_kv=self.int8_kv)
+
+    def transcribe(self, wavs: Sequence[np.ndarray], nbest: int = 1,
+                   with_timestamp: bool = False) -> List[Dict[str, Any]]:
+        """Waveforms (float in [-1, 1], 16 kHz) -> one ``{"text",
+        "raw_tokens", "score"}`` dict each, the top hypothesis; ``nbest > 1``
+        adds the best ``nbest`` hypotheses under ``"nbest"``, each with its
+        ``"tokens"``.  Timestamps (CTC forced alignment) are not ported yet."""
+        if with_timestamp:
+            raise NotImplementedError("HybridEngine: with_timestamp needs "
+                                      "decode_beam_align, not ported yet")
+        if not len(wavs):
+            return []
+        res = self.run(*self._pack(wavs))
+        self.steps += res.steps
+        toks = res.tokens.cpu().numpy()
+        tok_lens = res.lengths.cpu().numpy()
+        scores = res.scores.cpu().numpy()
+        nbest = max(1, min(int(nbest), self.beam))
+
+        def hyp_result(i, k):
+            ids = toks[i, k, : int(tok_lens[i, k])].tolist()
+            text, raw = sentence_postprocess(self.tokenizer.ids2tokens(ids))
+            return {"score": float(scores[i, k]), "text": text, "raw_tokens": raw,
+                    "tokens": ids}
+
+        results = []
+        for i in range(len(wavs)):
+            res_i = hyp_result(i, 0)
+            res_i.pop("tokens")
+            if nbest > 1:
+                res_i["nbest"] = [hyp_result(i, k) for k in range(nbest)]
+            results.append(res_i)
         return results

@@ -1,16 +1,17 @@
-"""Flax params -> FunASR torch ``state_dict`` for the port's Paraformer.
+"""Flax variables -> FunASR torch ``state_dict`` for the port's models.
 
-The inverse of funasr_tpu/convert.py ``paraformer_from_torch`` (:205),
-written for the port (no import of the JAX package): it takes the
-``{'params': ...}`` tree with numpy leaves and returns the state dict that
-``funasr_torch.models.paraformer.model.Paraformer`` (and a reference
-FunASR ``model.pt``) uses:
+The inverses of funasr_tpu/convert.py ``paraformer_from_torch`` (:205) and
+``conformer_from_torch`` (:398), written for the port (no import of the JAX
+package): each takes the flax tree with numpy leaves and returns the state
+dict that the port's model (and a reference FunASR ``model.pt``) uses:
 
 - Dense ``kernel (in, out)`` -> Linear ``weight (out, in)`` (transpose),
 - FSMN ``(K, 1, D)`` -> depthwise Conv1d ``(D, 1, K)``,
 - CIF ``cif_conv1d (K, Din, Dout)`` -> Conv1d ``(Dout, Din, K)``,
 - LayerNorm ``scale/bias`` -> ``weight/bias``,
-- scanned stacks ``(L, ...)`` -> ``encoders.{i}.*`` / ``decoders.{i}.*``.
+- scanned stacks ``(L, ...)`` -> ``encoders.{i}.*`` / ``decoders.{i}.*``,
+- Conv2d ``(kh, kw, in, out)`` -> ``(out, in, kh, kw)``, BatchNorm running
+  statistics from the ``batch_stats`` collection.
 
 An inference-only flax tree has no decoder embedding (only the training
 sampler uses it); the state dict then carries zeros for
@@ -117,4 +118,77 @@ def paraformer_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     else:
         vocab, d = np.asarray(dec["output_layer"]["kernel"]).shape[::-1]
         sd["decoder.embed.0.weight"] = torch.zeros((vocab, d))
+    return sd
+
+
+def _conformer_layer(sd, p: str, node: Mapping, stats: Mapping):
+    for ff in ("feed_forward", "feed_forward_macaron"):
+        _dense(sd, f"{p}.{ff}.w_1", node[ff]["w_1"])
+        _dense(sd, f"{p}.{ff}.w_2", node[ff]["w_2"])
+    for nm in ("norm_ff", "norm_mha", "norm_conv", "norm_final", "norm_ff_macaron"):
+        _norm(sd, f"{p}.{nm}", node[nm])
+    att = node["self_attn"]
+    for q in ("linear_q", "linear_k", "linear_v", "linear_out"):
+        _dense(sd, f"{p}.self_attn.{q}", att[q])
+    _dense(sd, f"{p}.self_attn.linear_pos", att["linear_pos"], bias=False)
+    sd[f"{p}.self_attn.pos_bias_u"] = _t(att["pos_bias_u"])
+    sd[f"{p}.self_attn.pos_bias_v"] = _t(att["pos_bias_v"])
+    cm, c = f"{p}.conv_module", node["conv_module"]
+    for pw in ("pointwise_conv1", "pointwise_conv2"):  # (in, out) -> (out, in, 1)
+        sd[f"{cm}.{pw}.weight"] = _t(np.asarray(c[pw]["kernel"]).T[..., None])
+        sd[f"{cm}.{pw}.bias"] = _t(c[pw]["bias"])
+    _fsmn(sd, f"{cm}.depthwise_conv.weight", c["depthwise_conv"])  # (K,1,D)->(D,1,K)
+    sd[f"{cm}.depthwise_conv.bias"] = _t(c["depthwise_conv_bias"])
+    _norm(sd, f"{cm}.norm", c["norm"])
+    bn = stats["conv_module"]["norm"]
+    sd[f"{cm}.norm.running_mean"] = _t(bn["mean"])
+    sd[f"{cm}.norm.running_var"] = _t(bn["var"])
+    sd[f"{cm}.norm.num_batches_tracked"] = torch.tensor(0)
+
+
+def _transformer_decoder_layer(sd, p: str, node: Mapping):
+    for att in ("self_attn", "src_attn"):
+        for q in ("linear_q", "linear_k", "linear_v", "linear_out"):
+            _dense(sd, f"{p}.{att}.{q}", node[att][q])
+    _dense(sd, f"{p}.feed_forward.w_1", node["feed_forward"]["w_1"])
+    _dense(sd, f"{p}.feed_forward.w_2", node["feed_forward"]["w_2"])
+    for nm in ("norm1", "norm2", "norm3"):
+        _norm(sd, f"{p}.{nm}", node[nm])
+
+
+def conformer_hybrid_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """``{'params': ..., 'batch_stats': ...}`` of funasr_tpu's Conformer
+    (ConformerEncoder + TransformerDecoder + ctc_lo) -> the port's float32
+    ``state_dict``.
+
+    The subsampling output Linear reads the flattened (channel, frequency)
+    features freq-major in flax (f * C + c) and channel-major in torch
+    (c * F + f), so its input axis is permuted (funasr_tpu/convert.py:420)."""
+    tree, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+
+    enc, emb = tree["encoder"], tree["encoder"]["embed"]
+    for j, t in (("conv0", "encoder.embed.conv.0"), ("conv1", "encoder.embed.conv.2")):
+        sd[f"{t}.weight"] = _t(np.transpose(np.asarray(emb[j]["kernel"]), (3, 2, 0, 1)))
+        sd[f"{t}.bias"] = _t(emb[j]["bias"])
+    C = np.asarray(emb["conv1"]["kernel"]).shape[-1]
+    k = np.asarray(emb["out"]["kernel"])  # (F * C, D), freq-major rows
+    F = k.shape[0] // C
+    k = k.reshape(F, C, -1).transpose(1, 0, 2).reshape(C * F, -1)
+    sd["encoder.embed.out.0.weight"] = _t(k.T)
+    sd["encoder.embed.out.0.bias"] = _t(emb["out"]["bias"])
+    enc_stats = stats["encoder"]["encoders"]
+    for i in range(_num_layers(enc["encoders"])):
+        _conformer_layer(sd, f"encoder.encoders.{i}", _unstack(enc["encoders"], i),
+                         _unstack(enc_stats, i))
+    _norm(sd, "encoder.after_norm", enc["after_norm"])
+
+    dec = tree["decoder"]
+    sd["decoder.embed.0.weight"] = _t(dec["embed"]["embedding"])
+    for i in range(_num_layers(dec["decoders"])):
+        _transformer_decoder_layer(sd, f"decoder.decoders.{i}",
+                                   _unstack(dec["decoders"], i))
+    _norm(sd, "decoder.after_norm", dec["after_norm"])
+    _dense(sd, "decoder.output_layer", dec["output_layer"])
+    _dense(sd, "ctc.ctc_lo", tree["ctc_lo"])
     return sd

@@ -149,14 +149,17 @@ class Paraformer(nn.Module):
 def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random weights, in place: LeCun-normal Linear/Conv weights
     (flax's default), zero biases, unit/zero layer norms, N(0, 1)
-    embeddings.  Draws on ``generator``'s device in float32."""
+    embeddings; BatchNorm with unit/zero affine and running statistics away
+    from (0, 1): mean N(0, 0.1^2), var in [0.5, 1.5); any other parameter
+    LeCun-normal over its last axis.  Draws on ``generator``'s device in
+    float32."""
     def normal_(p: torch.Tensor, std: float):
         p.copy_(torch.randn(p.shape, generator=generator,
                             device=generator.device) * std)
 
     with torch.no_grad():
         for mod in module.modules():
-            if isinstance(mod, (nn.Linear, nn.Conv1d)):
+            if isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d)):
                 w = mod.weight
                 normal_(w, 1.0 / math.sqrt(w[0].numel()))  # fan_in = Din * K
                 if mod.bias is not None:
@@ -166,4 +169,13 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             elif isinstance(mod, LayerNormF32):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
+            elif isinstance(mod, nn.BatchNorm1d):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+                normal_(mod.running_mean, 0.1)
+                mod.running_var.copy_(0.5 + torch.rand(
+                    mod.num_features, generator=generator, device=generator.device))
+            else:
+                for p in mod.parameters(recurse=False):
+                    normal_(p, 1.0 / math.sqrt(p.shape[-1]))
     return module

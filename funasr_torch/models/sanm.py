@@ -91,11 +91,15 @@ class Dense(nn.Linear):
         for name in ("w8", "sw", "bias_q"):
             self.register_buffer(name, None, persistent=False)
 
+    def matrix(self) -> torch.Tensor:
+        """The (out, in) weight matrix."""
+        return self.weight
+
     def quantize_weights(self) -> None:
         """Build the int8 weight, its per-channel scales and the bias in
         compute-dtype values (non-persistent buffers, not in the state dict)."""
         dt = self.compute_dtype
-        w8, sw = Q.quantize_weight(self.weight.detach().to(dt))
+        w8, sw = Q.quantize_weight(self.matrix().detach().to(dt))
         self.register_buffer("w8", w8, persistent=False)
         self.register_buffer("sw", sw, persistent=False)
         bias = None if self.bias is None else self.bias.detach().to(dt).to(torch.float32)
@@ -107,7 +111,32 @@ class Dense(nn.Linear):
         if self.w8 is not None and Q.gate(x.numel() // x.shape[-1], self.out_features):
             return Q.int8_linear(x, self.w8, self.sw, self.bias_q)
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x, self.weight.to(dt), bias)
+        return F.linear(x, self.matrix().to(dt), bias)
+
+
+class PointwiseConv(Dense):
+    """A kernel-size-1 ``nn.Conv1d`` over the last axis, computed as a
+    :class:`Dense` (the JAX package's QDense): the weight keeps the Conv1d
+    shape (out, in, 1) of FunASR's state dict."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: Optional[torch.dtype] = None):
+        super().__init__(in_features, out_features, bias, dtype, param_dtype)
+        self.weight = nn.Parameter(self.weight.detach()[..., None])
+
+    def matrix(self) -> torch.Tensor:
+        return self.weight[..., 0]
+
+
+def masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Float32 softmax over the last axis with key masking (funasr_tpu
+    sanm.py:95): masked scores take float32's lowest finite value, and the
+    weights of masked keys are set to 0 after the softmax.  ``mask``
+    broadcasts to ``scores``, nonzero = valid."""
+    valid = mask != 0
+    scores = torch.where(valid, scores.to(torch.float32), torch.finfo(torch.float32).min)
+    return torch.where(valid, torch.softmax(scores, dim=-1), 0.0)
 
 
 def fsmn_memory(v: torch.Tensor, weight: torch.Tensor,

@@ -1,0 +1,179 @@
+"""Conformer CTC/attention hybrid ASR, inference path (port of
+funasr_tpu/models/transformer/model.py:43-195; reference
+funasr/models/conformer/model.py).
+
+encoder -> ``ctc.ctc_lo`` log-probs and the Transformer decoder, combined by
+the joint CTC/attention beam search (``ops/beam_search.py``).  No training
+forward; ``decode_beam_align`` and CTC timestamps are a later slice.
+
+int8 serving, the JAX package's ``AutoModel(quantize=True)`` path: build
+with ``quantize=True`` (parameters then stored in float32 whatever the
+compute ``dtype``), load the weights, then call :meth:`quantize_weights`
+once.  Every encoder and decoder projection is a QDense-rule
+:class:`~funasr_torch.models.sanm.Dense`: int8 where the ``ops/quant.py``
+gate passes (at the ``conformer_hybrid.yaml`` widths only the encoder FFNs'
+``w_1``), the compute dtype elsewhere.  ``ctc.ctc_lo`` is a plain dense
+layer, never quantized (the JAX ``nn.Dense``).  The int8 self-attention KV
+cache is the separate ``int8_kv`` argument of :meth:`decode_beam`.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+from torch import nn
+
+from funasr_torch.device import resolve_device
+from funasr_torch.models import conformer  # noqa: F401  (registers ConformerEncoder)
+from funasr_torch.models.sanm import Dense
+from funasr_torch.models.transformer.decoder import TransformerDecoder
+from funasr_torch.ops.beam_search import BeamResult, beam_search, mask_ctc_frames
+from funasr_torch.ops.cached_decoder import CachedTransformerDecoder, resize_state
+from funasr_torch.registry import tables
+
+# training-only fields of funasr_tpu's hybrid models
+_TRAINING_FIELDS = {"lsm_weight", "length_normalized_loss", "ignore_id"}
+# reference encoder_conf keys that the JAX package drops (model.py:70-74)
+_ENCODER_IGNORED = ("selfattention_layer_type", "pos_enc_class",
+                    "positional_dropout_rate", "pos_enc_layer_type",
+                    "rel_pos_type", "macaron_style", "use_cnn_module",
+                    "activation_type", "normalize_before")
+
+
+class CTC(nn.Module):
+    """The CTC head: ``ctc_lo``, a dense layer in the compute dtype."""
+
+    def __init__(self, vocab_size: int, d: int, dtype: torch.dtype,
+                 param_dtype: Optional[torch.dtype]):
+        super().__init__()
+        self.ctc_lo = Dense(d, vocab_size, dtype=dtype, param_dtype=param_dtype)
+
+
+class _HybridModel(nn.Module):
+    """Shared CTC/attention model body; subclasses pick the encoder.  Builds
+    on ``device`` (default: the GPU, raising without one; ``"cpu"`` only
+    when asked)."""
+
+    def __init__(self, vocab_size: int, input_size: int = 80,
+                 encoder_conf: Optional[Dict[str, Any]] = None,
+                 decoder_conf: Optional[Dict[str, Any]] = None,
+                 ctc_weight: float = 0.3, blank_id: int = 0, sos: int = 1,
+                 eos: int = 2, dtype: torch.dtype = torch.float32, device=None,
+                 quantize: bool = False, **training_conf):
+        unknown = set(training_conf) - _TRAINING_FIELDS
+        if unknown:
+            raise TypeError(f"{type(self).__name__}: unexpected arguments "
+                            f"{sorted(unknown)}")
+        super().__init__()
+        self.vocab_size = vocab_size
+        self.ctc_weight = ctc_weight
+        self.blank_id = blank_id
+        self.sos = sos
+        self.eos = eos
+        self.dtype = dtype
+        self.quantize = quantize
+        self._int8_ready = False
+        param_dtype = torch.float32 if quantize else None
+        dev = resolve_device(device)
+
+        enc_conf = dict(encoder_conf or {})
+        for key in _ENCODER_IGNORED:
+            enc_conf.pop(key, None)
+        enc_conf.setdefault("input_layer", "conv2d")
+        enc_cls = tables.get("encoder_classes", self.default_encoder())
+        with torch.device(dev):
+            self.encoder = enc_cls(input_size=input_size, dtype=dtype,
+                                   param_dtype=param_dtype, **enc_conf)
+            d = self.encoder.output_size()
+            self.decoder = TransformerDecoder(vocab_size=vocab_size, encoder_output_size=d,
+                                              dtype=dtype, param_dtype=param_dtype,
+                                              **dict(decoder_conf or {}))
+            self.ctc = CTC(vocab_size, d, dtype, param_dtype)
+        self.eval()
+        self.register_load_state_dict_post_hook(_HybridModel._weights_changed)
+
+    def default_encoder(self) -> str:
+        raise NotImplementedError
+
+    @staticmethod
+    def _weights_changed(module, incompatible_keys) -> None:
+        module._int8_ready = False
+
+    @torch.no_grad()
+    def quantize_weights(self) -> "_HybridModel":
+        """Build the int8 weights of the encoder and decoder projections from
+        the current float32 parameters, once per model load (a
+        ``quantize=True`` model only)."""
+        if not self.quantize:
+            raise RuntimeError("quantize_weights() needs quantize=True")
+        self.encoder.quantize_weights()
+        self.decoder.quantize_weights()
+        self._int8_ready = True
+        return self
+
+    def encode(self, speech: torch.Tensor, speech_lengths: torch.Tensor):
+        if self.quantize and not self._int8_ready:
+            raise RuntimeError(f"{type(self).__name__}(quantize=True): call "
+                               "quantize_weights() after loading the weights")
+        return self.encoder(speech, speech_lengths)
+
+    @torch.inference_mode()
+    def decode_beam(self, speech: torch.Tensor, speech_lengths: torch.Tensor,
+                    beam: int = 10, maxlen: int = 64,
+                    decoding_ctc_weight: float = 0.3, use_cache: bool = True, cache_stages: int = 4,
+                    int8_kv: bool = False) -> BeamResult:
+        """Joint CTC/attention beam decode -> BeamResult (tokens (B, K, L),
+        lengths, scores, steps).
+
+        ``use_cache=True`` scores steps incrementally with the KV-cached
+        scorer (``ops/cached_decoder.py``); ``use_cache=False`` re-runs the
+        full prefix through the decoder each step.  ``cache_stages`` splits
+        a cached decode (maxlen >= 32) into that many stages with the cache
+        grown at each boundary (exact numerics).  ``int8_kv`` stores the
+        scorer's self- and cross-attention K/V as per-row int8."""
+        enc, enc_lens = self.encode(speech, speech_lengths)
+        B = enc.shape[0]
+        decode_fn = step_score_fn = dec_state = reorder = None
+        if use_cache:
+            scorer = CachedTransformerDecoder(
+                self.decoder, enc, enc_lens,
+                n_head=self.decoder.attention_heads, maxlen=maxlen,
+                dtype=self.dtype, beam=beam, int8_kv=int8_kv)
+            step_score_fn = scorer.step
+            dec_state = scorer.init_state()
+            reorder = CachedTransformerDecoder.reorder_state
+        else:
+            enc_rep = enc.repeat_interleave(beam, dim=0)
+            lens_rep = enc_lens.repeat_interleave(beam, dim=0)
+
+            def decode_fn(ys, step):
+                lens = torch.full((ys.shape[0],), ys.shape[1], device=ys.device)
+                logits = self.decoder(enc_rep, lens_rep, ys, lens)
+                return torch.log_softmax(logits.to(torch.float32), dim=-1)[:, step]
+
+        ctc_logp = None
+        if decoding_ctc_weight > 0.0 and self.ctc_weight > 0.0:
+            ctc_logp = torch.log_softmax(self.ctc.ctc_lo(enc).to(torch.float32), dim=-1)
+            ctc_logp = mask_ctc_frames(ctc_logp, enc_lens, self.blank_id)
+
+        stage_bounds = state_grow_fn = None
+        if step_score_fn is not None and cache_stages > 1 and maxlen >= 32:
+            stage_bounds = [maxlen * (i + 1) // cache_stages for i in range(cache_stages)]
+            state_grow_fn = resize_state
+        return beam_search(
+            decode_fn, B, beam, self.vocab_size, self.sos, self.eos, maxlen,
+            ctc_logp=ctc_logp, ctc_weight=decoding_ctc_weight, blank_id=self.blank_id,
+            step_score_fn=step_score_fn, dec_state=dec_state,
+            state_reorder_fn=reorder, cache_stages=stage_bounds,
+            state_grow_fn=state_grow_fn, device=enc.device)
+
+
+@tables.register("model_classes", "Conformer")
+class Conformer(_HybridModel):
+    """CTC/attention model over the ConformerEncoder (reference
+    funasr/models/conformer/model.py)."""
+
+    def default_encoder(self) -> str:
+        return "ConformerEncoder"
+

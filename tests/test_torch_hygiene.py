@@ -66,6 +66,24 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                               device="cpu")
     assert engine.device.type == "cpu"
 
+    from funasr_torch.auto.engines import HybridEngine
+    from funasr_torch.models.transformer.model import Conformer
+
+    hconf = dict(vocab_size=8, input_size=16,
+                 encoder_conf=dict(output_size=8, attention_heads=2,
+                                   linear_units=8, num_blocks=1,
+                                   cnn_module_kernel=3),
+                 decoder_conf=dict(attention_heads=2, linear_units=8,
+                                   num_blocks=1))
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no GPU"):
+            Conformer(**hconf, device=device)
+    hybrid = Conformer(**hconf, device="cpu")
+    frontend = FrontendConfig(lfr_m=1, lfr_n=1, n_mels=16)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        HybridEngine(hybrid, frontend, tok)
+    assert HybridEngine(hybrid, frontend, tok, device="cpu").device.type == "cpu"
+
 
 def test_unknown_model_arguments_raise():
     from funasr_torch.models.paraformer.model import Paraformer
@@ -115,6 +133,7 @@ def _meta_cases():
     """Each new wrapper with tensors on the meta device (neither CPU nor
     CUDA): shapes are valid, so only the device rule can refuse them."""
     from funasr_torch.ops import attention as A
+    from funasr_torch.ops import ctc_prefix as CP
     from funasr_torch.ops import decoder_layer as DL
     from funasr_torch.ops import ffn as FF
     from funasr_torch.ops import fsmn as FS
@@ -141,10 +160,12 @@ def _meta_cases():
         ("fused_sanm_layer", lambda: SL.fused_sanm_layer(m(B, T, D), lens, sanm, 2, 1)),
         ("fused_decoder_layer", lambda: DL.fused_decoder_layer(
             m(B, T, D), m(B, T, D), lens, lens, dec, 2, 1)),
+        ("ctc_recurrence", lambda: CP.ctc_recurrence(m(B, 3, 4, T), m(B, T),
+                                                     m(B, 3, 4, T))),
     ]
 
 
-@pytest.mark.parametrize("case", range(8))
+@pytest.mark.parametrize("case", range(9))
 def test_new_wrappers_refuse_other_devices(case):
     name, call = _meta_cases()[case]
     with pytest.raises(ValueError, match="unsupported device"):
