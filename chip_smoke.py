@@ -24,6 +24,13 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      512 -> 2048 -> 512);
    - the CTC prefix recurrence at the beam's shape (B=32, K=10, W=16,
      T=383), bit-equal to its twin (bar 1e-6 * max(1, |ref|));
+   - the fused int8 matmul (qmm) at the three gated contractions of the
+     BiCif path and edge shapes, bit-equal to its twin (beside it the
+     rowquant + int8 GEMM pair of the XLA route and ``torch._int_mm``);
+     the int8-score attention at the SANM shape and edges, bit-equal, and
+     the SANM layer with ``int8_attn``; the bf16 and float32 FFN at
+     (16384, 512) -> 2048 -> 512 within FFN_TOL (yardstick: two
+     ``F.linear`` and a relu), its only launches in this script;
    - edge shapes: ragged T and U, one frame, lengths of 0; for the CTC
      kernel rows not a multiple of its block, T=1, rows NEG_INF throughout
      and T=1500 (60 s);
@@ -41,13 +48,25 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    maxlen 96, CTC weight 0.3) with the counters read the same way (one CTC
    kernel launch per decode step); compare the float32 beam with the CTC
    kernel and with its twin; time the beam at B=32 x 15 s;
+   then build full-width int8 BiCif Paraformer-large with both opt-in
+   routes (``qmm=True, int8_attn=True``) and serve the same three batches
+   with 20 ms timestamps through ``BiCifEngine.transcribe``, counters read
+   the same way (qmm once per gated contraction, the int8-score attention
+   in encoder layers 1-49, the float32-context attention only in the
+   decoder); compare route kernels against twins and the float32 BiCif's
+   kernels against twins (tokens, fires and timestamps equal); decode five
+   segments of a 60 s recording from its shared fbank grid
+   (``transcribe_from_fbank``) against ``transcribe`` of the sliced
+   waveforms; serve one batch of the "cnn_blstm" variant; time the B=64 x
+   15 s BiCif program with the routes on and off, in turns;
 4. print one ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` also writes ``torch.profiler`` tables of one B=64 x 15 s
-batch, bf16 and int8, and of one B=32 x 15 s beam batch to
-``DIR/profile_e2e.txt``, ``DIR/profile_e2e_int8.txt`` and
-``DIR/profile_beam.txt``.  Device time by kernel group, and the share of
+batch, bf16 and int8, of one B=32 x 15 s beam batch and of one B=64 x 15 s
+BiCif batch with the routes on and off to ``DIR/profile_e2e.txt``,
+``DIR/profile_e2e_int8.txt``, ``DIR/profile_beam.txt``,
+``DIR/profile_bicif_on.txt`` and ``DIR/profile_bicif_off.txt``.  Device time by kernel group, and the share of
 each batch's span spent in kernels, is printed for every batch profiled;
 the beam batch is always profiled (its device time beside its host time).
 Without CUDA, or without the rest of the repository beside it, the script
@@ -87,6 +106,11 @@ E2E_INT8_MIN_AGREE = 0.99
 # order with the same expf/logf, so bit-equal is expected
 CTC_REL_TOL = 1e-6  # |kernel - twin| <= CTC_REL_TOL * max(1, |twin|)
 BEAM_F32_SCORE_TOL = 1e-3  # float32 beam, CTC kernel vs twin: |dscore|
+# bf16/float32 FFN against its twin, times max|twin|: the kernel sums in
+# another order (tensor-core tiles, or k-ordered FMA), which can move a bf16
+# rounding of the hidden value and then of an output: two bf16 ulps at the
+# output's magnitude; float32 sums of 2048 terms: 2e-5
+FFN_TOL = {"bfloat16": 2.0 ** -6, "float32": 2e-5}
 
 FLAGSHIP = dict(  # __graft_entry__.py:13 _flagship (Paraformer-large)
     vocab_size=8404, input_size=560,
@@ -433,7 +457,7 @@ def check_int8_layers(torch, SL, DL, FF):
     wbytes_sanm = 4 * D * D + 2 * D * H + 4 * (3 * D + D + H + D) * 2 + 4 * K * D
     wbytes_dec = 4 * D * D + 2 * D * H + 4 * (2 * D + 2 * D + H) * 2 + 4 * K * D
     gen = torch.Generator(device="cuda").manual_seed(4)
-    cases = {"sanm_layer": [], "decoder_layer": [], "ffn": []}
+    cases = {"sanm_layer": [], "sanm_layer_i8": [], "decoder_layer": [], "ffn": []}
 
     def run(B, T, U, lens, tlens, timed):
         lens_d = torch.tensor(lens, device="cuda", dtype=torch.int32)
@@ -458,6 +482,17 @@ def check_int8_layers(torch, SL, DL, FF):
                "float32": 2.0 * K * D * n_rows}  # the FSMN taps
         cases["sanm_layer"].append(_layer_case(
             torch, f"SANM layer {tag}", got, want, t_rng < lens_d[:, None, None],
+            ms, plain, 2 * 2 * n_rows * D + 4 * B * T + wbytes_sanm, ops))
+
+        sanm8 = lambda f: f(x, lens_d, sanm_w, NH, LEFT, kb, int8_attn=True)
+        got, want = sanm8(SL.fused_sanm_layer), sanm8(SL.sanm_layer_ref)
+        ms = cuda_ms(lambda: sanm8(SL.fused_sanm_layer)) if timed else None
+        plain = cuda_ms(lambda: sanm8(SL.sanm_layer_ref), iters=3) if timed else None
+        pairs = float((frames * frames).sum())
+        ops = {"int8": 2.0 * n_rows * (3 * D * D + D * D + 2 * D * H) + 2.0 * D * pairs,
+               "bfloat16": 2.0 * D * pairs, "float32": 2.0 * K * D * n_rows}
+        cases["sanm_layer_i8"].append(_layer_case(
+            torch, f"SANM layer int8_attn {tag}", got, want, t_rng < lens_d[:, None, None],
             ms, plain, 2 * 2 * n_rows * D + 4 * B * T + wbytes_sanm, ops))
 
         # the main shapes take the memory quantized as the decoder stack does
@@ -565,6 +600,150 @@ def check_ctc_prefix(torch, CP):
             case.update(bound_ms=bnd, bound_by=by)
         log(f"ctc prefix {case}")
         cases.append(case)
+    return cases
+
+
+# (M, K, N) of the qmm route's gated contractions at B=64 x 15 s (64 x 256
+# encoder frames, 64 x 128 tokens), then edge shapes
+QMM_SHAPES = (
+    (16384, 560, 1536, "encoders0 QKV (K=560)"),
+    (8192, 512, 2048, "decoders3 w_1"),
+    (8192, 512, 8404, "output layer (N=8404)"),
+    (1000, 560, 1536, "edge: M not a multiple of the 64-row block"),
+    (12256, 256, 2048, "edge: K=256 (the Conformer's w_1)"),
+    (37, 512, 8404, "edge: 37 rows, N=8404"),
+)
+QMM_TIMED = 3
+
+
+def check_qmm(torch, QM, Q, RQ):
+    """The fused int8 matmul against its twin, bit-equal: bf16 with and
+    without the bias, and float32.  At the main shapes, beside it the XLA
+    route's rowquant + int8 GEMM pair ("div" form) and ``torch._int_mm`` on
+    the operands quantized beforehand."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cases = []
+    for i, (M, K, N, where) in enumerate(QMM_SHAPES):
+        x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+        w = torch.randn((N, K), generator=gen, device="cuda") * K ** -0.5
+        w8, sw = Q.quantize_weight(w.to(torch.bfloat16))
+        bias = (0.1 * torch.randn(N, generator=gen, device="cuda")).to(torch.bfloat16).float()
+        equal = {}
+        for name, args in (("bf16 + bias", (x, w8, sw, bias)), ("bf16", (x, w8, sw)),
+                           ("float32 + bias", (x.float(), w8, sw, bias))):
+            equal[name] = bool(torch.equal(QM.quant_matmul(*args), QM.quant_matmul_ref(*args)))
+        torch.cuda.synchronize()
+        check(all(equal.values()), f"qmm {where} ({M}, {K}, {N}) bit-equal to its twin: {equal}")
+        case = dict(case=f"{where}: x ({M}, {K}) bf16, w ({N}, {K}) int8 -> bf16 + bias",
+                    max_abs_err=0.0, tolerance=0.0, bit_equal=equal)
+        if i < QMM_TIMED:
+            ms = cuda_ms(lambda: QM.quant_matmul(x, w8, sw, bias))
+            plain = cuda_ms(lambda: QM.quant_matmul_ref(x, w8, sw, bias), iters=3)
+            pair = cuda_ms(lambda: Q.int8_linear(x, w8, sw, bias))
+            lib = None
+            if M > 16 and K % 8 == 0 and N % 8 == 0:  # torch._int_mm's shape rules
+                q, _ = RQ.rowquant(x, form="mul")
+                lib = cuda_ms(lambda: torch._int_mm(q, w8.t()))
+            # x read once in bf16, w8 once, the scales and bias, out written once
+            nbytes = 2 * M * K + N * K + 8 * N + 2 * M * N
+            bnd, by = bound_ms(nbytes, {"int8": 2.0 * M * N * K})
+            case.update(ms=ms, plain_ms=plain, rowquant_int8_gemm_ms=pair, library_ms=lib,
+                        bound_ms=bnd, bound_by=by, tops=2.0 * M * N * K / ms / 1e9)
+        log(f"qmm {case}")
+        cases.append(case)
+    return cases
+
+
+def check_i8qk(torch, A):
+    """The int8-score attention against its twin, bit-equal: the SANM shape
+    (q, k, v column slices of one float32 (B, T, 3D) projection, as in the
+    layer), T not a multiple of the 64-key tile with a length-1 row, T=1,
+    and row-chunked launches (a small scratch cap).  At the main shape, the
+    float32-context attention on the same inputs beside it."""
+    from funasr_torch.ops.masks import key_bias
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    D, NH = 512, 4
+    cases = []
+    for B, T, lens, what in ((64, 256, [250, 200] * 32, "SANM layer attention, B=64 x 15 s, "
+                              "lengths 250/200"),
+                             (3, 70, [70, 1, 33], "edge: T=70, a length-1 row"),
+                             (2, 1, [1, 1], "edge: T=1")):
+        qkv = torch.randn((B, T, 3 * D), generator=gen, device="cuda")
+        lens_d = torch.tensor(lens, device="cuda", dtype=torch.int32)
+        args = (qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:], key_bias(lens_d, T), NH,
+                (D // NH) ** -0.5, lens_d)
+        got, want = A.attention_i8qk(*args), A.attention_i8qk_ref(*args)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(got, want))
+        check(bool(torch.isfinite(got).all()) and equal,
+              f"int8-score attention {what}: bit-equal to its twin")
+        case = dict(case=f"{what}: q/k/v ({B}, {T}, {D}) f32, H={NH}",
+                    max_abs_err=float((got - want).abs().max()), tolerance=0.0,
+                    bit_equal=equal)
+        if not cases:
+            rows = lens_d.clamp(max=T).double()
+            n_rows, pairs = float(rows.sum()), float((rows * rows).sum())
+            # q, k, v read and the context written for the valid rows
+            bnd, by = bound_ms(4.0 * D * 4 * n_rows + 4 * B * T,
+                               {"int8": 2.0 * D * pairs, "bfloat16": 2.0 * D * pairs})
+            case.update(ms=cuda_ms(lambda: A.attention_i8qk(*args)),
+                        plain_ms=cuda_ms(lambda: A.attention_i8qk_ref(*args), iters=3),
+                        f32ctx_ms=cuda_ms(lambda: A.attention_f32ctx(*args)),
+                        library_ms=None, bound_ms=bnd, bound_by=by)
+        log(f"int8-score attention {case}")
+        cases.append(case)
+    q = torch.randn((3, 40, D), generator=gen, device="cuda")
+    kv = torch.randn((3, 70, 2 * D), generator=gen, device="cuda")
+    lens3 = torch.tensor([70, 33, 0], device="cuda", dtype=torch.int32)
+    args = (q, kv[..., :D], kv[..., D:], key_bias(lens3, 70), NH, 128 ** -0.5, lens3)
+    whole = A.attention_i8qk(*args)
+    saved, A.F32CTX_SCRATCH_BYTES = A.F32CTX_SCRATCH_BYTES, 4 * NH * 40 * 70
+    try:
+        chunked = A.attention_i8qk(*args)
+    finally:
+        A.F32CTX_SCRATCH_BYTES = saved
+    check(torch.equal(whole, chunked) and torch.equal(whole, A.attention_i8qk_ref(*args)),
+          "int8-score attention: row-chunked launches, one launch and twin equal")
+    return cases
+
+
+def check_ffn(torch, FF):
+    """The bf16 and float32 FFN against its twin within FFN_TOL, at the
+    encoder FFN's shape and at ragged edges (M not a multiple of the row
+    block, N not a multiple of the 128-column tile).  No model routes this
+    kernel (the JAX package's neither): these are its only launches."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    cases = []
+    for M, K, H, N in ((16384, 512, 2048, 512), (37, 256, 512, 100)):
+        for dtype, dn in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+            x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
+            w1 = (torch.randn((H, K), generator=gen, device="cuda") * K ** -0.5).to(dtype)
+            w2 = (torch.randn((N, H), generator=gen, device="cuda") * H ** -0.5).to(dtype)
+            b1 = 0.1 * torch.randn(H, generator=gen, device="cuda")
+            b2 = 0.1 * torch.randn(N, generator=gen, device="cuda")
+            got, want = FF.fused_ffn(x, w1, b1, w2, b2), FF.ffn_ref(x, w1, b1, w2, b2)
+            torch.cuda.synchronize()
+            tol = FFN_TOL[dn] * float(want.float().abs().max())
+            err = float((got.float() - want.float()).abs().max())
+            check(bool(torch.isfinite(got).all()) and err <= tol,
+                  f"FFN ({M}, {K}) -> {H} -> {N} {dn}: max err {err} > {tol}")
+            case = dict(case=f"FFN ({M}, {K}) -> {H} -> {N} {dn}", max_abs_err=err,
+                        tolerance=tol, elements_differing=int((got != want).sum()))
+            if M == 16384:
+                el = x.element_size()
+                bnd, by = bound_ms(el * (M * K + M * N + K * H + H * N) + 4 * (H + N),
+                                   {dn: 2.0 * M * K * H + 2.0 * M * H * N})
+                b1d, b2d = b1.to(dtype), b2.to(dtype)
+                case.update(ms=cuda_ms(lambda: FF.fused_ffn(x, w1, b1, w2, b2)),
+                            plain_ms=cuda_ms(lambda: FF.ffn_ref(x, w1, b1, w2, b2), iters=3),
+                            library_ms=cuda_ms(lambda: F.linear(
+                                torch.relu(F.linear(x, w1, b1d)), w2, b2d)),
+                            bound_ms=bnd, bound_by=by)
+            log(f"ffn {case}")
+            cases.append(case)
     return cases
 
 
@@ -979,6 +1158,210 @@ def end_to_end_beam(torch, FK, CP, profile_dir, card, shared):
     return launches, e2e
 
 
+def route_twins():
+    """The BiCif routes' twins: the fused int8 matmul and the int8-score
+    attention."""
+    from funasr_torch.ops import attention as A
+    from funasr_torch.ops import qmm as QM
+
+    return swapped([(QM, "quant_matmul", QM.quant_matmul_ref),
+                    (A, "attention_i8qk", A.attention_i8qk_ref)])
+
+
+def served_shape(engine, wavs):
+    """(B, encoder frames T, token grid U) of one served batch: the bucket,
+    fbank frames, LFR by 6, padded to a multiple of 128."""
+    from funasr_torch.auto.engines import quantize
+
+    n = quantize(max(len(w) for w in wavs))
+    lfr = -(-((n - 400) // 160 + 1) // 6)
+    return len(wavs), -(-lfr // 128) * 128, engine._max_tokens(n)
+
+
+def exact_attention_launches(A, B, U, T, n_head=4):
+    """Launches of an int8 layer's attention for B rows: as many as keep its
+    float32 (rows, H, U, T) scores scratch within the cap."""
+    rows = max(1, A.F32CTX_SCRATCH_BYTES // (4 * n_head * U * T))
+    return -(-B // rows)
+
+
+def end_to_end_bicif(torch, FK, A, profile_dir, card, shared):
+    """int8 BiCif Paraformer-large with 20 ms timestamps and both opt-in
+    routes (``qmm``, ``int8_attn``) on seeded random weights: three served
+    batches with the launch counters read, route kernels and float32
+    kernels against twins, the shared-fbank path against sliced waveforms,
+    one "cnn_blstm" batch, and the B=64 x 15 s program with the routes on
+    and off."""
+    import numpy as np
+
+    from funasr_torch.auto.engines import BiCifEngine, FrontendConfig
+    from funasr_torch.models.bicif_paraformer.model import BiCifParaformer
+    from funasr_torch.models.paraformer.model import init_random_
+    from funasr_torch.ops import decoder_layer as DL
+    from funasr_torch.ops import ffn as FF
+    from funasr_torch.ops import int8_gemm as G
+    from funasr_torch.ops import qmm as QM
+    from funasr_torch.ops import quant as Q
+    from funasr_torch.ops import rowquant as RQ
+    from funasr_torch.ops import sanm_layer as SL
+
+    t0 = time.time()
+    f32 = BiCifParaformer(**FLAGSHIP, dtype=torch.float32)
+    init_random_(f32, torch.Generator(device="cuda").manual_seed(2026))
+
+    def int8_model(routes, state=f32.state_dict(), conf=FLAGSHIP):
+        model = BiCifParaformer(**conf, dtype=torch.bfloat16, quantize=True, qmm=routes,
+                                int8_attn=routes)
+        model.load_state_dict(state, strict=True)
+        return model.quantize_weights()
+
+    tok, fe, batches = shared["tok"], FrontendConfig(), shared["batches"]
+    engine = BiCifEngine(int8_model(True), fe, tok)
+    log(f"e2e bicif: BiCif Paraformer-large float32 and int8 (qmm, int8_attn) built in "
+        f"{time.time() - t0:.1f} s")
+    engine.transcribe(batches[0][:2])  # warm-up
+    torch.cuda.synchronize()
+
+    # ---- the BiCif main path: counters at 0 just before, read just after
+    counters = {"fbank": FK.fused_fbank, "attention": A.fused_attention,
+                "sanm_layer": SL.fused_sanm_layer, "decoder_layer": DL.fused_decoder_layer,
+                "ffn": FF.fused_ffn_int8, "qmm": QM.quant_matmul,
+                "attention_i8qk": A.attention_i8qk, "attention_f32ctx": A.attention_f32ctx,
+                "ffn_bf16": FF.fused_ffn, "int8_gemm": G.int8_gemm, "rowquant": RQ.rowquant}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.time()
+    results = [engine.transcribe(b) for b in batches]
+    torch.cuda.synchronize()
+    serve_s = time.time() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    log(f"e2e bicif: served {sum(map(len, batches))} requests with timestamps in 3 "
+        f"batches in {serve_s:.3f} s; kernel launches {launches}")
+    D, V = 512, FLAGSHIP["vocab_size"]
+    want = dict.fromkeys(("fbank", "attention", "ffn", "sanm_layer", "decoder_layer", "qmm",
+                          "attention_i8qk", "attention_f32ctx", "ffn_bf16"), 0)
+    for b in batches:
+        B, T, U = served_shape(engine, b)
+        for name, n in (("fbank", 1), ("attention", 1), ("ffn", 1), ("sanm_layer", 49),
+                        ("decoder_layer", 16)):
+            want[name] += n
+        # the QDense contractions off the fused layers: encoders0's QKV and
+        # out projections, decoders3's w_1 and w_2, the output layer
+        want["qmm"] += sum(Q.gate(m, n) for m, n in ((B * T, 3 * D), (B * T, D),
+                                                     (B * U, 2048), (B * U, D), (B * U, V)))
+        want["attention_i8qk"] += 49 * exact_attention_launches(A, B, T, T)
+        want["attention_f32ctx"] += 16 * exact_attention_launches(A, B, U, T)  # decoder only
+    check(want["qmm"] > 0 and all(launches[k] == n for k, n in want.items()),
+          f"bicif path launches {launches}, want {want}")
+    for batch, res in zip(batches, results):
+        check(len(res) == len(batch), "one result per request")
+        for r in res:
+            starts = [b for b, _ in r["timestamp"]]
+            check(isinstance(r.get("text"), str)
+                  and len(r["timestamp"]) == len(r["raw_tokens"])
+                  and starts == sorted(starts) and all(b <= e for b, e in r["timestamp"]),
+                  f"bicif result: a timestamp per kept token, starts non-decreasing: {r}")
+    log(f"e2e bicif: sample {results[0][0]['text'][:8]} {results[0][0]['timestamp'][:3]}")
+
+    # ---- route kernels against their twins on the same weights
+    b = batches[1]
+    wav_d, lens_d = engine._pack(b)
+    max_tokens = engine._max_tokens(wav_d.shape[1])
+
+    def logits(eng):
+        feats, flens = eng.frontend.device_features(wav_d, lens_d)
+        return eng.module.inference_logits(feats, flens, max_tokens=max_tokens)
+
+    lp_k, tl_k, pred_k = logits(engine)
+    served_k = engine.transcribe(b)
+    with int8_twins(), route_twins():
+        lp_r, tl_r, pred_r = logits(engine)
+        served_r = engine.transcribe(b)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(lp_k).all()) and lp_k.shape == (len(b), max_tokens, V),
+          f"bicif log-probs finite, shape {tuple(lp_k.shape)}")
+    valid = torch.arange(max_tokens, device="cuda")[None] < tl_k[:, None]
+    logp_err = float((lp_k - lp_r).abs()[valid].max())
+    agree = float((lp_k.argmax(-1) == lp_r.argmax(-1))[valid].float().mean())
+    same = dict(token_lengths=bool(torch.equal(tl_k, tl_r)),
+                peaks=bool(torch.equal(pred_k.base.peaks, pred_r.base.peaks)),
+                us_peaks=bool(torch.equal(pred_k.us_peaks, pred_r.us_peaks)),
+                timestamps=served_k == served_r)
+    log(f"e2e bicif int8 routes, kernels vs twins: max |dlogp| {logp_err:.3e} (tol "
+        f"{E2E_INT8_LOGP_TOL}), token agreement {agree:.5f}, equal {same}")
+    check(logp_err <= E2E_INT8_LOGP_TOL and agree >= E2E_INT8_MIN_AGREE and all(same.values()),
+          "bicif int8 routes: kernels against twins")
+    e2e = dict(bicif_launches=launches, bicif_serve_3_batches_s=serve_s,
+               bicif_int8_logp_max_abs_diff=logp_err, bicif_int8_token_agreement=agree,
+               bicif_int8_equal=same)
+
+    # ---- float32 BiCif: the fbank and attention kernels against twins
+    engine32 = BiCifEngine(f32, fe, tok)
+    out_k, served_k = engine32.run_ts(wav_d, lens_d, max_tokens), engine32.transcribe(b)
+    with plain_twins(FK, A):
+        out_r, served_r = engine32.run_ts(wav_d, lens_d, max_tokens), engine32.transcribe(b)
+    torch.cuda.synchronize()
+    tok_valid = torch.arange(max_tokens, device="cuda")[None] < out_k[1][:, None]
+    same32 = dict(token_lengths=bool(torch.equal(out_k[1], out_r[1])),
+                  tokens=bool(torch.equal(out_k[0][tok_valid], out_r[0][tok_valid])),
+                  us_peaks=bool(torch.equal(out_k[3], out_r[3])),
+                  timestamps=served_k == served_r)
+    log(f"e2e bicif float32, kernels vs twins: equal {same32}, max |d us_alphas| "
+        f"{float((out_k[2] - out_r[2]).abs().max()):.3e}")
+    check(all(same32.values()), "bicif float32: kernels against twins")
+    e2e["bicif_f32_equal"] = same32
+    del engine32, out_k, out_r
+
+    # ---- five segments of a 60 s recording from one shared fbank grid
+    rec = waveform(np.random.default_rng(3), 60 * FS, 210.0)
+    raw, n_frames = engine.frontend.raw_fbank(
+        torch.from_numpy(rec).cuda()[None], torch.tensor([len(rec)], device="cuda"))
+    segments = [[1230, 7010], [8000, 12500], [15020, 22500], [30000, 33330], [45670, 52000]]
+    offsets = [s for s, _ in segments]
+    from_grid = engine.transcribe_from_fbank(raw[0], segments, vad_offsets=offsets,
+                                             total_frames=int(n_frames[0]))
+    sliced = engine.transcribe([rec[s * 16:e * 16] for s, e in segments], vad_offsets=offsets)
+    log(f"e2e bicif transcribe_from_fbank on a 60 s grid, 5 segments: equal to "
+        f"transcribe of the sliced waveforms {from_grid == sliced}")
+    check(from_grid == sliced and all(r["text"] for r in from_grid),
+          "bicif transcribe_from_fbank equals transcribe of the sliced waveforms")
+    e2e["bicif_from_fbank_equal"] = True
+
+    # ---- the published "cnn_blstm" head: one served batch
+    conf = dict(FLAGSHIP, predictor_conf=dict(FLAGSHIP["predictor_conf"],
+                                              upsample_type="cnn_blstm"))
+    blstm = BiCifParaformer(**conf, dtype=torch.float32)
+    init_random_(blstm, torch.Generator(device="cuda").manual_seed(2027))
+    blstm_engine = BiCifEngine(int8_model(True, blstm.state_dict(), conf), fe, tok)
+    res = blstm_engine.transcribe(batches[2])
+    check(len(res) == len(batches[2]) and all(
+        r["text"] and len(r["timestamp"]) == len(r["raw_tokens"]) for r in res),
+        "cnn_blstm BiCif served with timestamps")
+    log(f"e2e bicif cnn_blstm: served {len(res)} requests, sample "
+        f"{res[0]['text'][:8]} {res[0]['timestamp'][:3]}")
+    del blstm, blstm_engine
+
+    # ---- B=64 x 15 s: the routes off (the int8 layer chain alone) and on, in turns
+    off = BiCifEngine(int8_model(False), fe, tok)
+    wav64, lens64, mt64, audio_s = shared["b64"]
+    engines = {"off": off, "on": engine}
+    times = {}
+    for name in ("off", "on", "on", "off"):
+        times.setdefault(name, []).append(
+            cuda_ms(lambda: engines[name].run_ts(wav64, lens64, mt64), iters=5))
+    for name, ts in times.items():
+        e2e[f"bicif_routes_{name}_batch_ms"] = ts
+        e2e[f"bicif_routes_{name}_audio_s_per_s"] = audio_s / (min(ts) / 1e3)
+    log(f"e2e bicif B=64 x 15 s device program on {card}: routes off {times['off']} ms, "
+        f"routes on {times['on']} ms (in turns off, on, on, off)")
+    if profile_dir:
+        for name in ("on", "off"):
+            e2e[f"profile_bicif_{name}"] = profile(
+                torch, lambda: engines[name].run_ts(wav64, lens64, mt64), profile_dir,
+                min(times[name]), f"profile_bicif_{name}.txt")
+    return launches, e2e
+
+
 def profile(torch, run, out_dir, batch_ms, fname):
     """Device kernel time by group for one batch (``run()``), and the share
     of the batch's span (``batch_ms``, CUDA events) spent in kernels.  The
@@ -1003,6 +1386,12 @@ def profile(torch, run, out_dir, batch_ms, fname):
         name = ev.key.lower()
         if "ctc_prefix_kernel" in name:
             g = "ctc prefix kernel"
+        elif "attention_i8qk_kernel" in name:
+            g = "attention (int8 scores) kernel"
+        elif "qmm_kernel" in name:
+            g = "qmm kernel"
+        elif "ffn_kernel" in name:
+            g = "ffn kernel"
         elif "attention_f32ctx_kernel" in name:
             g = "attention (int8 layers) kernel"
         elif "attention_kernel" in name:
@@ -1063,6 +1452,9 @@ def main(argv=None) -> int:
     from funasr_torch.ops import fbank_kernel as FK
     from funasr_torch.ops import ffn as FF
     from funasr_torch.ops import int8_gemm as G
+    from funasr_torch.ops import qmm as QM
+    from funasr_torch.ops import quant as Q
+    from funasr_torch.ops import rowquant as RQ
     from funasr_torch.ops import sanm_layer as SL
 
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 means float32
@@ -1091,6 +1483,9 @@ def main(argv=None) -> int:
     gemm_cases = check_int8_gemm(torch, G)
     layer_cases = check_int8_layers(torch, SL, DL, FF)
     ctc_cases = check_ctc_prefix(torch, CP)
+    qmm_cases = check_qmm(torch, QM, Q, RQ)
+    i8qk_cases = check_i8qk(torch, A)
+    ffn_cases = check_ffn(torch, FF)
     log(f"kernel checks done in {time.time() - t0:.1f} s")
 
     t0 = time.time()
@@ -1100,6 +1495,8 @@ def main(argv=None) -> int:
     e2e.update(e2e8)
     launches_beam, e2e_beam = end_to_end_beam(torch, FK, CP, args.profile, smi, shared)
     e2e.update(e2e_beam)
+    launches_bicif, e2e_bicif = end_to_end_bicif(torch, FK, A, args.profile, smi, shared)
+    e2e.update(e2e_bicif)
     log(f"end to end done in {time.time() - t0:.1f} s")
     log(f"e2e summary {json.dumps(e2e, sort_keys=True)}")
 
@@ -1108,7 +1505,8 @@ def main(argv=None) -> int:
                 "library_ms")
         by_path = {"bf16": launches_bf16.get(name, 0),
                    "int8": launches_int8.get(name, 0),
-                   "beam": launches_beam.get(name, 0)}
+                   "beam": launches_beam.get(name, 0),
+                   "bicif": launches_bicif.get(name, 0)}
         return dict(name=name, route="cuda", source=sources[0], sources=sources,
                     replaces=replaces, launches=sum(by_path.values()),
                     launches_by_path=by_path, shape=main_case["case"],
@@ -1130,6 +1528,13 @@ def main(argv=None) -> int:
               layer_cases["ffn"][0], layer_cases["ffn"] + gemm_cases),
         entry("ctc_prefix", ["funasr_torch/csrc/ctc_prefix.cu"],
               "funasr_tpu/ops/ctc_prefix_pallas.py:47", ctc_cases[0], ctc_cases),
+        entry("qmm", ["funasr_torch/csrc/qmm.cu"], "funasr_tpu/ops/quant_pallas.py:37",
+              qmm_cases[0], qmm_cases),
+        entry("attention_i8qk", ["funasr_torch/csrc/attention.cu"],
+              "funasr_tpu/ops/sanm_layer_pallas.py:112", i8qk_cases[0],
+              i8qk_cases + layer_cases["sanm_layer_i8"]),
+        entry("ffn_bf16", ["funasr_torch/csrc/ffn.cu"], "funasr_tpu/ops/ffn_pallas.py:39",
+              ffn_cases[0], ffn_cases),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -6,8 +6,10 @@ ported path is a hand-written CUDA C++ kernel under ``csrc/``, built with
 ``ctypes``.  The package imports ``torch``, numpy and the standard library
 only; the JAX package stays the reference its tests compare against.
 
-Entry points (``auto.engines.ParaformerEngine`` and ``HybridEngine``,
-``models.paraformer.model.Paraformer``, ``models.transformer.model.Conformer``)
+Entry points (``auto.engines.ParaformerEngine``, ``BiCifEngine`` and
+``HybridEngine``, ``models.paraformer.model.Paraformer``,
+``models.bicif_paraformer.model.BiCifParaformer``,
+``models.transformer.model.Conformer``)
 run on ``cuda`` by default and raise without a GPU unless the caller asks
 for ``device="cpu"``.
 """

@@ -11,13 +11,17 @@ the CPU.  A module built with ``quantize=True`` and quantized
 (``Paraformer.quantize_weights``) is served the same way, through its
 int8 layer kernels.  ``HybridEngine`` serves the joint CTC/attention beam
 of a Conformer (``models/transformer/model.py``), whose CTC prefix scores run
-through the ``ops/ctc_prefix.py`` kernel once per decode step.  Timestamps,
-meshes and sequence parallelism are later slices.
+through the ``ops/ctc_prefix.py`` kernel once per decode step.
+``ParaformerEngine.transcribe(with_timestamp=True)`` adds 60 ms stamps from
+the CIF fire track, and ``BiCifEngine`` serves a BiCifParaformer with 20 ms
+stamps from its upsampled fire track (``utils/timestamp_tools.py`` on the
+host), from waveforms or from segments of one shared fbank grid.  The
+asynchronous variants, meshes and sequence parallelism are later slices.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -26,6 +30,7 @@ from funasr_torch.device import resolve_device
 from funasr_torch.ops import fbank as F
 from funasr_torch.ops import fbank_kernel as FK
 from funasr_torch.utils.postprocess import sentence_postprocess
+from funasr_torch.utils.timestamp_tools import ts_from_cif_peaks, ts_prediction_lfr6_batch
 
 
 def quantize(n: int, step: int = 2000, minimum: int = 4000) -> int:
@@ -141,26 +146,144 @@ class ParaformerEngine(BatchedAsrEngine):
         log_probs, tok_lens, pred = self.module.inference_logits(
             feats, flens, max_tokens=max_tokens)
         tokens = torch.argmax(log_probs, dim=-1)
-        return tokens, tok_lens, pred.peaks, pred.alphas
+        base = getattr(pred, "base", pred)  # a BiCif predictor's base CIF track
+        return tokens, tok_lens, base.peaks, base.alphas
 
-    def transcribe(self, wavs: Sequence[np.ndarray]) -> List[Dict[str, Any]]:
+    def transcribe(self, wavs: Sequence[np.ndarray], with_timestamp: bool = False,
+                   vad_offsets: Optional[Sequence[int]] = None) -> List[Dict[str, Any]]:
         """Waveforms (float in [-1, 1], 16 kHz) -> one ``{"text",
-        "raw_tokens"}`` dict each."""
+        "raw_tokens"}`` dict each; ``with_timestamp`` adds ``"timestamp"``,
+        [start_ms, end_ms] per kept token from the CIF fire track (60 ms
+        grain), shifted by ``vad_offsets[i]`` ms."""
         if not len(wavs):
             return []
         wav_d, lens_d = self._pack(wavs)
-        tokens, tok_lens, _, _ = self.run(wav_d, lens_d,
-                                          self._max_tokens(wav_d.shape[1]))
+        tokens, tok_lens, peaks, alphas = self.run(wav_d, lens_d,
+                                                   self._max_tokens(wav_d.shape[1]))
         tokens = tokens.cpu().numpy()
         tok_lens = tok_lens.cpu().numpy()
+        if with_timestamp:
+            peaks, alphas = peaks.cpu().numpy(), alphas.cpu().numpy()
         results = []
         for i in range(len(wavs)):
             ids = [t for t in tokens[i, : int(tok_lens[i])].tolist()
                    if t != self.blank_id]
             toks = self.tokenizer.ids2tokens(ids)
+            if with_timestamp:
+                offset = 0 if vad_offsets is None or not len(vad_offsets) else vad_offsets[i]
+                _, ts = ts_from_cif_peaks(peaks[i], alphas[i], list(toks), vad_offset=offset)
+                text, ts_kept, words = sentence_postprocess(toks, ts)
+                results.append({"timestamp": ts_kept, "raw_tokens": words, "text": text})
+                continue
             text, words = sentence_postprocess(
                 [tk for t, tk in zip(ids, toks) if t not in self._special_ids])
             results.append({"text": text, "raw_tokens": words})
+        return results
+
+
+class BiCifEngine(ParaformerEngine):
+    """BiCifParaformer serving on ``device`` (default the GPU): 20 ms
+    timestamps from the upsampled fire track (reference
+    bicif_paraformer/model.py:135 + timestamp_tools.py:31), one batched
+    fire pass on the host per batch."""
+
+    @torch.inference_mode()
+    def run_ts(self, wav: torch.Tensor, lens: torch.Tensor, max_tokens: int):
+        """The device program: (B, N) waveform batch -> tokens (B, U),
+        token_lengths (B,), us_alphas and us_peaks (B, 3 T)."""
+        feats, flens = self.frontend.device_features(wav, lens)
+        return self.module.timestamps(feats, flens, max_tokens=max_tokens)
+
+    def transcribe(self, wavs: Sequence[np.ndarray], with_timestamp: bool = True,
+                   vad_offsets: Optional[Sequence[int]] = None) -> List[Dict[str, Any]]:
+        """Waveforms -> one ``{"text", "timestamp", "raw_tokens"}`` dict each
+        (without ``with_timestamp``, :meth:`ParaformerEngine.transcribe`)."""
+        if not len(wavs):
+            return []
+        if not with_timestamp:
+            return super().transcribe(wavs)
+        wav_d, lens_d = self._pack(wavs)
+        out = self.run_ts(wav_d, lens_d, self._max_tokens(wav_d.shape[1]))
+        return self._ts_results(len(wavs), *out, vad_offsets,
+                                self._us_lens([len(w) for w in wavs]))
+
+    # ---- shared-frontend path: decode VAD segments from one fbank grid of
+    # the whole recording (FrontendConfig.raw_fbank: a slice of the grid at
+    # a 160-sample-aligned start equals fbank of the sliced waveform)
+
+    @staticmethod
+    def quantize_frames(n: int, step: int = 96) -> int:
+        """Pad a frame count to a multiple of ``step`` (at least one step)."""
+        return max(step, step * ((n + step - 1) // step))
+
+    def pack_segments_frames(self, segments_ms, total_frames: int,
+                             frame_shift_ms: int = 10):
+        """[[start_ms, end_ms], ...] -> (starts, nframes) int32 arrays in
+        fbank frames (25 ms window, 10 ms shift, snip-edges count)."""
+        starts = np.asarray([s // frame_shift_ms for s, _ in segments_ms], np.int32)
+        ends = np.asarray([e for _, e in segments_ms], np.int64)
+        seg_samples = (ends - np.asarray([s for s, _ in segments_ms], np.int64)) \
+            * (self.frontend.fs // 1000)
+        win = int(0.025 * self.frontend.fs)
+        shift = int(0.010 * self.frontend.fs)
+        nframes = np.maximum((seg_samples - win) // shift + 1, 1)
+        nframes = np.minimum(nframes, np.maximum(total_frames - starts, 1))
+        return starts, nframes.astype(np.int32)
+
+    @torch.inference_mode()
+    def run_ts_fbank(self, raw: torch.Tensor, starts: torch.Tensor,
+                     nframes: torch.Tensor, max_tokens: int, fmax: int):
+        """The device program from a shared (F, n_mels) fbank grid: each
+        segment's ``fmax`` frames from ``starts``, LFR + CMVN on them, then
+        :meth:`BiCifParaformer.timestamps`."""
+        idx = starts[:, None].to(torch.int64) + torch.arange(fmax, device=raw.device)[None]
+        frames = raw[torch.clamp(idx, 0, raw.shape[0] - 1)]  # (B, fmax, n_mels)
+        feats, flens = self.frontend.features_from_fbank(frames, nframes)
+        return self.module.timestamps(feats, flens, max_tokens=max_tokens)
+
+    def transcribe_from_fbank(self, raw_fbank: torch.Tensor, segments_ms,
+                              vad_offsets: Optional[Sequence[int]] = None,
+                              total_frames: Optional[int] = None) -> List[Dict[str, Any]]:
+        """Decode VAD segments [[start_ms, end_ms], ...] from ``raw_fbank``
+        (F, n_mels) on the engine's device (padded past ``total_frames``
+        when given).  The same records as :meth:`transcribe` of the sliced
+        waveforms."""
+        if not len(segments_ms):
+            return []
+        starts, nframes = self.pack_segments_frames(
+            segments_ms, int(raw_fbank.shape[0] if total_frames is None else total_frames))
+        fmax = self.quantize_frames(int(nframes.max()))
+        # the token budget of the true longest segment, as the waveform path
+        max_tokens = self._max_tokens(int(nframes.max()) * 160 + 240)
+        out = self.run_ts_fbank(raw_fbank, torch.from_numpy(starts).to(raw_fbank.device),
+                                torch.from_numpy(nframes).to(raw_fbank.device),
+                                max_tokens, fmax)
+        return self._ts_results(len(segments_ms), *out, vad_offsets,
+                                self._us_lens(nframes, in_frames=True))
+
+    def _us_lens(self, n_samples_or_frames, in_frames: bool = False) -> np.ndarray:
+        """True upsampled-track lengths: fbank frames -> LFR rows
+        (ceil(frames / lfr_n)) -> x upsample_times.  Slicing the padded
+        tracks to them keeps the stamps independent of the batch padding."""
+        arr = np.asarray(n_samples_or_frames, np.int64)
+        frames = arr if in_frames else np.maximum((arr - 400) // 160 + 1, 1)
+        lfr = -(-frames // self.frontend.lfr_n)
+        return lfr * self.module.predictor.upsample_times
+
+    def _ts_results(self, n: int, tokens, tok_lens, us_alphas, us_peaks,
+                    vad_offsets, us_lens) -> List[Dict[str, Any]]:
+        tokens, tok_lens = tokens.cpu().numpy(), tok_lens.cpu().numpy()
+        toks_per = []
+        for i in range(n):
+            ids = [t for t in tokens[i, : int(tok_lens[i])].tolist() if t != self.blank_id]
+            toks_per.append(self.tokenizer.ids2tokens(ids))
+        ts_lists = ts_prediction_lfr6_batch(
+            us_alphas.float().cpu().numpy(), us_peaks.cpu().numpy(), toks_per, us_lens,
+            vad_offsets)
+        results = []
+        for toks, ts in zip(toks_per, ts_lists):
+            text, ts_kept, words = sentence_postprocess(toks, ts)
+            results.append({"text": text, "timestamp": ts_kept, "raw_tokens": words})
         return results
 
 

@@ -1,7 +1,8 @@
 """Flax variables -> FunASR torch ``state_dict`` for the port's models.
 
-The inverses of funasr_tpu/convert.py ``paraformer_from_torch`` (:205) and
-``conformer_from_torch`` (:398), written for the port (no import of the JAX
+The inverses of funasr_tpu/convert.py ``paraformer_from_torch`` (:205),
+``bicif_paraformer_from_torch`` (:228) and ``conformer_from_torch`` (:398),
+written for the port (no import of the JAX
 package): each takes the flax tree with numpy leaves and returns the state
 dict that the port's model (and a reference FunASR ``model.pt``) uses:
 
@@ -11,7 +12,9 @@ dict that the port's model (and a reference FunASR ``model.pt``) uses:
 - LayerNorm ``scale/bias`` -> ``weight/bias``,
 - scanned stacks ``(L, ...)`` -> ``encoders.{i}.*`` / ``decoders.{i}.*``,
 - Conv2d ``(kh, kw, in, out)`` -> ``(out, in, kh, kw)``, BatchNorm running
-  statistics from the ``batch_stats`` collection.
+  statistics from the ``batch_stats`` collection,
+- BiCif ``upsample_cnn (u, Din, Dout)`` -> ConvTranspose1d ``(Din, Dout, u)``,
+  flax ``OptimizedLSTMCell`` gates -> ``nn.LSTM`` ``weight_ih/hh_l0``.
 
 An inference-only flax tree has no decoder embedding (only the training
 sampler uses it); the state dict then carries zeros for
@@ -118,6 +121,36 @@ def paraformer_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     else:
         vocab, d = np.asarray(dec["output_layer"]["kernel"]).shape[::-1]
         sd["decoder.embed.0.weight"] = torch.zeros((vocab, d))
+    return sd
+
+
+def bicif_paraformer_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """``{'params': tree}`` (or the bare tree) of funasr_tpu's
+    BiCifParaformer -> the port's float32 ``state_dict``: the Paraformer
+    keys plus the V3 head (``predictor.upsample_cnn``, ``cif_output2`` and,
+    for "cnn_blstm", ``predictor.blstm``).  Each flax ``OptimizedLSTMCell``
+    (input kernels ``i{g}``, hidden kernels and biases ``h{g}``) becomes
+    torch's gate-stacked ``weight_ih_l0``/``weight_hh_l0`` in the order
+    i, f, g, o, its summed bias in ``bias_ih_l0`` and zeros in
+    ``bias_hh_l0``."""
+    tree = params.get("params", params)
+    sd = paraformer_from_jax(tree)
+    pred = tree["predictor"]
+    sd["predictor.upsample_cnn.weight"] = _t(
+        np.transpose(np.asarray(pred["upsample_cnn"]), (1, 2, 0)))
+    sd["predictor.upsample_cnn.bias"] = _t(pred["upsample_cnn_bias"])
+    _dense(sd, "predictor.cif_output2", pred["cif_output2"])
+    for name, suffix in (("blstm_fwd", ""), ("blstm_bwd", "_reverse")):
+        if name not in pred:
+            continue
+        cell, gates = pred[name], ("i", "f", "g", "o")
+        stack = lambda kind: np.concatenate(
+            [np.asarray(cell[f"{kind}{g}"]["kernel"]).T for g in gates])
+        bias = np.concatenate([np.asarray(cell[f"h{g}"]["bias"]) for g in gates])
+        sd[f"predictor.blstm.weight_ih_l0{suffix}"] = _t(stack("i"))
+        sd[f"predictor.blstm.weight_hh_l0{suffix}"] = _t(stack("h"))
+        sd[f"predictor.blstm.bias_ih_l0{suffix}"] = _t(bias)
+        sd[f"predictor.blstm.bias_hh_l0{suffix}"] = torch.zeros(bias.shape)
     return sd
 
 

@@ -55,6 +55,25 @@
 // allocates, and the row max; (2) exp(s - m) in place and the row sum;
 // (3) p, rounded, and p v.  A thread reads back only the scratch entries
 // it wrote.  Tensor-core tiles that keep the exact sums are later work.
+//
+// Third kernel, `attention_forward_i8qk`: the SANM layer's attention with
+// int8 scores, the `int8_attn` branch of sanm_layer_pallas.py
+// `_sanm_layer_kernel` (:112-117; FUNASR_TPU_INT8_ATTN=1 in the JAX
+// package, `int8_attn=True` in the port).  Per head, in the kernel's
+// prologue and per key tile, as the TPU body quantizes in VMEM:
+//
+//   q8, qs = rowquant(q * d^-0.5)      k8, ks = rowquant(k)   (k unmasked)
+//   s      = (float(q8 k8^T) * qs) * ks^T + key_bias
+//
+// (quant.py `rowquant_kernel`, the "mul" form), the q.k sum exact in int32
+// on __dp4a; then passes 2 and 3 of the float32-context kernel: exp in
+// float64, the softmax sum and p v in float64, p rounded to bf16, v rounded
+// to bf16 and zero past vlen[b].  The plain twin (ops/attention.py
+// `attention_i8qk_ref`) gets the same bits.  Bound on the H100 SXM at the
+// SANM shape (B=64, T=256, H=4, d=128, lengths 250/200): 4 float32 (B, T,
+// 512) tensors of valid rows = 118 MB -> 35 us, above the 3.4 GOP of int8
+// and 3.4 GFLOP of bf16 products (5 us): bytes.  The float64 sums on the CUDA cores
+// keep it far above that, as for the float32-context kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -332,58 +351,20 @@ __device__ __forceinline__ float exp_exact(float x) {  // float64 exp, rounded o
   return __double2float_rn(exp((double)x));
 }
 
+// Passes 2 and 3 of the exact-sum attention, shared by both int8-layer
+// kernels: `sc` holds this block's (64, Tk) float32 scores (rows past U are
+// never touched) and m_i each thread's row maxima.  e = exp(s - m) in
+// place and l = sum e in float64; then p = bf16(e / l) and out = p v summed
+// in float64, v rounded to bf16 at load and zero past v_rows.
 template <int D>
-__global__ void __launch_bounds__(NT, 1)
-attention_f32ctx_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ bias,
-                        const int* __restrict__ vlen, float* __restrict__ scratch,
-                        float* __restrict__ out, int U, int Tk, float q_scale, int64_t q_bs,
-                        int64_t q_rs, int64_t k_bs, int64_t k_rs, int64_t v_bs, int64_t v_rs,
-                        int64_t o_bs, int64_t o_rs) {
+__device__ __forceinline__ void exact_softmax_pv(float* sc, const float m_i[4],
+                                                 const bool row_ok[4], const float* vh,
+                                                 int64_t v_rs, int v_rows, int Tk, float* sKV,
+                                                 float* sP, float* oh, int64_t o_rs, int u0,
+                                                 int U) {
   constexpr int LD = D + 4;
   constexpr int NG = D / 64;
-  extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;
-  float* sKV = sQ + BQ * LD;
-  float* sP = sKV + BK * LD;
-  float* sB = sP + BQ * LP;
-
-  const int u0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const float* qh = q + b * q_bs + (int64_t)h * D;
-  const float* kh = k + b * k_bs + (int64_t)h * D;
-  const float* vh = v + b * v_bs + (int64_t)h * D;
-  const float* bb = bias + (int64_t)b * Tk;
-  const int v_rows = vlen ? min(Tk, vlen[b]) : Tk;
-  // this block's (64, Tk) rows of the scratch; rows past U are never touched
-  float* sc = scratch + (((int64_t)b * gridDim.y + h) * U + u0) * Tk;
-  bool row_ok[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) row_ok[i] = u0 + 4 * ty + i < U;
-
-  load_rounded<D>(sQ, qh, q_rs, u0, U, q_scale);
-  float s[4][4];
-
-  // ---- pass 1: the scores into the scratch, and the row max m (exact
-  // whatever the order)
-  float m_i[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
-  for (int k0 = 0; k0 < Tk; k0 += BK) {
-    __syncthreads();
-    load_rounded<D>(sKV, kh, k_rs, k0, Tk, 1.f);
-    if (tid < BK) sB[tid] = (k0 + tid < Tk) ? bb[k0 + tid] : -INFINITY;
-    __syncthreads();
-    scores_exact<D>(sQ, sKV, sB, tx, ty, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = k0 + tx + 16 * j;
-        if (row_ok[i] && key < Tk) sc[(int64_t)(4 * ty + i) * Tk + key] = s[i][j];
-        m_i[i] = fmaxf(m_i[i], s[i][j]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) m_i[i] = row_max(m_i[i]);
 
   // ---- pass 2: e = exp(s - m) in place, l = sum e in float64
   double l64[4] = {0.0, 0.0, 0.0, 0.0};
@@ -438,7 +419,6 @@ attention_f32ctx_kernel(const float* __restrict__ q, const float* __restrict__ k
     }
   }
 
-  float* oh = out + b * o_bs + (int64_t)h * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int u = u0 + 4 * ty + i;
@@ -449,6 +429,196 @@ attention_f32ctx_kernel(const float* __restrict__ q, const float* __restrict__ k
       for (int e = 0; e < 4; ++e)
         oh[(int64_t)u * o_rs + 64 * g + 4 * tx + e] = __double2float_rn(o[i][4 * g + e]);
   }
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+attention_f32ctx_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ bias,
+                        const int* __restrict__ vlen, float* __restrict__ scratch,
+                        float* __restrict__ out, int U, int Tk, float q_scale, int64_t q_bs,
+                        int64_t q_rs, int64_t k_bs, int64_t k_rs, int64_t v_bs, int64_t v_rs,
+                        int64_t o_bs, int64_t o_rs) {
+  constexpr int LD = D + 4;
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;
+  float* sKV = sQ + BQ * LD;
+  float* sP = sKV + BK * LD;
+  float* sB = sP + BQ * LP;
+
+  const int u0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const float* qh = q + b * q_bs + (int64_t)h * D;
+  const float* kh = k + b * k_bs + (int64_t)h * D;
+  const float* vh = v + b * v_bs + (int64_t)h * D;
+  const float* bb = bias + (int64_t)b * Tk;
+  const int v_rows = vlen ? min(Tk, vlen[b]) : Tk;
+  // this block's (64, Tk) rows of the scratch; rows past U are never touched
+  float* sc = scratch + (((int64_t)b * gridDim.y + h) * U + u0) * Tk;
+  bool row_ok[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) row_ok[i] = u0 + 4 * ty + i < U;
+
+  load_rounded<D>(sQ, qh, q_rs, u0, U, q_scale);
+  float s[4][4];
+
+  // ---- pass 1: the scores into the scratch, and the row max m (exact
+  // whatever the order)
+  float m_i[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+  for (int k0 = 0; k0 < Tk; k0 += BK) {
+    __syncthreads();
+    load_rounded<D>(sKV, kh, k_rs, k0, Tk, 1.f);
+    if (tid < BK) sB[tid] = (k0 + tid < Tk) ? bb[k0 + tid] : -INFINITY;
+    __syncthreads();
+    scores_exact<D>(sQ, sKV, sB, tx, ty, s);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = k0 + tx + 16 * j;
+        if (row_ok[i] && key < Tk) sc[(int64_t)(4 * ty + i) * Tk + key] = s[i][j];
+        m_i[i] = fmaxf(m_i[i], s[i][j]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) m_i[i] = row_max(m_i[i]);
+
+  exact_softmax_pv<D>(sc, m_i, row_ok, vh, v_rs, v_rows, Tk, sKV, sP,
+                      out + b * o_bs + (int64_t)h * D, o_rs, u0, U);
+}
+
+// ---- the SANM layer's attention with int8 scores (int8_attn)
+
+constexpr int LQ8 = 128 + 4;  // row stride of an int8 tile, bytes (33 words)
+
+__device__ __forceinline__ uint32_t pack4(const int q[4]) {
+  return (uint32_t)(q[0] & 0xff) | ((uint32_t)(q[1] & 0xff) << 8) |
+         ((uint32_t)(q[2] & 0xff) << 16) | ((uint32_t)(q[3] & 0xff) << 24);
+}
+
+// rows [r0, r0 + 64) of a float32 head slice (d = 128), each value times
+// `mult`, quantized per row as quant.py `rowquant_kernel` does (scale =
+// max(absmax, 1e-8) * f32(1/127), q = clip(rint(y / scale))) into int8 rows
+// of LQ8 bytes and their scales; rows past `nrows` are zero, scale 0.  One
+// warp per row, four values per lane.
+__device__ __forceinline__ void quantize_rows(int8_t* dst, float* scale, const float* src,
+                                              int64_t rs, int r0, int nrows, float mult) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < 64; r += NT / 32) {
+    const int row = r0 + r;
+    uint32_t word = 0;
+    float sc = 0.f;
+    if (row < nrows) {
+      const float* p = src + (int64_t)row * rs + 4 * lane;
+      float y[4];
+      float amax = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        y[i] = __fmul_rn(p[i], mult);
+        amax = fmaxf(amax, fabsf(y[i]));
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+      sc = __fmul_rn(fmaxf(amax, 1e-8f), (float)(1.0 / 127.0));
+      int q[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        q[i] = (int)fminf(fmaxf(rintf(__fdiv_rn(y[i], sc)), -127.f), 127.f);
+      word = pack4(q);
+    }
+    reinterpret_cast<uint32_t*>(dst + r * LQ8)[lane] = word;
+    if (lane == 0) scale[r] = sc;
+  }
+}
+
+// s[i][j] = (float(q8[4 ty + i] . k8[tx + 16 j]) * qs) * ks + key bias: the
+// int8 dot exact in int32 (__dp4a), then the float32 steps in the twin's
+// order
+__device__ __forceinline__ void scores_i8(const int8_t* sQ8, const float* sQs,
+                                          const int8_t* sK8, const float* sKs,
+                                          const float* sB, int tx, int ty, float s[4][4]) {
+  int a[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a[i][j] = 0;
+#pragma unroll 4
+  for (int c = 0; c < 128 / 4; ++c) {
+    int qv[4], kv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) qv[i] = reinterpret_cast<const int*>(sQ8 + (4 * ty + i) * LQ8)[c];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) kv[j] = reinterpret_cast<const int*>(sK8 + (tx + 16 * j) * LQ8)[c];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) a[i][j] = __dp4a(qv[i], kv[j], a[i][j]);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      s[i][j] = __fadd_rn(
+          __fmul_rn(__fmul_rn(__int2float_rn(a[i][j]), sQs[4 * ty + i]), sKs[tx + 16 * j]),
+          sB[tx + 16 * j]);
+}
+
+__global__ void __launch_bounds__(NT, 1)
+attention_i8qk_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ bias,
+                      const int* __restrict__ vlen, float* __restrict__ scratch,
+                      float* __restrict__ out, int U, int Tk, float q_scale, int64_t q_bs,
+                      int64_t q_rs, int64_t k_bs, int64_t k_rs, int64_t v_bs, int64_t v_rs,
+                      int64_t o_bs, int64_t o_rs) {
+  constexpr int D = 128, LD = D + 4;
+  extern __shared__ __align__(16) float smem[];
+  float* sKV = smem;             // BK x LD: v, rounded to bf16
+  float* sP = sKV + BK * LD;     // BQ x LP
+  float* sB = sP + BQ * LP;      // BK key biases
+  float* sQs = sB + BK;          // BQ query scales
+  float* sKs = sQs + BQ;         // BK key scales
+  int8_t* sQ8 = reinterpret_cast<int8_t*>(sKs + BK);  // BQ x LQ8
+  int8_t* sK8 = sQ8 + BQ * LQ8;                       // BK x LQ8
+
+  const int u0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const float* qh = q + b * q_bs + (int64_t)h * D;
+  const float* kh = k + b * k_bs + (int64_t)h * D;
+  const float* vh = v + b * v_bs + (int64_t)h * D;
+  const float* bb = bias + (int64_t)b * Tk;
+  const int v_rows = vlen ? min(Tk, vlen[b]) : Tk;
+  float* sc = scratch + (((int64_t)b * gridDim.y + h) * U + u0) * Tk;
+  bool row_ok[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) row_ok[i] = u0 + 4 * ty + i < U;
+
+  quantize_rows(sQ8, sQs, qh, q_rs, u0, U, q_scale);  // q * d^-0.5, then int8
+  float s[4][4];
+
+  // ---- pass 1: each key tile quantized in shared memory (k is not
+  // masked), the int8 scores into the scratch, and the row max m
+  float m_i[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+  for (int k0 = 0; k0 < Tk; k0 += BK) {
+    __syncthreads();
+    quantize_rows(sK8, sKs, kh, k_rs, k0, Tk, 1.f);
+    if (tid < BK) sB[tid] = (k0 + tid < Tk) ? bb[k0 + tid] : -INFINITY;
+    __syncthreads();
+    scores_i8(sQ8, sQs, sK8, sKs, sB, tx, ty, s);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = k0 + tx + 16 * j;
+        if (row_ok[i] && key < Tk) sc[(int64_t)(4 * ty + i) * Tk + key] = s[i][j];
+        m_i[i] = fmaxf(m_i[i], s[i][j]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) m_i[i] = row_max(m_i[i]);
+
+  exact_softmax_pv<D>(sc, m_i, row_ok, vh, v_rs, v_rows, Tk, sKV, sP,
+                      out + b * o_bs + (int64_t)h * D, o_rs, u0, U);
 }
 
 }  // namespace
@@ -485,6 +655,31 @@ extern "C" int attention_forward_f32ctx(const float* q, const float* k, const fl
   constexpr int D = 128, LD = D + 4;
   const size_t smem = sizeof(float) * (BQ * LD + BK * LD + BQ * LP + BK);
   auto kern = attention_f32ctx_kernel<D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((U + BQ - 1) / BQ, H, B);
+  kern<<<grid, NT, smem, (cudaStream_t)stream>>>(
+      q, k, v, bias, vlen, scratch, out, U, Tk, q_scale, strides[0], strides[1], strides[2],
+      strides[3], strides[4], strides[5], strides[6], strides[7]);
+  return (int)cudaGetLastError();
+}
+
+// The SANM layer's attention with int8 scores (third kernel above): float32
+// q, k, v; q times q_scale and k row-quantized in the kernel, v rounded to
+// bf16 and zero past vlen[b] (when not null), float32 output; `scratch` is
+// float32 (B, H, U, Tk).  Same strides, head size and return codes as
+// attention_forward.
+extern "C" int attention_forward_i8qk(const float* q, const float* k, const float* v,
+                                      const float* bias, const int* vlen, float* scratch,
+                                      float* out, int B, int U, int Tk, int H, int d,
+                                      float q_scale, const long long* strides,
+                                      void* stream) {
+  if (B <= 0 || U <= 0 || H <= 0) return (int)cudaSuccess;
+  if (Tk <= 0 || d != 128) return (int)cudaErrorInvalidValue;
+  constexpr int LD = 128 + 4;
+  const size_t smem = sizeof(float) * (BK * LD + BQ * LP + BK + BQ + BK) + 2 * 64 * LQ8;
+  auto kern = attention_i8qk_kernel;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

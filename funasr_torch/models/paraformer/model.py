@@ -9,7 +9,10 @@ bidirectional decoder pass -> argmax.  The token grid is padded to
 int8 serving, the JAX package's ``AutoModel(quantize=True)`` path: build
 with ``quantize=True`` (the parameters are then stored in float32 whatever
 the compute ``dtype``), load the float32 weights, then call
-:meth:`Paraformer.quantize_weights` once.  The int8 weights and scales are
+:meth:`Paraformer.quantize_weights` once.  ``qmm`` and ``int8_attn`` turn on
+the two opt-in int8 routes (``models/sanm.py``): the fused int8 matmul for
+the QDense layers of ``encoders0`` and the decoder, and int8 q.k scores in
+encoder layers 1-49.  The int8 weights and scales are
 non-persistent buffers: the state dict keeps FunASR's keys, and loading a
 state dict again requires another ``quantize_weights()`` before inference.
 """
@@ -25,7 +28,7 @@ from torch import nn
 from funasr_torch.device import resolve_device
 from funasr_torch.models.paraformer.decoder import ParaformerSANMDecoder
 from funasr_torch.models.paraformer.predictor import CifPredictorV2
-from funasr_torch.models.sanm import LayerNormF32, SANMEncoder
+from funasr_torch.models.sanm import Dense, LayerNormF32, SANMEncoder
 from funasr_torch.ops.masks import sequence_mask
 from funasr_torch.registry import tables
 
@@ -49,13 +52,17 @@ class Paraformer(nn.Module):
                  predictor_conf: Optional[Dict[str, Any]] = None,
                  blank_id: int = 0, sos: int = 1, eos: int = 2,
                  dtype: torch.dtype = torch.float32, device=None,
-                 quantize: bool = False, **training_conf):
+                 quantize: bool = False, qmm: bool = False, int8_attn: bool = False,
+                 **training_conf):
         """``training_conf`` takes the template's training-only settings
         (``lsm_weight``, ``sampling_ratio``, ``predictor_bias``...), which
         the inference path ignores."""
         unknown = set(training_conf) - _TRAINING_FIELDS
         if unknown:
             raise TypeError(f"Paraformer: unexpected arguments {sorted(unknown)}")
+        if (qmm or int8_attn) and not quantize:
+            raise ValueError("Paraformer: qmm and int8_attn are int8 routes; they "
+                             "need quantize=True")
         super().__init__()
         self.vocab_size = vocab_size
         self.blank_id = blank_id
@@ -80,15 +87,24 @@ class Paraformer(nn.Module):
 
         with torch.device(dev):
             self.encoder = SANMEncoder(input_size=input_size, dtype=dtype,
-                                       param_dtype=param_dtype, **enc_conf)
+                                       param_dtype=param_dtype, int8_attn=int8_attn,
+                                       **enc_conf)
             d_model = self.encoder.output_size()
             self.decoder = ParaformerSANMDecoder(
                 vocab_size=vocab_size, encoder_output_size=d_model,
                 dtype=dtype, param_dtype=param_dtype, **dec_conf)
             pred_conf.setdefault("idim", d_model)
-            self.predictor = CifPredictorV2(dtype=dtype, **pred_conf)
+            self.predictor = self.make_predictor(dtype, pred_conf)
+        if qmm:  # the QDense layers off the fused kernels (sanm.py Dense)
+            for part in (self.encoder.encoders0, self.decoder):
+                for mod in part.modules():
+                    if isinstance(mod, Dense):
+                        mod.qmm = True
         self.eval()
         self.register_load_state_dict_post_hook(Paraformer._weights_changed)
+
+    def make_predictor(self, dtype: torch.dtype, pred_conf: Dict[str, Any]) -> nn.Module:
+        return CifPredictorV2(dtype=dtype, **pred_conf)
 
     @staticmethod
     def _weights_changed(module, incompatible_keys) -> None:
@@ -148,7 +164,8 @@ class Paraformer(nn.Module):
 
 def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random weights, in place: LeCun-normal Linear/Conv weights
-    (flax's default), zero biases, unit/zero layer norms, N(0, 1)
+    (flax's default; a stride-equals-kernel ConvTranspose1d over its input
+    channels), zero biases, unit/zero layer norms, N(0, 1)
     embeddings; BatchNorm with unit/zero affine and running statistics away
     from (0, 1): mean N(0, 0.1^2), var in [0.5, 1.5); any other parameter
     LeCun-normal over its last axis.  Draws on ``generator``'s device in
@@ -164,6 +181,9 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                 normal_(w, 1.0 / math.sqrt(w[0].numel()))  # fan_in = Din * K
                 if mod.bias is not None:
                     mod.bias.zero_()
+            elif isinstance(mod, nn.ConvTranspose1d):  # (in, out, K): fan_in = in
+                normal_(mod.weight, 1.0 / math.sqrt(mod.weight.shape[0]))
+                mod.bias.zero_()
             elif isinstance(mod, nn.Embedding):
                 normal_(mod.weight, 1.0)
             elif isinstance(mod, LayerNormF32):

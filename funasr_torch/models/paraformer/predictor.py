@@ -50,18 +50,24 @@ class CifPredictorV2(nn.Module):
         self.cif_conv1d = nn.Conv1d(idim, idim, l_order + r_order + 1)
         self.cif_output = nn.Linear(idim, 1)
 
+    def conv_alphas(self, h: torch.Tensor):
+        """float32 hidden (B, T, D) -> (relu of the conv features, unmasked
+        alphas)."""
+        B, T, D = h.shape
+        K = self.l_order + self.r_order + 1
+        win = F.pad(h, (0, 0, self.l_order, self.r_order)).unfold(1, K, 1)
+        q = torch.relu(F.linear(win.reshape(B, T, D * K),
+                                self.cif_conv1d.weight.reshape(D, D * K),
+                                self.cif_conv1d.bias))
+        alphas = torch.sigmoid(self.cif_output(q)[..., 0])
+        return q, torch.relu(alphas * self.smooth_factor - self.noise_threshold)
+
     def forward(self, hidden: torch.Tensor, lengths: torch.Tensor,
                 max_tokens: int) -> PredictorOutput:
         """hidden (B, T, D) encoder output; lengths (B,)."""
-        B, T, D = hidden.shape
+        T = hidden.shape[1]
         h = hidden.to(torch.float32)
-        K = self.l_order + self.r_order + 1
-        win = F.pad(h, (0, 0, self.l_order, self.r_order)).unfold(1, K, 1)
-        q = F.linear(win.reshape(B, T, D * K),
-                     self.cif_conv1d.weight.reshape(D, D * K),
-                     self.cif_conv1d.bias)
-        alphas = torch.sigmoid(self.cif_output(torch.relu(q))[..., 0])
-        alphas = torch.relu(alphas * self.smooth_factor - self.noise_threshold)
+        _, alphas = self.conv_alphas(h)
         alphas = alphas * sequence_mask(lengths, T)
 
         token_num = alphas.sum(dim=-1)

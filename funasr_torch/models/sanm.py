@@ -28,6 +28,12 @@ int8 serving (the JAX package's ``quantize=True`` path, sanm.py:329-344,
   int8 (from the compute-dtype weights) when the contraction passes the
   ``ops/quant.py`` gate, the compute dtype otherwise.
 
+Two opt-in routes, the JAX package's ``FUNASR_TPU_PALLAS_QMM=1`` and
+``FUNASR_TPU_INT8_ATTN=1`` (both off by default there too), are arguments
+here: a :class:`Dense` with ``qmm=True`` takes the fused int8 matmul
+(``ops/qmm.py``) for a gated contraction, and ``SANMEncoder(int8_attn=True)``
+gives layers 1-49 int8 q.k scores (``fused_sanm_layer(int8_attn=True)``).
+
 The JAX package keeps TPU VMEM gates on its fused paths (``supported()``);
 the port takes the fused kernels at every shape.
 """
@@ -42,6 +48,7 @@ from torch import nn
 
 from funasr_torch.ops import attention as A
 from funasr_torch.ops import ffn as FF
+from funasr_torch.ops import qmm as QM
 from funasr_torch.ops import quant as Q
 from funasr_torch.ops import sanm_layer as SL
 from funasr_torch.ops.masks import key_bias, sequence_mask
@@ -81,13 +88,16 @@ class Dense(nn.Linear):
     (quant.py ``QDense``): a contraction that passes the ``ops/quant.py``
     gate runs in int8 from the compute-dtype weights (flax casts before
     the dot), its result cast to ``dtype`` before the bias is added in
-    ``dtype``; any other runs in ``dtype`` as before."""
+    ``dtype``; any other runs in ``dtype`` as before.  ``qmm`` sends the
+    int8 contraction through the fused kernel (``ops/qmm.py``, the "mul"
+    row quantize) instead of ``quant.int8_linear`` (the "div" form)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None, qmm: bool = False):
         super().__init__(in_features, out_features, bias, dtype=param_dtype or dtype)
         self.compute_dtype = dtype
+        self.qmm = qmm
         for name in ("w8", "sw", "bias_q"):
             self.register_buffer(name, None, persistent=False)
 
@@ -109,7 +119,8 @@ class Dense(nn.Linear):
         dt = self.compute_dtype
         x = x.to(dt)
         if self.w8 is not None and Q.gate(x.numel() // x.shape[-1], self.out_features):
-            return Q.int8_linear(x, self.w8, self.sw, self.bias_q)
+            linear = QM.quant_matmul if self.qmm else Q.int8_linear
+            return linear(x, self.w8, self.sw, self.bias_q)
         bias = None if self.bias is None else self.bias.to(dt)
         return F.linear(x, self.matrix().to(dt), bias)
 
@@ -232,13 +243,15 @@ def int8_buffers(module: nn.Module, prefix: str, weights) -> callable:
 class EncoderLayerSANM(nn.Module):
     """Pre-norm SANM encoder layer (sanm/encoder.py:44).  When
     ``in_size != size`` (the first layer, 560 -> 512 for Paraformer-large)
-    the attention residual is skipped (encoder.py:120-137)."""
+    the attention residual is skipped (encoder.py:120-137).  ``int8_attn``:
+    int8 q.k scores in the fused int8 layer."""
 
     def __init__(self, in_size: int, size: int, n_head: int, linear_units: int,
                  kernel_size: int = 11, sanm_shift: int = 0,
                  dtype: torch.dtype = torch.float32,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None, int8_attn: bool = False):
         super().__init__()
+        self.int8_attn = int8_attn
         self.in_size = in_size
         self.size = size
         self.n_head = n_head
@@ -273,7 +286,8 @@ class EncoderLayerSANM(nn.Module):
                 ) -> torch.Tensor:
         if self.int8 is not None:
             return SL.fused_sanm_layer(x.to(self.dtype), lengths, self.int8(self),
-                                       self.n_head, self.self_attn.left, bias)
+                                       self.n_head, self.self_attn.left, bias,
+                                       self.int8_attn)
         attn = self.self_attn(self.norm1(x), mask_t, bias)
         x = x + attn if self.in_size == self.size else attn
         return x + self.feed_forward(self.norm2(x))
@@ -294,10 +308,11 @@ class SANMEncoder(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  dropout_rate: float = 0.0,
                  attention_dropout_rate: float = 0.0,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None, int8_attn: bool = False):
         """The dropout rates are the reference's training-only settings;
         inference ignores them.  ``param_dtype``: storage of the Dense and
-        FSMN weights (default ``dtype``; float32 for int8 serving)."""
+        FSMN weights (default ``dtype``; float32 for int8 serving);
+        ``int8_attn``: int8 q.k scores in the fused int8 layers."""
         super().__init__()
         if input_layer not in ("pe", None):
             raise NotImplementedError(
@@ -313,7 +328,7 @@ class SANMEncoder(nn.Module):
         self.encoders = nn.ModuleList([
             EncoderLayerSANM(output_size, output_size, attention_heads,
                              linear_units, kernel_size, sanm_shift, dtype,
-                             param_dtype)
+                             param_dtype, int8_attn)
             for _ in range(num_blocks - 1)])
         if normalize_before:
             self.after_norm = LayerNormF32(output_size, dtype)

@@ -37,6 +37,17 @@ The kernel keeps the scores of its batch rows in a float32 (rows, H, U, T)
 scratch; the wrapper launches it on as many batch rows at a time as keep
 that scratch within ``F32CTX_SCRATCH_BYTES`` (one row at least).  Its
 launches count in ``attention_f32ctx.launches``.
+
+The SANM layer's attention with int8 scores (sanm_layer_pallas.py:112-117,
+``int8_attn``) is a third kernel in the same source, :func:`attention_i8qk`
+with its twin :func:`attention_i8qk_ref`.  Per head, q times ``q_scale``
+and k are row-quantized ("mul" form, quant.py ``rowquant_kernel``; k is
+not masked) inside the kernel, and the scores are
+``(float32(q8 k8^T) * qs) * ks^T + key_bias``, the int8 dot exact; the
+softmax and p v are those of :func:`attention_f32ctx` (float64 exp and
+sums, bf16 p, bf16 v zero past ``v_lengths``), so kernel and twin agree
+bit for bit.  It shares the scratch and its cap; its launches count in
+``attention_i8qk.launches``.
 """
 
 from __future__ import annotations
@@ -47,6 +58,7 @@ from typing import Optional
 import torch
 
 from funasr_torch.ops import cuda_build
+from funasr_torch.ops import rowquant as RQ
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_SIZE = 128  # the only head size of the models on the ported path
@@ -68,26 +80,48 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def _exact_softmax_pv(s: torch.Tensor, v: torch.Tensor, n_head: int,
+                      v_lengths: Optional[torch.Tensor]) -> torch.Tensor:
+    """The int8 layers' softmax and p v on float32 scores s (B, H, U, T):
+    exp in float64, the sum and p v in float64, bf16 p and bf16 v (zero past
+    ``v_lengths``), float32 (B, U, H*d) out."""
+    B, T, D = v.shape
+    d, f64 = D // n_head, torch.float64
+    if v_lengths is not None:
+        v = v * (torch.arange(T, device=v.device)[None, :, None]
+                 < v_lengths.to(torch.int64)[:, None, None])
+    vb = v.to(torch.bfloat16).reshape(B, T, n_head, d).transpose(1, 2).to(f64)
+    e = torch.exp((s - s.amax(-1, keepdim=True)).to(f64)).to(torch.float32)
+    p = (e / e.to(f64).sum(-1, keepdim=True).to(torch.float32)).to(torch.bfloat16)
+    out = (p.to(f64) @ vb).to(torch.float32)
+    return out.transpose(1, 2).reshape(B, s.shape[2], D)
+
+
+def _heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
+    B, n, D = x.shape
+    return x.reshape(B, n, n_head, D // n_head).transpose(1, 2)
+
+
 def attention_f32ctx_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          key_bias: torch.Tensor, n_head: int, q_scale: float,
                          v_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain twin: same inputs and output as :func:`attention_f32ctx`."""
-    B, U, D = q.shape
-    T = k.shape[1]
-    d = D // n_head
     f64, bf = torch.float64, torch.bfloat16
-    if v_lengths is not None:
-        v = v * (torch.arange(T, device=v.device)[None, :, None]
-                 < v_lengths.to(torch.int64)[:, None, None])
-    heads = lambda x, n: x.reshape(B, n, n_head, d).transpose(1, 2)
-    qb = heads((q.to(torch.float32) * q_scale).to(bf), U).to(f64)
-    kb = heads(k.to(bf), T).to(f64)
-    vb = heads(v.to(bf), T).to(f64)
+    qb = _heads((q.to(torch.float32) * q_scale).to(bf), n_head).to(f64)
+    kb = _heads(k.to(bf), n_head).to(f64)
     s = (qb @ kb.transpose(-1, -2)).to(torch.float32) + key_bias[:, None, None, :]
-    e = torch.exp((s - s.amax(-1, keepdim=True)).to(f64)).to(torch.float32)
-    p = (e / e.to(f64).sum(-1, keepdim=True).to(torch.float32)).to(bf)
-    out = (p.to(f64) @ vb).to(torch.float32)
-    return out.transpose(1, 2).reshape(B, U, D)
+    return _exact_softmax_pv(s, v, n_head, v_lengths)
+
+
+def attention_i8qk_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       key_bias: torch.Tensor, n_head: int, q_scale: float,
+                       v_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain twin: same inputs and output as :func:`attention_i8qk`."""
+    q8, qs = RQ.quantize_ref(_heads(q.to(torch.float32) * q_scale, n_head), "mul")
+    k8, ks = RQ.quantize_ref(_heads(k.to(torch.float32), n_head), "mul")
+    acc = (q8.to(torch.float64) @ k8.to(torch.float64).transpose(-1, -2)).to(torch.float32)
+    s = acc * qs[..., None] * ks[..., None, :] + key_bias[:, None, None, :]
+    return _exact_softmax_pv(s, v, n_head, v_lengths)
 
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
@@ -110,6 +144,41 @@ def _check_qkv(fn: str, q, k, v, key_bias, n_head):
     return B, U, T, D
 
 
+def _launch_exact(fn_name: str, symbol: str, q, k, v, key_bias, n_head, q_scale,
+                  v_lengths) -> torch.Tensor:
+    """Launch one of the int8 layers' attention kernels on as many batch rows
+    at a time as keep its float32 scores scratch within
+    ``F32CTX_SCRATCH_BYTES``; returns the output and the launch count."""
+    if any(t.dtype != torch.float32 for t in (q, k, v)):
+        raise ValueError(f"{fn_name}: q/k/v must be float32")
+    B, U, T, D = _check_qkv(fn_name, q, k, v, key_bias, n_head)
+    bias = key_bias.to(torch.float32).contiguous()
+    vlen = None
+    if v_lengths is not None:
+        if v_lengths.shape != (B,) or v_lengths.device != q.device:
+            raise ValueError(f"{fn_name}: v_lengths must be (B,) on q's device")
+        vlen = v_lengths.to(torch.int32).contiguous()
+    out = torch.empty((B, U, D), dtype=torch.float32, device=q.device)
+    rows = max(1, F32CTX_SCRATCH_BYTES // (4 * n_head * U * max(T, 1)))
+    scratch = torch.empty((min(B, rows), n_head, U, T), dtype=torch.float32,
+                          device=q.device)
+    strides = (ctypes.c_longlong * 8)(q.stride(0), q.stride(1), k.stride(0),
+                                      k.stride(1), v.stride(0), v.stride(1),
+                                      out.stride(0), out.stride(1))
+    fn = cuda_build.function("attention", symbol, _ARGTYPES_F32CTX)
+    launches = 0
+    for b0 in range(0, B, rows):
+        b1 = min(B, b0 + rows)
+        status = fn(q[b0].data_ptr(), k[b0].data_ptr(), v[b0].data_ptr(),
+                    bias[b0].data_ptr(), None if vlen is None else vlen[b0:].data_ptr(),
+                    scratch.data_ptr(), out[b0].data_ptr(),
+                    b1 - b0, U, T, n_head, HEAD_SIZE, q_scale, strides,
+                    torch.cuda.current_stream(q.device).cuda_stream)
+        cuda_build.check(status, f"{fn_name} kernel launch")
+        launches += 1
+    return out, launches
+
+
 def attention_f32ctx(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      key_bias: torch.Tensor, n_head: int, q_scale: float,
                      v_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -120,37 +189,31 @@ def attention_f32ctx(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_f32ctx_ref(q, k, v, key_bias, n_head, q_scale, v_lengths)
     if q.device.type != "cuda":
         raise ValueError(f"attention_f32ctx: unsupported device {q.device}")
-    if any(t.dtype != torch.float32 for t in (q, k, v)):
-        raise ValueError("attention_f32ctx: q/k/v must be float32")
-    B, U, T, D = _check_qkv("attention_f32ctx", q, k, v, key_bias, n_head)
-    bias = key_bias.to(torch.float32).contiguous()
-    vlen = None
-    if v_lengths is not None:
-        if v_lengths.shape != (B,) or v_lengths.device != q.device:
-            raise ValueError("attention_f32ctx: v_lengths must be (B,) on q's device")
-        vlen = v_lengths.to(torch.int32).contiguous()
-    out = torch.empty((B, U, D), dtype=torch.float32, device=q.device)
-    rows = max(1, F32CTX_SCRATCH_BYTES // (4 * n_head * U * max(T, 1)))
-    scratch = torch.empty((min(B, rows), n_head, U, T), dtype=torch.float32,
-                          device=q.device)
-    strides = (ctypes.c_longlong * 8)(q.stride(0), q.stride(1), k.stride(0),
-                                      k.stride(1), v.stride(0), v.stride(1),
-                                      out.stride(0), out.stride(1))
-    fn = cuda_build.function("attention", "attention_forward_f32ctx",
-                             _ARGTYPES_F32CTX)
-    for b0 in range(0, B, rows):
-        b1 = min(B, b0 + rows)
-        status = fn(q[b0].data_ptr(), k[b0].data_ptr(), v[b0].data_ptr(),
-                    bias[b0].data_ptr(), None if vlen is None else vlen[b0:].data_ptr(),
-                    scratch.data_ptr(), out[b0].data_ptr(),
-                    b1 - b0, U, T, n_head, HEAD_SIZE, q_scale, strides,
-                    torch.cuda.current_stream(q.device).cuda_stream)
-        cuda_build.check(status, "attention (float32 context) kernel launch")
-        attention_f32ctx.launches += 1
+    out, n = _launch_exact("attention_f32ctx", "attention_forward_f32ctx", q, k, v,
+                           key_bias, n_head, q_scale, v_lengths)
+    attention_f32ctx.launches += n
     return out
 
 
 attention_f32ctx.launches = 0
+
+
+def attention_i8qk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   key_bias: torch.Tensor, n_head: int, q_scale: float,
+                   v_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The arguments and output of :func:`attention_f32ctx`, with int8 q.k
+    scores (the SANM layer's ``int8_attn``)."""
+    if q.device.type == "cpu":
+        return attention_i8qk_ref(q, k, v, key_bias, n_head, q_scale, v_lengths)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention_i8qk: unsupported device {q.device}")
+    out, n = _launch_exact("attention_i8qk", "attention_forward_i8qk", q, k, v,
+                           key_bias, n_head, q_scale, v_lengths)
+    attention_i8qk.launches += n
+    return out
+
+
+attention_i8qk.launches = 0
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

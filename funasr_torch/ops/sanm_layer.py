@@ -10,7 +10,10 @@ once, at the end::
     vm      = v * valid
     mem     = (vm + sum_j tap_j * shift_j(vm)) * valid          (FSMN)
     ctx     = softmax(bf16(q * d^-0.5) bf16(k)^T + keymask) bf16(vm)
-              (per head, p rounded to bf16, float32 context)
+              (per head, p rounded to bf16, float32 context); with
+              ``int8_attn`` (sanm_layer_pallas.py:112-117) the scores are
+              (float32(q8 k8^T) * qs) * ks^T + keymask, q * d^-0.5 and k
+              row-quantized per head
     x1      = ((x + i8(ctx, wout)) + bout) + mem
     hid     = relu(i8(LN2(x1), w1) + b1)
     out     = (x1 + i8(hid, w2)) + b2                 cast to x's dtype
@@ -22,7 +25,8 @@ model load from the float32 parameters (:func:`quantize_sanm_layer`).
 On the card the layer is ten launches of four kernels: ``csrc/rowquant.cu``
 (LN + quantize), ``csrc/int8_gemm.cu`` (four projections, the bias, relu,
 residual and FSMN memory in the epilogue), ``csrc/fsmn.cu`` and the float32
-context entry of ``csrc/attention.cu``.  The TPU kernel runs the whole
+context entry of ``csrc/attention.cu`` (its int8-score entry with
+``int8_attn``).  The TPU kernel runs the whole
 layer in one VMEM-resident program; its 3.1 MB of int8 weights per layer
 do not fit the 228 KB of shared memory of an H100 SM, so the Hopper layer
 is a chain of fused kernels, with float32 activations between them in
@@ -110,25 +114,27 @@ def _layer(x, lengths, w: SanmLayerWeights, n_head, left, key_bias,
 
 
 def sanm_layer_ref(x: torch.Tensor, lengths: torch.Tensor, w: SanmLayerWeights,
-                   n_head: int, left: int,
-                   key_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   n_head: int, left: int, key_bias: Optional[torch.Tensor] = None,
+                   int8_attn: bool = False) -> torch.Tensor:
     """Plain twin: same inputs and output as :func:`fused_sanm_layer`."""
     return _layer(x, lengths, w, n_head, left, key_bias, RQ.rowquant_ref,
-                  G.int8_gemm_ref, FS.fsmn_ref, A.attention_f32ctx_ref)
+                  G.int8_gemm_ref, FS.fsmn_ref,
+                  A.attention_i8qk_ref if int8_attn else A.attention_f32ctx_ref)
 
 
 def fused_sanm_layer(x: torch.Tensor, lengths: torch.Tensor, w: SanmLayerWeights,
-                     n_head: int, left: int,
-                     key_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     n_head: int, left: int, key_bias: Optional[torch.Tensor] = None,
+                     int8_attn: bool = False) -> torch.Tensor:
     """x (B, T, D), lengths (B,) valid frames, ``left`` FSMN padding,
     ``key_bias`` the (B, T) float32 key bias of ``lengths`` (built when
-    None) -> (B, T, D) in x's dtype."""
+    None), ``int8_attn`` the int8 q.k scores -> (B, T, D) in x's dtype."""
     if x.device.type == "cpu":
-        return sanm_layer_ref(x, lengths, w, n_head, left, key_bias)
+        return sanm_layer_ref(x, lengths, w, n_head, left, key_bias, int8_attn)
     if x.device.type != "cuda":
         raise ValueError(f"fused_sanm_layer: unsupported device {x.device}")
     out = _layer(x.contiguous(), lengths, w, n_head, left, key_bias, RQ.rowquant,
-                 G.int8_gemm, FS.fsmn, A.attention_f32ctx)
+                 G.int8_gemm, FS.fsmn,
+                 A.attention_i8qk if int8_attn else A.attention_f32ctx)
     fused_sanm_layer.launches += 1
     return out
 

@@ -84,6 +84,19 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         HybridEngine(hybrid, frontend, tok)
     assert HybridEngine(hybrid, frontend, tok, device="cpu").device.type == "cpu"
 
+    from funasr_torch.auto.engines import BiCifEngine
+    from funasr_torch.models.bicif_paraformer.model import BiCifParaformer
+
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no GPU"):
+            BiCifParaformer(**conf, device=device, quantize=True, qmm=True,
+                            int8_attn=True)
+    bicif = BiCifParaformer(**conf, device="cpu")
+    fe = FrontendConfig(lfr_m=1, lfr_n=1, n_mels=16)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        BiCifEngine(bicif, fe, tok)
+    assert BiCifEngine(bicif, fe, tok, device="cpu").device.type == "cpu"
+
 
 def test_unknown_model_arguments_raise():
     from funasr_torch.models.paraformer.model import Paraformer
@@ -138,6 +151,7 @@ def _meta_cases():
     from funasr_torch.ops import ffn as FF
     from funasr_torch.ops import fsmn as FS
     from funasr_torch.ops import int8_gemm as G
+    from funasr_torch.ops import qmm as QM
     from funasr_torch.ops import quant as Q
     from funasr_torch.ops import rowquant as RQ
     from funasr_torch.ops import sanm_layer as SL
@@ -162,10 +176,14 @@ def _meta_cases():
             m(B, T, D), m(B, T, D), lens, lens, dec, 2, 1)),
         ("ctc_recurrence", lambda: CP.ctc_recurrence(m(B, 3, 4, T), m(B, T),
                                                      m(B, 3, 4, T))),
+        ("quant_matmul", lambda: QM.quant_matmul(m(4, 16), i8(8, 16), m(8))),
+        ("attention_i8qk", lambda: A.attention_i8qk(
+            m(B, T, D), m(B, T, D), m(B, T, D), m(B, T), 2, 0.088)),
+        ("fused_ffn", lambda: FF.fused_ffn(m(4, 32), m(64, 32), m(64), m(16, 64), m(16))),
     ]
 
 
-@pytest.mark.parametrize("case", range(9))
+@pytest.mark.parametrize("case", range(12))
 def test_new_wrappers_refuse_other_devices(case):
     name, call = _meta_cases()[case]
     with pytest.raises(ValueError, match="unsupported device"):
@@ -175,7 +193,7 @@ def test_new_wrappers_refuse_other_devices(case):
 def test_int8_sources_are_built_and_hashed(monkeypatch, tmp_path):
     from funasr_torch.ops import cuda_build
 
-    for name in ("int8_gemm", "rowquant", "fsmn"):
+    for name in ("int8_gemm", "rowquant", "fsmn", "qmm", "ffn"):
         assert name in cuda_build.SOURCES
         assert (cuda_build.CSRC / f"{name}.cu").exists()
     before = cuda_build.library_path("int8_gemm").name

@@ -8,7 +8,13 @@ port sums the layer-norm statistics in float64 and XLA orders the
 attention sums and fuses multiply-adds its own way, which moves an int8
 rounding tie now and then.  Tolerance on valid rows: atol 2^-6 * max|out|
 (two bf16 ulps at the output's magnitude), and at most 2 % of the
-elements differ at all.  Padded rows are not part of the contract.
+elements differ at all.  Padded rows are not part of the contract.  The
+same bars hold with ``int8_attn`` (int8 q.k scores with outer-product
+scales, sanm_layer_pallas.py:112-117) on the same inputs: the scores are
+exact int32 sums on both sides.  There one moved tie in a key's row
+quantize shifts that key's score for every query of the utterance, so the
+share of differing elements varies more from seed to seed (up to 8 % on
+other seeds, always within the atol bar).
 """
 
 import numpy as np
@@ -34,14 +40,14 @@ def _params(seed):
         b2=0.1 * n(D))
 
 
-def _jax(p, x, lengths):
+def _jax(p, x, lengths, int8_attn=False):
     j = jnp.asarray
     out = JSL.fused_sanm_layer(
         j(x).astype(jnp.bfloat16), j(lengths), (j(p["ln1"][0]), j(p["ln1"][1])),
         j(p["wqkv"]), j(p["bqkv"]), j(p["fsmn"]), j(p["wout"]), j(p["bout"]),
         (j(p["ln2"][0]), j(p["ln2"][1])), j(p["w1"]), j(p["b1"]), j(p["w2"]),
         j(p["b2"]), n_head=NH, left=LEFT, right=K - 1 - LEFT, interpret=True,
-        int8_attn=False)
+        int8_attn=int8_attn)
     return np.asarray(out.astype(jnp.float32))
 
 
@@ -54,9 +60,9 @@ def _weights(p):
         t(p["b2"]))
 
 
-def _port(w, x, lengths):
+def _port(w, x, lengths, int8_attn=False):
     out = SL.fused_sanm_layer(torch.from_numpy(x).to(torch.bfloat16),
-                              torch.from_numpy(lengths), w, NH, LEFT)
+                              torch.from_numpy(lengths), w, NH, LEFT, int8_attn=int8_attn)
     assert out.dtype == torch.bfloat16
     return out.float().numpy()
 
@@ -73,6 +79,23 @@ def test_sanm_layer_ref_matches_pallas_interpret(T, lengths):
     tol = 2.0 ** -6 * np.abs(want * valid).max()
     np.testing.assert_allclose(got * valid, want * valid, rtol=0, atol=tol)
     assert ((got != want) & valid).sum() <= 0.02 * valid.sum() * D
+
+
+@pytest.mark.parametrize("T,lengths", [(64, [64, 51, 17]), (40, [40, 1, 33])])
+def test_sanm_layer_int8_attn_ref_matches_pallas_interpret(T, lengths):
+    p = _params(T)
+    rng = np.random.default_rng(T + 1)
+    lengths = np.array(lengths, np.int32)
+    x = rng.standard_normal((len(lengths), T, D)).astype(np.float32)
+    want = _jax(p, x, lengths, int8_attn=True)
+    w = _weights(p)
+    got = _port(w, x, lengths, int8_attn=True)
+    valid = np.arange(T)[None, :, None] < lengths[:, None, None]
+    tol = 2.0 ** -6 * np.abs(want * valid).max()
+    np.testing.assert_allclose(got * valid, want * valid, rtol=0, atol=tol)
+    assert ((got != want) & valid).sum() <= 0.02 * valid.sum() * D
+    # the int8 scores are another function than the bf16 ones
+    assert (_port(w, x, lengths) != got).any()
 
 
 def test_sanm_layer_weights_match_jax_quantization():
