@@ -21,13 +21,17 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      ``torch._int_mm`` where its shape rules allow);
    - the int8 SANM encoder layer (B=64, T=256, lengths 250/200), the int8
      decoder layer (B=64, U=128, T=256) and the int8 FFN (M=16384,
-     512 -> 2048 -> 512);
+     512 -> 2048 -> 512); the layers' float32-context attention alone at
+     both layers' shapes, bit-equal (yardstick ``scaled_dot_product_attention``
+     on the same bf16-rounded q, k, v), and at T=1000 with its scores in the
+     device scratch, row-chunked;
    - the CTC prefix recurrence at the beam's shape (B=32, K=10, W=16,
      T=383), bit-equal to its twin (bar 1e-6 * max(1, |ref|));
    - the fused int8 matmul (qmm) at the three gated contractions of the
      BiCif path and edge shapes, bit-equal to its twin (beside it the
      rowquant + int8 GEMM pair of the XLA route and ``torch._int_mm``);
-     the int8-score attention at the SANM shape and edges, bit-equal, and
+     the int8-score attention at the SANM shape and edges (T=1000 with the
+     scores in the scratch), bit-equal, and
      the SANM layer with ``int8_attn``; the bf16 and float32 FFN at
      (16384, 512) -> 2048 -> 512 within FFN_TOL (yardstick: two
      ``F.linear`` and a relu), its only launches in this script;
@@ -85,7 +89,8 @@ import time
 
 # H100 SXM peaks (NVIDIA data sheet; dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12,
+            "float64": 67e12}  # float64: the tensor cores' rate
 
 FBANK_TOL = 1e-3  # log-mel and dB, abs (the JAX package's "highest" bar)
 ATTN_TOL = {"float32": 1e-4, "bfloat16": 3e-2}  # abs, output in that dtype
@@ -266,14 +271,16 @@ def check_attention(torch, A):
             check(bool(torch.isfinite(got).all()), f"attention {name} finite")
             check(err <= ATTN_TOL[dn], f"attention {name} {dn} max err {err} "
                   f"> {ATTN_TOL[dn]}")
-            ms = cuda_ms(lambda: A.fused_attention(q, k, v, bias, H))
+            # tens of microseconds a call: 50 calls after 10 warm-ups, so that
+            # the card's clock has left an idle gap's low state
+            ms = cuda_ms(lambda: A.fused_attention(q, k, v, bias, H), iters=50, warmup=10)
             plain = cuda_ms(lambda: A.attention_ref(q, k, v, bias, H), iters=5)
             q4 = q.view(B, U, H, d).transpose(1, 2)
             k4 = k.unflatten(-1, (H, d)).transpose(1, 2)
             v4 = v.unflatten(-1, (H, d)).transpose(1, 2)
             mask = bias[:, None, None, :].to(dtype)
             lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q4, k4, v4, attn_mask=mask, scale=1.0))
+                q4, k4, v4, attn_mask=mask, scale=1.0), iters=50, warmup=10)
             # q, out and the bias in full; k, v and both products only for
             # the valid keys: a padded key contributes exactly nothing
             n_keys = float(lens.clamp(max=T).sum())
@@ -292,8 +299,9 @@ def check_attention(torch, A):
 
 def check_edges(torch, FK, A, rng):
     """Shapes the main path does not reach at 15 s: ragged tiles (T, U not
-    multiples of the kernels' 32/64 tiles), one frame, a row with no valid
-    key, eight heads, strided k/v.  Returns the largest error seen."""
+    multiples of the kernels' 16/32/64 tiles), one frame, a row with one
+    valid key and a row with none, eight heads, strided k/v.  Returns the
+    largest error seen."""
     import numpy as np
 
     worst = 0.0
@@ -317,10 +325,13 @@ def check_edges(torch, FK, A, rng):
         check(err <= FBANK_TOL, f"fbank edge window={window} err {err}")
         worst = max(worst, err)
     for B, U, T, H, d in ((3, 37, 250, 4, 128), (2, 1, 1, 4, 128),
-                          (3, 100, 300, 8, 128), (2, 64, 63, 2, 128)):
+                          (3, 100, 300, 8, 128), (2, 64, 63, 2, 128),
+                          (3, 77, 203, 4, 128)):
         gen = torch.Generator(device="cuda").manual_seed(U * T)
         D = H * d
         lens = torch.from_numpy(rng.integers(1, T + 1, B)).cuda()
+        if B > 2:
+            lens[1] = 1  # one valid key
         lens[-1] = 0  # no valid key: uniform weights in kernel and twin
         bias = (1.0 - (torch.arange(T, device="cuda")[None] < lens[:, None])
                 .float()) * -1e30
@@ -338,7 +349,7 @@ def check_edges(torch, FK, A, rng):
                   f"attention edge B={B} U={U} T={T} H={H} d={d} {dn} err {err}")
             worst = max(worst, err)
     torch.cuda.synchronize()
-    log(f"edge shapes: fbank (3 shapes, 4 windows) and attention (4 shapes x 2 dtypes) "
+    log(f"edge shapes: fbank (3 shapes, 4 windows) and attention (5 shapes x 2 dtypes) "
         f"within tolerance, worst abs err {worst:.3e}")
     return worst
 
@@ -529,21 +540,6 @@ def check_int8_layers(torch, SL, DL, FF):
     # edges: ragged T and U, an empty utterance, a token length of 0, one frame
     run(3, 250, 37, [250, 137, 0], [37, 0, 20], timed=False)
     run(2, 1, 1, [1, 1], [1, 0], timed=False)
-    # the layers' attention launched one batch row at a time (its scratch
-    # cap made small) is bit-equal to one launch and to its twin
-    from funasr_torch.ops import attention as A
-    q = torch.randn((3, 40, D), generator=gen, device="cuda")
-    kv = torch.randn((3, 70, 2 * D), generator=gen, device="cuda")
-    lens3 = torch.tensor([70, 33, 0], device="cuda", dtype=torch.int32)
-    args = (q, kv[..., :D], kv[..., D:], key_bias(lens3, 70), NH, 128 ** -0.5, lens3)
-    whole = A.attention_f32ctx(*args)
-    saved, A.F32CTX_SCRATCH_BYTES = A.F32CTX_SCRATCH_BYTES, 4 * NH * 40 * 70
-    try:
-        chunked = A.attention_f32ctx(*args)
-    finally:
-        A.F32CTX_SCRATCH_BYTES = saved
-    check(torch.equal(whole, chunked) and torch.equal(whole, A.attention_f32ctx_ref(*args)),
-          "float32-context attention: row-chunked launches, one launch and twin equal")
     for group in cases.values():
         for case in group:
             log(f"int8 layer {case}")
@@ -654,12 +650,108 @@ def check_qmm(torch, QM, Q, RQ):
     return cases
 
 
+def exact_scratch_edge(torch, A, name, gen):
+    """Past EXACT_ONCHIP_MAX_T keys the int8 layers' attention keeps its
+    scores in a device scratch: at T=1000 (60 s of LFR frames, ragged
+    lengths) one launch, launches one batch row at a time (the scratch cap
+    made small) and the twin are bit-equal."""
+    from funasr_torch.ops.masks import key_bias
+
+    D, NH, U, T = 512, 4, 40, 1000
+    check(T > A.EXACT_ONCHIP_MAX_T, "the long-T edge is past the on-chip limit")
+    fn, ref = getattr(A, name), getattr(A, name + "_ref")
+    q = torch.randn((3, U, D), generator=gen, device="cuda")
+    kv = torch.randn((3, T, 2 * D), generator=gen, device="cuda")
+    lens3 = torch.tensor([T, 33, 0], device="cuda", dtype=torch.int32)
+    args = (q, kv[..., :D], kv[..., D:], key_bias(lens3, T), NH, 128 ** -0.5, lens3)
+    whole = fn(*args)
+    saved = A.F32CTX_SCRATCH_BYTES
+    A.F32CTX_SCRATCH_BYTES = 4 * NH * U * A.exact_scores_ld(T)  # one row a launch
+    try:
+        check(A.exact_attention_plan(3, NH, U, T)[1] == 3, "the small cap chunks by rows")
+        chunked = fn(*args)
+    finally:
+        A.F32CTX_SCRATCH_BYTES = saved
+    check(torch.equal(whole, chunked) and torch.equal(whole, ref(*args)),
+          f"{name}: scores in the scratch at T={T}, row-chunked launches, one launch and "
+          "twin equal")
+
+
+def check_f32ctx(torch, A):
+    """The float32-context attention of the int8 layers alone, bit-equal to
+    its twin: the SANM shape (q, k, v column slices of one float32 (B, T, 3D)
+    projection, v zero past the lengths) and the decoder's cross-attention
+    (U=128, k/v column slices of the memory's (B, T, 2D) projection, no
+    v_lengths), timed beside its twin and ``scaled_dot_product_attention`` on
+    the same bf16-rounded q, k, v (the yardstick: bf16 products with float32
+    sums, not the exact sums); edges: T=70 with a length-1 row, T=1, T=1000
+    with the scores in the scratch, also row-chunked
+    (``exact_scratch_edge``).  Returns {"sanm_layer": [case],
+    "decoder_layer": [case]}."""
+    import torch.nn.functional as F
+
+    from funasr_torch.ops.masks import key_bias
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    D, NH, d = 512, 4, 128
+    cases = {"sanm_layer": [], "decoder_layer": []}
+    for B, U, T, lens, kv_cols, vlen, entry, what in (
+            (64, 256, 256, [250, 200] * 32, 3 * D, True, "sanm_layer",
+             "SANM layer attention alone, B=64 x 15 s, lengths 250/200"),
+            (64, 128, 256, [250, 200] * 32, 2 * D, False, "decoder_layer",
+             "decoder cross-attention alone, B=64, U=128, memory lengths 250/200"),
+            (3, 70, 70, [70, 1, 33], 3 * D, True, None, "edge: T=70, a length-1 row"),
+            (2, 1, 1, [1, 1], 3 * D, True, None, "edge: T=1"),
+            (2, 1000, 1000, [1000, 613], 3 * D, True, None,
+             "edge: T=1000 (60 s), scores in the scratch")):
+        proj = torch.randn((B, T, kv_cols), generator=gen, device="cuda")
+        q = proj[..., :D] if U == T else torch.randn((B, U, D), generator=gen, device="cuda")
+        lens_d = torch.tensor(lens, device="cuda", dtype=torch.int32)
+        bias = key_bias(lens_d, T)
+        args = (q, proj[..., -2 * D:-D], proj[..., -D:], bias, NH, d ** -0.5,
+                lens_d if vlen else None)
+        got, want = A.attention_f32ctx(*args), A.attention_f32ctx_ref(*args)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(got, want))
+        check(bool(torch.isfinite(got).all()) and equal,
+              f"float32-context attention {what}: bit-equal to its twin")
+        case = dict(case=f"{what}: q ({B}, {U}, {D}), k/v ({B}, {T}, {D}) f32, H={NH}",
+                    max_abs_err=float((got - want).abs().max()), tolerance=0.0,
+                    bit_equal=equal)
+        if entry:
+            bf = torch.bfloat16
+            vm = args[2] * (torch.arange(T, device="cuda")[None, :, None]
+                            < lens_d[:, None, None]) if vlen else args[2]
+            heads = lambda x: x.to(bf).unflatten(-1, (NH, d)).transpose(1, 2)
+            q4, k4, v4 = heads(q * d ** -0.5), heads(args[1]), heads(vm)
+            mask = bias[:, None, None, :].to(bf)
+            rows = lens_d.clamp(max=T).double()
+            n_q = float(rows.sum()) if U == T else float(B * U)
+            pairs = float((rows * rows).sum()) if U == T else float(U * rows.sum())
+            # q, k, v read and the context written for the valid rows; the
+            # bf16 products of the function (the exact sums are the port's
+            # contract; their float64 tensor-core floor is beside it)
+            bnd, by = bound_ms(4.0 * D * (2 * n_q + 2 * float(rows.sum())) + 4 * B * T,
+                               {"bfloat16": 4.0 * D * pairs})
+            case.update(ms=cuda_ms(lambda: A.attention_f32ctx(*args), iters=20, warmup=10),
+                        plain_ms=cuda_ms(lambda: A.attention_f32ctx_ref(*args), iters=3),
+                        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                            q4, k4, v4, attn_mask=mask, scale=1.0), iters=50, warmup=10),
+                        bound_ms=bnd, bound_by=by,
+                        f64_tensor_core_floor_ms=4.0 * D * pairs / PEAK_OPS["float64"] * 1e3)
+            cases[entry].append(case)
+        log(f"float32-context attention {case}")
+    exact_scratch_edge(torch, A, "attention_f32ctx", gen)
+    return cases
+
+
 def check_i8qk(torch, A):
     """The int8-score attention against its twin, bit-equal: the SANM shape
     (q, k, v column slices of one float32 (B, T, 3D) projection, as in the
     layer), T not a multiple of the 64-key tile with a length-1 row, T=1,
-    and row-chunked launches (a small scratch cap).  At the main shape, the
-    float32-context attention on the same inputs beside it."""
+    and T=1000 with the scores in the scratch (``exact_scratch_edge``).  At
+    the main shape, the float32-context attention on the same inputs beside
+    it."""
     from funasr_torch.ops.masks import key_bias
 
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -668,7 +760,9 @@ def check_i8qk(torch, A):
     for B, T, lens, what in ((64, 256, [250, 200] * 32, "SANM layer attention, B=64 x 15 s, "
                               "lengths 250/200"),
                              (3, 70, [70, 1, 33], "edge: T=70, a length-1 row"),
-                             (2, 1, [1, 1], "edge: T=1")):
+                             (2, 1, [1, 1], "edge: T=1"),
+                             (2, 1000, [1000, 613], "edge: T=1000 (60 s), scores in the "
+                              "scratch")):
         qkv = torch.randn((B, T, 3 * D), generator=gen, device="cuda")
         lens_d = torch.tensor(lens, device="cuda", dtype=torch.int32)
         args = (qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:], key_bias(lens_d, T), NH,
@@ -687,24 +781,14 @@ def check_i8qk(torch, A):
             # q, k, v read and the context written for the valid rows
             bnd, by = bound_ms(4.0 * D * 4 * n_rows + 4 * B * T,
                                {"int8": 2.0 * D * pairs, "bfloat16": 2.0 * D * pairs})
-            case.update(ms=cuda_ms(lambda: A.attention_i8qk(*args)),
+            case.update(ms=cuda_ms(lambda: A.attention_i8qk(*args), iters=20, warmup=10),
                         plain_ms=cuda_ms(lambda: A.attention_i8qk_ref(*args), iters=3),
-                        f32ctx_ms=cuda_ms(lambda: A.attention_f32ctx(*args)),
+                        f32ctx_ms=cuda_ms(lambda: A.attention_f32ctx(*args), iters=20,
+                                          warmup=10),
                         library_ms=None, bound_ms=bnd, bound_by=by)
         log(f"int8-score attention {case}")
         cases.append(case)
-    q = torch.randn((3, 40, D), generator=gen, device="cuda")
-    kv = torch.randn((3, 70, 2 * D), generator=gen, device="cuda")
-    lens3 = torch.tensor([70, 33, 0], device="cuda", dtype=torch.int32)
-    args = (q, kv[..., :D], kv[..., D:], key_bias(lens3, 70), NH, 128 ** -0.5, lens3)
-    whole = A.attention_i8qk(*args)
-    saved, A.F32CTX_SCRATCH_BYTES = A.F32CTX_SCRATCH_BYTES, 4 * NH * 40 * 70
-    try:
-        chunked = A.attention_i8qk(*args)
-    finally:
-        A.F32CTX_SCRATCH_BYTES = saved
-    check(torch.equal(whole, chunked) and torch.equal(whole, A.attention_i8qk_ref(*args)),
-          "int8-score attention: row-chunked launches, one launch and twin equal")
+    exact_scratch_edge(torch, A, "attention_i8qk", gen)
     return cases
 
 
@@ -1179,10 +1263,9 @@ def served_shape(engine, wavs):
 
 
 def exact_attention_launches(A, B, U, T, n_head=4):
-    """Launches of an int8 layer's attention for B rows: as many as keep its
-    float32 (rows, H, U, T) scores scratch within the cap."""
-    rows = max(1, A.F32CTX_SCRATCH_BYTES // (4 * n_head * U * T))
-    return -(-B // rows)
+    """Launches of an int8 layer's attention for B rows, by the wrapper's own
+    rule (``exact_attention_plan``): one while the scores stay on chip."""
+    return A.exact_attention_plan(B, n_head, U, T)[1]
 
 
 def end_to_end_bicif(torch, FK, A, profile_dir, card, shared):
@@ -1484,6 +1567,7 @@ def main(argv=None) -> int:
     layer_cases = check_int8_layers(torch, SL, DL, FF)
     ctc_cases = check_ctc_prefix(torch, CP)
     qmm_cases = check_qmm(torch, QM, Q, RQ)
+    f32ctx_cases = check_f32ctx(torch, A)
     i8qk_cases = check_i8qk(torch, A)
     ffn_cases = check_ffn(torch, FF)
     log(f"kernel checks done in {time.time() - t0:.1f} s")
@@ -1521,9 +1605,11 @@ def main(argv=None) -> int:
         entry("attention", ["funasr_torch/csrc/attention.cu"],
               "funasr_tpu/ops/attention_pallas.py:37", attn_cases[0], attn_cases),
         entry("sanm_layer", blocks, "funasr_tpu/ops/sanm_layer_pallas.py:189",
-              layer_cases["sanm_layer"][0], layer_cases["sanm_layer"]),
+              layer_cases["sanm_layer"][0],
+              layer_cases["sanm_layer"] + f32ctx_cases["sanm_layer"]),
         entry("decoder_layer", blocks, "funasr_tpu/ops/decoder_layer_pallas.py:165",
-              layer_cases["decoder_layer"][0], layer_cases["decoder_layer"]),
+              layer_cases["decoder_layer"][0],
+              layer_cases["decoder_layer"] + f32ctx_cases["decoder_layer"]),
         entry("ffn", blocks[:2], "funasr_tpu/ops/ffn_pallas.py:113",
               layer_cases["ffn"][0], layer_cases["ffn"] + gemm_cases),
         entry("ctc_prefix", ["funasr_torch/csrc/ctc_prefix.cu"],

@@ -1,79 +1,102 @@
-// Masked-softmax attention for Hopper (sm_90a), bf16 or float32 inputs.
+// Masked-softmax attention for Hopper (sm_90a): three kernels, one source.
 //
-// Replaces the TPU kernel funasr_tpu/ops/attention_pallas.py `_attn_kernel`
-// (pallas_call at :84).  Same function, per (batch b, head h):
+// 1. `attention_forward`, bf16 or float32 q, k, v.  Replaces the TPU kernel
+//    funasr_tpu/ops/attention_pallas.py `_attn_kernel` (:37, pallas_call at
+//    :84).  Per (batch b, head h):
 //
-//   s   = q_h k_h^T + key_bias[b]     float32 (q pre-scaled by d^-0.5)
-//   p   = softmax(s) in float32, normalised, THEN cast to v's dtype
-//   out = p v_h                       float32 accumulation, cast to q's dtype
+//      s   = q_h k_h^T + key_bias[b]     float32 (q pre-scaled by d^-0.5)
+//      p   = softmax(s) in float32, normalised, THEN cast to v's dtype
+//      out = p v_h                       float32 accumulation, cast to q's dtype
 //
-// with q (B, U, H*d), k/v (B, T, H*d) in their natural layout (a row stride
-// per tensor, so k and v may be column slices of one fused projection) and
-// key_bias (B, T) float32, 0 for valid keys and -1e30 for padding.  A row
-// whose keys are all masked gets uniform weights, as the TPU kernel does
-// (the serving path never builds one).
+//    q (B, U, H*d), k/v (B, T, H*d) in their natural layout (a row stride per
+//    tensor, so k and v may be column slices of one fused projection),
+//    key_bias (B, T) float32, 0 for valid keys and -1e30 for padding.  A row
+//    whose keys are all masked gets uniform weights, as the TPU kernel does.
 //
-// Design.  One block per (64-query tile, head, batch), 256 threads.  The
-// query tile stays in shared memory (float32, rows padded to d + 4); keys
-// and values stream through one shared buffer in 64-key tiles.  To apply
-// the normalised, rounded p of the contract exactly, the kernel makes two
-// passes over the keys: pass 1 keeps the running row max and the rescaled
-// row sum (online softmax, float32); pass 2 recomputes each score tile,
-// forms p = exp(s - m) / l, rounds it to v's dtype, stages it in shared
-// memory and accumulates p v.  Each thread holds a 4 x 4 score tile and a
-// 4-row x (4 d/64)-column output tile; all arithmetic is float32 FMA on the
-// CUDA cores.
+//    Bound on the H100 SXM, encoder self-attention (B=64, T=256, H=4, d=128,
+//    bf16, keys 250/200): q, out and the valid rows of k, v are 63 MB ->
+//    19 us at 3.35 TB/s, above the 7.4 GFLOP of the two products (7.5 us at
+//    989 TFLOP/s): bytes.  Decoder cross-attention (U=128): 14 us.
 //
-// Bound on the H100 SXM, encoder self-attention (B=64, T=256, H=4, d=128,
-// bf16, every key valid): q, k, v and out are 4 x 16.8 MB = 67 MB -> 20 us
-// at 3.35 TB/s; the two products are 8.6 GFLOP -> 8.7 us at 989 TFLOP/s
-// bf16, so it is bound by bytes.  Decoder cross-attention (U=128): 50 MB ->
-// 15 us.  Keys past a row's length need neither bytes nor products, so at
-// ragged lengths the bound falls with the valid keys.  This
-// kernel runs the products on the CUDA cores (67 TFLOP/s float32) and
-// computes q k^T twice, so it sits far above that bound; tensor-core
-// (mma/wgmma) tiles are later work.
+//    bf16 design: both products on the tensor cores, mma.sync m16n8k16 bf16
+//    with float32 accumulation.  A block of 4 warps owns 64 queries, 16 per
+//    warp; the warp's q rows stay in registers as ldmatrix fragments.  K and
+//    V arrive in 64-key tiles (rows padded to 272 bytes, so ldmatrix is free
+//    of bank conflicts) through a two-stage cp.async ring.  To apply the
+//    normalised, rounded p of the contract exactly, the keys are visited
+//    twice: pass 1 keeps the row max m and the rescaled row sum l (online
+//    softmax, float32); pass 2 recomputes S = q k^T on the tensor cores, forms
+//    p = exp(s - m) / l in registers, rounds it to bf16 and multiplies it by
+//    V (ldmatrix.trans) without a trip through shared memory: the m16n8k16
+//    accumulator layout is the A-operand layout.  O is rounded to bf16 once
+//    and leaves through shared memory in 16-byte rows.  float32 inputs keep
+//    a CUDA-core body (float32 FMA, 4 x 4 score tile a thread): TF32 would not
+//    hold the float32 bar.
 //
-// Second kernel, `attention_forward_f32ctx`: the attention inside the int8
-// layers (sanm_layer_pallas.py:118-127, decoder_layer_pallas.py:97-106).
-// q, k, v arrive in float32 (column slices of an int8 projection's output)
-// and are rounded to bf16 as they are loaded: q after the d^-0.5 scale (in
-// float32), v after zeroing its rows past vlen[b] (the masked v of the SANM
-// layer; no vlen for the decoder's memory).  p is normalised, rounded to
-// bf16, and the context is written in float32 (the layer row-quantizes it
-// without a bf16 round first).
+// 2. `attention_forward_f32ctx`: the attention inside the int8 layers
+//    (sanm_layer_pallas.py:118-129, decoder_layer_pallas.py:101-115).  q, k,
+//    v arrive in float32 (column slices of an int8 projection's output) and
+//    are rounded to bf16 as they are loaded: q after the d^-0.5 scale (in
+//    float32), v after zeroing its rows past vlen[b] (the masked v of the SANM
+//    layer; no vlen for the decoder's memory).  p is normalised, rounded to
+//    bf16, and the context is written in float32 (the layer row-quantizes it
+//    without a bf16 round first).
 //
-// Its sums do not depend on their order, so the plain twin gets the same
-// bits: every score q.k, the softmax sum and every p.v are summed in float64
-// (a product of two bf16 values is exact, so those sums are exact in
-// practice) and rounded once to float32; exp is taken in float64 and
-// rounded once; the rest are IEEE float32 operations.  The int8 layers need
-// this: one ulp of the context can move an int8 rounding tie in the next
-// row-quantize, and such a tie spreads through every later layer.  Three
-// passes over the keys: (1) the scores, on the float64 units (half the
-// float32 rate), into a float32 scratch (B, H, U, T) that the wrapper
-// allocates, and the row max; (2) exp(s - m) in place and the row sum;
-// (3) p, rounded, and p v.  A thread reads back only the scratch entries
-// it wrote.  Tensor-core tiles that keep the exact sums are later work.
+//    Its sums do not depend on their order, so the plain twin gets the same
+//    bits: every score q.k, the softmax sum and every p.v are summed in float64
+//    (a product of two bf16 values is exact, so those sums are exact in
+//    practice) and rounded once to float32; exp is taken in float64 and
+//    rounded once; the rest are IEEE float32 operations in the twin's order.
+//    The int8 layers need this: one ulp of the context can move an int8
+//    rounding tie in the next row-quantize, and such a tie spreads through
+//    every later layer.
 //
-// Third kernel, `attention_forward_i8qk`: the SANM layer's attention with
-// int8 scores, the `int8_attn` branch of sanm_layer_pallas.py
-// `_sanm_layer_kernel` (:112-117; FUNASR_TPU_INT8_ATTN=1 in the JAX
-// package, `int8_attn=True` in the port).  Per head, in the kernel's
-// prologue and per key tile, as the TPU body quantizes in VMEM:
+//    Bound at the SANM shape (B=64, T=256, H=4, d=128, lengths 250/200): the
+//    valid rows of q, k, v and out in float32, 118 MB -> 35 us; the sums, 6.7
+//    GFLOP of products, need 0.10 ms on the float64 tensor cores (67 TFLOP/s)
+//    if they must be float64, which the bit-equal contract asks.  Design: the
+//    score and p.v sums run on mma.sync m16n8k8 .f64 (float64 tensor cores,
+//    twice the CUDA cores' float64 rate).  A block of 4 warps owns 64 query
+//    rows, 16 a warp.  Every q, k and v value is rounded and widened to
+//    float64 once: q into the warp's A fragments in registers (64 doubles a
+//    thread), k and v into 16-key float64 tiles in shared memory (rows of 132
+//    doubles: conflict-free fragment loads).  Two tile buffers make a
+//    pipeline with one barrier a tile: tile kt + 1 is staged from registers
+//    (fetched a tile ahead) while tile kt is multiplied.  No conversion is
+//    left in an inner loop but p's (f32 -> f64, once per element).  The
+//    block's scores stay in shared memory (64 x T float32, 66 KB at T=256:
+//    two blocks an SM, at up to 240 registers a thread) up to
+//    EXACT_ONCHIP_MAX_T keys; past it they go to a float32 (B, H, U, ld)
+//    scratch in device memory that the wrapper allocates (ops/attention.py
+//    `exact_attention_plan` holds the rule).  The key bias row is staged in
+//    shared memory.  Passes: (1) scores (two half sums over d a key: four
+//    independent mma chains a warp), bias, row max; (2) a warp per eight
+//    rows at a time: e = exp(s - m) in float64 in place and l = sum e in
+//    float64, then p = bf16(e / l) in place; the eight values are loaded
+//    before any is stored, since the compiler cannot tell the rows apart and
+//    a store between would serialize the exp chains; (3) out += p v on the
+//    float64 tensor cores, stopping at vlen (the keys past it meet zero rows
+//    of v: exact zeros).
 //
-//   q8, qs = rowquant(q * d^-0.5)      k8, ks = rowquant(k)   (k unmasked)
-//   s      = (float(q8 k8^T) * qs) * ks^T + key_bias
+// 3. `attention_forward_i8qk`: the SANM layer's attention with int8 scores,
+//    the `int8_attn` branch of sanm_layer_pallas.py `_sanm_layer_kernel`
+//    (:112-117; FUNASR_TPU_INT8_ATTN=1 in the JAX package, `int8_attn=True`
+//    in the port).  Per head, in the prologue and per 64-key tile, as the TPU
+//    body quantizes in VMEM:
 //
-// (quant.py `rowquant_kernel`, the "mul" form), the q.k sum exact in int32
-// on __dp4a; then passes 2 and 3 of the float32-context kernel: exp in
-// float64, the softmax sum and p v in float64, p rounded to bf16, v rounded
-// to bf16 and zero past vlen[b].  The plain twin (ops/attention.py
-// `attention_i8qk_ref`) gets the same bits.  Bound on the H100 SXM at the
-// SANM shape (B=64, T=256, H=4, d=128, lengths 250/200): 4 float32 (B, T,
-// 512) tensors of valid rows = 118 MB -> 35 us, above the 3.4 GOP of int8
-// and 3.4 GFLOP of bf16 products (5 us): bytes.  The float64 sums on the CUDA cores
-// keep it far above that, as for the float32-context kernel.
+//      q8, qs = rowquant(q * d^-0.5)      k8, ks = rowquant(k)   (k unmasked)
+//      s      = (float(q8 k8^T) * qs) * ks^T + key_bias
+//
+//    (quant.py `rowquant_kernel`, the "mul" form), the q.k sum exact in int32
+//    on mma.sync m16n8k32 .s8 with q8 in registers; k's 64-key tiles are
+//    quantized into two int8 buffers (the sixteen rows' absmax reductions of
+//    a warp interleaved), one barrier a tile; then passes 2 and 3 of the
+//    float32-context kernel (float64 exp, sum and p.v on the float64 tensor
+//    cores, bf16 p, v rounded to bf16 and zero past vlen[b]).  The plain twin
+//    (ops/attention.py `attention_i8qk_ref`) gets the same bits.  Bound at
+//    the SANM shape: the same 118 MB of float32 rows -> 35 us, above 3.4 GOP
+//    of int8 and 3.4 GFLOP of products that the float64 p.v makes 0.05 ms on
+//    the float64 tensor cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,47 +105,252 @@
 
 namespace {
 
+constexpr int HD = 128;  // head size
+constexpr int SMEM_MAX = 232448;  // an H100 block's shared memory
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const int n = valid ? 16 : 0;  // 0 bytes read: the 16 bytes are zero-filled
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_group 1;\n" ::); }
+
+// ======================================================================
+// 1a. bf16 attention on the tensor cores
+// ======================================================================
+
+constexpr int MB_NT = 128;          // 4 warps, 16 queries each
+constexpr int MB_BQ = 64;           // queries per block
+constexpr int MB_BK = 64;           // keys per tile
+constexpr int MB_LD = HD + 8;       // bf16 per shared row (272 bytes)
+constexpr int MB_TILE = MB_BK * MB_LD;  // bf16 per tile
+constexpr size_t MB_SMEM = 4 * MB_TILE * sizeof(__nv_bfloat16);  // 2 stages x (K, V)
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* p) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// rows [r0, r0 + 64) of a (rows, 128) bf16 head slice with row stride `rs`
+// into a shared tile; rows past `nrows` are zero-filled
+__device__ __forceinline__ void mb_load(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                        int64_t rs, int r0, int nrows) {
+#pragma unroll
+  for (int i = 0; i < (MB_BK * HD / 8) / MB_NT; ++i) {
+    const int c = threadIdx.x + i * MB_NT;
+    const int r = c >> 4, col = (c & 15) * 8;
+    const bool ok = r0 + r < nrows;
+    cp_async16(dst + r * MB_LD + col, ok ? src + (int64_t)(r0 + r) * rs + col : src, ok);
+  }
+}
+
+// S (16 rows x 64 keys) = the warp's q fragments times a K tile, plus the
+// key bias (-inf past Tk): s[j] is the accumulator of keys 8j .. 8j + 7
+__device__ __forceinline__ void mb_scores(const uint32_t qa[8][4], const __nv_bfloat16* sK,
+                                          const float* bb, int k0, int Tk, float s[8][4]) {
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int mi = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      uint32_t kb[4];  // keys 16 jj .. 16 jj + 15, d 16 ks .. 16 ks + 15
+      ldmatrix_x4(kb, sK + (16 * jj + (mi >> 1) * 8 + r) * MB_LD + 16 * ks + (mi & 1) * 8);
+      mma_bf16(s[2 * jj], qa[ks], kb[0], kb[1]);
+      mma_bf16(s[2 * jj + 1], qa[ks], kb[2], kb[3]);
+    }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int key = k0 + 8 * j + 2 * t + e;
+      const float bv = key < Tk ? bb[key] : -INFINITY;
+      s[j][e] += bv;
+      s[j][2 + e] += bv;
+    }
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__global__ void __launch_bounds__(MB_NT, 2)
+attention_kernel_bf16_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
+                          __nv_bfloat16* __restrict__ out, int U, int Tk, int64_t q_bs,
+                          int64_t q_rs, int64_t k_bs, int64_t k_rs, int64_t v_bs, int64_t v_rs,
+                          int64_t o_bs, int64_t o_rs) {
+  extern __shared__ __align__(16) __nv_bfloat16 sbuf[];  // stage s: K at 2 s TILE, V after it
+  const int u0 = blockIdx.x * MB_BQ, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const __nv_bfloat16* qh = q + b * q_bs + (int64_t)h * HD;
+  const __nv_bfloat16* kh = k + b * k_bs + (int64_t)h * HD;
+  const __nv_bfloat16* vh = v + b * v_bs + (int64_t)h * HD;
+  const float* bb = bias + (int64_t)b * Tk;
+  const int nt = (Tk + MB_BK - 1) / MB_BK;
+
+  // the q tile through stage 1's K slot, the first K tile into stage 0
+  mb_load(sbuf + 2 * MB_TILE, qh, q_rs, u0, U);
+  cp_async_commit();
+  mb_load(sbuf, kh, k_rs, 0, Tk);
+  cp_async_commit();
+  cp_async_wait1();
+  __syncthreads();
+  uint32_t qa[HD / 16][4];  // A fragments of the warp's 16 rows
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks)
+    ldmatrix_x4(qa[ks], sbuf + 2 * MB_TILE + (warp * 16 + (lane & 15)) * MB_LD + 16 * ks +
+                            (lane >> 4) * 8);
+  __syncthreads();
+
+  // steps 0 .. nt-1: pass 1 over K tiles; steps nt .. 2 nt - 1: pass 2 over
+  // (K, V) tiles.  Each step prefetches the next one into the other stage.
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, inv_l[2];
+  float o[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[j][c] = 0.f;
+  for (int s = 0; s < 2 * nt; ++s) {
+    if (s + 1 < 2 * nt) {
+      __nv_bfloat16* nxt = sbuf + ((s + 1) & 1) * 2 * MB_TILE;
+      const int tl = s + 1 < nt ? s + 1 : s + 1 - nt;
+      mb_load(nxt, kh, k_rs, tl * MB_BK, Tk);
+      if (s + 1 >= nt) mb_load(nxt + MB_TILE, vh, v_rs, tl * MB_BK, Tk);
+    }
+    cp_async_commit();
+    cp_async_wait1();
+    __syncthreads();
+    const __nv_bfloat16* sK = sbuf + (s & 1) * 2 * MB_TILE;
+    const int k0 = (s < nt ? s : s - nt) * MB_BK;
+    float sc[8][4];
+    mb_scores(qa, sK, bb, k0, Tk, sc);
+    if (s < nt) {  // ---- pass 1: online row max and sum
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(sc[j][2 * hf], sc[j][2 * hf + 1]));
+        const float m_new = fmaxf(m[hf], quad_max(mx));
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          sum += exp2f((sc[j][2 * hf] - m_new) * LOG2E) +
+                 exp2f((sc[j][2 * hf + 1] - m_new) * LOG2E);
+        l[hf] = l[hf] * exp2f((m[hf] - m_new) * LOG2E) + sum;
+        m[hf] = m_new;
+      }
+      if (s == nt - 1) {
+        inv_l[0] = 1.f / quad_sum(l[0]);
+        inv_l[1] = 1.f / quad_sum(l[1]);
+      }
+    } else {  // ---- pass 2: p = bf16(exp(s - m) / l), O += p V
+      const __nv_bfloat16* sV = sK + MB_TILE;
+      const int mi = lane >> 3, r = lane & 7;
+#pragma unroll
+      for (int kk = 0; kk < MB_BK / 16; ++kk) {
+        float p[2][4];
+#pragma unroll
+        for (int x = 0; x < 2; ++x)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            p[x][c] = exp2f((sc[2 * kk + x][c] - m[c >> 1]) * LOG2E) * inv_l[c >> 1];
+        const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
+                                pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
+#pragma unroll
+        for (int dd = 0; dd < HD / 16; ++dd) {
+          uint32_t vb[4];  // keys 16 kk .. +15, d 16 dd .. +15, transposed
+          ldmatrix_x4_trans(vb,
+                            sV + (16 * kk + (mi & 1) * 8 + r) * MB_LD + 16 * dd + (mi >> 1) * 8);
+          mma_bf16(o[2 * dd], pa, vb[0], vb[1]);
+          mma_bf16(o[2 * dd + 1], pa, vb[2], vb[3]);
+        }
+      }
+    }
+    __syncthreads();  // the next step's copies overwrite this stage
+  }
+
+  // O rounded to bf16 once, staged per warp, written as 16-byte rows
+  __nv_bfloat16* sO = sbuf + warp * 16 * MB_LD;
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    *reinterpret_cast<uint32_t*>(sO + g * MB_LD + 8 * j + 2 * t) = pack_bf16(o[j][0], o[j][1]);
+    *reinterpret_cast<uint32_t*>(sO + (g + 8) * MB_LD + 8 * j + 2 * t) =
+        pack_bf16(o[j][2], o[j][3]);
+  }
+  __syncwarp();
+  __nv_bfloat16* oh = out + b * o_bs + (int64_t)h * HD;
+#pragma unroll
+  for (int i = 0; i < 16 * HD / 8 / 32; ++i) {
+    const int c = lane + 32 * i, r = c >> 4, col = (c & 15) * 8;
+    const int u = u0 + warp * 16 + r;
+    if (u < U)
+      *reinterpret_cast<uint4*>(oh + (int64_t)u * o_rs + col) =
+          *reinterpret_cast<const uint4*>(sO + r * MB_LD + col);
+  }
+}
+
+// ======================================================================
+// 1b. float32 attention on the CUDA cores
+// ======================================================================
+
 constexpr int BQ = 64;   // queries per block
 constexpr int BK = 64;   // keys per tile
 constexpr int NT = 256;  // threads per block
 constexpr int LP = BK + 4;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even
-}
-
-// rows [r0, r0 + 64) of a (rows, D) head slice with row stride `rs` into a
-// float32 tile with row stride D + 4; rows past `nrows` are zero
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int64_t rs,
-                                          int r0, int nrows) {
-  constexpr int LD = D + 4;
-  for (int i = threadIdx.x; i < 64 * D; i += NT) {
-    const int r = i / D, c = i % D;
+// rows [r0, r0 + 64) of a (rows, 128) head slice with row stride `rs` into
+// a tile with row stride 132; rows past `nrows` are zero
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int64_t rs, int r0,
+                                          int nrows) {
+  constexpr int LD = HD + 4;
+  for (int i = threadIdx.x; i < 64 * HD; i += NT) {
+    const int r = i / HD, c = i % HD;
     const int row = r0 + r;
-    dst[r * LD + c] = (row < nrows) ? to_f(src[(int64_t)row * rs + c]) : 0.f;
+    dst[r * LD + c] = (row < nrows) ? src[(int64_t)row * rs + c] : 0.f;
   }
 }
 
 // s[i][j] = q[4 ty + i] . k[tx + 16 j] over the d columns
-template <int D>
-__device__ __forceinline__ void scores(const float* sQ, const float* sK, int tx,
-                                       int ty, float s[4][4]) {
-  constexpr int LD = D + 4;
+__device__ __forceinline__ void scores(const float* sQ, const float* sK, int tx, int ty,
+                                       float s[4][4]) {
+  constexpr int LD = HD + 4;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-  for (int c = 0; c < D; c += 4) {
+  for (int c = 0; c < HD; c += 4) {
     float4 qv[4], kv[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -156,15 +384,14 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-template <typename T, int D>
 __global__ void __launch_bounds__(NT, 2)
-attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ bias,
-                 T* __restrict__ out, int U, int Tk, int64_t q_bs, int64_t q_rs,
-                 int64_t k_bs, int64_t k_rs, int64_t v_bs, int64_t v_rs,
-                 int64_t o_bs, int64_t o_rs) {
-  constexpr int LD = D + 4;
-  constexpr int NG = D / 64;  // output column groups of 64
+attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ bias,
+                 float* __restrict__ out, int U, int Tk, int64_t q_bs, int64_t q_rs,
+                 int64_t k_bs, int64_t k_rs, int64_t v_bs, int64_t v_rs, int64_t o_bs,
+                 int64_t o_rs) {
+  constexpr int LD = HD + 4;
+  constexpr int NG = HD / 64;  // output column groups of 64
   extern __shared__ __align__(16) float smem[];
   float* sQ = smem;            // BQ x LD
   float* sKV = sQ + BQ * LD;   // BK x LD (keys, then values)
@@ -173,12 +400,12 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int u0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const T* qh = q + b * q_bs + (int64_t)h * D;
-  const T* kh = k + b * k_bs + (int64_t)h * D;
-  const T* vh = v + b * v_bs + (int64_t)h * D;
+  const float* qh = q + b * q_bs + (int64_t)h * HD;
+  const float* kh = k + b * k_bs + (int64_t)h * HD;
+  const float* vh = v + b * v_bs + (int64_t)h * HD;
   const float* bb = bias + (int64_t)b * Tk;
 
-  load_tile<T, D>(sQ, qh, q_rs, u0, U);
+  load_tile(sQ, qh, q_rs, u0, U);
 
   // ---- pass 1: row max m and row sum l of exp(s - m)
   float m_i[4], l_i[4];
@@ -190,10 +417,10 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float s[4][4];
   for (int k0 = 0; k0 < Tk; k0 += BK) {
     __syncthreads();
-    load_tile<T, D>(sKV, kh, k_rs, k0, Tk);
+    load_tile(sKV, kh, k_rs, k0, Tk);
     if (tid < BK) sB[tid] = (k0 + tid < Tk) ? bb[k0 + tid] : -INFINITY;
     __syncthreads();
-    scores<D>(sQ, sKV, tx, ty, s);
+    scores(sQ, sKV, tx, ty, s);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float mx = -INFINITY;
@@ -211,7 +438,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  // ---- pass 2: p = exp(s - m) / l rounded to v's dtype, out = p v
+  // ---- pass 2: p = exp(s - m) / l, out = p v
   float o[4][4 * NG];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -219,19 +446,17 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < 4 * NG; ++c) o[i][c] = 0.f;
   for (int k0 = 0; k0 < Tk; k0 += BK) {
     __syncthreads();
-    load_tile<T, D>(sKV, kh, k_rs, k0, Tk);
+    load_tile(sKV, kh, k_rs, k0, Tk);
     if (tid < BK) sB[tid] = (k0 + tid < Tk) ? bb[k0 + tid] : -INFINITY;
     __syncthreads();
-    scores<D>(sQ, sKV, tx, ty, s);
+    scores(sQ, sKV, tx, ty, s);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] + sB[tx + 16 * j] - m_i[i]) / l_i[i];
-        sP[(4 * ty + i) * LP + tx + 16 * j] = to_f(from_f<T>(p));
-      }
+      for (int j = 0; j < 4; ++j)
+        sP[(4 * ty + i) * LP + tx + 16 * j] = expf(s[i][j] + sB[tx + 16 * j] - m_i[i]) / l_i[i];
     __syncthreads();
-    load_tile<T, D>(sKV, vh, v_rs, k0, Tk);
+    load_tile(sKV, vh, v_rs, k0, Tk);
     __syncthreads();
 #pragma unroll 4
     for (int kk = 0; kk < BK; ++kk) {
@@ -252,7 +477,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* oh = out + b * o_bs + (int64_t)h * D;
+  float* oh = out + b * o_bs + (int64_t)h * HD;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int u = u0 + 4 * ty + i;
@@ -260,432 +485,569 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int g = 0; g < NG; ++g)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        oh[(int64_t)u * o_rs + 64 * g + 4 * tx + e] = from_f<T>(o[i][4 * g + e]);
+      for (int e = 0; e < 4; ++e) oh[(int64_t)u * o_rs + 64 * g + 4 * tx + e] = o[i][4 * g + e];
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const float* bias, void* out,
-           int B, int U, int Tk, int H, const long long* strides, cudaStream_t stream) {
-  constexpr int LD = D + 4;
-  const size_t smem = sizeof(float) * (BQ * LD + BK * LD + BQ * LP + BK);
-  auto kern = attention_kernel<T, D>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((U + BQ - 1) / BQ, H, B);
-  kern<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
-      static_cast<T*>(out), U, Tk, strides[0], strides[1], strides[2], strides[3],
-      strides[4], strides[5], strides[6], strides[7]);
-  return (int)cudaGetLastError();
-}
+// ======================================================================
+// 2, 3. the int8 layers' attention: exact sums on the float64 tensor cores
+// ======================================================================
 
-// ---- the int8 layers' attention: float32 in, bf16-rounded, exact sums
+constexpr int X_NT = 128;            // 4 warps, 16 query rows each
+constexpr int X_BQ = 64;             // query rows per block
+constexpr int X_KT = 16;             // keys per float64 tile (two tiles in flight)
+constexpr int X_LD = HD + 4;         // doubles (or q floats) per tile row
+constexpr int X_TILE = X_KT * X_LD;  // doubles per float64 tile
+constexpr size_t X_REGION = 2 * X_TILE * sizeof(double);  // 33,792: q, k8 or the two tiles
+constexpr int X_LQ8 = HD + 16;       // bytes per int8 row (36 words: conflict-free)
+constexpr int I8_KT = 64;            // keys per int8 score tile
+constexpr int I8_TILE = I8_KT * X_LQ8 + I8_KT * 4;  // int8 rows, then their scales
+// Scores of up to this many keys stay in shared memory: 64 rows x ld(T)
+// float32, the bias row and the tile region fit the 227 KB of one block
+// (T = 736 would just fit).  ops/attention.py EXACT_ONCHIP_MAX_T holds the
+// same number.
+constexpr int EXACT_ONCHIP_MAX_T = 704;
+
+// row stride of the scores: keys padded to 32, plus 8 floats (float32 rows
+// 8 banks apart; ops/attention.py `exact_scores_ld`)
+__host__ __device__ __forceinline__ int scores_ld(int Tk) { return (Tk + 31) / 32 * 32 + 8; }
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
-
-// rows [r0, r0 + 64) of a float32 head slice, each value times `scale` and
-// rounded to bf16; rows past `nrows` are zero
-template <int D>
-__device__ __forceinline__ void load_rounded(float* dst, const float* src, int64_t rs,
-                                             int r0, int nrows, float scale) {
-  constexpr int LD = D + 4;
-  for (int i = threadIdx.x; i < 64 * D; i += NT) {
-    const int r = i / D, c = i % D;
-    const int row = r0 + r;
-    dst[r * LD + c] =
-        (row < nrows) ? bf16_round(__fmul_rn(src[(int64_t)row * rs + c], scale)) : 0.f;
-  }
-}
-
-// s[i][j] = q[4 ty + i] . k[tx + 16 j] summed in float64, rounded once, plus
-// the key bias (a float32 add)
-template <int D>
-__device__ __forceinline__ void scores_exact(const float* sQ, const float* sK,
-                                             const float* sB, int tx, int ty,
-                                             float s[4][4]) {
-  constexpr int LD = D + 4;
-  double a[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) a[i][j] = 0.0;
-#pragma unroll 2
-  for (int c = 0; c < D; c += 4) {
-    float4 qv[4], kv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      qv[i] = *reinterpret_cast<const float4*>(&sQ[(4 * ty + i) * LD + c]);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      kv[j] = *reinterpret_cast<const float4*>(&sK[(tx + 16 * j) * LD + c]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        double t = a[i][j];
-        t = fma((double)qv[i].x, (double)kv[j].x, t);
-        t = fma((double)qv[i].y, (double)kv[j].y, t);
-        t = fma((double)qv[i].z, (double)kv[j].z, t);
-        t = fma((double)qv[i].w, (double)kv[j].w, t);
-        a[i][j] = t;
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = __fadd_rn(__double2float_rn(a[i][j]), sB[tx + 16 * j]);
-}
-
-__device__ __forceinline__ double row_sum64(double x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off, 16);
-  return x;
-}
-
 __device__ __forceinline__ float exp_exact(float x) {  // float64 exp, rounded once
   return __double2float_rn(exp((double)x));
 }
 
-// Passes 2 and 3 of the exact-sum attention, shared by both int8-layer
-// kernels: `sc` holds this block's (64, Tk) float32 scores (rows past U are
-// never touched) and m_i each thread's row maxima.  e = exp(s - m) in
-// place and l = sum e in float64; then p = bf16(e / l) and out = p v summed
-// in float64, v rounded to bf16 at load and zero past v_rows.
-template <int D>
-__device__ __forceinline__ void exact_softmax_pv(float* sc, const float m_i[4],
-                                                 const bool row_ok[4], const float* vh,
-                                                 int64_t v_rs, int v_rows, int Tk, float* sKV,
-                                                 float* sP, float* oh, int64_t o_rs, int u0,
-                                                 int U) {
-  constexpr int LD = D + 4;
-  constexpr int NG = D / 64;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+// D(16 x 8) += A(16 x 8) B(8 x 8) in float64: a_i = A[g + 8 (i & 1)][t + 4 (i >> 1)],
+// b_i = B[t + 4 i][g], c_i = D[g + 8 (i >> 1)][2 t + (i & 1)]
+__device__ __forceinline__ void mma_f64(double c[4], const double a[4], double b0, double b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b0), "d"(b1));
+}
+__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
-  // ---- pass 2: e = exp(s - m) in place, l = sum e in float64
-  double l64[4] = {0.0, 0.0, 0.0, 0.0};
+// A 16-row x 128 float32 tile of a head slice, fetched into registers (4
+// float4 a thread, a warp per row) a tile ahead of its use; rows past
+// `nrows` are zero
+__device__ __forceinline__ void x_fetch(float4 f[4], const float* src, int64_t rs, int r0,
+                                        int nrows) {
+  const int w = threadIdx.x >> 5, col = (threadIdx.x & 31) * 4;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    if (!row_ok[i]) continue;
-    float* row = sc + (int64_t)(4 * ty + i) * Tk;
-    for (int key = tx; key < Tk; key += 16) {
-      const float e = exp_exact(__fsub_rn(row[key], m_i[i]));
-      row[key] = e;
-      l64[i] += (double)e;
-    }
+    const int row = r0 + w + 4 * i;
+    f[i] = row < nrows ? *reinterpret_cast<const float4*>(src + (int64_t)row * rs + col)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  float l_i[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) l_i[i] = __double2float_rn(row_sum64(l64[i]));
-
-  // ---- pass 3: p = bf16(e / l), out = p v summed in float64
-  double o[4][4 * NG];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 4 * NG; ++c) o[i][c] = 0.0;
-  for (int k0 = 0; k0 < Tk; k0 += BK) {
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = k0 + tx + 16 * j;
-        const float e = (row_ok[i] && key < Tk) ? sc[(int64_t)(4 * ty + i) * Tk + key] : 0.f;
-        sP[(4 * ty + i) * LP + tx + 16 * j] = bf16_round(__fdiv_rn(e, l_i[i]));
-      }
-    load_rounded<D>(sKV, vh, v_rs, k0, v_rows, 1.f);
-    __syncthreads();
-#pragma unroll 2
-    for (int kk = 0; kk < BK; ++kk) {
-      double p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = (double)sP[(4 * ty + i) * LP + kk];
-#pragma unroll
-      for (int g = 0; g < NG; ++g) {
-        const float4 vv = *reinterpret_cast<const float4*>(&sKV[kk * LD + 64 * g + 4 * tx]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          o[i][4 * g + 0] = fma(p[i], (double)vv.x, o[i][4 * g + 0]);
-          o[i][4 * g + 1] = fma(p[i], (double)vv.y, o[i][4 * g + 1]);
-          o[i][4 * g + 2] = fma(p[i], (double)vv.z, o[i][4 * g + 2]);
-          o[i][4 * g + 3] = fma(p[i], (double)vv.w, o[i][4 * g + 3]);
-        }
-      }
-    }
-  }
-
+}
+// ... rounded to bf16 and widened to float64 into a shared tile
+__device__ __forceinline__ void x_stage(double* dst, const float4 f[4]) {
+  const int w = threadIdx.x >> 5, col = (threadIdx.x & 31) * 4;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int u = u0 + 4 * ty + i;
-    if (u >= U) continue;
-#pragma unroll
-    for (int g = 0; g < NG; ++g)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        oh[(int64_t)u * o_rs + 64 * g + 4 * tx + e] = __double2float_rn(o[i][4 * g + e]);
+    double2* d = reinterpret_cast<double2*>(dst + (w + 4 * i) * X_LD + col);
+    d[0] = make_double2(bf16_round(f[i].x), bf16_round(f[i].y));
+    d[1] = make_double2(bf16_round(f[i].z), bf16_round(f[i].w));
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(NT, 1)
+// Score epilogue of one accumulator pair: s = f32(acc) + bias, or the int8
+// form; stored to the block's score rows, folded into the row maxima.
+struct ScoreRows {
+  float* sc;   // this block's row 0 of the scores
+  int ld;      // row stride
+  int row0;    // the thread's first row (g of its warp); the second is row0 + 8
+  bool ok0, ok1;
+  float m0, m1;
+  __device__ __forceinline__ void put(int key, float s0, float s1) {
+    if (ok0) sc[row0 * ld + key] = s0;
+    if (ok1) sc[(row0 + 8) * ld + key] = s1;
+    m0 = fmaxf(m0, s0);
+    m1 = fmaxf(m1, s1);
+  }
+};
+
+// Passes 2 and 3, shared by both kernels, after a block barrier that ends
+// pass 1.  sc holds the warp's 16 score rows (keys < Tk); rs.m0 / rs.m1 the
+// thread's partial row maxima.  e = exp(s - m) and l = sum e in float64, p =
+// bf16(e / l) in place (a warp per eight rows at a time), then out = p v on
+// the float64 tensor cores, v rounded to bf16 at staging and zero past
+// v_rows.  `region` holds the two float64 tiles.
+__device__ __forceinline__ void exact_softmax_pv(ScoreRows& rs, double* region, const float* vh,
+                                                 int64_t v_rs, int v_rows, int Tk, float* oh,
+                                                 int64_t o_rs, int u0, int U) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float m0 = quad_max(rs.m0), m1 = quad_max(rs.m1);
+  float4 f[4];
+  x_fetch(f, vh, v_rs, 0, v_rows);  // v's first tile, in flight during pass 2
+  __syncwarp();
+
+  // ---- pass 2, eight of the warp's rows at a time, a lane per key (eight
+  // independent exp chains a lane): e = exp(s - m) in place and l = sum e in
+  // float64, then p = bf16(e / l) in place
+  const int nrows = min(16, U - u0 - warp * 16);  // the warp's rows below U
+  for (int r0 = 0; r0 < 16; r0 += 8) {
+    float* s0 = rs.sc + (warp * 16 + r0) * rs.ld;
+    float m[8];
+    double l64[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      m[r] = __shfl_sync(0xffffffffu, r0 == 0 ? m0 : m1, 4 * r);
+      l64[r] = 0.0;
+    }
+    // (the eight values are loaded before any is stored: the compiler cannot
+    // tell the rows apart, and a store between would serialize the chains)
+    for (int key = lane; key < Tk; key += 32) {
+      float x[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) x[r] = r0 + r < nrows ? s0[r * rs.ld + key] : 0.f;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        x[r] = exp_exact(__fsub_rn(x[r], m[r]));
+        l64[r] += (double)x[r];
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+        if (r0 + r < nrows) s0[r * rs.ld + key] = x[r];
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+      for (int r = 0; r < 8; ++r) l64[r] += __shfl_xor_sync(0xffffffffu, l64[r], off);
+    float l[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) l[r] = __double2float_rn(l64[r]);
+    for (int key = lane; key < Tk; key += 32) {
+      float x[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) x[r] = r0 + r < nrows ? s0[r * rs.ld + key] : 0.f;
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+        if (r0 + r < nrows) s0[r * rs.ld + key] = bf16_round(__fdiv_rn(x[r], l[r]));
+    }
+  }
+  __syncwarp();
+
+  // ---- pass 3: out = p v on the float64 tensor cores, 16-key v tiles
+  // through two buffers (stage tile kt + 1 while tile kt is multiplied, one
+  // barrier a tile); keys from v_rows on meet zero rows of v: their terms are
+  // exact zeros, so the tiles stop there
+  const float* p0 = rs.sc + rs.row0 * rs.ld;
+  const float* p1 = p0 + 8 * rs.ld;
+  double o[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[j][c] = 0.0;
+  const int nkt = (v_rows + X_KT - 1) / X_KT;
+  x_stage(region, f);
+  if (nkt > 1) x_fetch(f, vh, v_rs, X_KT, v_rows);
+  __syncthreads();
+  for (int kt = 0; kt < nkt; ++kt) {
+    if (kt + 1 < nkt) {
+      x_stage(region + ((kt + 1) & 1) * X_TILE, f);
+      if (kt + 2 < nkt) x_fetch(f, vh, v_rs, (kt + 2) * X_KT, v_rows);
+    }
+    const double* sV = region + (kt & 1) * X_TILE;
+#pragma unroll
+    for (int kk = 0; kk < X_KT / 8; ++kk) {
+      const int ka = kt * X_KT + 8 * kk + t, kb = ka + 4;
+      double a[4];
+      a[0] = rs.ok0 && ka < Tk ? (double)p0[ka] : 0.0;
+      a[1] = rs.ok1 && ka < Tk ? (double)p1[ka] : 0.0;
+      a[2] = rs.ok0 && kb < Tk ? (double)p0[kb] : 0.0;
+      a[3] = rs.ok1 && kb < Tk ? (double)p1[kb] : 0.0;
+      const double* v0 = sV + (8 * kk + t) * X_LD + g;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) mma_f64(o[j], a, v0[8 * j], v0[4 * X_LD + 8 * j]);
+    }
+    __syncthreads();  // tile kt + 1 staged; this tile's buffer is free
+  }
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int u = u0 + rs.row0 + 8 * hf;
+    if (u >= U) continue;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<float2*>(oh + (int64_t)u * o_rs + 8 * j + 2 * t) =
+          make_float2(__double2float_rn(o[j][2 * hf]), __double2float_rn(o[j][2 * hf + 1]));
+  }
+}
+
+// The block's score rows: shared memory after the tile region, or its rows
+// of the device scratch (batch row blockIdx.z of this launch)
+template <bool ONCHIP>
+__device__ __forceinline__ float* score_base(char* smem, float* scratch, int U, int u0, int ld) {
+  if (ONCHIP) return reinterpret_cast<float*>(smem + X_REGION);
+  return scratch + (((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * U + u0) * ld;
+}
+
+// The key bias row of batch row b, staged in shared memory after the region
+// and the on-chip scores (visible after the caller's next barrier)
+template <bool ONCHIP>
+__device__ __forceinline__ const float* stage_bias(char* smem, const float* bias, int b, int Tk,
+                                                   int ld) {
+  float* sB = reinterpret_cast<float*>(smem + X_REGION) + (ONCHIP ? X_BQ * ld : 0);
+  for (int i = threadIdx.x; i < Tk; i += X_NT) sB[i] = bias[(int64_t)b * Tk + i];
+  return sB;
+}
+
+template <bool ONCHIP>
+__global__ void __launch_bounds__(X_NT, 2)
 attention_f32ctx_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ bias,
                         const int* __restrict__ vlen, float* __restrict__ scratch,
                         float* __restrict__ out, int U, int Tk, float q_scale, int64_t q_bs,
                         int64_t q_rs, int64_t k_bs, int64_t k_rs, int64_t v_bs, int64_t v_rs,
                         int64_t o_bs, int64_t o_rs) {
-  constexpr int LD = D + 4;
-  extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;
-  float* sKV = sQ + BQ * LD;
-  float* sP = sKV + BK * LD;
-  float* sB = sP + BQ * LP;
+  extern __shared__ __align__(16) char xbuf[];
+  double* region = reinterpret_cast<double*>(xbuf);  // q floats, then the two k tiles
+  const int u0 = blockIdx.x * X_BQ, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* qh = q + b * q_bs + (int64_t)h * HD;
+  const float* kh = k + b * k_bs + (int64_t)h * HD;
+  const int ld = scores_ld(Tk);
+  const float* bb = stage_bias<ONCHIP>(xbuf, bias, b, Tk, ld);
+  ScoreRows rs{score_base<ONCHIP>(xbuf, scratch, U, u0, ld), ld, warp * 16 + g,
+               u0 + warp * 16 + g < U, u0 + warp * 16 + g + 8 < U, -INFINITY, -INFINITY};
 
-  const int u0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const float* qh = q + b * q_bs + (int64_t)h * D;
-  const float* kh = k + b * k_bs + (int64_t)h * D;
-  const float* vh = v + b * v_bs + (int64_t)h * D;
-  const float* bb = bias + (int64_t)b * Tk;
-  const int v_rows = vlen ? min(Tk, vlen[b]) : Tk;
-  // this block's (64, Tk) rows of the scratch; rows past U are never touched
-  float* sc = scratch + (((int64_t)b * gridDim.y + h) * U + u0) * Tk;
-  bool row_ok[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) row_ok[i] = u0 + 4 * ty + i < U;
-
-  load_rounded<D>(sQ, qh, q_rs, u0, U, q_scale);
-  float s[4][4];
-
-  // ---- pass 1: the scores into the scratch, and the row max m (exact
-  // whatever the order)
-  float m_i[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
-  for (int k0 = 0; k0 < Tk; k0 += BK) {
-    __syncthreads();
-    load_rounded<D>(sKV, kh, k_rs, k0, Tk, 1.f);
-    if (tid < BK) sB[tid] = (k0 + tid < Tk) ? bb[k0 + tid] : -INFINITY;
-    __syncthreads();
-    scores_exact<D>(sQ, sKV, sB, tx, ty, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = k0 + tx + 16 * j;
-        if (row_ok[i] && key < Tk) sc[(int64_t)(4 * ty + i) * Tk + key] = s[i][j];
-        m_i[i] = fmaxf(m_i[i], s[i][j]);
-      }
+  // q * q_scale rounded to bf16 (float32, rows of X_LD) in the region, then
+  // widened once into the warp's float64 A fragments
+  float* sQ = reinterpret_cast<float*>(xbuf);
+  for (int i = threadIdx.x; i < X_BQ * HD / 4; i += X_NT) {
+    const int r = i >> 5, c = (i & 31) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (u0 + r < U) x = *reinterpret_cast<const float4*>(qh + (int64_t)(u0 + r) * q_rs + c);
+    *reinterpret_cast<float4*>(sQ + r * X_LD + c) =
+        make_float4(bf16_round(__fmul_rn(x.x, q_scale)), bf16_round(__fmul_rn(x.y, q_scale)),
+                    bf16_round(__fmul_rn(x.z, q_scale)), bf16_round(__fmul_rn(x.w, q_scale)));
   }
+  float4 f[4];
+  x_fetch(f, kh, k_rs, 0, Tk);
+  __syncthreads();
+  double qa[HD / 8][4];
+  {
+    const float* q0 = sQ + rs.row0 * X_LD + t;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) m_i[i] = row_max(m_i[i]);
+    for (int ks = 0; ks < HD / 8; ++ks) {
+      qa[ks][0] = q0[8 * ks];
+      qa[ks][1] = q0[8 * X_LD + 8 * ks];
+      qa[ks][2] = q0[8 * ks + 4];
+      qa[ks][3] = q0[8 * X_LD + 8 * ks + 4];
+    }
+  }
+  __syncthreads();
 
-  exact_softmax_pv<D>(sc, m_i, row_ok, vh, v_rs, v_rows, Tk, sKV, sP,
-                      out + b * o_bs + (int64_t)h * D, o_rs, u0, U);
+  // ---- pass 1: scores on the float64 tensor cores, 16-key k tiles through
+  // the two buffers (one barrier a tile), two half sums of d a key pair (four
+  // independent chains a warp; their float64 sum is exact), the bias, the
+  // row max
+  const int nkt = (Tk + X_KT - 1) / X_KT;
+  x_stage(region, f);
+  if (nkt > 1) x_fetch(f, kh, k_rs, X_KT, Tk);
+  __syncthreads();
+  for (int kt = 0; kt < nkt; ++kt) {
+    if (kt + 1 < nkt) {
+      x_stage(region + ((kt + 1) & 1) * X_TILE, f);
+      if (kt + 2 < nkt) x_fetch(f, kh, k_rs, (kt + 2) * X_KT, Tk);
+    }
+    const double* sK = region + (kt & 1) * X_TILE;
+    double acc[X_KT / 8][2][4];
+#pragma unroll
+    for (int j = 0; j < X_KT / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[j][0][c] = acc[j][1][c] = 0.0;
+#pragma unroll
+    for (int ks = 0; ks < HD / 8; ++ks)
+#pragma unroll
+      for (int j = 0; j < X_KT / 8; ++j) {
+        const double* kr = sK + (8 * j + g) * X_LD + 8 * ks + t;
+        mma_f64(acc[j][ks & 1], qa[ks], kr[0], kr[4]);
+      }
+    float bv[X_KT / 8][2];  // loaded before the score stores
+#pragma unroll
+    for (int j = 0; j < X_KT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = kt * X_KT + 8 * j + 2 * t + e;
+        bv[j][e] = key < Tk ? bb[key] : 0.f;
+      }
+#pragma unroll
+    for (int j = 0; j < X_KT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (kt * X_KT + 8 * j + 2 * t + e < Tk)
+          rs.put(kt * X_KT + 8 * j + 2 * t + e,
+                 __fadd_rn(__double2float_rn(acc[j][0][e] + acc[j][1][e]), bv[j][e]),
+                 __fadd_rn(__double2float_rn(acc[j][0][2 + e] + acc[j][1][2 + e]), bv[j][e]));
+    __syncthreads();  // tile kt + 1 staged; this tile's buffer is free
+  }
+
+  const int v_rows = vlen ? min(Tk, vlen[b]) : Tk;
+  exact_softmax_pv(rs, region, v + b * v_bs + (int64_t)h * HD, v_rs, v_rows, Tk,
+                   out + b * o_bs + (int64_t)h * HD, o_rs, u0, U);
 }
 
 // ---- the SANM layer's attention with int8 scores (int8_attn)
-
-constexpr int LQ8 = 128 + 4;  // row stride of an int8 tile, bytes (33 words)
 
 __device__ __forceinline__ uint32_t pack4(const int q[4]) {
   return (uint32_t)(q[0] & 0xff) | ((uint32_t)(q[1] & 0xff) << 8) |
          ((uint32_t)(q[2] & 0xff) << 16) | ((uint32_t)(q[3] & 0xff) << 24);
 }
 
-// rows [r0, r0 + 64) of a float32 head slice (d = 128), each value times
-// `mult`, quantized per row as quant.py `rowquant_kernel` does (scale =
-// max(absmax, 1e-8) * f32(1/127), q = clip(rint(y / scale))) into int8 rows
-// of LQ8 bytes and their scales; rows past `nrows` are zero, scale 0.  One
-// warp per row, four values per lane.
-__device__ __forceinline__ void quantize_rows(int8_t* dst, float* scale, const float* src,
-                                              int64_t rs, int r0, int nrows, float mult) {
+// The warp's 16 rows (r0 + warp + 4 i) of a 64-row float32 tile of a head
+// slice (d = 128), four values a lane, fetched into registers a tile ahead
+// of their use; rows past `nrows` are 0
+__device__ __forceinline__ void q8_fetch(float4 x[16], const float* src, int64_t rs, int r0,
+                                         int nrows) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < 64; r += NT / 32) {
-    const int row = r0 + r;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int row = r0 + warp + 4 * i;
+    x[i] = row < nrows ? *reinterpret_cast<const float4*>(src + (int64_t)row * rs + 4 * lane)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// ... each value times `mult`, quantized per row as quant.py
+// `rowquant_kernel` does (scale = max(absmax, 1e-8) * f32(1/127), q =
+// clip(rint(y / scale))) into an int8 tile: 64 rows of X_LQ8 bytes, then
+// their 64 scales; rows past `nrows` are zero, scale 0.  A warp per row.
+__device__ __forceinline__ void quantize_rows(int8_t* dst, const float4 x[16], int r0, int nrows,
+                                              float mult) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* scale = reinterpret_cast<float*>(dst + I8_KT * X_LQ8);
+  float amax[16];  // the 16 rows' reductions interleaved
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    amax[i] = fmaxf(fmaxf(fabsf(__fmul_rn(x[i].x, mult)), fabsf(__fmul_rn(x[i].y, mult))),
+                    fmaxf(fabsf(__fmul_rn(x[i].z, mult)), fabsf(__fmul_rn(x[i].w, mult))));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      amax[i] = fmaxf(amax[i], __shfl_xor_sync(0xffffffffu, amax[i], off));
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int r = warp + 4 * i;
     uint32_t word = 0;
     float sc = 0.f;
-    if (row < nrows) {
-      const float* p = src + (int64_t)row * rs + 4 * lane;
-      float y[4];
-      float amax = 0.f;
+    if (r0 + r < nrows) {
+      const float y[4] = {__fmul_rn(x[i].x, mult), __fmul_rn(x[i].y, mult),
+                          __fmul_rn(x[i].z, mult), __fmul_rn(x[i].w, mult)};
+      sc = __fmul_rn(fmaxf(amax[i], 1e-8f), (float)(1.0 / 127.0));
+      int qv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        y[i] = __fmul_rn(p[i], mult);
-        amax = fmaxf(amax, fabsf(y[i]));
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-      sc = __fmul_rn(fmaxf(amax, 1e-8f), (float)(1.0 / 127.0));
-      int q[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        q[i] = (int)fminf(fmaxf(rintf(__fdiv_rn(y[i], sc)), -127.f), 127.f);
-      word = pack4(q);
+      for (int c = 0; c < 4; ++c)
+        qv[c] = (int)fminf(fmaxf(rintf(__fdiv_rn(y[c], sc)), -127.f), 127.f);
+      word = pack4(qv);
     }
-    reinterpret_cast<uint32_t*>(dst + r * LQ8)[lane] = word;
+    reinterpret_cast<uint32_t*>(dst + r * X_LQ8)[lane] = word;
     if (lane == 0) scale[r] = sc;
   }
 }
 
-// s[i][j] = (float(q8[4 ty + i] . k8[tx + 16 j]) * qs) * ks + key bias: the
-// int8 dot exact in int32 (__dp4a), then the float32 steps in the twin's
-// order
-__device__ __forceinline__ void scores_i8(const int8_t* sQ8, const float* sQs,
-                                          const int8_t* sK8, const float* sKs,
-                                          const float* sB, int tx, int ty, float s[4][4]) {
-  int a[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) a[i][j] = 0;
-#pragma unroll 4
-  for (int c = 0; c < 128 / 4; ++c) {
-    int qv[4], kv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) qv[i] = reinterpret_cast<const int*>(sQ8 + (4 * ty + i) * LQ8)[c];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) kv[j] = reinterpret_cast<const int*>(sK8 + (tx + 16 * j) * LQ8)[c];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) a[i][j] = __dp4a(qv[i], kv[j], a[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      s[i][j] = __fadd_rn(
-          __fmul_rn(__fmul_rn(__int2float_rn(a[i][j]), sQs[4 * ty + i]), sKs[tx + 16 * j]),
-          sB[tx + 16 * j]);
-}
-
-__global__ void __launch_bounds__(NT, 1)
+template <bool ONCHIP>
+__global__ void __launch_bounds__(X_NT, 2)
 attention_i8qk_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const float* __restrict__ bias,
                       const int* __restrict__ vlen, float* __restrict__ scratch,
                       float* __restrict__ out, int U, int Tk, float q_scale, int64_t q_bs,
                       int64_t q_rs, int64_t k_bs, int64_t k_rs, int64_t v_bs, int64_t v_rs,
                       int64_t o_bs, int64_t o_rs) {
-  constexpr int D = 128, LD = D + 4;
-  extern __shared__ __align__(16) float smem[];
-  float* sKV = smem;             // BK x LD: v, rounded to bf16
-  float* sP = sKV + BK * LD;     // BQ x LP
-  float* sB = sP + BQ * LP;      // BK key biases
-  float* sQs = sB + BK;          // BQ query scales
-  float* sKs = sQs + BQ;         // BK key scales
-  int8_t* sQ8 = reinterpret_cast<int8_t*>(sKs + BK);  // BQ x LQ8
-  int8_t* sK8 = sQ8 + BQ * LQ8;                       // BK x LQ8
+  extern __shared__ __align__(16) char xbuf[];
+  // two int8 tiles in pass 1 (q8 in the second at first), the float64 v
+  // tiles in pass 3
+  int8_t* s8 = reinterpret_cast<int8_t*>(xbuf);
+  const int u0 = blockIdx.x * X_BQ, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* kh = k + b * k_bs + (int64_t)h * HD;
+  const int ld = scores_ld(Tk);
+  const float* bb = stage_bias<ONCHIP>(xbuf, bias, b, Tk, ld);
+  ScoreRows rs{score_base<ONCHIP>(xbuf, scratch, U, u0, ld), ld, warp * 16 + g,
+               u0 + warp * 16 + g < U, u0 + warp * 16 + g + 8 < U, -INFINITY, -INFINITY};
 
-  const int u0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const float* qh = q + b * q_bs + (int64_t)h * D;
-  const float* kh = k + b * k_bs + (int64_t)h * D;
-  const float* vh = v + b * v_bs + (int64_t)h * D;
-  const float* bb = bias + (int64_t)b * Tk;
-  const int v_rows = vlen ? min(Tk, vlen[b]) : Tk;
-  float* sc = scratch + (((int64_t)b * gridDim.y + h) * U + u0) * Tk;
-  bool row_ok[4];
+  // q * d^-0.5 row-quantized into the second int8 tile, then the warp's
+  // int8 A fragments and row scales into registers
+  float4 x[16];
+  q8_fetch(x, q + b * q_bs + (int64_t)h * HD, q_rs, u0, U);
+  quantize_rows(s8 + I8_TILE, x, u0, U, q_scale);
+  q8_fetch(x, kh, k_rs, 0, Tk);
+  __syncthreads();
+  uint32_t qa[HD / 32][4];
+  const float* qscale = reinterpret_cast<const float*>(s8 + I8_TILE + I8_KT * X_LQ8);
+  const float qs0 = qscale[rs.row0], qs1 = qscale[rs.row0 + 8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) row_ok[i] = u0 + 4 * ty + i < U;
-
-  quantize_rows(sQ8, sQs, qh, q_rs, u0, U, q_scale);  // q * d^-0.5, then int8
-  float s[4][4];
-
-  // ---- pass 1: each key tile quantized in shared memory (k is not
-  // masked), the int8 scores into the scratch, and the row max m
-  float m_i[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
-  for (int k0 = 0; k0 < Tk; k0 += BK) {
-    __syncthreads();
-    quantize_rows(sK8, sKs, kh, k_rs, k0, Tk, 1.f);
-    if (tid < BK) sB[tid] = (k0 + tid < Tk) ? bb[k0 + tid] : -INFINITY;
-    __syncthreads();
-    scores_i8(sQ8, sQs, sK8, sKs, sB, tx, ty, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = k0 + tx + 16 * j;
-        if (row_ok[i] && key < Tk) sc[(int64_t)(4 * ty + i) * Tk + key] = s[i][j];
-        m_i[i] = fmaxf(m_i[i], s[i][j]);
-      }
+  for (int kk = 0; kk < HD / 32; ++kk) {
+    const int8_t* p = s8 + I8_TILE + rs.row0 * X_LQ8 + 32 * kk + 4 * t;
+    qa[kk][0] = *reinterpret_cast<const uint32_t*>(p);
+    qa[kk][1] = *reinterpret_cast<const uint32_t*>(p + 8 * X_LQ8);
+    qa[kk][2] = *reinterpret_cast<const uint32_t*>(p + 16);
+    qa[kk][3] = *reinterpret_cast<const uint32_t*>(p + 8 * X_LQ8 + 16);
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) m_i[i] = row_max(m_i[i]);
 
-  exact_softmax_pv<D>(sc, m_i, row_ok, vh, v_rs, v_rows, Tk, sKV, sP,
-                      out + b * o_bs + (int64_t)h * D, o_rs, u0, U);
+  // ---- pass 1: 64-key tiles of k (not masked) quantized into the two int8
+  // buffers (tile kt + 1 while tile kt is multiplied, one barrier a tile),
+  // the int8 scores exact in int32, the float32 steps, the row max
+  const int nkt = (Tk + I8_KT - 1) / I8_KT;
+  quantize_rows(s8, x, 0, Tk, 1.f);
+  if (nkt > 1) q8_fetch(x, kh, k_rs, I8_KT, Tk);
+  __syncthreads();  // tile 0 quantized; every warp holds its q fragments
+  for (int kt = 0; kt < nkt; ++kt) {
+    if (kt + 1 < nkt) {
+      quantize_rows(s8 + ((kt + 1) & 1) * I8_TILE, x, (kt + 1) * I8_KT, Tk, 1.f);
+      if (kt + 2 < nkt) q8_fetch(x, kh, k_rs, (kt + 2) * I8_KT, Tk);
+    }
+    const int8_t* sK = s8 + (kt & 1) * I8_TILE;
+    const float* kscale = reinterpret_cast<const float*>(sK + I8_KT * X_LQ8);
+    int acc[I8_KT / 8][4];
+#pragma unroll
+    for (int j = 0; j < I8_KT / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[j][c] = 0;
+#pragma unroll
+    for (int kk = 0; kk < HD / 32; ++kk)
+#pragma unroll
+      for (int j = 0; j < I8_KT / 8; ++j) {
+        const int8_t* p = sK + (8 * j + g) * X_LQ8 + 32 * kk + 4 * t;
+        mma_s8(acc[j], qa[kk], *reinterpret_cast<const uint32_t*>(p),
+               *reinterpret_cast<const uint32_t*>(p + 16));
+      }
+    float ks[I8_KT / 8][2], bv[I8_KT / 8][2];  // loaded before the score stores
+#pragma unroll
+    for (int j = 0; j < I8_KT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kl = 8 * j + 2 * t + e;
+        ks[j][e] = kscale[kl];
+        bv[j][e] = kt * I8_KT + kl < Tk ? bb[kt * I8_KT + kl] : 0.f;
+      }
+#pragma unroll
+    for (int j = 0; j < I8_KT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = kt * I8_KT + 8 * j + 2 * t + e;
+        if (key < Tk)
+          rs.put(key,
+                 __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc[j][e]), qs0), ks[j][e]),
+                           bv[j][e]),
+                 __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc[j][2 + e]), qs1), ks[j][e]),
+                           bv[j][e]));
+      }
+    __syncthreads();  // tile kt + 1 quantized; this tile's buffer is free
+  }
+
+  const int v_rows = vlen ? min(Tk, vlen[b]) : Tk;
+  exact_softmax_pv(rs, reinterpret_cast<double*>(xbuf), v + b * v_bs + (int64_t)h * HD, v_rs,
+                   v_rows, Tk, out + b * o_bs + (int64_t)h * HD, o_rs, u0, U);
+}
+
+using ExactKernel = void (*)(const float*, const float*, const float*, const float*, const int*,
+                             float*, float*, int, int, float, int64_t, int64_t, int64_t, int64_t,
+                             int64_t, int64_t, int64_t, int64_t);
+
+int launch_exact(ExactKernel onchip, ExactKernel spill, const float* q,
+                 const float* k, const float* v, const float* bias, const int* vlen,
+                 float* scratch, float* out, int B, int U, int Tk, int H, float q_scale,
+                 const long long* st, cudaStream_t stream) {
+  if (!scratch && Tk > EXACT_ONCHIP_MAX_T) return (int)cudaErrorInvalidValue;
+  const int ld = scores_ld(Tk);  // the scores (on chip) and the bias row
+  const size_t smem = X_REGION + (scratch ? 1 : X_BQ + 1) * (size_t)ld * sizeof(float);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const void* kern = scratch ? (const void*)spill : (const void*)onchip;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((U + X_BQ - 1) / X_BQ, H, B);
+  if (scratch)
+    spill<<<grid, X_NT, smem, stream>>>(q, k, v, bias, vlen, scratch, out, U, Tk, q_scale, st[0],
+                                        st[1], st[2], st[3], st[4], st[5], st[6], st[7]);
+  else
+    onchip<<<grid, X_NT, smem, stream>>>(q, k, v, bias, vlen, nullptr, out, U, Tk, q_scale,
+                                         st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7]);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry point, called through ctypes.  `strides` holds the batch and
 // row strides (in elements) of q, k, v and out, in that order.  dtype: 0 =
-// float32, 1 = bfloat16; the head size d must be 128.  Returns
-// cudaGetLastError() (0 on success); 1 (cudaErrorInvalidValue) for another
-// head size or dtype.
+// float32, 1 = bfloat16; the head size d must be 128, and bf16 q, k, v
+// 16-byte aligned with strides that are multiples of 8 (the wrapper checks).
+// Returns cudaGetLastError() (0 on success); 1 (cudaErrorInvalidValue) for
+// another head size or dtype.
 extern "C" int attention_forward(const void* q, const void* k, const void* v,
                                  const float* bias, void* out, int B, int U, int Tk,
-                                 int H, int d, int dtype, const long long* strides,
+                                 int H, int d, int dtype, const long long* st,
                                  void* stream) {
   if (B <= 0 || U <= 0 || H <= 0) return (int)cudaSuccess;
-  if (Tk <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (d != 128) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return launch<float, 128>(q, k, v, bias, out, B, U, Tk, H, strides, st);
-  if (dtype == 1) return launch<__nv_bfloat16, 128>(q, k, v, bias, out, B, U, Tk, H, strides, st);
-  return (int)cudaErrorInvalidValue;
+  if (Tk <= 0 || d != HD) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 1) {
+    auto kern = attention_kernel_bf16_mma;
+    cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MB_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid((U + MB_BQ - 1) / MB_BQ, H, B);
+    kern<<<grid, MB_NT, MB_SMEM, s>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), bias, static_cast<__nv_bfloat16*>(out), U, Tk,
+        st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7]);
+    return (int)cudaGetLastError();
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  constexpr int LD = HD + 4;
+  const size_t smem = sizeof(float) * (BQ * LD + BK * LD + BQ * LP + BK);
+  auto kern = attention_kernel;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((U + BQ - 1) / BQ, H, B);
+  kern<<<grid, NT, smem, s>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                              static_cast<const float*>(v), bias, static_cast<float*>(out), U,
+                              Tk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7]);
+  return (int)cudaGetLastError();
 }
 
 // The int8 layers' attention (second kernel above): float32 q, k, v rounded
 // to bf16 at load (q times q_scale first; v zero past vlen[b] when vlen is
-// not null), float32 output; `scratch` is float32 (B, H, U, Tk).  Same
-// strides, head size and return codes as attention_forward.
+// not null), float32 output.  `scratch` is null when the scores stay in
+// shared memory (Tk <= EXACT_ONCHIP_MAX_T), else float32 (B, H, U,
+// scores_ld(Tk)).  q, k, v 16-byte aligned with strides that are multiples
+// of 4 (the wrapper checks).  Same strides, head size and return codes as
+// attention_forward.
 extern "C" int attention_forward_f32ctx(const float* q, const float* k, const float* v,
                                         const float* bias, const int* vlen, float* scratch,
                                         float* out, int B, int U, int Tk, int H, int d,
                                         float q_scale, const long long* strides,
                                         void* stream) {
   if (B <= 0 || U <= 0 || H <= 0) return (int)cudaSuccess;
-  if (Tk <= 0 || d != 128) return (int)cudaErrorInvalidValue;
-  constexpr int D = 128, LD = D + 4;
-  const size_t smem = sizeof(float) * (BQ * LD + BK * LD + BQ * LP + BK);
-  auto kern = attention_f32ctx_kernel<D>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((U + BQ - 1) / BQ, H, B);
-  kern<<<grid, NT, smem, (cudaStream_t)stream>>>(
-      q, k, v, bias, vlen, scratch, out, U, Tk, q_scale, strides[0], strides[1], strides[2],
-      strides[3], strides[4], strides[5], strides[6], strides[7]);
-  return (int)cudaGetLastError();
+  if (Tk <= 0 || d != HD) return (int)cudaErrorInvalidValue;
+  return launch_exact(attention_f32ctx_kernel<true>, attention_f32ctx_kernel<false>, q, k, v,
+                      bias, vlen, scratch, out, B, U, Tk, H, q_scale, strides,
+                      (cudaStream_t)stream);
 }
 
 // The SANM layer's attention with int8 scores (third kernel above): float32
 // q, k, v; q times q_scale and k row-quantized in the kernel, v rounded to
-// bf16 and zero past vlen[b] (when not null), float32 output; `scratch` is
-// float32 (B, H, U, Tk).  Same strides, head size and return codes as
-// attention_forward.
+// bf16 and zero past vlen[b] (when not null), float32 output.  Same scratch
+// rule, alignment, strides, head size and return codes as
+// attention_forward_f32ctx.
 extern "C" int attention_forward_i8qk(const float* q, const float* k, const float* v,
                                       const float* bias, const int* vlen, float* scratch,
                                       float* out, int B, int U, int Tk, int H, int d,
                                       float q_scale, const long long* strides,
                                       void* stream) {
   if (B <= 0 || U <= 0 || H <= 0) return (int)cudaSuccess;
-  if (Tk <= 0 || d != 128) return (int)cudaErrorInvalidValue;
-  constexpr int LD = 128 + 4;
-  const size_t smem = sizeof(float) * (BK * LD + BQ * LP + BK + BQ + BK) + 2 * 64 * LQ8;
-  auto kern = attention_i8qk_kernel;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((U + BQ - 1) / BQ, H, B);
-  kern<<<grid, NT, smem, (cudaStream_t)stream>>>(
-      q, k, v, bias, vlen, scratch, out, U, Tk, q_scale, strides[0], strides[1], strides[2],
-      strides[3], strides[4], strides[5], strides[6], strides[7]);
-  return (int)cudaGetLastError();
+  if (Tk <= 0 || d != HD) return (int)cudaErrorInvalidValue;
+  return launch_exact(attention_i8qk_kernel<true>, attention_i8qk_kernel<false>, q, k, v, bias,
+                      vlen, scratch, out, B, U, Tk, H, q_scale, strides, (cudaStream_t)stream);
 }

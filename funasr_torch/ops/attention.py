@@ -1,7 +1,12 @@
-"""Masked-softmax attention: the CUDA kernel's wrapper and its plain twin.
+"""Masked-softmax attention: the CUDA kernels' wrappers and their plain twins.
 
-Replaces the TPU kernel funasr_tpu/ops/attention_pallas.py
-``_attn_kernel``.  Contract (attention_pallas.py:37-60, sanm.py:162-163)::
+Three kernels in ``csrc/attention.cu``, one function each here, every one
+with a plain PyTorch twin that the wrapper takes for CPU tensors (and only
+there) and a launch counter.
+
+:func:`fused_attention` replaces the TPU kernel
+funasr_tpu/ops/attention_pallas.py ``_attn_kernel``.  Contract
+(attention_pallas.py:37-60, sanm.py:162-163)::
 
     out[b, :, h, :] = softmax(q[b, :, h, :] @ k[b, :, h, :]^T + key_bias[b]) @ v
 
@@ -14,40 +19,42 @@ Replaces the TPU kernel funasr_tpu/ops/attention_pallas.py
 
 A row whose keys are all masked gets uniform weights in the kernel (the
 XLA path of the JAX package gives zeros there).  The serving path never
-builds such a row: every packed utterance has at least 400 samples.
+builds such a row: every packed utterance has at least 400 samples.  On
+the H100 the function is bound by its bytes (about 19 us at the encoder's
+B=64 x 15 s shape); the bf16 kernel runs both products on the tensor cores
+(mma.sync m16n8k16, q in registers, K and V through a cp.async ring, p in
+registers between the two products), so it holds the twin to the bf16
+tolerance, not bit for bit; float32 stays on the CUDA cores (TF32 would
+not hold the float32 bar).  Launches count in ``fused_attention.launches``.
 
-- :func:`fused_attention` launches ``csrc/attention.cu`` for CUDA tensors
-  (head size 128; another raises) and counts the launch in
-  ``fused_attention.launches``; for CPU tensors it runs
-  :func:`attention_ref`.  There is no other path.
-- :func:`attention_ref` is the plain PyTorch version of the same function.
-
-The int8 layers' attention (sanm_layer_pallas.py:118-127,
-decoder_layer_pallas.py:97-106) is a second kernel in the same source,
-:func:`attention_f32ctx` with its twin :func:`attention_f32ctx_ref`: float32
-q, k, v (column slices of an int8 projection's output) rounded to bf16 as
-they are used -- q after the ``q_scale`` multiply in float32, v after its
-rows past ``v_lengths`` are zeroed -- bf16 p, and a float32 context.  Its
-scores, softmax sum and p v are summed in float64 and its exp is taken in
-float64, each rounded once to float32, so the result does not depend on
-the order of the sums and kernel and twin agree bit for bit.  (The TPU kernel
-takes bf16 operands with float32 accumulation; the float64 sums are the
-port's choice, so that the card's int8 model can be held to its twins.)
-The kernel keeps the scores of its batch rows in a float32 (rows, H, U, T)
-scratch; the wrapper launches it on as many batch rows at a time as keep
-that scratch within ``F32CTX_SCRATCH_BYTES`` (one row at least).  Its
+The int8 layers' attention (sanm_layer_pallas.py:118-129,
+decoder_layer_pallas.py:101-115) is :func:`attention_f32ctx` with its twin
+:func:`attention_f32ctx_ref`: float32 q, k, v (column slices of an int8
+projection's output) rounded to bf16 as they are used -- q after the
+``q_scale`` multiply in float32, v after its rows past ``v_lengths`` are
+zeroed -- bf16 p, and a float32 context.  Its scores, softmax sum and p v
+are summed in float64 and its exp is taken in float64, each rounded once to
+float32, so the result does not depend on the order of the sums and kernel
+and twin agree bit for bit.  (The TPU kernel takes bf16 operands with
+float32 accumulation; the float64 sums are the port's choice, so that the
+card's int8 model can be held to its twins.)  A product of two bf16 values
+is exact in float64, so the kernel takes the sums to the float64 tensor
+cores (mma.sync m16n8k8 .f64), each value widened once.  The block's
+scores stay in shared memory up to ``EXACT_ONCHIP_MAX_T`` keys; past it
+they go to a float32 (rows, H, U, ld) scratch in device memory, launched on
+as many batch rows at a time as keep it within ``F32CTX_SCRATCH_BYTES``
+(one row at least): :func:`exact_attention_plan` holds that rule.  Its
 launches count in ``attention_f32ctx.launches``.
 
 The SANM layer's attention with int8 scores (sanm_layer_pallas.py:112-117,
-``int8_attn``) is a third kernel in the same source, :func:`attention_i8qk`
-with its twin :func:`attention_i8qk_ref`.  Per head, q times ``q_scale``
-and k are row-quantized ("mul" form, quant.py ``rowquant_kernel``; k is
-not masked) inside the kernel, and the scores are
-``(float32(q8 k8^T) * qs) * ks^T + key_bias``, the int8 dot exact; the
-softmax and p v are those of :func:`attention_f32ctx` (float64 exp and
-sums, bf16 p, bf16 v zero past ``v_lengths``), so kernel and twin agree
-bit for bit.  It shares the scratch and its cap; its launches count in
-``attention_i8qk.launches``.
+``int8_attn``) is :func:`attention_i8qk` with its twin
+:func:`attention_i8qk_ref`.  Per head, q times ``q_scale`` and k are
+row-quantized ("mul" form, quant.py ``rowquant_kernel``; k is not masked)
+inside the kernel, and the scores are ``(float32(q8 k8^T) * qs) * ks^T +
+key_bias``, the int8 dot exact (mma.sync m16n8k32 .s8); the softmax and p v
+are those of :func:`attention_f32ctx` (float64 exp and sums, bf16 p, bf16 v
+zero past ``v_lengths``), so kernel and twin agree bit for bit.  It shares
+the scores rule; its launches count in ``attention_i8qk.launches``.
 """
 
 from __future__ import annotations
@@ -62,7 +69,30 @@ from funasr_torch.ops import rowquant as RQ
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_SIZE = 128  # the only head size of the models on the ported path
-F32CTX_SCRATCH_BYTES = 1 << 28  # 256 MiB: B=64 x 15 s (T=U=256) takes 64 MiB
+# The int8 layers' attention keeps a block's 64 rows of float32 scores in
+# shared memory for up to this many keys (attention.cu EXACT_ONCHIP_MAX_T);
+# past it they go to a device scratch capped at F32CTX_SCRATCH_BYTES a launch.
+EXACT_ONCHIP_MAX_T = 704
+F32CTX_SCRATCH_BYTES = 1 << 28  # 256 MiB
+
+
+def exact_scores_ld(T: int) -> int:
+    """Row stride of the int8 layers' attention scores: T padded to the
+    32-key tile, plus 8 (attention.cu ``scores_ld``)."""
+    return -(-T // 32) * 32 + 8
+
+
+def exact_attention_plan(B: int, H: int, U: int, T: int):
+    """How :func:`attention_f32ctx` and :func:`attention_i8qk` launch on B
+    batch rows: ``(rows per launch, launches, scratch shape or None)``.  Up
+    to ``EXACT_ONCHIP_MAX_T`` keys the scores stay on chip: one launch, no
+    scratch.  Past it each launch takes as many rows as keep the float32
+    (rows, H, U, ld) scratch within ``F32CTX_SCRATCH_BYTES``, one at least."""
+    if T <= EXACT_ONCHIP_MAX_T:
+        return B, 1, None
+    ld = exact_scores_ld(T)
+    rows = min(B, max(1, F32CTX_SCRATCH_BYTES // (4 * H * U * ld)))
+    return rows, -(-B // rows), (rows, H, U, ld)
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -144,14 +174,27 @@ def _check_qkv(fn: str, q, k, v, key_bias, n_head):
     return B, U, T, D
 
 
+def _check_aligned(fn: str, *tensors) -> None:
+    """The kernels load 16-byte rows: each tensor's start and its batch and
+    row strides (where that dimension has more than one entry) must keep
+    every head's row 16-byte aligned."""
+    for t in tensors:
+        per = 16 // t.element_size()
+        strides = [st for st, n in zip(t.stride()[:2], t.shape[:2]) if n > 1]
+        if t.data_ptr() % 16 or any(st % per for st in strides):
+            raise ValueError(f"{fn}: q/k/v rows must be 16-byte aligned (strides "
+                             f"{tuple(t.stride())}, dtype {t.dtype})")
+
+
 def _launch_exact(fn_name: str, symbol: str, q, k, v, key_bias, n_head, q_scale,
                   v_lengths) -> torch.Tensor:
-    """Launch one of the int8 layers' attention kernels on as many batch rows
-    at a time as keep its float32 scores scratch within
-    ``F32CTX_SCRATCH_BYTES``; returns the output and the launch count."""
+    """Launch one of the int8 layers' attention kernels as
+    :func:`exact_attention_plan` says; returns the output and the launch
+    count."""
     if any(t.dtype != torch.float32 for t in (q, k, v)):
         raise ValueError(f"{fn_name}: q/k/v must be float32")
     B, U, T, D = _check_qkv(fn_name, q, k, v, key_bias, n_head)
+    _check_aligned(fn_name, q, k, v)
     bias = key_bias.to(torch.float32).contiguous()
     vlen = None
     if v_lengths is not None:
@@ -159,23 +202,21 @@ def _launch_exact(fn_name: str, symbol: str, q, k, v, key_bias, n_head, q_scale,
             raise ValueError(f"{fn_name}: v_lengths must be (B,) on q's device")
         vlen = v_lengths.to(torch.int32).contiguous()
     out = torch.empty((B, U, D), dtype=torch.float32, device=q.device)
-    rows = max(1, F32CTX_SCRATCH_BYTES // (4 * n_head * U * max(T, 1)))
-    scratch = torch.empty((min(B, rows), n_head, U, T), dtype=torch.float32,
-                          device=q.device)
+    rows, launches, scratch_shape = exact_attention_plan(B, n_head, U, T)
+    scratch = (None if scratch_shape is None else
+               torch.empty(scratch_shape, dtype=torch.float32, device=q.device))
     strides = (ctypes.c_longlong * 8)(q.stride(0), q.stride(1), k.stride(0),
                                       k.stride(1), v.stride(0), v.stride(1),
                                       out.stride(0), out.stride(1))
     fn = cuda_build.function("attention", symbol, _ARGTYPES_F32CTX)
-    launches = 0
     for b0 in range(0, B, rows):
         b1 = min(B, b0 + rows)
         status = fn(q[b0].data_ptr(), k[b0].data_ptr(), v[b0].data_ptr(),
                     bias[b0].data_ptr(), None if vlen is None else vlen[b0:].data_ptr(),
-                    scratch.data_ptr(), out[b0].data_ptr(),
+                    None if scratch is None else scratch.data_ptr(), out[b0].data_ptr(),
                     b1 - b0, U, T, n_head, HEAD_SIZE, q_scale, strides,
                     torch.cuda.current_stream(q.device).cuda_stream)
         cuda_build.check(status, f"{fn_name} kernel launch")
-        launches += 1
     return out, launches
 
 
@@ -229,6 +270,8 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"fused_attention: q/k/v must share bf16 or float32, got "
                          f"{q.dtype}/{k.dtype}/{v.dtype}")
     B, U, T, D = _check_qkv("fused_attention", q, k, v, key_bias, n_head)
+    if q.dtype == torch.bfloat16:
+        _check_aligned("fused_attention", q, k, v)
     bias = key_bias.to(torch.float32).contiguous()
     out = torch.empty((B, U, D), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 8)(q.stride(0), q.stride(1), k.stride(0),
