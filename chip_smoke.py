@@ -16,9 +16,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    - fbank at 64 x 15 s, ragged, with and without the energy column;
      encoder self-attention and decoder cross-attention in bf16 and
      float32 (yardstick ``scaled_dot_product_attention``);
-   - the int8 GEMM at every (M, K, N) of the int8 path, its int32
+   - the int8 GEMM at every (M, K, N) of the int8 path and at edge
+     shapes (ragged M, K below one stage, fewer tiles than SMs), its int32
      accumulator and its epilogue bit-equal to the twin (yardstick
-     ``torch._int_mm`` where its shape rules allow);
+     ``torch._int_mm`` where its shape rules allow); each served shape
+     within 2x ``torch._int_mm``, or 4x its bound where that does not run;
    - the int8 SANM encoder layer (B=64, T=256, lengths 250/200), the int8
      decoder layer (B=64, U=128, T=256) and the int8 FFN (M=16384,
      512 -> 2048 -> 512); the layers' float32-context attention alone at
@@ -28,8 +30,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    - the CTC prefix recurrence at the beam's shape (B=32, K=10, W=16,
      T=383), bit-equal to its twin (bar 1e-6 * max(1, |ref|));
    - the fused int8 matmul (qmm) at the three gated contractions of the
-     BiCif path and edge shapes, bit-equal to its twin (beside it the
-     rowquant + int8 GEMM pair of the XLA route and ``torch._int_mm``);
+     BiCif path and edge shapes (K up to 3072), bit-equal to its twin
+     (beside it the rowquant + int8 GEMM pair of the XLA route and
+     ``torch._int_mm``), the three timed within the GEMM's bars;
      the int8-score attention at the SANM shape and edges (T=1000 with the
      scores in the scratch), bit-equal, and
      the SANM layer with ``int8_attn``; the bf16 and float32 FFN at
@@ -369,7 +372,26 @@ GEMM_SHAPES = (
     (8192, 512, 8404, "output layer (QDense, N=8404)"),
     (12256, 256, 2048, "Conformer FFN w_1 (QDense, beam path, B=32 x 383 frames)"),
     (37, 560, 100, "edge: ragged M, K and N"),
+    (1000, 512, 1536, "edge: M not a multiple of the 128-row tile"),
+    (8192, 16, 512, "edge: K below one 128-byte stage"),
+    (300, 512, 512, "edge: fewer tiles than SMs"),
 )
+# the served rows' bar: ms <= LIB_BAR x torch._int_mm where it runs, else
+# <= BOUND_BAR x the bound (looser than the predictions, so noise never
+# trips it); the edge rows are held for bits only
+LIB_BAR = 2.0
+BOUND_BAR = 4.0
+
+
+def speed_bar(case):
+    """Fail unless a timed case is within its bar (``LIB_BAR``/``BOUND_BAR``)."""
+    lib, ms = case["library_ms"], case["ms"]
+    if lib is not None:
+        check(ms <= LIB_BAR * lib, f"{case['case']}: {ms:.4f} ms > {LIB_BAR} x "
+              f"torch._int_mm {lib:.4f} ms")
+    else:
+        check(ms <= BOUND_BAR * case["bound_ms"], f"{case['case']}: {ms:.4f} ms > "
+              f"{BOUND_BAR} x its bound {case['bound_ms']:.4f} ms")
 
 
 def check_int8_gemm(torch, G):
@@ -409,11 +431,17 @@ def check_int8_gemm(torch, G):
             lib = cuda_ms(lambda: torch._int_mm(a, b.t()))
         nbytes = M * K + N * K + 4 * (M + 2 * N) + 4 * M * N
         bnd, by = bound_ms(nbytes, {"int8": 2.0 * M * N * K})
+        plan = G.gemm_plan(M, N, K, G.sm_count(0))
         case = dict(case=f"{where}: ({M}, {K}) x ({N}, {K}) int8 -> f32",
                     max_abs_err=0.0, tolerance=0.0, ms=ms, plain_ms=plain,
-                    library_ms=lib, bound_ms=bnd, bound_by=by,
-                    tops=2.0 * M * N * K / ms / 1e9)
+                    library_ms=lib, ms_over_library=None if lib is None else ms / lib,
+                    bound_ms=bnd, bound_by=by, ms_over_bound=ms / bnd,
+                    tops=2.0 * M * N * K / ms / 1e9,
+                    plan=f"BM={plan.bm} BN={plan.bn} stages={plan.stages} "
+                         f"grid={plan.grid} tiles={plan.tiles}")
         log(f"int8 gemm {case}")
+        if not where.startswith("edge"):
+            speed_bar(case)
         cases.append(case)
     return cases
 
@@ -608,11 +636,12 @@ QMM_SHAPES = (
     (1000, 560, 1536, "edge: M not a multiple of the 64-row block"),
     (12256, 256, 2048, "edge: K=256 (the Conformer's w_1)"),
     (37, 512, 8404, "edge: 37 rows, N=8404"),
+    (256, 3072, 512, "edge: K=3072, the largest K (64-row band)"),
 )
 QMM_TIMED = 3
 
 
-def check_qmm(torch, QM, Q, RQ):
+def check_qmm(torch, QM, Q, RQ, G):
     """The fused int8 matmul against its twin, bit-equal: bf16 with and
     without the bias, and float32.  At the main shapes, beside it the XLA
     route's rowquant + int8 GEMM pair ("div" form) and ``torch._int_mm`` on
@@ -643,9 +672,16 @@ def check_qmm(torch, QM, Q, RQ):
             # x read once in bf16, w8 once, the scales and bias, out written once
             nbytes = 2 * M * K + N * K + 8 * N + 2 * M * N
             bnd, by = bound_ms(nbytes, {"int8": 2.0 * M * N * K})
+            plan = QM.qmm_plan(M, N, K, G.sm_count(0))
             case.update(ms=ms, plain_ms=plain, rowquant_int8_gemm_ms=pair, library_ms=lib,
-                        bound_ms=bnd, bound_by=by, tops=2.0 * M * N * K / ms / 1e9)
+                        ms_over_library=None if lib is None else ms / lib,
+                        bound_ms=bnd, bound_by=by, ms_over_bound=ms / bnd,
+                        tops=2.0 * M * N * K / ms / 1e9,
+                        plan=f"BM={plan.bm} BN={plan.bn} stages={plan.stages} "
+                             f"grid={plan.grid} units={plan.units}")
         log(f"qmm {case}")
+        if i < QMM_TIMED:
+            speed_bar(case)
         cases.append(case)
     return cases
 
@@ -872,6 +908,7 @@ def end_to_end(torch, rng, FK, A, profile_dir, card, shared):
 
     from funasr_torch.auto.engines import FrontendConfig, ParaformerEngine
     from funasr_torch.models.paraformer.model import Paraformer, init_random_
+    from funasr_torch.ops import int8_gemm as G
     from funasr_torch.tokenizer.char_tokenizer import CharTokenizer
 
     t0 = time.time()
@@ -900,17 +937,20 @@ def end_to_end(torch, rng, FK, A, profile_dir, card, shared):
     # ---- the main path: counters at 0 just before, read just after
     FK.fused_fbank.launches = 0
     A.fused_attention.launches = 0
+    G.int8_gemm.launches = 0
     t0 = time.time()
     results = [engine.transcribe(b) for b in batches]
     torch.cuda.synchronize()
     serve_s = time.time() - t0
     launches = {"fbank": FK.fused_fbank.launches,
-                "attention": A.fused_attention.launches}
+                "attention": A.fused_attention.launches,
+                "int8_gemm": G.int8_gemm.launches}
     log(f"e2e: served {sum(map(len, batches))} requests in 3 batches in "
         f"{serve_s:.3f} s; kernel launches {launches}")
     check(launches["fbank"] == len(batches), "fbank kernel launched per batch")
     check(launches["attention"] == len(batches) * (50 + 16),
           "attention kernel launched in every encoder and decoder layer")
+    check(launches["int8_gemm"] == 0, "no int8 GEMM on the bf16 path")
     for batch, res in zip(batches, results):
         check(len(res) == len(batch), "one result per request")
         check(all(isinstance(r.get("text"), str) for r in res),
@@ -990,6 +1030,7 @@ def end_to_end_int8(torch, FK, A, profile_dir, card, shared):
     from funasr_torch.models.paraformer.model import Paraformer
     from funasr_torch.ops import decoder_layer as DL
     from funasr_torch.ops import ffn as FF
+    from funasr_torch.ops import int8_gemm as G
     from funasr_torch.ops import sanm_layer as SL
 
     t0 = time.time()
@@ -1005,7 +1046,8 @@ def end_to_end_int8(torch, FK, A, profile_dir, card, shared):
     # ---- the int8 main path: counters at 0 just before, read just after
     counters = {"fbank": FK.fused_fbank, "attention": A.fused_attention,
                 "sanm_layer": SL.fused_sanm_layer,
-                "decoder_layer": DL.fused_decoder_layer, "ffn": FF.fused_ffn_int8}
+                "decoder_layer": DL.fused_decoder_layer, "ffn": FF.fused_ffn_int8,
+                "int8_gemm": G.int8_gemm}
     for fn in counters.values():
         fn.launches = 0
     t0 = time.time()
@@ -1021,6 +1063,10 @@ def end_to_end_int8(torch, FK, A, profile_dir, card, shared):
         check(launches[name] == n * len(batches),
               f"int8 path: {name} launched {launches[name]} times, want "
               f"{n} per batch")
+    # four GEMMs a SANM layer, five a decoder layer, two an FFN, and the
+    # QDense projections that pass the gate
+    check(launches["int8_gemm"] >= (4 * 49 + 5 * 16 + 2) * len(batches),
+          f"int8 path: int8 GEMM launched {launches['int8_gemm']} times")
     for batch, res in zip(batches, results):
         check(len(res) == len(batch) and all(isinstance(r.get("text"), str)
                                              for r in res), "int8 results")
@@ -1566,7 +1612,7 @@ def main(argv=None) -> int:
     gemm_cases = check_int8_gemm(torch, G)
     layer_cases = check_int8_layers(torch, SL, DL, FF)
     ctc_cases = check_ctc_prefix(torch, CP)
-    qmm_cases = check_qmm(torch, QM, Q, RQ)
+    qmm_cases = check_qmm(torch, QM, Q, RQ, G)
     f32ctx_cases = check_f32ctx(torch, A)
     i8qk_cases = check_i8qk(torch, A)
     ffn_cases = check_ffn(torch, FF)
@@ -1584,7 +1630,7 @@ def main(argv=None) -> int:
     log(f"end to end done in {time.time() - t0:.1f} s")
     log(f"e2e summary {json.dumps(e2e, sort_keys=True)}")
 
-    def entry(name, sources, replaces, main_case, cases):
+    def entry(name, sources, replaces, main_case, cases, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")
         by_path = {"bf16": launches_bf16.get(name, 0),
@@ -1595,7 +1641,7 @@ def main(argv=None) -> int:
                     replaces=replaces, launches=sum(by_path.values()),
                     launches_by_path=by_path, shape=main_case["case"],
                     tolerance=main_case["tolerance"],
-                    **{k: main_case[k] for k in keys}, cases=cases)
+                    **{k: main_case[k] for k in keys}, **extra, cases=cases)
 
     blocks = ["funasr_torch/csrc/int8_gemm.cu", "funasr_torch/csrc/rowquant.cu",
               "funasr_torch/csrc/fsmn.cu", "funasr_torch/csrc/attention.cu"]
@@ -1611,10 +1657,19 @@ def main(argv=None) -> int:
               layer_cases["decoder_layer"][0],
               layer_cases["decoder_layer"] + f32ctx_cases["decoder_layer"]),
         entry("ffn", blocks[:2], "funasr_tpu/ops/ffn_pallas.py:113",
-              layer_cases["ffn"][0], layer_cases["ffn"] + gemm_cases),
+              layer_cases["ffn"][0], layer_cases["ffn"]),
+        # the building block of rows sanm_layer, decoder_layer and ffn (and
+        # QDense): the int8 contraction inside each of those TPU kernels
+        entry("int8_gemm", ["funasr_torch/csrc/int8_gemm.cu",
+                            "funasr_torch/csrc/int8_wgmma.cuh"],
+              "funasr_tpu/ops/sanm_layer_pallas.py:89", gemm_cases[1], gemm_cases,
+              also_replaces=["funasr_tpu/ops/decoder_layer_pallas.py:49",
+                             "funasr_tpu/ops/ffn_pallas.py:54",
+                             "funasr_tpu/ops/quant.py int8_dot_general"]),
         entry("ctc_prefix", ["funasr_torch/csrc/ctc_prefix.cu"],
               "funasr_tpu/ops/ctc_prefix_pallas.py:47", ctc_cases[0], ctc_cases),
-        entry("qmm", ["funasr_torch/csrc/qmm.cu"], "funasr_tpu/ops/quant_pallas.py:37",
+        entry("qmm", ["funasr_torch/csrc/qmm.cu", "funasr_torch/csrc/int8_wgmma.cuh"],
+              "funasr_tpu/ops/quant_pallas.py:37",
               qmm_cases[0], qmm_cases),
         entry("attention_i8qk", ["funasr_torch/csrc/attention.cu"],
               "funasr_tpu/ops/sanm_layer_pallas.py:112", i8qk_cases[0],

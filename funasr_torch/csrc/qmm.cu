@@ -1,5 +1,5 @@
 // Fused dynamic-int8 matmul for Hopper (sm_90a): row quantize in the
-// prologue, int8 x int8 -> int32 on mma.sync, the scales at the write.
+// prologue, int8 x int8 -> int32 on wgmma, the scales at the write.
 //
 // Replaces the TPU kernel funasr_tpu/ops/quant_pallas.py `_qmm_kernel`
 // (pallas_call at :84), the opt-in QDense route of quant.py:118-122.  For x
@@ -18,63 +18,46 @@
 // (ops/qmm.py `quant_matmul_ref`: rowquant_ref "mul" + int8_gemm_ref) gets
 // the same bits.
 //
-// Design.  One block per 64-row tile of x (and one share of the N tiles, so
-// that a short M still fills the card): the block reads its rows of x once,
-// finds each row's absmax with warp shuffles, and keeps the quantized rows
-// in shared memory as an int8 (64, K) tile (K = 560: 37 KB) for all its N
-// tiles, as the TPU kernel keeps them in VMEM scratch across its N grid
-// steps.  The weights stream through two cp.async stages of 128 rows x 64
-// bytes, zero-filled past N and K, so N = 8404 and K = 560 need no padding.
-// 8 warps (2 x 4, each 32 x 32) issue mma.sync.m16n8k32 s8.  K must be a
-// multiple of 16 and at most MAX_K; x and w 16-byte aligned (the wrapper
-// checks).
+// Design: the mainloop of int8_wgmma.cuh with another producer of A.  A
+// block owns a band of BM rows (64 per consumer warpgroup) and a run of N
+// tiles; a persistent grid of one block per SM walks these units.  Each
+// consumer warpgroup finds its 64 rows' absmax with warp shuffles and
+// writes the quantized rows into shared memory in the 128B-swizzled
+// K-major layout that TMA gives the int8 GEMM (K padded to a multiple of
+// 128 with zeros), then fences them into the async proxy; the band then
+// serves every N tile of the unit, as the TPU kernel keeps its rows in VMEM
+// scratch across its N grid steps.  Meanwhile the producer thread streams the weights by TMA
+// through the ring, zero-filled past N and K, so N = 8404 and K = 560 need
+// no padding.  The epilogue drains the accumulators through a per-warp
+// shared buffer (drain_tile) and writes 4 consecutive columns a lane, with
+// the tile's weight scales and bias staged in shared memory while the
+// tile's product runs.  Where the bands alone do not fill the card (a
+// short M), the N tiles are split over several units, each of which
+// quantizes its band again (the same bits).
 //
-// Bound on the H100 SXM: 2 M N K int8 operations at 1,979 TOP/s against x
-// read once, w read once and out written once at 3.35 TB/s.  The output
-// layer (8192, 512) x (512, 8404) is 70.5 GOP = 36 us against 146 MB of
-// bytes = 44 us (bytes); encoders0's QKV (16384, 560) x (560, 1536) 28.2
-// GOP = 14 us against 69 MB = 21 us.  mma.sync reaches only part of the
-// int8 rate; wgmma with TMA is later work.
+// What runs at which K (ops/qmm.py `qmm_plan`; 227 KB of shared memory):
+// the band takes BM x Kp bytes, Kp = K rounded up to 128.  K <= 1280 runs
+// 128-row bands (K = 512: 64 KB band and 4 stages of 256-row weight
+// tiles; K = 560: 80 KB and 3; K = 1280: 160 KB and 2 stages of 128
+// rows), larger K 64-row bands with one consumer warpgroup (K = 2048:
+// 128 KB and 2 stages of 256 rows; K = 2816: 176 KB and 2 of 128 rows;
+// K = 3072: 192 KB and 2 of 64 rows).
+// K must be a multiple of 16 and at most MAX_K; x and w 16-byte aligned
+// (the wrapper checks).
+//
+// Bound on the H100 SXM: bytes.  x is read once in its dtype, w once, out
+// written once: encoders0's QKV (16384, 560) x (560, 1536) moves 70 MB (21
+// us at 3.35 TB/s) against 28.2 GOP (14 us at 1,979 TOP/s); the output
+// layer (8192, 512) x (512, 8404) 151 MB (45 us) against 70.5 GOP (36 us).
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "int8_wgmma.cuh"
 
 namespace {
 
-constexpr int BM = 64, BN = 128, BK = 64;
-constexpr int NT = 256;
-constexpr int LDB = BK + 16;  // padded row stride of a weight stage, bytes
-constexpr int BSTAGE = BN * LDB;
+using i8w::BK;
 constexpr int MAX_K = 3072;
-constexpr int TARGET_BLOCKS = 264;  // two blocks per SM of the H100's 132
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;  // 0 bytes read: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// weight rows [n0, n0 + 128) x bytes [k0, k0 + 64) of the (N, K) int8 matrix
-__device__ __forceinline__ void load_w(int8_t* dst, const int8_t* w, int N, int K, int n0,
-                                       int k0) {
-#pragma unroll
-  for (int i = 0; i < (BN * BK / 16) / NT; ++i) {
-    const int c = threadIdx.x + i * NT;
-    const int r = c / (BK / 16), col = (c % (BK / 16)) * 16;
-    const bool ok = (n0 + r < N) && (k0 + col < K);
-    const int8_t* g = ok ? w + (int64_t)(n0 + r) * K + k0 + col : w;
-    cp_async16(dst + r * LDB + col, g, ok);
-  }
-}
 
 // 16 bytes of x as float32 values: 8 bf16 or 4 float32
 template <typename T>
@@ -101,76 +84,35 @@ struct Vec<__nv_bfloat16> {
   }
 };
 
-template <typename T>
-__device__ __forceinline__ void store_pair(T* out, int64_t i, float v0, float v1, bool two,
-                                           bool paired);
-template <>
-__device__ __forceinline__ void store_pair<float>(float* out, int64_t i, float v0, float v1,
-                                                  bool two, bool paired) {
-  if (two && paired) {
-    *reinterpret_cast<float2*>(out + i) = make_float2(v0, v1);
-  } else {
-    out[i] = v0;
-    if (two) out[i + 1] = v1;
-  }
-}
-template <>
-__device__ __forceinline__ void store_pair<__nv_bfloat16>(__nv_bfloat16* out, int64_t i,
-                                                          float v0, float v1, bool two,
-                                                          bool paired) {
-  if (two && paired) {
-    *reinterpret_cast<__nv_bfloat162*>(out + i) =
-        __halves2bfloat162(__float2bfloat16_rn(v0), __float2bfloat16_rn(v1));
-  } else {
-    out[i] = __float2bfloat16_rn(v0);
-    if (two) out[i + 1] = __float2bfloat16_rn(v1);
-  }
-}
-
 // (acc * s_x) * sw, rounded to bf16 for a bf16 output, + bias: the twin's order
-__device__ __forceinline__ float epilogue(int acc, float sx, float sw, const float* bias, int n,
+__device__ __forceinline__ float epilogue(int acc, float sx, float sw, bool has_bias, float bias,
                                           bool round_bf16) {
   float v = __fmul_rn(__fmul_rn(__int2float_rn(acc), sx), sw);
   if (round_bf16) v = __bfloat162float(__float2bfloat16_rn(v));
-  if (bias) v = __fadd_rn(v, bias[n]);
+  if (has_bias) v = __fadd_rn(v, bias);
   return v;
 }
 
-// four int8 values packed little-endian into one 32-bit word
 __device__ __forceinline__ uint32_t pack4(const int q[4]) {
   return (uint32_t)(q[0] & 0xff) | ((uint32_t)(q[1] & 0xff) << 8) |
          ((uint32_t)(q[2] & 0xff) << 16) | ((uint32_t)(q[3] & 0xff) << 24);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NT)
-qmm_kernel(const T* __restrict__ x, const int8_t* __restrict__ w, const float* __restrict__ sw,
-           const float* __restrict__ bias, T* __restrict__ out, int M, int N, int K, int Kp,
-           int lda, int tiles_per_block) {
-  extern __shared__ __align__(16) int8_t smem[];
-  int8_t* sA = smem;                    // BM x lda: the quantized rows
-  int8_t* sW = smem + BM * lda;         // two weight stages
-  float* sScale = reinterpret_cast<float*>(sW + 2 * BSTAGE);  // BM row scales
-
-  const int m0 = blockIdx.x * BM;
-  const int n_tiles = (N + BN - 1) / BN;
-  const int t0 = blockIdx.y * tiles_per_block;
-  const int t1 = min(t0 + tiles_per_block, n_tiles);
-  if (t0 >= t1) return;
-  const int nk = Kp / BK;
-  const int steps = (t1 - t0) * nk;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  // the first weight stage flies while the rows are quantized
-  load_w(sW, w, N, K, t0 * BN, 0);
-  asm volatile("cp.async.commit_group;\n" ::);
-
-  // ---- prologue: each warp quantizes 8 rows into shared memory
+// Quantize this warpgroup's 64 rows of the band at global row m0 into the
+// band's k-blocks (tile row offset r0 = 64 wg), scales into scale[r0 ..];
+// each warp takes 16 rows.  Rows past M quantize to zeros with scale 0.
+template <typename T, int BM>
+__device__ __forceinline__ void quantize_rows(const T* __restrict__ x, uint8_t* band,
+                                              float* scale, int m0, int r0, int M, int K,
+                                              int Kp) {
   constexpr int V = Vec<T>::N;
-  constexpr bool kBf16 = V == 8;
-  for (int r = warp * (BM / 8); r < (warp + 1) * (BM / 8); ++r) {
-    int8_t* dst = sA + r * lda;
+  const int warp = (threadIdx.x & 127) >> 5, lane = threadIdx.x & 31;
+  for (int r = r0 + warp * 16; r < r0 + warp * 16 + 16; ++r) {
     const int m = m0 + r;
+    // byte c of row r in k-block c / 128
+    auto at = [&](int c) {
+      return band + (size_t)(c / BK) * BM * BK + i8w::swizzle_offset(r, c % BK);
+    };
     if (m < M) {
       const T* xr = x + (int64_t)m * K;
       float amax = 0.f;
@@ -191,137 +133,195 @@ qmm_kernel(const T* __restrict__ x, const int8_t* __restrict__ w, const float* _
 #pragma unroll
         for (int i = 0; i < V; ++i)
           q[i] = (int)fminf(fmaxf(rintf(__fdiv_rn(v[i], sc)), -127.f), 127.f);
+        // V bytes at c (a multiple of V) stay inside one 16-byte chunk
         if (V == 8)
-          *reinterpret_cast<uint2*>(dst + c) = make_uint2(pack4(q), pack4(q + 4));
+          *reinterpret_cast<uint2*>(at(c)) = make_uint2(pack4(q), pack4(q + 4));
         else
-          *reinterpret_cast<uint32_t*>(dst + c) = pack4(q);
+          *reinterpret_cast<uint32_t*>(at(c)) = pack4(q);
       }
-      if (lane == 0) sScale[r] = sc;
+      if (lane == 0) scale[r] = sc;
     } else {
       for (int c = lane * 16; c < K; c += 32 * 16)
-        *reinterpret_cast<uint4*>(dst + c) = make_uint4(0, 0, 0, 0);
-      if (lane == 0) sScale[r] = 0.f;
+        *reinterpret_cast<uint4*>(at(c)) = make_uint4(0, 0, 0, 0);
+      if (lane == 0) scale[r] = 0.f;
     }
     for (int c = K + lane * 16; c < Kp; c += 32 * 16)  // zero columns past K
-      *reinterpret_cast<uint4*>(dst + c) = make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(at(c)) = make_uint4(0, 0, 0, 0);
+  }
+}
+
+template <typename T, int BN, int NC>
+__global__ void __launch_bounds__(128 * (NC + 1), 1)
+qmm_kernel(const __grid_constant__ CUtensorMap map_w, const T* __restrict__ x,
+           const float* __restrict__ sw, const float* __restrict__ bias, T* __restrict__ out,
+           int M, int N, int K, int stages, int splits, int per_split) {
+  constexpr int BM = 64 * NC;
+  const int nk = (K + BK - 1) / BK, Kp = nk * BK;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* band = i8w::align_smem(smem_raw);       // nk k-blocks of BM x 128 bytes
+  uint8_t* sB = band + (size_t)Kp * BM;             // stages x BN x 128 bytes
+  uint64_t* full = reinterpret_cast<uint64_t*>(sB + (size_t)stages * BN * BK);
+  uint64_t* empty = full + stages;
+  float* scale = reinterpret_cast<float*>(empty + stages);  // BM row scales
+  float* cols = scale + BM;  // NC x (sw, bias) x BN
+  int* stages_out = reinterpret_cast<int*>(cols + NC * 2 * BN);  // a buffer per consumer warp
+
+  const int n_tiles = (N + BN - 1) / BN;
+  const int units = (M + BM - 1) / BM * splits;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      i8w::mbar_init(&full[s], 1);
+      i8w::mbar_init(&empty[s], 4 * NC);
+    }
+    i8w::fence_barrier_init();
   }
   __syncthreads();
 
-  // ---- the N tiles: 8 warps of 32 x 32, mma.sync m16n8k32 s8
-  const int wm = (warp >> 2) * 32, wn = (warp & 3) * 32;
-  const int g = lane >> 2, t = lane & 3;
-  const bool paired = (N & 1) == 0;  // bf16x2 / float2 stores stay aligned
-  int acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0;
-
-  for (int s = 0; s < steps; ++s) {
-    const int kt = s % nk;
-    const int8_t* cur = sW + (s & 1) * BSTAGE;
-    if (s + 1 < steps) {
-      const int s1 = s + 1;
-      load_w(sW + (s1 & 1) * BSTAGE, w, N, K, (t0 + s1 / nk) * BN, (s1 % nk) * BK);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-    asm volatile("cp.async.wait_group 1;\n" ::);
-    __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      uint32_t a[2][4], b[4][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int8_t* p = sA + (wm + 16 * i + g) * lda + kt * BK + kk + 4 * t;
-        a[i][0] = *reinterpret_cast<const uint32_t*>(p);
-        a[i][1] = *reinterpret_cast<const uint32_t*>(p + 8 * lda);
-        a[i][2] = *reinterpret_cast<const uint32_t*>(p + 16);
-        a[i][3] = *reinterpret_cast<const uint32_t*>(p + 8 * lda + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int8_t* p = cur + (wn + 8 * j + g) * LDB + kk + 4 * t;
-        b[j][0] = *reinterpret_cast<const uint32_t*>(p);
-        b[j][1] = *reinterpret_cast<const uint32_t*>(p + 16);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], a[i], b[j]);
-    }
-    __syncthreads();  // the next step's copies overwrite this stage
-
-    if (kt == nk - 1) {  // the tile is summed: scales, cast, bias, store
-      const int n0 = (t0 + s / nk) * BN;
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = wm + 16 * i + g + 8 * h;
-          const int m = m0 + r;
-          if (m >= M) continue;
-          const float sx = sScale[r];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int n = n0 + wn + 8 * j + 2 * t;
-            if (n >= N) continue;
-            const bool two = n + 1 < N;
-            const float v0 = epilogue(acc[i][j][2 * h], sx, sw[n], bias, n, kBf16);
-            const float v1 =
-                two ? epilogue(acc[i][j][2 * h + 1], sx, sw[n + 1], bias, n + 1, kBf16) : 0.f;
-            store_pair<T>(out, (int64_t)m * N + n, v0, v1, two, paired);
-          }
+  const int wg = threadIdx.x / 128;
+  i8w::Ring ring{full, empty, stages};
+  if (wg == NC) {  // ---- producer: the weight tiles of every unit, in order
+    if constexpr (NC > 1) i8w::reg_dealloc<40>();
+    if (threadIdx.x != NC * 128) return;
+    i8w::tma_prefetch(&map_w);
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const int t0 = u % splits * per_split, t1 = min(t0 + per_split, n_tiles);
+      for (int t = t0; t < t1; ++t)
+        for (int kb = 0; kb < nk; ++kb) {
+          const int s = ring.stage;
+          i8w::mbar_wait(&empty[s], ring.phase ^ 1);
+          i8w::mbar_expect_tx(&full[s], BN * BK);
+          i8w::tma_load_2d(sB + (size_t)s * BN * BK, &map_w, &full[s], kb * BK, t * BN);
+          ring.advance();
         }
+    }
+  } else {  // ---- consumers: quantize 64 rows, then every N tile of the unit
+    if constexpr (NC > 1) i8w::reg_alloc<232>();
+    constexpr bool kBf16 = Vec<T>::N == 8;
+    const bool vec = (N & 3) == 0;  // 4-element stores stay aligned
+    const int r0 = wg * 64;
+    float* s_sw = cols + wg * 2 * BN;
+    float* s_bias = s_sw + BN;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, row = lane >> 3;
+    const int wr = 16 * warp + row;  // the band row of this lane's first staged row
+    int* stage = stages_out + warp * (i8w::STAGE_WARP_BYTES / 4);
+    int acc[1][BN / 2];
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < BN / 2; ++i) acc[0][i] = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const int m0 = u / splits * BM;
+      const int t0 = u % splits * per_split, t1 = min(t0 + per_split, n_tiles);
+      // the last unit's wgmma and epilogue are done with the band and scales
+      i8w::named_barrier(1 + wg, 128);
+      quantize_rows<T, BM>(x, band, scale, m0, r0, M, K, Kp);
+      i8w::fence_proxy_async();
+      for (int t = t0; t < t1; ++t) {
+        const int n0 = t * BN;
+        // the band is written; the last tile's epilogue is done with the columns
+        i8w::named_barrier(1 + wg, 128);
+        i8w::stage_cols<BN>(s_sw, sw, n0, N);
+        if (bias) i8w::stage_cols<BN>(s_bias, bias, n0, N);
+        i8w::mma_tile<BN, 1>(
+            acc, nk, ring,
+            [&](int, int kb) { return band + (size_t)kb * BM * BK + r0 * BK; }, sB);
+        i8w::named_barrier(1 + wg, 128);  // the columns are staged
+        float sx[4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int i = 0; i < 4; ++i) sx[i] = scale[wr + 4 * i];
+        i8w::drain_tile<BN>(acc[0], stage, [&](int c0, const int4 (&q)[4]) {
+          const int c = c0 + 4 * (lane & 7), n = n0 + c;
+          const float4 w4 = *reinterpret_cast<const float4*>(s_sw + c);
+          const float4 b4 =
+              bias ? *reinterpret_cast<const float4*>(s_bias + c) : make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-          for (int c = 0; c < 4; ++c) acc[i][j][c] = 0;
+          for (int i = 0; i < 4; ++i) {
+            const int m = m0 + wr + 4 * i;
+            if (m >= M || n >= N) continue;
+            const float v[4] = {epilogue(q[i].x, sx[i], w4.x, bias, b4.x, kBf16),
+                                epilogue(q[i].y, sx[i], w4.y, bias, b4.y, kBf16),
+                                epilogue(q[i].z, sx[i], w4.z, bias, b4.z, kBf16),
+                                epilogue(q[i].w, sx[i], w4.w, bias, b4.w, kBf16)};
+            i8w::store4(out, (int64_t)m * N + n, n, N, v, vec);
+          }
+        });
+      }
     }
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* w, const float* sw, const float* bias, void* out, int M,
-           int N, int K, cudaStream_t stream) {
+// the band, the weight ring and its barriers, the row scales, each
+// consumer warpgroup's staged column scales and bias and each consumer
+// warp's staging buffer
+int smem_bytes(int bm, int bn, int stages, int K) {
   const int Kp = (K + BK - 1) / BK * BK;
-  const int lda = Kp + 16;  // 16 or 80 mod 128: conflict-free fragment loads
-  const size_t smem = (size_t)BM * lda + 2 * BSTAGE + BM * sizeof(float);
-  auto kern = qmm_kernel<T>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  return i8w::SMEM_ALIGN + bm * Kp + stages * (bn * BK + 16) + bm * 4 +
+         bm / 64 * (2 * bn * 4 + 4 * i8w::STAGE_WARP_BYTES);
+}
+
+template <typename T, int BN, int NC>
+int launch(const void* x, const CUtensorMap& map_w, const float* sw, const float* bias,
+           void* out, int M, int N, int K, int stages, int splits, int per_split, int grid,
+           int smem, cudaStream_t stream) {
+  static int allowed = 0;
+  auto kern = qmm_kernel<T, BN, NC>;
+  cudaError_t err = i8w::allow_smem(kern, smem, allowed);
   if (err != cudaSuccess) return (int)err;
-  const int m_blocks = (M + BM - 1) / BM;
-  const int n_tiles = (N + BN - 1) / BN;
-  // split the N tiles over blocks only as far as needed to fill the card;
-  // each block of a split quantizes its rows again (the same bits)
-  int splits = (TARGET_BLOCKS + m_blocks - 1) / m_blocks;
-  splits = splits < 1 ? 1 : (splits > n_tiles ? n_tiles : splits);
-  const int per_block = (n_tiles + splits - 1) / splits;
-  splits = (n_tiles + per_block - 1) / per_block;
-  dim3 grid(m_blocks, splits);
-  kern<<<grid, NT, smem, stream>>>(static_cast<const T*>(x), static_cast<const int8_t*>(w), sw,
-                                   bias, static_cast<T*>(out), M, N, K, Kp, lda, per_block);
+  kern<<<grid, 128 * (NC + 1), smem, stream>>>(map_w, static_cast<const T*>(x), sw, bias,
+                                               static_cast<T*>(out), M, N, K, stages, splits,
+                                               per_split);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(const void* x, const CUtensorMap& map_w, const float* sw, const float* bias,
+             void* out, int M, int N, int K, int bm, int bn, int stages, int splits,
+             int per_split, int grid, int smem, cudaStream_t st) {
+  if (bm == 128 && bn == 256)
+    return launch<T, 256, 2>(x, map_w, sw, bias, out, M, N, K, stages, splits, per_split, grid,
+                             smem, st);
+  if (bm == 128)
+    return launch<T, 128, 2>(x, map_w, sw, bias, out, M, N, K, stages, splits, per_split, grid,
+                             smem, st);
+  if (bn == 256)
+    return launch<T, 256, 1>(x, map_w, sw, bias, out, M, N, K, stages, splits, per_split, grid,
+                             smem, st);
+  if (bn == 128)
+    return launch<T, 128, 1>(x, map_w, sw, bias, out, M, N, K, stages, splits, per_split, grid,
+                             smem, st);
+  return launch<T, 64, 1>(x, map_w, sw, bias, out, M, N, K, stages, splits, per_split, grid,
+                          smem, st);
 }
 
 }  // namespace
 
 // Plain C entry point, called through ctypes.  x (M, K) and out (M, N)
 // contiguous in dtype 0 = float32 or 1 = bfloat16; w (N, K) int8
-// contiguous; sw (N,) float32; bias (N,) float32 or null.  Returns
-// cudaGetLastError() (0 on success); cudaErrorInvalidValue (1) when K is
-// not a multiple of 16, K > 3072 or the dtype is another.
+// contiguous; sw (N,) float32; bias (N,) float32 or null.  The plan (bm,
+// bn, stages, splits, per_split, grid, smem) is ops/qmm.py `qmm_plan`'s.
+// Returns cudaGetLastError() (0 on success); cudaErrorInvalidValue (1)
+// when K is not a multiple of 16, K > 3072, the dtype is another, the
+// plan is not one this kernel runs (bm 64 or 128, bn 128 or 256, or 64
+// with bm 64, 2-8 stages, shared bytes as smem_bytes within the limit, splits x
+// per_split covering the N tiles, at most one block per SM) or the weights'
+// tensor map cannot be encoded.
 extern "C" int qmm_forward(const void* x, int dtype, const void* w, const float* sw,
-                           const float* bias, void* out, int M, int N, int K, void* stream) {
+                           const float* bias, void* out, int M, int N, int K, int bm, int bn,
+                           int stages, int splits, int per_split, int grid, int smem,
+                           void* stream) {
   if (M <= 0 || N <= 0) return (int)cudaSuccess;
-  if (K <= 0 || K % 16 || K > MAX_K) return (int)cudaErrorInvalidValue;
+  if (K <= 0 || K % 16 || K > MAX_K || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const int n_tiles = (N + bn - 1) / bn;
+  if ((bm != 64 && bm != 128) || (bn != 64 * (bm / 64) && bn != 128 && bn != 256) ||
+      stages < 2 || stages > 8 ||
+      splits < 1 || per_split < 1 || (long long)splits * per_split < n_tiles || grid < 1 ||
+      grid > i8w::sm_count() || smem != smem_bytes(bm, bn, stages, K) || smem > i8w::MAX_SMEM)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap map_w;
+  if (!i8w::kmajor_map(&map_w, w, N, K, bn)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return launch<float>(x, w, sw, bias, out, M, N, K, st);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, w, sw, bias, out, M, N, K, st);
-  return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return dispatch<float>(x, map_w, sw, bias, out, M, N, K, bm, bn, stages, splits, per_split,
+                           grid, smem, st);
+  return dispatch<__nv_bfloat16>(x, map_w, sw, bias, out, M, N, K, bm, bn, stages, splits,
+                                 per_split, grid, smem, st);
 }

@@ -16,9 +16,12 @@ scale per output column::
     v   = v + add            (optional (M, N) float32)
     out = v                  float32 or bf16
 
-- :func:`int8_gemm` launches ``csrc/int8_gemm.cu`` for CUDA tensors and
-  counts the launch in ``int8_gemm.launches``; for CPU tensors it runs
-  :func:`int8_gemm_ref`.  There is no other path.
+- :func:`int8_gemm` launches ``csrc/int8_gemm.cu`` (the wgmma mainloop of
+  ``csrc/int8_wgmma.cuh``) for CUDA tensors, with the plan of
+  :func:`gemm_plan`, and counts the launch in ``int8_gemm.launches``; for
+  CPU tensors it runs :func:`int8_gemm_ref`.  There is no other path.
+- :func:`gemm_plan` (tile width, ring depth, persistent grid, shared bytes)
+  and :func:`check_args` are plain Python, so the CPU tests hold them.
 - :func:`int8_gemm_ref` is the plain PyTorch version.  It forms ``acc`` in
   float64, which is exact (|acc| <= 127^2 K < 2^53), converts it to
   float32 as the kernel's ``cvt.rn`` does, and applies the same float32
@@ -28,7 +31,8 @@ scale per output column::
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -58,10 +62,117 @@ def int8_gemm_ref(a: torch.Tensor, sa: torch.Tensor, b: torch.Tensor,
     return v.to(out_dtype)
 
 
+MAX_SMEM = 232448  # dynamic shared memory an H100 block can have
+BK = 128  # bytes of K per stage: one 128-byte swizzle row
+STAGE_WARP_BYTES = 16 * 40 * 4  # a consumer warp's epilogue staging buffer
+_ALIGN = 1024  # slack for aligning the ring to the 128B swizzle
+
+
+class GemmPlan(NamedTuple):
+    """How ``csrc/int8_gemm.cu`` runs one (M, N, K): 128 x ``bn`` output
+    tiles, a ring of ``stages`` K stages of ``BK`` bytes, and a persistent
+    grid of ``grid`` blocks (at most one per SM) walking the ``tiles`` in
+    the order of :func:`tile_schedule`.  ``box_a`` and ``box_b`` are the
+    TMA boxes (bytes of K, rows); ``smem`` the block's dynamic shared
+    bytes, which the C entry point recomputes and checks."""
+    bm: int
+    bn: int
+    stages: int
+    tiles_m: int
+    tiles_n: int
+    grid: int
+    smem: int
+    box_a: Tuple[int, int]
+    box_b: Tuple[int, int]
+
+    @property
+    def tiles(self) -> int:
+        return self.tiles_m * self.tiles_n
+
+
+@functools.lru_cache(maxsize=256)
+def gemm_plan(M: int, N: int, K: int, sms: int) -> GemmPlan:
+    """The int8 GEMM's plan on a card with ``sms`` SMs.  BN = 256 halves
+    the A traffic per output and the tile count; BN = 128 where 256-wide
+    tiles would leave SMs idle.  The ring takes as many stages (at most
+    8) as the shared memory holds beside the epilogue's staging (column
+    scales and bias, a 2.5 KB buffer per consumer warp): 4 of 48 KB at
+    BN = 256, 6 of 32 KB at BN = 128."""
+    bm = 128
+    tiles_m = -(-M // bm)
+    bn = 256 if tiles_m * -(-N // 256) >= sms else 128
+    stage = (bm + bn) * BK + 16  # A and B tiles and the stage's two barriers
+    # each consumer warpgroup's column scales and bias, each warp's staging
+    cols = 2 * (2 * bn * 4 + 4 * STAGE_WARP_BYTES)
+    stages = min(8, (MAX_SMEM - _ALIGN - cols) // stage)
+    tiles_n = -(-N // bn)
+    return GemmPlan(bm, bn, stages, tiles_m, tiles_n, min(sms, tiles_m * tiles_n),
+                    _ALIGN + stages * stage + cols, (BK, bm), (BK, bn))
+
+
+def tile_schedule(plan: GemmPlan, block: int) -> List[Tuple[int, int]]:
+    """The (m0, n0) output tiles that block ``block`` of the persistent grid
+    computes, in order: tiles ``block, block + grid, ...``, N fastest inside
+    each band of ``bm`` rows (the kernel's loop)."""
+    return [(t // plan.tiles_n * plan.bm, t % plan.tiles_n * plan.bn)
+            for t in range(block, plan.tiles, plan.grid)]
+
+
+def stream(device: int) -> int:
+    """The raw handle of device ``device``'s current PyTorch stream (one C
+    call: at small shapes the wrappers' host time is on the critical
+    path)."""
+    return torch._C._cuda_getCurrentRawStream(device)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """SMs of CUDA device ``index``, read once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def check_args(a: torch.Tensor, sa: torch.Tensor, b: torch.Tensor,
+               sb: torch.Tensor, bias: Optional[torch.Tensor] = None,
+               res: Optional[torch.Tensor] = None,
+               add: Optional[torch.Tensor] = None,
+               out_dtype: torch.dtype = torch.float32) -> None:
+    """Raise ValueError for arguments the kernel does not take; runs on
+    tensors of any device (the CPU tests call it directly).  TMA's rules
+    for the int8 operands: (M, K) and (N, K), K a multiple of 16 (the
+    16-byte row stride), contiguous, 16-byte aligned bases.  Kept lean:
+    the wrapper runs it at every launch."""
+    if a.dtype != torch.int8 or b.dtype != torch.int8 or a.dim() != 2 or b.dim() != 2:
+        raise ValueError(f"int8_gemm: need int8 (M, K) x (N, K), got {a.dtype} "
+                         f"{tuple(a.shape)} x {b.dtype} {tuple(b.shape)}")
+    (M, K), (N, Kb) = a.shape, b.shape
+    if Kb != K or K <= 0 or K % 16:
+        raise ValueError(f"int8_gemm: K={K} (b: {Kb}) must be a positive multiple of 16")
+    if not (a.is_contiguous() and b.is_contiguous()) or (a.data_ptr() | b.data_ptr()) % 16:
+        raise ValueError("int8_gemm: a and b must be contiguous and 16-byte aligned")
+    if out_dtype not in _OUT:
+        raise ValueError(f"int8_gemm: unsupported output dtype {out_dtype}")
+    if sa.dtype != torch.float32 or sb.dtype != torch.float32 or sa.shape != (M,) \
+            or sb.shape != (N,):
+        raise ValueError("int8_gemm: scales must be float32 (M,) and (N,)")
+    if bias is not None and (bias.dtype != torch.float32 or bias.shape != (N,)):
+        raise ValueError("int8_gemm: bias must be float32 (N,)")
+    if res is not None and (res.dtype not in _OUT or res.shape != (M, N)
+                            or res.stride(1) != 1):
+        raise ValueError("int8_gemm: res must be float32 or bf16 (M, N) with a unit "
+                         "column stride")
+    if add is not None and (add.dtype != torch.float32 or add.shape != (M, N)
+                            or add.stride(1) != 1):
+        raise ValueError("int8_gemm: add must be float32 (M, N) with a unit column stride")
+    dev = a.get_device()
+    for t in (sa, b, sb, bias, res, add):
+        if t is not None and t.get_device() != dev:
+            raise ValueError("int8_gemm: inputs on different devices")
+
+
 _ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
              + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
-             + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_longlong,
-                                     ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_longlong]
+             + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -75,48 +186,27 @@ def int8_gemm(a: torch.Tensor, sa: torch.Tensor, b: torch.Tensor,
               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """a int8 (M, K), sa (M,) float32, b int8 (N, K), sb (N,) float32 ->
     (M, N) in ``out_dtype``.  res and add are (M, N) with a unit column
-    stride; K must be a multiple of 16 on the card."""
+    stride; on the card K must be a multiple of 16 and a, b contiguous and
+    16-byte aligned (:func:`check_args`)."""
     if a.device.type == "cpu":
         return int8_gemm_ref(a, sa, b, sb, bias, relu, res, add, round_bf16,
                              out_dtype)
     if a.device.type != "cuda":
         raise ValueError(f"int8_gemm: unsupported device {a.device}")
-    M, K = a.shape
-    N = b.shape[0]
-    if a.dtype != torch.int8 or b.dtype != torch.int8 or b.shape[1] != K:
-        raise ValueError(f"int8_gemm: need int8 (M, K) x (N, K), got {a.dtype} "
-                         f"{tuple(a.shape)} x {b.dtype} {tuple(b.shape)}")
-    if K % 16 or not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError(f"int8_gemm: K={K} must be a multiple of 16 and a, b "
-                         "contiguous")
-    if a.data_ptr() % 16 or b.data_ptr() % 16:
-        raise ValueError("int8_gemm: a and b must be 16-byte aligned")
-    if out_dtype not in _OUT:
-        raise ValueError(f"int8_gemm: unsupported output dtype {out_dtype}")
-    if sa.shape != (M,) or sb.shape != (N,) or sa.dtype != torch.float32 \
-            or sb.dtype != torch.float32:
-        raise ValueError("int8_gemm: scales must be float32 (M,) and (N,)")
-    if bias is not None and (bias.shape != (N,) or bias.dtype != torch.float32):
-        raise ValueError("int8_gemm: bias must be float32 (N,)")
-    for name, t, dtypes in (("res", res, (torch.float32, torch.bfloat16)),
-                            ("add", add, (torch.float32,))):
-        if t is not None and (t.shape != (M, N) or t.dtype not in dtypes
-                              or t.stride(1) != 1):
-            raise ValueError(f"int8_gemm: {name} must be (M, N) {dtypes} with a "
-                             "unit column stride")
-    tensors = [t for t in (sa, b, sb, bias, res, add) if t is not None]
-    if not all(t.device == a.device for t in tensors):
-        raise ValueError("int8_gemm: inputs on different devices")
+    check_args(a, sa, b, sb, bias, res, add, out_dtype)
+    (M, K), N = a.shape, b.shape[0]
     sa, sb = sa.contiguous(), sb.contiguous()
     bias = None if bias is None else bias.contiguous()
+    dev = a.get_device()
     out = torch.empty((M, N), dtype=out_dtype, device=a.device)
+    plan = gemm_plan(M, N, K, sm_count(dev))
     fn = cuda_build.function("int8_gemm", "int8_gemm_forward", _ARGTYPES)
     status = fn(a.data_ptr(), b.data_ptr(), M, N, K, sa.data_ptr(), sb.data_ptr(),
                 _ptr(bias), _ptr(res), 0 if res is None else res.stride(0),
                 int(res is not None and res.dtype == torch.bfloat16), _ptr(add),
                 0 if add is None else add.stride(0), int(relu), int(round_bf16),
-                out.data_ptr(), N, _OUT[out_dtype],
-                torch.cuda.current_stream(a.device).cuda_stream)
+                out.data_ptr(), N, _OUT[out_dtype], plan.bn, plan.stages, plan.grid,
+                plan.smem, stream(dev))
     cuda_build.check(status, "int8 GEMM kernel launch")
     int8_gemm.launches += 1
     return out

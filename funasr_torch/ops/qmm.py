@@ -21,9 +21,12 @@ VMEM gates (``quant_pallas.supported``: K % 128 == 0, the tiles fit): so
 JAX package sends it to its XLA "div" form.
 
 - :func:`quant_matmul` launches ``csrc/qmm.cu`` (one kernel: the rows are
-  quantized in its prologue) for CUDA tensors and counts the launch in
-  ``quant_matmul.launches``; for CPU tensors it runs
-  :func:`quant_matmul_ref`.  There is no other path.
+  quantized in its prologue, the product runs on the wgmma mainloop of
+  ``csrc/int8_wgmma.cuh``) for CUDA tensors, with the plan of
+  :func:`qmm_plan`, and counts the launch in ``quant_matmul.launches``;
+  for CPU tensors it runs :func:`quant_matmul_ref`.  There is no other path.
+- :func:`qmm_plan` and :func:`check_args` are plain Python, so the CPU
+  tests hold them.
 - :func:`quant_matmul_ref` is the plain PyTorch version: ``rowquant_ref``
   ("mul") followed by ``int8_gemm_ref``, bit-equal to the kernel.
 """
@@ -31,7 +34,8 @@ JAX package sends it to its XLA "div" form.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -40,7 +44,7 @@ from funasr_torch.ops import int8_gemm as G
 from funasr_torch.ops import rowquant as RQ
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_K = 3072  # the kernel keeps (64, K) int8 rows in shared memory
+MAX_K = 3072  # the kernel keeps a (64, K) int8 band in shared memory
 
 
 def quant_matmul_ref(x: torch.Tensor, w8: torch.Tensor, sw: torch.Tensor,
@@ -53,8 +57,108 @@ def quant_matmul_ref(x: torch.Tensor, w8: torch.Tensor, sw: torch.Tensor,
     return out.reshape(*lead, w8.shape[0])
 
 
+class QmmPlan(NamedTuple):
+    """How ``csrc/qmm.cu`` runs one (M, N, K).  A unit is a band of ``bm``
+    rows of x (64 per consumer warpgroup, quantized into shared memory) and
+    a run of at most ``per_split`` of the ``bn``-wide N tiles; ``splits``
+    runs cover the N tiles.  A persistent grid of ``grid`` blocks (at most
+    one per SM) walks the units in the order of :func:`unit_schedule`.
+    ``stages`` weight stages of ``G.BK`` bytes of K ride in the ring;
+    ``box_w`` is the weights' TMA box (bytes of K, rows); ``smem`` the
+    block's dynamic shared bytes, which the C entry point recomputes."""
+    bm: int
+    bn: int
+    stages: int
+    bands: int
+    tiles_n: int
+    splits: int
+    per_split: int
+    grid: int
+    smem: int
+    box_w: Tuple[int, int]
+
+    @property
+    def units(self) -> int:
+        return self.bands * self.splits
+
+
+def _smem(bm: int, bn: int, stages: int, K: int) -> int:
+    """The band (K padded with zeros to whole stages), the weight ring and
+    its barriers, the row scales, and each consumer warpgroup's staged
+    column scales and bias and its four warps' staging buffers."""
+    kp = -(-K // G.BK) * G.BK
+    return (1024 + bm * kp + stages * (bn * G.BK + 16) + 4 * bm
+            + bm // 64 * (2 * bn * 4 + 4 * G.STAGE_WARP_BYTES))
+
+
+@functools.lru_cache(maxsize=256)
+def qmm_plan(M: int, N: int, K: int, sms: int) -> QmmPlan:
+    """qmm's plan on a card with ``sms`` SMs.  The band is 128 rows where
+    it leaves room for two weight stages of 128 rows, else 64 rows (up to
+    ``MAX_K``).  The weight tiles are 256 rows where the units then still
+    fill the card and two stages fit, else 128, or 64 where only those fit
+    beside a 64-row band (K = 3072: a 192 KB band).  A short M splits the N
+    tiles over units until the card is full."""
+    for bm in (128, 64):
+        if _smem(bm, 128, 2, K) <= G.MAX_SMEM:
+            break
+    bands = -(-M // bm)
+    fits = [n for n in (256, 128, 64) if _smem(bm, n, 2, K) <= G.MAX_SMEM
+            and (n >= 128 or bm == 64)]
+    bn = 256 if 256 in fits and bands * -(-N // 256) >= sms else next(
+        n for n in fits if n <= 128)
+    stages = 2
+    while stages < 8 and _smem(bm, bn, stages + 1, K) <= G.MAX_SMEM:
+        stages += 1
+    tiles_n = -(-N // bn)
+    splits = min(tiles_n, max(1, sms // bands))
+    per_split = -(-tiles_n // splits)
+    splits = -(-tiles_n // per_split)
+    return QmmPlan(bm, bn, stages, bands, tiles_n, splits, per_split,
+                   min(sms, bands * splits), _smem(bm, bn, stages, K), (G.BK, bn))
+
+
+def unit_schedule(plan: QmmPlan, block: int) -> List[Tuple[int, List[int]]]:
+    """(m0, [n0, ...]) of the units that block ``block`` runs, in order:
+    units ``block, block + grid, ...`` (the kernel's loop)."""
+    out = []
+    for u in range(block, plan.units, plan.grid):
+        t0 = u % plan.splits * plan.per_split
+        out.append((u // plan.splits * plan.bm,
+                    [t * plan.bn for t in range(t0, min(t0 + plan.per_split,
+                                                        plan.tiles_n))]))
+    return out
+
+
+def check_args(x: torch.Tensor, w8: torch.Tensor, sw: torch.Tensor,
+               bias: Optional[torch.Tensor] = None) -> None:
+    """Raise ValueError for arguments the kernel does not take; runs on
+    tensors of any device (the CPU tests call it directly).  x is the
+    (M, K) matrix the kernel reads."""
+    K = x.shape[-1]
+    N = w8.shape[0]
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"quant_matmul: x must be bf16 or float32, got {x.dtype}")
+    if w8.dtype != torch.int8 or w8.shape != (N, K) or not w8.is_contiguous():
+        raise ValueError(f"quant_matmul: need contiguous int8 (N, {K}) weights, got "
+                         f"{w8.dtype} {tuple(w8.shape)}")
+    if K <= 0 or K % 16 or K > MAX_K:
+        raise ValueError(f"quant_matmul: K={K} must be a positive multiple of 16 "
+                         f"and <= {MAX_K}")
+    if not x.is_contiguous():
+        raise ValueError("quant_matmul: x must be contiguous")
+    if x.data_ptr() % 16 or w8.data_ptr() % 16:
+        raise ValueError("quant_matmul: x and w8 must be 16-byte aligned")
+    if sw.shape != (N,) or sw.dtype != torch.float32:
+        raise ValueError("quant_matmul: sw must be float32 (N,)")
+    if bias is not None and (bias.shape != (N,) or bias.dtype != torch.float32):
+        raise ValueError("quant_matmul: bias must be float32 (N,)")
+    if not all(t.device == x.device for t in (w8, sw, bias) if t is not None):
+        raise ValueError("quant_matmul: inputs on different devices")
+
+
 _ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
-             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+             + [ctypes.c_int] * 10 + [ctypes.c_void_p])
 
 
 def quant_matmul(x: torch.Tensor, w8: torch.Tensor, sw: torch.Tensor,
@@ -68,29 +172,18 @@ def quant_matmul(x: torch.Tensor, w8: torch.Tensor, sw: torch.Tensor,
         raise ValueError(f"quant_matmul: unsupported device {x.device}")
     lead, K = x.shape[:-1], x.shape[-1]
     N = w8.shape[0]
-    if x.dtype not in _DTYPES:
-        raise ValueError(f"quant_matmul: x must be bf16 or float32, got {x.dtype}")
-    if w8.dtype != torch.int8 or w8.shape != (N, K) or not w8.is_contiguous():
-        raise ValueError(f"quant_matmul: need contiguous int8 (N, {K}) weights, got "
-                         f"{w8.dtype} {tuple(w8.shape)}")
-    if K % 16 or K > MAX_K:
-        raise ValueError(f"quant_matmul: K={K} must be a multiple of 16 and <= {MAX_K}")
-    if sw.shape != (N,) or sw.dtype != torch.float32:
-        raise ValueError("quant_matmul: sw must be float32 (N,)")
-    if bias is not None and (bias.shape != (N,) or bias.dtype != torch.float32):
-        raise ValueError("quant_matmul: bias must be float32 (N,)")
-    if not all(t.device == x.device for t in (w8, sw, bias) if t is not None):
-        raise ValueError("quant_matmul: inputs on different devices")
     x2 = x.reshape(-1, K).contiguous()
-    if x2.data_ptr() % 16 or w8.data_ptr() % 16:
-        raise ValueError("quant_matmul: x and w8 must be 16-byte aligned")
+    check_args(x2, w8, sw, bias)
     sw = sw.contiguous()
     bias = None if bias is None else bias.contiguous()
-    out = torch.empty((x2.shape[0], N), dtype=x.dtype, device=x.device)
+    M, dev = x2.shape[0], x.get_device()
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    p = qmm_plan(M, N, K, G.sm_count(dev))
     fn = cuda_build.function("qmm", "qmm_forward", _ARGTYPES)
     status = fn(x2.data_ptr(), _DTYPES[x.dtype], w8.data_ptr(), sw.data_ptr(),
-                None if bias is None else bias.data_ptr(), out.data_ptr(),
-                x2.shape[0], N, K, torch.cuda.current_stream(x.device).cuda_stream)
+                None if bias is None else bias.data_ptr(), out.data_ptr(), M, N, K,
+                p.bm, p.bn, p.stages, p.splits, p.per_split, p.grid, p.smem,
+                G.stream(dev))
     cuda_build.check(status, "qmm kernel launch")
     quant_matmul.launches += 1
     return out.reshape(*lead, N)
