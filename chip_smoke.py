@@ -41,11 +41,24 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    - edge shapes: ragged T and U, one frame, lengths of 0; for the CTC
      kernel rows not a multiple of its block, T=1, rows NEG_INF throughout
      and T=1500 (60 s);
+   - the int8 GEMM's row-quantizing entry (``int8_gemm_rq``: the SANM
+     layer's ctx -> wout, the row quantize in its A producer and the FSMN
+     memory in its epilogue) at the served shape and edges (M=37, T=1,
+     lengths of 0, tiles straddling utterances, K=16 and 640, no residual
+     or bias), bit-equal to its twin, timed (CUDA graphs, ``graph_ms``)
+     beside the rowquant + FSMN + int8 GEMM launches it replaces; the
+     decoder's LN + FSMN (``fsmn_ln``) the same way beside the
+     layer-norm-only rowquant + FSMN; the standalone rowquant and FSMN
+     kernels against their twins (the FSMN kernel has no caller on a
+     path: the SANM layer folds it into its wout GEMM, the decoder into
+     ``fsmn_ln``);
 3. build full-width Paraformer-large (vocab 8404, 50 + 16 layers, D=512)
    with seeded random weights and serve three batches of mixed 2-15 s
    requests through ``ParaformerEngine.transcribe``, first in bf16, then
    int8 (``quantize=True``), each with the kernels' launch counters set to
-   0 just before and read just after; compare float32 kernels against
+   0 just before and read just after and held to the exact count of each
+   kernel on that path (the int8 layers' building blocks,
+   ``layer_launches``); compare float32 kernels against
    twins and int8 kernels against their twins on the same weights; time
    both device programs at B=64 x 15 s (the shape of ``bench.py``);
    then build the full-width Conformer of ``configs/conformer_hybrid.yaml``
@@ -169,6 +182,31 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Device time of ``fn`` in ms without the host's share: ``iters`` calls
+    captured in one CUDA graph (after two warm-up calls outside it), the
+    graph replayed ``replays`` times between CUDA events."""
+    import torch
+
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
 
 
 def bound_ms(nbytes: float, ops: dict):
@@ -467,7 +505,10 @@ def int8_layer_weights(torch, SL, DL, FF, D=512, H=2048, K=11, seed=3):
     return sanm, dec, ffn
 
 
-def _layer_case(torch, name, got, want, valid, ms, plain, nbytes, ops):
+def _layer_case(torch, name, got, want, valid, ms, plain, nbytes, ops, run=None):
+    """One layer row; ``run`` (the timed rows' kernel call) also gets its
+    device time alone (``graph_ms``: a layer is a chain of launches, whose
+    event time reads the host's speed)."""
     torch.cuda.synchronize()
     diff = (got.float() - want.float()).abs() * valid
     err = float(diff.max())
@@ -476,8 +517,9 @@ def _layer_case(torch, name, got, want, valid, ms, plain, nbytes, ops):
     check(err <= INT8_LAYER_TOL, f"{name} max err {err} > {INT8_LAYER_TOL}")
     bnd, by = bound_ms(nbytes, ops)
     return dict(case=name, max_abs_err=err, elements_differing=n_diff,
-                tolerance=INT8_LAYER_TOL, ms=ms, plain_ms=plain, library_ms=None,
-                bound_ms=bnd, bound_by=by)
+                tolerance=INT8_LAYER_TOL, ms=ms,
+                device_ms=None if run is None else graph_ms(run, iters=10, replays=3),
+                plain_ms=plain, library_ms=None, bound_ms=bnd, bound_by=by)
 
 
 def check_int8_layers(torch, SL, DL, FF):
@@ -521,7 +563,8 @@ def check_int8_layers(torch, SL, DL, FF):
                "float32": 2.0 * K * D * n_rows}  # the FSMN taps
         cases["sanm_layer"].append(_layer_case(
             torch, f"SANM layer {tag}", got, want, t_rng < lens_d[:, None, None],
-            ms, plain, 2 * 2 * n_rows * D + 4 * B * T + wbytes_sanm, ops))
+            ms, plain, 2 * 2 * n_rows * D + 4 * B * T + wbytes_sanm, ops,
+            (lambda: sanm(SL.fused_sanm_layer)) if timed else None))
 
         sanm8 = lambda f: f(x, lens_d, sanm_w, NH, LEFT, kb, int8_attn=True)
         got, want = sanm8(SL.fused_sanm_layer), sanm8(SL.sanm_layer_ref)
@@ -532,7 +575,8 @@ def check_int8_layers(torch, SL, DL, FF):
                "bfloat16": 2.0 * D * pairs, "float32": 2.0 * K * D * n_rows}
         cases["sanm_layer_i8"].append(_layer_case(
             torch, f"SANM layer int8_attn {tag}", got, want, t_rng < lens_d[:, None, None],
-            ms, plain, 2 * 2 * n_rows * D + 4 * B * T + wbytes_sanm, ops))
+            ms, plain, 2 * 2 * n_rows * D + 4 * B * T + wbytes_sanm, ops,
+            (lambda: sanm8(SL.fused_sanm_layer)) if timed else None))
 
         # the main shapes take the memory quantized as the decoder stack does
         mq_k = DL.quantize_memory(mem) if timed else None
@@ -551,7 +595,8 @@ def check_int8_layers(torch, SL, DL, FF):
             torch, f"decoder layer {tag} token lengths {sorted(set(tlens))[:4]}"
             + (", memory quantized once per batch" if timed else ""),
             got, want, u_rng < tl_d[:, None, None], ms, plain,
-            2 * 2 * n_tok * D + mem_bytes + 4 * B * T + wbytes_dec, ops))
+            2 * 2 * n_tok * D + mem_bytes + 4 * B * T + wbytes_dec, ops,
+            (lambda: dec(DL.fused_decoder_layer, mq_k)) if timed else None))
 
         x2 = x.reshape(B * T, D)
         got, want = FF.fused_ffn_int8(x2, ffn_w), FF.ffn_int8_ref(x2, ffn_w)
@@ -561,7 +606,8 @@ def check_int8_layers(torch, SL, DL, FF):
             torch, f"FFN M={B * T} {D} -> {H} -> {D}", got, want,
             torch.ones_like(got, dtype=torch.float32), ms, plain,
             2 * 2 * B * T * D + 2 * D * H + 4 * (2 * H + 2 * D),
-            {"int8": 2.0 * B * T * 2 * D * H}))
+            {"int8": 2.0 * B * T * 2 * D * H},
+            (lambda: FF.fused_ffn_int8(x2, ffn_w)) if timed else None))
 
     # the main path: bench.py's batch, 15 s rows (250 frames), every other 12 s
     run(64, 256, 128, [250, 200] * 32, [110, 90] * 32, timed=True)
@@ -684,6 +730,201 @@ def check_qmm(torch, QM, Q, RQ, G):
             speed_bar(case)
         cases.append(case)
     return cases
+
+
+# The row-quantizing int8 GEMM (``int8_gemm_rq``): the SANM wout at B=64 x
+# 15 s (64 x 256 frames), then edges: (M, K, N, residual dtype or None,
+# bias, FSMN (B, T, lengths), where).
+RQ_CASES = (
+    (16384, 512, 512, "bf16", True, (64, 256, [250, 200] * 32),
+     "SANM ctx -> wout + FSMN in the epilogue"),
+    (37, 512, 512, "bf16", True, (1, 37, [25]), "edge: M=37, T=37"),
+    (5, 512, 512, "f32", True, (5, 1, [1, 0, 1, 1, 0]), "edge: T=1, lengths of 0"),
+    (750, 512, 512, "bf16", True, (3, 250, [250, 137, 0]),
+     "edge: ragged tiles across utterances, a length of 0"),
+    (37, 16, 8, None, False, (1, 37, [37]), "edge: K=16, N=8, no residual or bias"),
+    (1000, 640, 1536, "f32", True, (4, 250, [250, 3, 249, 1]),
+     "edge: K=640 (the widest band), ragged M"),
+)
+RQ_TIMED = 1  # the served row
+
+
+def check_int8_rq(torch, G, RQ, FM):
+    """The int8 GEMM's row-quantizing entry against its twin
+    (``int8_gemm_rq_ref``: ``rowquant_ref`` "mul", ``fsmn_ref``, then
+    ``int8_gemm_ref``), bit-equal, at every row of ``RQ_CASES``; the served
+    row timed beside the three launches it replaces (rowquant, the FSMN
+    kernel, the int8 GEMM with the memory as ``add``) and beside the int8
+    GEMM alone on rows quantized and a memory made beforehand."""
+    from funasr_torch.ops.quant import quantize_weight
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    cases = []
+    for i, (M, K, N, res_dt, has_bias, (B, T, lens), where) in enumerate(RQ_CASES):
+        x = torch.randn((M, K), generator=gen, device="cuda") * 2
+        x[min(3, M - 1)] = 0  # an all-zero row
+        w = torch.randn((N, K), generator=gen, device="cuda") * K ** -0.5
+        w8, sw = quantize_weight(w)
+        bias = 0.1 * torch.randn(N, generator=gen, device="cuda") if has_bias else None
+        res = (None if res_dt is None else
+               torch.randn((M, N), generator=gen, device="cuda").to(dtypes[res_dt]))
+        qkv = torch.randn((B, T, 3 * N), generator=gen, device="cuda")
+        taps = 0.3 * torch.randn((11, N), generator=gen, device="cuda")
+        fsmn = G.Fsmn(qkv[..., 2 * N:], torch.tensor(lens, device="cuda", dtype=torch.int32),
+                      taps, 5)
+        got = G.int8_gemm_rq(x, w8, sw, fsmn, bias=bias, res=res)
+        want = G.int8_gemm_rq_ref(x, w8, sw, fsmn, bias=bias, res=res)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(got, want))
+        check(equal and bool(torch.isfinite(got).all()),
+              f"int8_gemm_rq {where} ({M}, {K}, {N}) bit-equal to its twin: "
+              f"{int((got != want).sum())} elements differ")
+        plan = G.rq_plan(M, N, K, G.sm_count(0))
+        case = dict(case=f"{where}: x ({M}, {K}) f32, w ({N}, {K}) int8, "
+                         f"res {res_dt}, bias {has_bias}, FSMN B={B} T={T}",
+                    max_abs_err=0.0, tolerance=0.0, bit_equal=equal,
+                    plan=f"BM={G.RQ_BM} BN={G.RQ_BN} stages={plan.stages} grid={plan.grid} "
+                         f"units={plan.units}")
+        if i < RQ_TIMED:
+            def pair():
+                add = FM.fsmn(fsmn.v, fsmn.lengths, fsmn.taps, fsmn.left).view(M, N)
+                q, s = RQ.rowquant(x)
+                return G.int8_gemm(q, s, w8, sw, bias=bias, res=res, add=add)
+            ms = graph_ms(lambda: G.int8_gemm_rq(x, w8, sw, fsmn, bias=bias, res=res))
+            pair_ms = graph_ms(pair)
+            plain = cuda_ms(lambda: G.int8_gemm_rq_ref(x, w8, sw, fsmn, bias=bias, res=res),
+                            iters=3)
+            nbytes = (M * K * 4 + N * K + 8 * N + M * N * 4
+                      + (0 if res is None else M * N * res.element_size())
+                      + 4 * M * N + 4 * 11 * N + 4 * B)
+            # the int8 GEMM alone on the rows quantized and the FSMN memory
+            # made beforehand: what the fused entry adds to it is its band's
+            # quantize and its FSMN
+            q, s = RQ.rowquant(x)
+            add = FM.fsmn(fsmn.v, fsmn.lengths, fsmn.taps, fsmn.left).view(M, N)
+            gemm_ms = graph_ms(lambda: G.int8_gemm(q, s, w8, sw, bias=bias, res=res, add=add))
+            bnd, by = bound_ms(nbytes, {"int8": 2.0 * M * N * K, "float32": 2.0 * 11 * M * N})
+            case.update(ms=ms, plain_ms=plain, library_ms=None, replaced_pair_ms=pair_ms,
+                        ms_over_pair=ms / pair_ms, gemm_alone_ms=gemm_ms,
+                        bound_ms=bnd, bound_by=by, ms_over_bound=ms / bnd)
+        log(f"int8 gemm rq {case}")
+        cases.append(case)
+    return cases
+
+
+def check_fsmn_ln(torch, FM, RQ):
+    """The decoder layer's fused LN2 + FSMN (+ the residual) against its
+    twin, bit-equal: the main path's shape (B=64, U=128, D=512, token
+    lengths 110/90, bf16 residual) timed beside the two launches it
+    replaced (rowquant LN-only + FSMN), and edges: ragged U with lengths 37,
+    1 and 0, U=1, a float32 residual, no residual."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    D, K, LEFT = 512, 11, 5
+    ln = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda"),
+          0.1 * torch.randn(D, generator=gen, device="cuda"))
+    taps = 0.3 * torch.randn((K, D), generator=gen, device="cuda")
+    cases = []
+    for B, U, lens, res_dt, what in ((64, 128, [110, 90] * 32, torch.bfloat16,
+                                      "decoder layer, B=64 x 128 tokens, lengths 110/90"),
+                                     (3, 37, [37, 1, 0], torch.float32,
+                                      "edge: U=37, lengths 37/1/0, float32 residual"),
+                                     (2, 1, [1, 0], None, "edge: U=1, lengths 1/0, no residual")):
+        h = torch.randn((B, U, D), generator=gen, device="cuda") * 2
+        res = (None if res_dt is None
+               else torch.randn((B, U, D), generator=gen, device="cuda").to(res_dt))
+        lengths = torch.tensor(lens, device="cuda", dtype=torch.int32)
+        got = FM.fsmn_ln(h, ln, lengths, taps, LEFT, res=res)
+        want = FM.fsmn_ln_ref(h, ln, lengths, taps, LEFT, res=res)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(got, want))
+        check(equal, f"fsmn_ln {what} bit-equal to its twin: "
+              f"{int((got != want).sum())} elements differ")
+        case = dict(case=f"{what}: h ({B}, {U}, {D}) f32", max_abs_err=0.0, tolerance=0.0,
+                    bit_equal=equal)
+        if not cases:
+            def pair():
+                y = RQ.rowquant(h.view(B * U, D), ln, quantize=False)
+                return FM.fsmn(y.view(B, U, D), lengths, taps, LEFT, res=res)
+            nbytes = B * U * D * (4 + 2 + 4) + 4 * (K + 2) * D + 4 * B
+            bnd, by = bound_ms(nbytes, {"float32": B * U * D * (8.0 + 2 * K)})
+            ms = graph_ms(lambda: FM.fsmn_ln(h, ln, lengths, taps, LEFT, res=res))
+            pair_ms = graph_ms(pair)
+            case.update(ms=ms, plain_ms=cuda_ms(lambda: FM.fsmn_ln_ref(
+                h, ln, lengths, taps, LEFT, res=res), iters=3), library_ms=None,
+                replaced_pair_ms=pair_ms, ms_over_pair=ms / pair_ms, bound_ms=bnd,
+                bound_by=by, ms_over_bound=ms / bnd)
+        log(f"fsmn_ln {case}")
+        cases.append(case)
+    return cases
+
+
+def check_rowquant_fsmn(torch, RQ, FM):
+    """The standalone rowquant and FSMN kernels against their twins,
+    bit-equal.  rowquant: the decoder memory's quantize (B=64 x 256 frames,
+    bf16, once per batch), QDense's "div" form at encoders0 (K=560), the
+    layer-norm-only call (no longer on a path) and an edge; FSMN (no caller
+    on a path since the SANM layer folds it into its wout GEMM and the
+    decoder takes fsmn_ln): the SANM shape, v a column slice of the QKV
+    output, with and without a bf16 residual, and edges."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    out = {"rowquant": [], "fsmn": []}
+    for M, W, dt, norm, form, quant, what in (
+            (16384, 512, torch.bfloat16, False, "mul", True,
+             "decoder memory, B=64 x 256 frames (once per batch)"),
+            (16384, 560, torch.bfloat16, False, "div", True, "QDense encoders0 QKV (div)"),
+            (8192, 512, torch.float32, True, "mul", False, "layer norm only"),
+            (37, 16, torch.float32, True, "mul", True, "edge: 37 rows of 16, LN")):
+        x = (torch.randn((M, W), generator=gen, device="cuda") * 2).to(dt)
+        ln = ((1 + 0.1 * torch.randn(W, generator=gen, device="cuda"),
+               0.1 * torch.randn(W, generator=gen, device="cuda")) if norm else None)
+        got = RQ.rowquant(x, ln, form, quant)
+        want = RQ.rowquant_ref(x, ln, form, quant)
+        torch.cuda.synchronize()
+        equal = (all(torch.equal(g, w) for g, w in zip(got, want)) if quant
+                 else bool(torch.equal(got, want)))
+        check(equal, f"rowquant {what} bit-equal to its twin")
+        case = dict(case=f"{what}: ({M}, {W}) {str(dt)[6:]}, form {form}"
+                         f"{', LN' if norm else ''}{'' if quant else ', no quantize'}",
+                    max_abs_err=0.0, tolerance=0.0, bit_equal=equal)
+        if not out["rowquant"]:
+            bnd, by = bound_ms(M * W * x.element_size() + M * W + 4 * M, {})
+            case.update(ms=graph_ms(lambda: RQ.rowquant(x, ln, form, quant)),
+                        plain_ms=cuda_ms(lambda: RQ.rowquant_ref(x, ln, form, quant), iters=3),
+                        library_ms=None, bound_ms=bnd, bound_by=by)
+        log(f"rowquant {case}")
+        out["rowquant"].append(case)
+    D, K, LEFT = 512, 11, 5
+    taps = 0.3 * torch.randn((K, D), generator=gen, device="cuda")
+    for B, T, lens, res_dt, what in ((64, 256, [250, 200] * 32, None,
+                                      "SANM shape, v the QKV slice, lengths 250/200"),
+                                     (64, 256, [250, 200] * 32, torch.bfloat16,
+                                      "SANM shape with a bf16 residual"),
+                                     (3, 37, [37, 1, 0], torch.float32,
+                                      "edge: T=37, lengths 37/1/0"),
+                                     (2, 1, [1, 0], None, "edge: T=1")):
+        qkv = torch.randn((B, T, 3 * D), generator=gen, device="cuda")
+        v = qkv[..., 2 * D:]
+        res = (None if res_dt is None
+               else torch.randn((B, T, D), generator=gen, device="cuda").to(res_dt))
+        lengths = torch.tensor(lens, device="cuda", dtype=torch.int32)
+        got = FM.fsmn(v, lengths, taps, LEFT, res=res)
+        want = FM.fsmn_ref(v, lengths, taps, LEFT, res=res)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(got, want))
+        check(equal, f"fsmn {what} bit-equal to its twin")
+        case = dict(case=f"{what}: v ({B}, {T}, {D}) f32", max_abs_err=0.0, tolerance=0.0,
+                    bit_equal=equal)
+        if not out["fsmn"]:
+            bnd, by = bound_ms(2 * 4 * B * T * D + 4 * K * D + 4 * B,
+                               {"float32": 2.0 * (K + 1) * B * T * D})
+            case.update(ms=graph_ms(lambda: FM.fsmn(v, lengths, taps, LEFT, res=res)),
+                        plain_ms=cuda_ms(lambda: FM.fsmn_ref(v, lengths, taps, LEFT, res=res),
+                                         iters=3),
+                        library_ms=None, bound_ms=bnd, bound_by=by)
+        log(f"fsmn {case}")
+        out["fsmn"].append(case)
+    return out
 
 
 def exact_scratch_edge(torch, A, name, gen):
@@ -892,6 +1133,7 @@ def int8_twins():
     projections, the rowquant and int8 GEMM building blocks."""
     from funasr_torch.ops import decoder_layer as DL
     from funasr_torch.ops import ffn as FF
+    from funasr_torch.ops import fsmn as FM
     from funasr_torch.ops import int8_gemm as G
     from funasr_torch.ops import rowquant as RQ
     from funasr_torch.ops import sanm_layer as SL
@@ -900,7 +1142,9 @@ def int8_twins():
                     (DL, "fused_decoder_layer", DL.decoder_layer_ref),
                     (FF, "fused_ffn_int8", FF.ffn_int8_ref),
                     (RQ, "rowquant", RQ.rowquant_ref),
-                    (G, "int8_gemm", G.int8_gemm_ref)])
+                    (G, "int8_gemm", G.int8_gemm_ref),
+                    (G, "int8_gemm_rq", G.int8_gemm_rq_ref),
+                    (FM, "fsmn_ln", FM.fsmn_ln_ref)])
 
 
 def end_to_end(torch, rng, FK, A, profile_dir, card, shared):
@@ -908,7 +1152,9 @@ def end_to_end(torch, rng, FK, A, profile_dir, card, shared):
 
     from funasr_torch.auto.engines import FrontendConfig, ParaformerEngine
     from funasr_torch.models.paraformer.model import Paraformer, init_random_
+    from funasr_torch.ops import fsmn as FM
     from funasr_torch.ops import int8_gemm as G
+    from funasr_torch.ops import rowquant as RQ
     from funasr_torch.tokenizer.char_tokenizer import CharTokenizer
 
     t0 = time.time()
@@ -935,22 +1181,22 @@ def end_to_end(torch, rng, FK, A, profile_dir, card, shared):
     torch.cuda.synchronize()
 
     # ---- the main path: counters at 0 just before, read just after
-    FK.fused_fbank.launches = 0
-    A.fused_attention.launches = 0
-    G.int8_gemm.launches = 0
+    counters = {"fbank": FK.fused_fbank, "attention": A.fused_attention,
+                "int8_gemm": G.int8_gemm, "int8_gemm_rq": G.int8_gemm_rq,
+                "rowquant": RQ.rowquant, "fsmn": FM.fsmn, "fsmn_ln": FM.fsmn_ln}
+    for fn in counters.values():
+        fn.launches = 0
     t0 = time.time()
     results = [engine.transcribe(b) for b in batches]
     torch.cuda.synchronize()
     serve_s = time.time() - t0
-    launches = {"fbank": FK.fused_fbank.launches,
-                "attention": A.fused_attention.launches,
-                "int8_gemm": G.int8_gemm.launches}
+    launches = {k: fn.launches for k, fn in counters.items()}
     log(f"e2e: served {sum(map(len, batches))} requests in 3 batches in "
         f"{serve_s:.3f} s; kernel launches {launches}")
-    check(launches["fbank"] == len(batches), "fbank kernel launched per batch")
-    check(launches["attention"] == len(batches) * (50 + 16),
-          "attention kernel launched in every encoder and decoder layer")
-    check(launches["int8_gemm"] == 0, "no int8 GEMM on the bf16 path")
+    want = dict(fbank=len(batches), attention=len(batches) * (50 + 16), int8_gemm=0,
+                int8_gemm_rq=0, rowquant=0, fsmn=0, fsmn_ln=0)
+    check(launches == want, f"bf16 path launches {launches}, want {want}: fbank once a "
+          "batch, attention in every encoder and decoder layer, no int8 kernel")
     for batch, res in zip(batches, results):
         check(len(res) == len(batch), "one result per request")
         check(all(isinstance(r.get("text"), str) for r in res),
@@ -1030,7 +1276,11 @@ def end_to_end_int8(torch, FK, A, profile_dir, card, shared):
     from funasr_torch.models.paraformer.model import Paraformer
     from funasr_torch.ops import decoder_layer as DL
     from funasr_torch.ops import ffn as FF
+    from funasr_torch.ops import fsmn as FM
     from funasr_torch.ops import int8_gemm as G
+    from funasr_torch.ops import qmm as QM
+    from funasr_torch.ops import quant as Q
+    from funasr_torch.ops import rowquant as RQ
     from funasr_torch.ops import sanm_layer as SL
 
     t0 = time.time()
@@ -1047,7 +1297,9 @@ def end_to_end_int8(torch, FK, A, profile_dir, card, shared):
     counters = {"fbank": FK.fused_fbank, "attention": A.fused_attention,
                 "sanm_layer": SL.fused_sanm_layer,
                 "decoder_layer": DL.fused_decoder_layer, "ffn": FF.fused_ffn_int8,
-                "int8_gemm": G.int8_gemm}
+                "int8_gemm": G.int8_gemm, "int8_gemm_rq": G.int8_gemm_rq,
+                "rowquant": RQ.rowquant, "fsmn": FM.fsmn, "fsmn_ln": FM.fsmn_ln,
+                "qmm": QM.quant_matmul}
     for fn in counters.values():
         fn.launches = 0
     t0 = time.time()
@@ -1057,16 +1309,19 @@ def end_to_end_int8(torch, FK, A, profile_dir, card, shared):
     launches = {k: fn.launches for k, fn in counters.items()}
     log(f"e2e int8: served {sum(map(len, batches))} requests in 3 batches in "
         f"{serve_s:.3f} s; kernel launches {launches}")
-    per_batch = {"sanm_layer": 49, "decoder_layer": 16, "ffn": 1, "attention": 1,
-                 "fbank": 1}
-    for name, n in per_batch.items():
-        check(launches[name] == n * len(batches),
-              f"int8 path: {name} launched {launches[name]} times, want "
-              f"{n} per batch")
-    # four GEMMs a SANM layer, five a decoder layer, two an FFN, and the
-    # QDense projections that pass the gate
-    check(launches["int8_gemm"] >= (4 * 49 + 5 * 16 + 2) * len(batches),
-          f"int8 path: int8 GEMM launched {launches['int8_gemm']} times")
+    # per batch: the layers' building blocks by their plans
+    # (layer_launches), and the QDense projections that pass the gate each a
+    # rowquant ("div") and an int8 GEMM; qmm never
+    want = dict.fromkeys(counters, 0)
+    for b in batches:
+        n_qdense = qdense_gated(Q, served_shape(engine, b))
+        per = layer_launches()
+        per["int8_gemm"] += n_qdense
+        per["rowquant"] += n_qdense
+        for name, n in (("fbank", 1), ("attention", 1), ("ffn", 1), ("sanm_layer", 49),
+                        ("decoder_layer", 16), *per.items()):
+            want[name] += n
+    check(launches == want, f"int8 path launches {launches}, want {want}")
     for batch, res in zip(batches, results):
         check(len(res) == len(batch) and all(isinstance(r.get("text"), str)
                                              for r in res), "int8 results")
@@ -1163,6 +1418,7 @@ def end_to_end_beam(torch, FK, CP, profile_dir, card, shared):
     from funasr_torch.ops import attention as A
     from funasr_torch.ops import decoder_layer as DL
     from funasr_torch.ops import ffn as FF
+    from funasr_torch.ops import fsmn as FM
     from funasr_torch.ops import int8_gemm as G
     from funasr_torch.ops import quant as Q
     from funasr_torch.ops import rowquant as RQ
@@ -1192,7 +1448,8 @@ def end_to_end_beam(torch, FK, CP, profile_dir, card, shared):
                 "int8_gemm": G.int8_gemm, "rowquant": RQ.rowquant,
                 # Paraformer kernels, off this path
                 "attention": A.fused_attention, "sanm_layer": SL.fused_sanm_layer,
-                "decoder_layer": DL.fused_decoder_layer, "ffn": FF.fused_ffn_int8}
+                "decoder_layer": DL.fused_decoder_layer, "ffn": FF.fused_ffn_int8,
+                "int8_gemm_rq": G.int8_gemm_rq, "fsmn": FM.fsmn, "fsmn_ln": FM.fsmn_ln}
     for fn in counters.values():
         fn.launches = 0
     engine.steps = 0
@@ -1209,7 +1466,8 @@ def end_to_end_beam(torch, FK, CP, profile_dir, card, shared):
           f"ctc prefix kernel launched once per decode step: {launches['ctc_prefix']}"
           f" launches, {steps} steps")
     check(launches["fbank"] == len(batches), "fbank kernel launched per batch")
-    check(not any(launches[k] for k in ("attention", "sanm_layer", "decoder_layer", "ffn")),
+    check(not any(launches[k] for k in ("attention", "sanm_layer", "decoder_layer", "ffn",
+                                        "int8_gemm_rq", "fsmn", "fsmn_ln")),
           f"no Paraformer kernel on the beam path: {launches}")
     # 24 FFN w_1 per batch (12 layers x 2 FFNs) pass the int8 gate when the
     # batch has >= MIN_M encoder frames
@@ -1308,6 +1566,27 @@ def served_shape(engine, wavs):
     return len(wavs), -(-lfr // 128) * 128, engine._max_tokens(n)
 
 
+def layer_launches():
+    """Launches of each building-block kernel per batch from the int8 layers
+    (49 SANM layers, 16 decoder layers, one FFN): a SANM layer makes three
+    rowquant + int8 GEMM pairs (QKV, w1, w2) and one int8_gemm_rq (wout
+    with the FSMN); a decoder layer four pairs (w1, w2, wq, wout), the int8
+    GEMM on the memory (which the stack row-quantizes once) and one
+    fsmn_ln; the FFN two pairs."""
+    return {"int8_gemm_rq": 49, "rowquant": 49 * 3 + 16 * 4 + 1 + 2,
+            "int8_gemm": 49 * 3 + 16 * 5 + 2, "fsmn": 0, "fsmn_ln": 16}
+
+
+def qdense_gated(Q, shape, D=512, H=2048):
+    """The QDense contractions off the fused layers that pass the int8 gate
+    for a served (B, T, U): encoders0's QKV and out projections,
+    decoders3's w_1 and w_2, the output layer."""
+    B, T, U = shape
+    V = FLAGSHIP["vocab_size"]
+    return sum(Q.gate(m, n) for m, n in ((B * T, 3 * D), (B * T, D), (B * U, H), (B * U, D),
+                                         (B * U, V)))
+
+
 def exact_attention_launches(A, B, U, T, n_head=4):
     """Launches of an int8 layer's attention for B rows, by the wrapper's own
     rule (``exact_attention_plan``): one while the scores stay on chip."""
@@ -1328,6 +1607,7 @@ def end_to_end_bicif(torch, FK, A, profile_dir, card, shared):
     from funasr_torch.models.paraformer.model import init_random_
     from funasr_torch.ops import decoder_layer as DL
     from funasr_torch.ops import ffn as FF
+    from funasr_torch.ops import fsmn as FM
     from funasr_torch.ops import int8_gemm as G
     from funasr_torch.ops import qmm as QM
     from funasr_torch.ops import quant as Q
@@ -1356,7 +1636,8 @@ def end_to_end_bicif(torch, FK, A, profile_dir, card, shared):
                 "sanm_layer": SL.fused_sanm_layer, "decoder_layer": DL.fused_decoder_layer,
                 "ffn": FF.fused_ffn_int8, "qmm": QM.quant_matmul,
                 "attention_i8qk": A.attention_i8qk, "attention_f32ctx": A.attention_f32ctx,
-                "ffn_bf16": FF.fused_ffn, "int8_gemm": G.int8_gemm, "rowquant": RQ.rowquant}
+                "ffn_bf16": FF.fused_ffn, "int8_gemm": G.int8_gemm, "rowquant": RQ.rowquant,
+                "int8_gemm_rq": G.int8_gemm_rq, "fsmn": FM.fsmn, "fsmn_ln": FM.fsmn_ln}
     for fn in counters.values():
         fn.launches = 0
     t0 = time.time()
@@ -1367,20 +1648,18 @@ def end_to_end_bicif(torch, FK, A, profile_dir, card, shared):
     log(f"e2e bicif: served {sum(map(len, batches))} requests with timestamps in 3 "
         f"batches in {serve_s:.3f} s; kernel launches {launches}")
     D, V = 512, FLAGSHIP["vocab_size"]
-    want = dict.fromkeys(("fbank", "attention", "ffn", "sanm_layer", "decoder_layer", "qmm",
-                          "attention_i8qk", "attention_f32ctx", "ffn_bf16"), 0)
+    want = dict.fromkeys(counters, 0)
     for b in batches:
         B, T, U = served_shape(engine, b)
+        # the int8 layer chains as on the int8 path; the gated QDense
+        # projections through qmm
         for name, n in (("fbank", 1), ("attention", 1), ("ffn", 1), ("sanm_layer", 49),
-                        ("decoder_layer", 16)):
+                        ("decoder_layer", 16), *layer_launches().items()):
             want[name] += n
-        # the QDense contractions off the fused layers: encoders0's QKV and
-        # out projections, decoders3's w_1 and w_2, the output layer
-        want["qmm"] += sum(Q.gate(m, n) for m, n in ((B * T, 3 * D), (B * T, D),
-                                                     (B * U, 2048), (B * U, D), (B * U, V)))
+        want["qmm"] += qdense_gated(Q, (B, T, U))
         want["attention_i8qk"] += 49 * exact_attention_launches(A, B, T, T)
         want["attention_f32ctx"] += 16 * exact_attention_launches(A, B, U, T)  # decoder only
-    check(want["qmm"] > 0 and all(launches[k] == n for k, n in want.items()),
+    check(want["qmm"] > 0 and launches == want,
           f"bicif path launches {launches}, want {want}")
     for batch, res in zip(batches, results):
         check(len(res) == len(batch), "one result per request")
@@ -1525,10 +1804,14 @@ def profile(torch, run, out_dir, batch_ms, fname):
             g = "attention (int8 layers) kernel"
         elif "attention_kernel" in name:
             g = "attention kernel"
+        elif "int8_gemm_rq_kernel" in name:
+            g = "int8 GEMM row-quantizing kernel"
         elif "int8_gemm_kernel" in name:
             g = "int8 GEMM kernel"
-        elif "rowquant_kernel" in name:
+        elif "rowquant" in name:
             g = "rowquant kernel"
+        elif "fsmn_ln_kernel" in name:
+            g = "LN + FSMN kernel"
         elif "fsmn_kernel" in name:
             g = "FSMN kernel"
         elif "fbank_kernel" in name:
@@ -1554,6 +1837,8 @@ def profile(torch, run, out_dir, batch_ms, fname):
         groups[g] = groups.get(g, 0.0) + ev.self_device_time_total / 1e3
     busy = sum(groups.values())
     groups["kernels total"] = busy
+    groups["rowquant + FSMN groups"] = sum(groups.get(g, 0.0) for g in (
+        "rowquant kernel", "FSMN kernel", "LN + FSMN kernel"))
     groups["kernel share of batch_ms"] = busy / batch_ms
     groups["aten::round calls"] = sum(ev.count for ev in events
                                       if ev.key == "aten::round")
@@ -1580,6 +1865,7 @@ def main(argv=None) -> int:
     from funasr_torch.ops import decoder_layer as DL
     from funasr_torch.ops import fbank_kernel as FK
     from funasr_torch.ops import ffn as FF
+    from funasr_torch.ops import fsmn as FM
     from funasr_torch.ops import int8_gemm as G
     from funasr_torch.ops import qmm as QM
     from funasr_torch.ops import quant as Q
@@ -1616,6 +1902,9 @@ def main(argv=None) -> int:
     f32ctx_cases = check_f32ctx(torch, A)
     i8qk_cases = check_i8qk(torch, A)
     ffn_cases = check_ffn(torch, FF)
+    rq_cases = check_int8_rq(torch, G, RQ, FM)
+    fsmn_ln_cases = check_fsmn_ln(torch, FM, RQ)
+    block_cases = check_rowquant_fsmn(torch, RQ, FM)
     log(f"kernel checks done in {time.time() - t0:.1f} s")
 
     t0 = time.time()
@@ -1643,20 +1932,21 @@ def main(argv=None) -> int:
                     tolerance=main_case["tolerance"],
                     **{k: main_case[k] for k in keys}, **extra, cases=cases)
 
-    blocks = ["funasr_torch/csrc/int8_gemm.cu", "funasr_torch/csrc/rowquant.cu",
-              "funasr_torch/csrc/fsmn.cu", "funasr_torch/csrc/attention.cu"]
+    gemm_src = ["funasr_torch/csrc/int8_gemm.cu", "funasr_torch/csrc/int8_wgmma.cuh"]
+    attn_src = ["funasr_torch/csrc/attention.cu"]
+    dec_src = gemm_src + ["funasr_torch/csrc/fsmn.cu", "funasr_torch/csrc/rowquant.cu"] + attn_src
     kernels = [
         entry("fbank", ["funasr_torch/csrc/fbank.cu"],
               "funasr_tpu/ops/fbank_pallas.py:97", fbank_cases[0], fbank_cases),
         entry("attention", ["funasr_torch/csrc/attention.cu"],
               "funasr_tpu/ops/attention_pallas.py:37", attn_cases[0], attn_cases),
-        entry("sanm_layer", blocks, "funasr_tpu/ops/sanm_layer_pallas.py:189",
+        entry("sanm_layer", gemm_src + attn_src, "funasr_tpu/ops/sanm_layer_pallas.py:189",
               layer_cases["sanm_layer"][0],
               layer_cases["sanm_layer"] + f32ctx_cases["sanm_layer"]),
-        entry("decoder_layer", blocks, "funasr_tpu/ops/decoder_layer_pallas.py:165",
+        entry("decoder_layer", dec_src, "funasr_tpu/ops/decoder_layer_pallas.py:165",
               layer_cases["decoder_layer"][0],
               layer_cases["decoder_layer"] + f32ctx_cases["decoder_layer"]),
-        entry("ffn", blocks[:2], "funasr_tpu/ops/ffn_pallas.py:113",
+        entry("ffn", gemm_src, "funasr_tpu/ops/ffn_pallas.py:113",
               layer_cases["ffn"][0], layer_cases["ffn"]),
         # the building block of rows sanm_layer, decoder_layer and ffn (and
         # QDense): the int8 contraction inside each of those TPU kernels
@@ -1676,6 +1966,18 @@ def main(argv=None) -> int:
               i8qk_cases + layer_cases["sanm_layer_i8"]),
         entry("ffn_bf16", ["funasr_torch/csrc/ffn.cu"], "funasr_tpu/ops/ffn_pallas.py:39",
               ffn_cases[0], ffn_cases),
+        # the SANM layer's ctx row quantize, FSMN memory and wout
+        # contraction: the row quantize in the GEMM's A producer, the FSMN in
+        # its epilogue
+        entry("int8_gemm_rq", gemm_src, "funasr_tpu/ops/sanm_layer_pallas.py:133",
+              rq_cases[0], rq_cases,
+              also_replaces=["funasr_tpu/ops/sanm_layer_pallas.py:93"]),
+        entry("fsmn_ln", ["funasr_torch/csrc/fsmn.cu"],
+              "funasr_tpu/ops/decoder_layer_pallas.py:74", fsmn_ln_cases[0], fsmn_ln_cases),
+        entry("rowquant", ["funasr_torch/csrc/rowquant.cu"], "funasr_tpu/ops/quant.py:150",
+              block_cases["rowquant"][0], block_cases["rowquant"]),
+        entry("fsmn", ["funasr_torch/csrc/fsmn.cu"], "funasr_tpu/ops/sanm_layer_pallas.py:93",
+              block_cases["fsmn"][0], block_cases["fsmn"]),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -392,6 +392,236 @@ __device__ __forceinline__ void store4(__nv_bfloat16* out, int64_t i, int n, int
     if (n + k < N) out[i + k] = __float2bfloat16_rn(v[k]);
 }
 
+// ---------------------------------------------------------- the A producer
+//
+// The band producer of qmm and of the int8 GEMM's row-quantizing entry: a
+// consumer warpgroup turns its 64 rows of the float A (float32 or bf16,
+// row stride ldx) into int8 in shared memory, in the 128B-swizzled K-major
+// layout that TMA gives the mainloop.  For one row y of width K
+// (csrc/rowquant.cu and its twin ops/rowquant.py, form "mul"):
+//
+//   scale = max(max|y|, 1e-8) * f32(1/127)
+//   q     = clip(rint(y / scale), -127, 127)          (half to even)
+//
+// every float32 step an _rn intrinsic and the quotient rounded as the IEEE
+// division rounds it (quantize_vec), so the bits are the twin's.
+
+// 16 bytes of A as float32 values: 8 bf16 or 4 float32
+template <typename T>
+struct Vec;
+template <>
+struct Vec<float> {
+  static constexpr int N = 4;
+  __device__ static void load(const float* p, float v[4]) {
+    const float4 u = *reinterpret_cast<const float4*>(p);
+    v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
+  }
+};
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ static void load(const __nv_bfloat16* p, float v[8]) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x, v[2 * i + 1] = f.y;
+    }
+  }
+};
+
+__device__ __forceinline__ uint32_t pack4(const int q[4]) {
+  return (uint32_t)(q[0] & 0xff) | ((uint32_t)(q[1] & 0xff) << 8) |
+         ((uint32_t)(q[2] & 0xff) << 16) | ((uint32_t)(q[3] & 0xff) << 24);
+}
+
+// q[i] = clip(rint(y[i] / sc), -127, 127), the quotient rounded as IEEE
+// division rounds it, for the V values of every lane of a warp (all lanes
+// call it together): y * rsc (rsc = 1 / sc, correctly rounded) is within
+// 2^-23 relative of y / sc, so within 1.9e-5 of the rounded quotient for
+// |y / sc| <= 127 (|y| <= absmax), and the two round to the same integer
+// unless one lies within 3.1e-5 of a half-integer.  Where any lane of the
+// warp has such a value the warp takes the division for these V values (a
+// warp-uniform branch, rarely taken); otherwise the product decides.
+template <int V>
+__device__ __forceinline__ void quantize_vec(const float (&y)[V], float sc, float rsc,
+                                             int (&q)[V]) {
+  float qa[V];
+  bool near = false;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    qa[i] = __fmul_rn(y[i], rsc);
+    near |= fabsf(__fsub_rn(__fsub_rn(qa[i], floorf(qa[i])), 0.5f)) < 3.0517578125e-05f;
+  }
+  if (__any_sync(0xffffffffu, near)) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) qa[i] = __fdiv_rn(y[i], sc);
+  }
+#pragma unroll
+  for (int i = 0; i < V; ++i) q[i] = (int)fminf(fmaxf(rintf(qa[i]), -127.f), 127.f);
+}
+
+// 16 bytes of A (a 16-byte aligned p) as raw bits, and as V float32 values
+__device__ __forceinline__ uint4 load16(const void* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+template <typename T>
+__device__ __forceinline__ void unpack(const uint4& u, float (&v)[Vec<T>::N]) {
+  if constexpr (Vec<T>::N == 4) {
+    v[0] = __uint_as_float(u.x), v[1] = __uint_as_float(u.y);
+    v[2] = __uint_as_float(u.z), v[3] = __uint_as_float(u.w);
+  } else {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x, v[2 * i + 1] = f.y;
+    }
+  }
+}
+
+// The rows held in registers as float32: NV 16-byte vectors a lane (K <=
+// 32 NV V) and groups of two rows, the next group's loads in flight while
+// this one is reduced and quantized, so every row is read from device
+// memory once and a row's chain of latencies (load, warp reduction)
+// overlaps the next group's loads.  The quantize is quantize_vec's: an IEEE division per value would
+// take about half of this function's time.
+template <typename T, int BM, int NV>
+__device__ __forceinline__ void quantize_rows_held(const T* __restrict__ x, long long ldx,
+                                                   uint8_t* band, float* scale, int m0, int r0,
+                                                   int M, int K) {
+  constexpr int V = Vec<T>::N;
+  constexpr int R = 2;  // rows of a group
+  const int warp = (threadIdx.x & 127) >> 5, lane = threadIdx.x & 31;
+  const int rw = r0 + warp * 16;
+  // the group of R rows from warp row g, as float32 (zeros past M or K)
+  auto load = [&](float (&y)[R][NV][V], int g) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int m = m0 + rw + g + j;
+#pragma unroll
+      for (int k = 0; k < NV; ++k) {
+        const int c = (k * 32 + lane) * V;
+        uint4 u = make_uint4(0, 0, 0, 0);
+        if (g + j < 16 && m < M && c < K) u = load16(x + (int64_t)m * ldx + c);
+        unpack<T>(u, y[j][k]);
+      }
+    }
+  };
+  auto quantize = [&](float (&y)[R][NV][V], int g) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      if (g + j >= 16) break;
+      const int r = rw + g + j, m = m0 + r;
+      float amax = 0.f;
+#pragma unroll
+      for (int k = 0; k < NV; ++k)
+#pragma unroll
+        for (int i = 0; i < V; ++i) amax = fmaxf(amax, fabsf(y[j][k][i]));
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+      const float sc = __fmul_rn(fmaxf(amax, 1e-8f), (float)(1.0 / 127.0));
+      const float rsc = __frcp_rn(sc);
+      const bool live = m < M;
+#pragma unroll
+      for (int k = 0; k < NV; ++k) {  // every lane: quantize_vec votes across the warp
+        const int c = (k * 32 + lane) * V;
+        int q[V];
+        quantize_vec<V>(y[j][k], sc, rsc, q);
+        if (!live)
+#pragma unroll
+          for (int i = 0; i < V; ++i) q[i] = 0;
+        if (c >= K) continue;
+        uint8_t* p = band + (size_t)(c / BK) * BM * BK + swizzle_offset(r, c % BK);
+        if constexpr (V == 8)
+          *reinterpret_cast<uint2*>(p) = make_uint2(pack4(q), pack4(q + 4));
+        else
+          *reinterpret_cast<uint32_t*>(p) = pack4(q);
+      }
+      if (lane == 0) scale[r] = live ? sc : 0.f;
+    }
+  };
+  float ya[R][NV][V], yb[R][NV][V];  // two groups in flight
+  load(ya, 0);
+  for (int g = 0; g < 16; g += 2 * R) {
+    load(yb, g + R);
+    quantize(ya, g);
+    load(ya, g + 2 * R);
+    quantize(yb, g + R);
+  }
+}
+
+// Quantize this warpgroup's 64 rows of the band at global row m0 into the
+// band's k-blocks (BM rows of 128 bytes each; tile row offset r0 = 64 wg),
+// scales into scale[r0 ..]; each warp takes 16 rows.  Rows past M quantize
+// to zeros with scale 0; columns K .. Kp - 1 are zeros.  x + m * ldx is
+// row m; K a multiple of 16, x and ldx * sizeof(T) 16-byte aligned.  Rows
+// of up to 512 values (768 bf16: qmm's 560 at encoders0) are held in
+// registers (quantize_rows_held); longer ones are read once per pass.
+template <typename T, int BM>
+__device__ __forceinline__ void quantize_rows(const T* __restrict__ x, long long ldx,
+                                              uint8_t* band, float* scale, int m0, int r0,
+                                              int M, int K, int Kp) {
+  constexpr int V = Vec<T>::N;
+  const int warp = (threadIdx.x & 127) >> 5, lane = threadIdx.x & 31;
+  bool held = true;
+  if (K <= 512) {
+    quantize_rows_held<T, BM, 512 / (32 * V)>(x, ldx, band, scale, m0, r0, M, K);
+  } else if constexpr (V == 8) {  // bf16 rows of 560 (qmm at encoders0)
+    if (K <= 768)
+      quantize_rows_held<T, BM, 3>(x, ldx, band, scale, m0, r0, M, K);
+    else
+      held = false;
+  } else {
+    held = false;
+  }
+  for (int r = r0 + warp * 16; r < r0 + warp * 16 + 16; ++r) {
+    const int m = m0 + r;
+    // byte c of row r in k-block c / 128
+    auto at = [&](int c) {
+      return band + (size_t)(c / BK) * BM * BK + swizzle_offset(r, c % BK);
+    };
+    if (held) {
+      // quantize_rows_held wrote the row and its scale
+    } else if (m < M) {
+      const T* xr = x + (int64_t)m * ldx;
+      float amax = 0.f;
+      for (int c = lane * V; c < K; c += 32 * V) {
+        float v[V];
+        Vec<T>::load(xr + c, v);
+#pragma unroll
+        for (int i = 0; i < V; ++i) amax = fmaxf(amax, fabsf(v[i]));
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+      const float sc = __fmul_rn(fmaxf(amax, 1e-8f), (float)(1.0 / 127.0));
+      for (int c = lane * V; c < K; c += 32 * V) {
+        float v[V];
+        Vec<T>::load(xr + c, v);
+        int q[V];
+#pragma unroll
+        for (int i = 0; i < V; ++i)
+          q[i] = (int)fminf(fmaxf(rintf(__fdiv_rn(v[i], sc)), -127.f), 127.f);
+        // V bytes at c (a multiple of V) stay inside one 16-byte chunk
+        if (V == 8)
+          *reinterpret_cast<uint2*>(at(c)) = make_uint2(pack4(q), pack4(q + 4));
+        else
+          *reinterpret_cast<uint32_t*>(at(c)) = pack4(q);
+      }
+      if (lane == 0) scale[r] = sc;
+    } else {
+      for (int c = lane * 16; c < K; c += 32 * 16)
+        *reinterpret_cast<uint4*>(at(c)) = make_uint4(0, 0, 0, 0);
+      if (lane == 0) scale[r] = 0.f;
+    }
+    for (int c = K + lane * 16; c < Kp; c += 32 * 16)  // zero columns past K
+      *reinterpret_cast<uint4*>(at(c)) = make_uint4(0, 0, 0, 0);
+  }
+}
+
 // ------------------------------------------------------------------ host
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

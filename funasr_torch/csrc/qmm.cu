@@ -21,8 +21,10 @@
 // Design: the mainloop of int8_wgmma.cuh with another producer of A.  A
 // block owns a band of BM rows (64 per consumer warpgroup) and a run of N
 // tiles; a persistent grid of one block per SM walks these units.  Each
-// consumer warpgroup finds its 64 rows' absmax with warp shuffles and
-// writes the quantized rows into shared memory in the 128B-swizzled
+// consumer warpgroup quantizes its 64 rows with the band producer of
+// int8_wgmma.cuh (`quantize_rows`, shared with the int8 GEMM's
+// row-quantizing entry: rows held in registers, absmax by warp shuffles)
+// and writes them into shared memory in the 128B-swizzled
 // K-major layout that TMA gives the int8 GEMM (K padded to a multiple of
 // 128 with zeros), then fences them into the async proxy; the band then
 // serves every N tile of the unit, as the TPU kernel keeps its rows in VMEM
@@ -59,31 +61,6 @@ namespace {
 using i8w::BK;
 constexpr int MAX_K = 3072;
 
-// 16 bytes of x as float32 values: 8 bf16 or 4 float32
-template <typename T>
-struct Vec;
-template <>
-struct Vec<float> {
-  static constexpr int N = 4;
-  __device__ static void load(const float* p, float v[4]) {
-    const float4 u = *reinterpret_cast<const float4*>(p);
-    v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
-  }
-};
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void load(const __nv_bfloat16* p, float v[8]) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      v[2 * i] = f.x, v[2 * i + 1] = f.y;
-    }
-  }
-};
-
 // (acc * s_x) * sw, rounded to bf16 for a bf16 output, + bias: the twin's order
 __device__ __forceinline__ float epilogue(int acc, float sx, float sw, bool has_bias, float bias,
                                           bool round_bf16) {
@@ -91,63 +68,6 @@ __device__ __forceinline__ float epilogue(int acc, float sx, float sw, bool has_
   if (round_bf16) v = __bfloat162float(__float2bfloat16_rn(v));
   if (has_bias) v = __fadd_rn(v, bias);
   return v;
-}
-
-__device__ __forceinline__ uint32_t pack4(const int q[4]) {
-  return (uint32_t)(q[0] & 0xff) | ((uint32_t)(q[1] & 0xff) << 8) |
-         ((uint32_t)(q[2] & 0xff) << 16) | ((uint32_t)(q[3] & 0xff) << 24);
-}
-
-// Quantize this warpgroup's 64 rows of the band at global row m0 into the
-// band's k-blocks (tile row offset r0 = 64 wg), scales into scale[r0 ..];
-// each warp takes 16 rows.  Rows past M quantize to zeros with scale 0.
-template <typename T, int BM>
-__device__ __forceinline__ void quantize_rows(const T* __restrict__ x, uint8_t* band,
-                                              float* scale, int m0, int r0, int M, int K,
-                                              int Kp) {
-  constexpr int V = Vec<T>::N;
-  const int warp = (threadIdx.x & 127) >> 5, lane = threadIdx.x & 31;
-  for (int r = r0 + warp * 16; r < r0 + warp * 16 + 16; ++r) {
-    const int m = m0 + r;
-    // byte c of row r in k-block c / 128
-    auto at = [&](int c) {
-      return band + (size_t)(c / BK) * BM * BK + i8w::swizzle_offset(r, c % BK);
-    };
-    if (m < M) {
-      const T* xr = x + (int64_t)m * K;
-      float amax = 0.f;
-      for (int c = lane * V; c < K; c += 32 * V) {
-        float v[V];
-        Vec<T>::load(xr + c, v);
-#pragma unroll
-        for (int i = 0; i < V; ++i) amax = fmaxf(amax, fabsf(v[i]));
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-      const float sc = __fmul_rn(fmaxf(amax, 1e-8f), (float)(1.0 / 127.0));
-      for (int c = lane * V; c < K; c += 32 * V) {
-        float v[V];
-        Vec<T>::load(xr + c, v);
-        int q[V];
-#pragma unroll
-        for (int i = 0; i < V; ++i)
-          q[i] = (int)fminf(fmaxf(rintf(__fdiv_rn(v[i], sc)), -127.f), 127.f);
-        // V bytes at c (a multiple of V) stay inside one 16-byte chunk
-        if (V == 8)
-          *reinterpret_cast<uint2*>(at(c)) = make_uint2(pack4(q), pack4(q + 4));
-        else
-          *reinterpret_cast<uint32_t*>(at(c)) = pack4(q);
-      }
-      if (lane == 0) scale[r] = sc;
-    } else {
-      for (int c = lane * 16; c < K; c += 32 * 16)
-        *reinterpret_cast<uint4*>(at(c)) = make_uint4(0, 0, 0, 0);
-      if (lane == 0) scale[r] = 0.f;
-    }
-    for (int c = K + lane * 16; c < Kp; c += 32 * 16)  // zero columns past K
-      *reinterpret_cast<uint4*>(at(c)) = make_uint4(0, 0, 0, 0);
-  }
 }
 
 template <typename T, int BN, int NC>
@@ -196,7 +116,7 @@ qmm_kernel(const __grid_constant__ CUtensorMap map_w, const T* __restrict__ x,
     }
   } else {  // ---- consumers: quantize 64 rows, then every N tile of the unit
     if constexpr (NC > 1) i8w::reg_alloc<232>();
-    constexpr bool kBf16 = Vec<T>::N == 8;
+    constexpr bool kBf16 = i8w::Vec<T>::N == 8;
     const bool vec = (N & 3) == 0;  // 4-element stores stay aligned
     const int r0 = wg * 64;
     float* s_sw = cols + wg * 2 * BN;
@@ -204,15 +124,12 @@ qmm_kernel(const __grid_constant__ CUtensorMap map_w, const T* __restrict__ x,
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, row = lane >> 3;
     const int wr = 16 * warp + row;  // the band row of this lane's first staged row
     int* stage = stages_out + warp * (i8w::STAGE_WARP_BYTES / 4);
-    int acc[1][BN / 2];
-#pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[0][i] = 0;
     for (int u = blockIdx.x; u < units; u += gridDim.x) {
       const int m0 = u / splits * BM;
       const int t0 = u % splits * per_split, t1 = min(t0 + per_split, n_tiles);
       // the last unit's wgmma and epilogue are done with the band and scales
       i8w::named_barrier(1 + wg, 128);
-      quantize_rows<T, BM>(x, band, scale, m0, r0, M, K, Kp);
+      i8w::quantize_rows<T, BM>(x, K, band, scale, m0, r0, M, K, Kp);
       i8w::fence_proxy_async();
       for (int t = t0; t < t1; ++t) {
         const int n0 = t * BN;
@@ -220,6 +137,10 @@ qmm_kernel(const __grid_constant__ CUtensorMap map_w, const T* __restrict__ x,
         i8w::named_barrier(1 + wg, 128);
         i8w::stage_cols<BN>(s_sw, sw, n0, N);
         if (bias) i8w::stage_cols<BN>(s_bias, bias, n0, N);
+        // declared per tile: dead while the band quantizes
+        int acc[1][BN / 2];
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[0][i] = 0;
         i8w::mma_tile<BN, 1>(
             acc, nk, ring,
             [&](int, int kb) { return band + (size_t)kb * BM * BK + r0 * BK; }, sB);

@@ -20,18 +20,22 @@ per grid cell to lengthen its row dimension; on Hopper every kernel of the
 chain already sees all B*U (or B*T) rows, so that grouping does not carry
 over.
 
-On the card the layer is thirteen launches of four kernels: rowquant (LN
-and/or quantize) x 7, the int8 GEMM x 5, the FSMN (with the residual) and
-the float32-context attention.  The memory's row quantization (no norm) is
-the same in every layer, so a decoder stack makes it once with
-:func:`quantize_memory` and passes it to each layer as ``memory_q``; the
-layer then makes twelve launches.
+On the card the layer is twelve launches of four kernels: rowquant (LN
+and quantize) x 5, the int8 GEMM x 5, ``csrc/fsmn.cu`` ``fsmn_ln`` (LN2,
+the FSMN and the residual in one launch) and the float32-context
+attention.  The memory's row quantization (no norm) is the same in every
+layer, so a decoder stack makes it once with :func:`quantize_memory` and
+passes it to each layer as ``memory_q``; the layer then makes eleven
+launches.  Its other contractions keep rowquant + GEMM: the int8 GEMM's
+row-quantizing entry measured slower there on an H100 (PERF.md section
+6).
 
 - :func:`fused_decoder_layer` runs the kernels for CUDA tensors and counts
   one launch per layer call in ``fused_decoder_layer.launches``; for CPU
   tensors it runs :func:`decoder_layer_ref`.  There is no other path.
 - :func:`decoder_layer_ref` is the plain PyTorch version, built from the
-  building blocks' twins.
+  building blocks' twins (``fsmn_ln_ref``: ``rowquant_ref`` without the
+  quantize, then ``fsmn_ref``).
 """
 
 from __future__ import annotations
@@ -100,7 +104,7 @@ def quantize_memory(memory: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _layer(x, memory, tgt_lengths, mem_lengths, w: DecoderLayerWeights, n_head,
-           left, mem_bias, memory_q, rowquant, gemm, fsmn, attention):
+           left, mem_bias, memory_q, rowquant, gemm, fsmn_ln, attention):
     B, U, D = x.shape
     T = memory.shape[1]
     if mem_bias is None:
@@ -110,8 +114,8 @@ def _layer(x, memory, tgt_lengths, mem_lengths, w: DecoderLayerWeights, n_head,
     hid = gemm(q1, s1, w.w1, w.s1, bias=w.b1, relu=True)
     qh, sh = rowquant(hid, (w.lnf_w, w.lnf_b))
     h = gemm(qh, sh, w.w2, w.s2)
-    h2 = rowquant(h, (w.ln2_w, w.ln2_b), quantize=False)
-    x1 = fsmn(h2.view(B, U, D), tgt_lengths, w.taps, left, res=x).view(B * U, D)
+    x1 = fsmn_ln(h.view(B, U, D), (w.ln2_w, w.ln2_b), tgt_lengths, w.taps, left,
+                 res=x).view(B * U, D)
     q3, s3 = rowquant(x1, (w.ln3_w, w.ln3_b))
     q = gemm(q3, s3, w.wq, w.sq, bias=w.bq).view(B, U, D)
     qm, sm = rowquant(memory.reshape(B * T, D)) if memory_q is None else memory_q
@@ -131,7 +135,7 @@ def decoder_layer_ref(x: torch.Tensor, memory: torch.Tensor,
                       ) -> torch.Tensor:
     """Plain twin: same inputs and output as :func:`fused_decoder_layer`."""
     return _layer(x, memory, tgt_lengths, mem_lengths, w, n_head, left, mem_bias,
-                  memory_q, RQ.rowquant_ref, G.int8_gemm_ref, FS.fsmn_ref,
+                  memory_q, RQ.rowquant_ref, G.int8_gemm_ref, FS.fsmn_ln_ref,
                   A.attention_f32ctx_ref)
 
 
@@ -152,7 +156,7 @@ def fused_decoder_layer(x: torch.Tensor, memory: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"fused_decoder_layer: unsupported device {x.device}")
     out = _layer(x.contiguous(), memory.contiguous(), tgt_lengths, mem_lengths, w,
-                 n_head, left, mem_bias, memory_q, RQ.rowquant, G.int8_gemm, FS.fsmn,
+                 n_head, left, mem_bias, memory_q, RQ.rowquant, G.int8_gemm, FS.fsmn_ln,
                  A.attention_f32ctx)
     fused_decoder_layer.launches += 1
     return out

@@ -15,7 +15,8 @@ On the card this is four launches: ``csrc/rowquant.cu`` and
 ``csrc/int8_gemm.cu`` twice each.  The TPU kernel keeps the (M, H) hidden
 tile in VMEM; here it goes through device memory in float32 (the row
 quantize of h needs the whole 2048-wide row, which spans GEMM tiles).
-Fusing it away is later work.
+Quantizing the rows in the GEMM's A producer instead of a rowquant launch
+measured slower at both contractions on an H100 (PERF.md section 6).
 
 - :func:`fused_ffn_int8` runs the kernels for CUDA tensors and counts one
   launch per call in ``fused_ffn_int8.launches``; for CPU tensors it runs

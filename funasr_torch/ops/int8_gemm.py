@@ -26,6 +26,22 @@ scale per output column::
   float64, which is exact (|acc| <= 127^2 K < 2^53), converts it to
   float32 as the kernel's ``cvt.rn`` does, and applies the same float32
   steps in the same order, so kernel and twin agree bit for bit.
+
+The row-quantizing entry is the SANM layer's ctx -> wout contraction in
+one launch: ``int8_gemm_rq(x, w8, sw, Fsmn(v, lengths, taps, left), bias,
+res)`` takes the float32 rows x and quantizes them in the kernel's A
+producer (``csrc/int8_wgmma.cuh`` ``quantize_rows``, as ``rowquant(x,
+form="mul")``), and computes the layer's FSMN memory of v in the epilogue,
+where ``add`` would take it (``ops/fsmn.py`` ``fsmn_ref``'s contract).
+
+- :func:`int8_gemm_rq` launches ``csrc/int8_gemm.cu``
+  ``int8_gemm_rq_forward`` for CUDA tensors with the plan of
+  :func:`rq_plan` and counts the launch in ``int8_gemm_rq.launches``; for
+  CPU tensors it runs :func:`int8_gemm_rq_ref`.  There is no other path.
+- :func:`rq_plan` (ring depth, N splits, persistent grid, shared bytes),
+  :func:`rq_schedule` and :func:`check_rq_args` are plain Python.
+- :func:`int8_gemm_rq_ref` is ``rowquant_ref`` ("mul"), ``fsmn_ref`` for
+  the memory, then :func:`int8_gemm_ref`: the building blocks' twins.
 """
 
 from __future__ import annotations
@@ -37,6 +53,8 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from funasr_torch.ops import cuda_build
+from funasr_torch.ops import fsmn as FS
+from funasr_torch.ops import rowquant as RQ
 
 _OUT = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -213,3 +231,210 @@ def int8_gemm(a: torch.Tensor, sa: torch.Tensor, b: torch.Tensor,
 
 
 int8_gemm.launches = 0
+
+
+# ------------------------------------------------ the row-quantizing entry
+
+RQ_BM = RQ_BN = 128  # the band's rows (64 a consumer warpgroup) and the N tile
+MAX_TAPS = 17  # FSMN taps: the halo rows staged beside an epilogue's tile
+RQ_MAX_K = 640  # the widest band that fits beside two stages and the staged v
+
+
+class Fsmn(NamedTuple):
+    """The SANM layer's FSMN memory as the epilogue's addend: ``v`` (B, T,
+    N) float32 with a unit column stride (the v third of the QKV output),
+    ``lengths`` (B,) valid frames, ``taps`` (K, N) float32, ``left`` the
+    padding before the frame (``ops/fsmn.py``)."""
+    v: torch.Tensor
+    lengths: torch.Tensor
+    taps: torch.Tensor
+    left: int
+
+
+def int8_gemm_rq_ref(x: torch.Tensor, w8: torch.Tensor, sw: torch.Tensor, fsmn: Fsmn,
+                     bias: Optional[torch.Tensor] = None,
+                     res: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain twin: same inputs and output as :func:`int8_gemm_rq`."""
+    q, sx = RQ.rowquant_ref(x, form="mul")
+    mem = FS.fsmn_ref(fsmn.v, fsmn.lengths, fsmn.taps, fsmn.left).reshape(x.shape[0], -1)
+    return int8_gemm_ref(q, sx, w8, sw, bias, res=res, add=mem)
+
+
+class RqPlan(NamedTuple):
+    """How ``int8_gemm_rq_forward`` runs one (M, N, K).  A unit is a band
+    of ``RQ_BM`` rows of x (quantized into shared memory) and a run of at
+    most ``per_split`` of the ``RQ_BN``-wide N tiles; ``splits`` runs cover
+    the N tiles.  A persistent grid of ``grid`` blocks (at most one per SM)
+    walks the units in the order of :func:`rq_schedule`.  ``stages``
+    weight stages of ``BK`` bytes of K ride in the ring; ``smem`` is the
+    block's dynamic shared bytes, which the C entry point recomputes."""
+    stages: int
+    bands: int
+    tiles_n: int
+    splits: int
+    per_split: int
+    grid: int
+    smem: int
+
+    @property
+    def units(self) -> int:
+        return self.bands * self.splits
+
+
+def rq_smem(stages: int, K: int) -> int:
+    """The band (K padded with zeros to whole stages), the weight ring and
+    its barriers, the row scales, and each consumer warpgroup's staged
+    column scales and bias, its four warps' staging buffers and its tile of
+    v with the halo (64 + MAX_TAPS - 1 rows)."""
+    kp = -(-K // BK) * BK
+    per_wg = 2 * RQ_BN * 4 + 4 * STAGE_WARP_BYTES + (64 + MAX_TAPS - 1) * RQ_BN * 4
+    return _ALIGN + RQ_BM * kp + stages * (RQ_BN * BK + 16) + 4 * RQ_BM + 2 * per_wg
+
+
+@functools.lru_cache(maxsize=256)
+def rq_plan(M: int, N: int, K: int, sms: int) -> RqPlan:
+    """The row-quantizing entry's plan on a card with ``sms`` SMs (K at
+    most ``RQ_MAX_K``): as many ring stages (at most 8) as fit beside the
+    band; a short M splits the N tiles over units until the card is
+    full."""
+    stages = 2
+    while stages < 8 and rq_smem(stages + 1, K) <= MAX_SMEM:
+        stages += 1
+    bands, tiles_n = -(-M // RQ_BM), -(-N // RQ_BN)
+    splits = min(tiles_n, max(1, sms // bands))
+    per_split = -(-tiles_n // splits)
+    splits = -(-tiles_n // per_split)
+    return RqPlan(stages, bands, tiles_n, splits, per_split, min(sms, bands * splits),
+                  rq_smem(stages, K))
+
+
+def rq_schedule(plan: RqPlan, block: int) -> List[Tuple[int, List[int]]]:
+    """(m0, [n0, ...]) of the units that block ``block`` runs, in the
+    kernel's order: units ``block, block + grid, ...``, unit u starting at
+    its tile u mod its count (so the SMs do not all write the same columns
+    at once)."""
+    out = []
+    for u in range(block, plan.units, plan.grid):
+        t0 = u % plan.splits * plan.per_split
+        nt = min(t0 + plan.per_split, plan.tiles_n) - t0
+        out.append((u // plan.splits * RQ_BM,
+                    [(t0 + (i + u) % nt) * RQ_BN for i in range(nt)]))
+    return out
+
+
+def fsmn_rows(T: int, left: int, n_taps: int, m0: int, rows: int = 64,
+              M: Optional[int] = None) -> List[List[Tuple[int, int, int]]]:
+    """The FSMN epilogue's row mapping, as ``csrc/int8_gemm.cu``
+    ``fsmn_stage`` / ``fsmn_mem`` address a warpgroup's tile of ``rows``
+    output rows from ``m0``: for each output row m < M, the (staged row,
+    source row m', t') it adds for j = 0 .. n_taps - 1 (m' = m + j - left,
+    t' its frame), the taps whose frame t' lies inside the utterance only.
+    The staged tile holds v rows m0 - left .. m0 + rows - 1 + n_taps - 1 -
+    left, so staged row r is global row m0 - left + r."""
+    out = []
+    for m in range(m0, m0 + rows):
+        if M is not None and m >= M:
+            break
+        b, t = divmod(m, T)
+        taps = []
+        for j in range(n_taps):
+            s = t + j - left
+            if 0 <= s < T:
+                taps.append((m - m0 + j, b * T + s, s))
+        out.append(taps)
+    return out
+
+
+def check_rq_args(x: torch.Tensor, w8: torch.Tensor, sw: torch.Tensor, fsmn: Fsmn,
+                  bias: Optional[torch.Tensor] = None,
+                  res: Optional[torch.Tensor] = None) -> None:
+    """Raise ValueError for arguments the row-quantizing entry does not
+    take; runs on tensors of any device (the CPU tests call it).  x is
+    float32 (M, K), K a positive multiple of 16 and at most ``RQ_MAX_K``,
+    with 16-byte aligned rows of a unit column stride; w8 int8 (N, K)
+    contiguous and 16-byte aligned; bias and res as :func:`check_args`;
+    the FSMN's v float32 (B, T, N) with B * T = M, 16-byte aligned rows of
+    one stride, at most ``MAX_TAPS`` taps."""
+    if x.dim() != 2 or x.dtype != torch.float32:
+        raise ValueError(f"int8_gemm_rq: x must be float32 (M, K), got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    (M, K), N = x.shape, w8.shape[0]
+    if K <= 0 or K % 16 or K > RQ_MAX_K:
+        raise ValueError(f"int8_gemm_rq: K={K} must be a positive multiple of 16 and "
+                         f"<= {RQ_MAX_K}")
+    if x.stride(1) != 1 or x.data_ptr() % 16 or x.stride(0) % 4:
+        raise ValueError("int8_gemm_rq: x needs a unit column stride and 16-byte aligned rows")
+    if w8.dtype != torch.int8 or w8.shape != (N, K) or not w8.is_contiguous() \
+            or w8.data_ptr() % 16:
+        raise ValueError(f"int8_gemm_rq: need contiguous 16-byte aligned int8 (N, {K}) "
+                         f"weights, got {w8.dtype} {tuple(w8.shape)}")
+    if sw.dtype != torch.float32 or sw.shape != (N,):
+        raise ValueError("int8_gemm_rq: sw must be float32 (N,)")
+    if bias is not None and (bias.dtype != torch.float32 or bias.shape != (N,)):
+        raise ValueError("int8_gemm_rq: bias must be float32 (N,)")
+    if res is not None and (res.dtype not in _OUT or res.shape != (M, N)
+                            or res.stride(1) != 1):
+        raise ValueError("int8_gemm_rq: res must be float32 or bf16 (M, N) with a unit "
+                         "column stride")
+    v, lengths, taps, left = fsmn
+    n_taps = taps.shape[0]
+    if v.dim() != 3 or v.dtype != torch.float32 or v.shape[2] != N \
+            or v.shape[0] * v.shape[1] != M or v.stride(2) != 1 \
+            or v.stride(0) != v.shape[1] * v.stride(1):
+        raise ValueError(f"int8_gemm_rq: FSMN v must be float32 (B, T, {N}), B * T = "
+                         f"{M}, rows of one stride, got {tuple(v.shape)} {v.stride()}")
+    if taps.dtype != torch.float32 or taps.shape != (n_taps, N) \
+            or not 1 <= n_taps <= MAX_TAPS or not 0 <= left < n_taps:
+        raise ValueError(f"int8_gemm_rq: FSMN taps must be float32 (K, {N}), "
+                         f"K <= {MAX_TAPS}, 0 <= left < K")
+    if lengths.shape != (v.shape[0],):
+        raise ValueError(f"int8_gemm_rq: FSMN lengths must be ({v.shape[0]},)")
+    if N % 4 or v.stride(1) % 4 or v.data_ptr() % 16:
+        raise ValueError("int8_gemm_rq: the FSMN epilogue copies v in 16-byte pieces: "
+                         "N and v's row stride multiples of 4, v 16-byte aligned")
+    dev = x.get_device()
+    for t in (w8, sw, bias, res, v, lengths, taps):
+        if t is not None and t.get_device() != dev:
+            raise ValueError("int8_gemm_rq: inputs on different devices")
+
+
+_RQ_ARGTYPES = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p] + [ctypes.c_int] * 3
+                + [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                                           ctypes.c_longlong] + [ctypes.c_void_p] * 2
+                + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_longlong]
+                + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+
+
+def int8_gemm_rq(x: torch.Tensor, w8: torch.Tensor, sw: torch.Tensor, fsmn: Fsmn,
+                 bias: Optional[torch.Tensor] = None,
+                 res: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x float32 (M, K), w8 int8 (N, K), sw (N,) float32 -> (M, N) float32:
+    the rows of x quantized in the "mul" form, then :func:`int8_gemm`'s
+    epilogue with ``res``, ``bias`` and the FSMN memory of ``fsmn`` where
+    ``add`` would be.  On the card: :func:`check_rq_args`."""
+    if x.device.type == "cpu":
+        return int8_gemm_rq_ref(x, w8, sw, fsmn, bias, res)
+    if x.device.type != "cuda":
+        raise ValueError(f"int8_gemm_rq: unsupported device {x.device}")
+    check_rq_args(x, w8, sw, fsmn, bias, res)
+    (M, K), N = x.shape, w8.shape[0]
+    dev = x.get_device()
+    plan = rq_plan(M, N, K, sm_count(dev))
+    sw = sw.contiguous()
+    bias = None if bias is None else bias.contiguous()
+    lens = fsmn.lengths.to(torch.int32).contiguous()
+    taps = fsmn.taps.contiguous()
+    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    fn = cuda_build.function("int8_gemm", "int8_gemm_rq_forward", _RQ_ARGTYPES)
+    status = fn(x.data_ptr(), x.stride(0), w8.data_ptr(), M, N, K, sw.data_ptr(), _ptr(bias),
+                _ptr(res), 0 if res is None else res.stride(0),
+                int(res is not None and res.dtype == torch.bfloat16), fsmn.v.data_ptr(),
+                fsmn.v.stride(1), lens.data_ptr(), taps.data_ptr(), fsmn.v.shape[1],
+                taps.shape[0], fsmn.left, out.data_ptr(), N, plan.stages, plan.splits,
+                plan.per_split, plan.grid, plan.smem, stream(dev))
+    cuda_build.check(status, "row-quantizing int8 GEMM kernel launch")
+    int8_gemm_rq.launches += 1
+    return out
+
+
+int8_gemm_rq.launches = 0

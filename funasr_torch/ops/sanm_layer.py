@@ -22,11 +22,15 @@ where ``i8(a, w) = (acc(rowquant(a), w8) * sa) * sw`` with the fused
 kernels' row quantize (``* f32(1/127)``) and weights quantized once per
 model load from the float32 parameters (:func:`quantize_sanm_layer`).
 
-On the card the layer is ten launches of four kernels: ``csrc/rowquant.cu``
-(LN + quantize), ``csrc/int8_gemm.cu`` (four projections, the bias, relu,
-residual and FSMN memory in the epilogue), ``csrc/fsmn.cu`` and the float32
-context entry of ``csrc/attention.cu`` (its int8-score entry with
-``int8_attn``).  The TPU kernel runs the whole
+On the card the layer is eight launches of four kernels: ``csrc/rowquant.cu``
+(LN + quantize) and ``csrc/int8_gemm.cu`` for QKV, w1 and w2 (the bias,
+relu and residual in the GEMM's epilogue), the float32-context entry of
+``csrc/attention.cu`` (its int8-score entry with ``int8_attn``), and for
+ctx -> wout the GEMM's row-quantizing entry (``int8_gemm_rq``), which
+quantizes ctx in its A producer and computes the FSMN memory of v in its
+epilogue, in place of a rowquant, an FSMN and a GEMM launch.  The other
+three contractions keep rowquant + GEMM: there the fused entry measured
+slower on an H100 (PERF.md section 6).  The TPU kernel runs the whole
 layer in one VMEM-resident program; its 3.1 MB of int8 weights per layer
 do not fit the 228 KB of shared memory of an H100 SM, so the Hopper layer
 is a chain of fused kernels, with float32 activations between them in
@@ -36,7 +40,8 @@ device memory.
   launch per layer call in ``fused_sanm_layer.launches``; for CPU tensors
   it runs :func:`sanm_layer_ref`.  There is no other path.
 - :func:`sanm_layer_ref` is the plain PyTorch version, built from the
-  building blocks' twins.
+  building blocks' twins (``int8_gemm_rq_ref``: ``rowquant_ref``,
+  ``fsmn_ref`` and ``int8_gemm_ref``).
 """
 
 from __future__ import annotations
@@ -46,7 +51,6 @@ from typing import NamedTuple, Optional
 import torch
 
 from funasr_torch.ops import attention as A
-from funasr_torch.ops import fsmn as FS
 from funasr_torch.ops import int8_gemm as G
 from funasr_torch.ops import rowquant as RQ
 from funasr_torch.ops.masks import key_bias as make_key_bias
@@ -93,8 +97,8 @@ def quantize_sanm_layer(ln1, wqkv, bqkv, fsmn_weight, wout, bout, ln2, w1, b1,
                             f(ln2[0]), f(ln2[1]), w18, s1, f(b1), w28, s2, f(b2))
 
 
-def _layer(x, lengths, w: SanmLayerWeights, n_head, left, key_bias,
-           rowquant, gemm, fsmn, attention):
+def _layer(x, lengths, w: SanmLayerWeights, n_head, left, key_bias, rowquant, gemm,
+           gemm_rq, attention):
     B, T, D = x.shape
     x2 = x.reshape(B * T, D)
     if key_bias is None:
@@ -102,10 +106,9 @@ def _layer(x, lengths, w: SanmLayerWeights, n_head, left, key_bias,
     hq, hs = rowquant(x2, (w.ln1_w, w.ln1_b))
     qkv = gemm(hq, hs, w.wqkv, w.sqkv, bias=w.bqkv).view(B, T, 3 * D)
     q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
-    mem = fsmn(v, lengths, w.taps, left)
     ctx = attention(q, k, v, key_bias, n_head, (D // n_head) ** -0.5, lengths)
-    cq, cs = rowquant(ctx.view(B * T, D))
-    x1 = gemm(cq, cs, w.wout, w.sout, bias=w.bout, res=x2, add=mem.view(B * T, D))
+    x1 = gemm_rq(ctx.view(B * T, D), w.wout, w.sout, G.Fsmn(v, lengths, w.taps, left),
+                 bias=w.bout, res=x2)
     h2q, h2s = rowquant(x1, (w.ln2_w, w.ln2_b))
     hid = gemm(h2q, h2s, w.w1, w.s1, bias=w.b1, relu=True)
     hq2, hs2 = rowquant(hid)
@@ -118,7 +121,7 @@ def sanm_layer_ref(x: torch.Tensor, lengths: torch.Tensor, w: SanmLayerWeights,
                    int8_attn: bool = False) -> torch.Tensor:
     """Plain twin: same inputs and output as :func:`fused_sanm_layer`."""
     return _layer(x, lengths, w, n_head, left, key_bias, RQ.rowquant_ref,
-                  G.int8_gemm_ref, FS.fsmn_ref,
+                  G.int8_gemm_ref, G.int8_gemm_rq_ref,
                   A.attention_i8qk_ref if int8_attn else A.attention_f32ctx_ref)
 
 
@@ -133,7 +136,7 @@ def fused_sanm_layer(x: torch.Tensor, lengths: torch.Tensor, w: SanmLayerWeights
     if x.device.type != "cuda":
         raise ValueError(f"fused_sanm_layer: unsupported device {x.device}")
     out = _layer(x.contiguous(), lengths, w, n_head, left, key_bias, RQ.rowquant,
-                 G.int8_gemm, FS.fsmn,
+                 G.int8_gemm, G.int8_gemm_rq,
                  A.attention_i8qk if int8_attn else A.attention_f32ctx)
     fused_sanm_layer.launches += 1
     return out

@@ -11,7 +11,8 @@ BANNED = ("jax", "jaxlib", "flax", "optax", "funasr_tpu")
 
 
 def _port_files():
-    return sorted((ROOT / "funasr_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted((ROOT / "funasr_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                            ROOT / "tools" / "port_ab.py"]
 
 
 def _imports(path: Path):

@@ -1,0 +1,191 @@
+#!/usr/bin/env python3
+"""A/B of the PyTorch/CUDA port between checkouts, on one NVIDIA GPU.
+
+    python3 tools/port_ab.py LABEL=DIR [LABEL=DIR ...]
+
+Runs one process per argument, in the order given (for two checkouts:
+parent, change, change, parent), each importing ``funasr_torch`` from its
+DIR and building that checkout's kernels there.  Every process times the
+same seeded inputs, so the numbers of two checkouts compare within one
+call on one card:
+
+- B=64 x 15 s batches (half the rows cut to 12 s, 128 tokens: the program
+  of ``bench.py``), CUDA events around 5 back-to-back batches after 2
+  warm-ups, three times: Paraformer-large bf16 (``ParaformerEngine.run``;
+  it runs no int8 kernel, so it reads the host's speed), int8
+  (``quantize=True``) and BiCif Paraformer-large int8 with the opt-in
+  routes (``BiCifEngine.run_ts``).  These spans include the host;
+- the int8 SANM layer, decoder layer (memory quantized once) and FFN at
+  ``chip_smoke.py``'s main shapes, by events (host included) and by CUDA
+  graph (device time alone, ``graph_ms``);
+- the rowquant kernel at the int8 layers' row-quantize shapes and the int8
+  GEMM at the FFN's two contractions, by CUDA graph.
+
+Prints one JSON object per process and, last, a table of the medians.
+Helpers and shapes come from ``chip_smoke.py`` beside this directory.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def smoke():
+    """``chip_smoke.py`` of this checkout as a module (its helpers)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT,
+                                                                             "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def batch_times(torch, S, run, repeats=3):
+    return [S.cuda_ms(run, iters=5) for _ in range(repeats)]
+
+
+def one(label: str, tree: str) -> dict:
+    import numpy as np
+    import torch
+
+    S = smoke()
+    sys.path.insert(0, os.path.abspath(tree))
+    from funasr_torch.ops import cuda_build
+
+    t0 = time.time()
+    cuda_build.build()
+    out = {"label": label, "tree": tree, "build_s": time.time() - t0}
+
+    from funasr_torch.auto.engines import BiCifEngine, FrontendConfig, ParaformerEngine
+    from funasr_torch.models.bicif_paraformer.model import BiCifParaformer
+    from funasr_torch.models.paraformer.model import Paraformer, init_random_
+    from funasr_torch.ops import decoder_layer as DL
+    from funasr_torch.ops import ffn as FF
+    from funasr_torch.ops import int8_gemm as G
+    from funasr_torch.ops import rowquant as RQ
+    from funasr_torch.ops import sanm_layer as SL
+    from funasr_torch.ops.masks import key_bias
+    from funasr_torch.tokenizer.char_tokenizer import CharTokenizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fl = S.FLAGSHIP
+    tok = CharTokenizer(["<blank>", "<s>", "</s>"]
+                        + [chr(0x4E00 + i) for i in range(fl["vocab_size"] - 4)] + ["<unk>"])
+    B, N = 64, 15 * S.FS
+    lens = np.full((B,), N, np.int64)
+    lens[1::2] = int(N * 0.8)
+    base = S.waveform(np.random.default_rng(0), N, 300.0)
+    wav = torch.from_numpy(np.stack([base * (np.arange(N) < n) for n in lens])
+                           .astype(np.float32)).cuda()
+    lens_d = torch.from_numpy(lens.astype(np.int32)).cuda()
+
+    f32 = Paraformer(**fl, dtype=torch.float32)
+    init_random_(f32, torch.Generator(device="cuda").manual_seed(2024))
+    bf16 = Paraformer(**fl, dtype=torch.bfloat16)
+    bf16.load_state_dict(f32.state_dict(), strict=True)
+    i8 = Paraformer(**fl, dtype=torch.bfloat16, quantize=True)
+    i8.load_state_dict(f32.state_dict(), strict=True)
+    i8.quantize_weights()
+    del f32
+    engines = {"bf16": ParaformerEngine(bf16, FrontendConfig(), tok),
+               "int8": ParaformerEngine(i8, FrontendConfig(), tok)}
+    mt = engines["int8"]._max_tokens(N)
+    for name, eng in engines.items():
+        out[f"{name}_batch_ms"] = batch_times(torch, S, lambda: eng.run(wav, lens_d, mt))
+    del engines, bf16, i8
+    bc = BiCifParaformer(**fl, dtype=torch.float32)
+    init_random_(bc, torch.Generator(device="cuda").manual_seed(2026))
+    bi8 = BiCifParaformer(**fl, dtype=torch.bfloat16, quantize=True, qmm=True, int8_attn=True)
+    bi8.load_state_dict(bc.state_dict(), strict=True)
+    del bc
+    eng = BiCifEngine(bi8.quantize_weights(), FrontendConfig(), tok)
+    out["bicif_on_batch_ms"] = batch_times(torch, S, lambda: eng.run_ts(wav, lens_d, mt))
+    del eng, bi8
+    torch.cuda.empty_cache()
+
+    # the int8 layers at chip_smoke.py's main shapes
+    D, NH, LEFT = 512, 4, 5
+    sanm_w, dec_w, ffn_w = S.int8_layer_weights(torch, SL, DL, FF)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    T, U = 256, 128
+    fl_d = torch.tensor([250, 200] * 32, device="cuda", dtype=torch.int32)
+    tl_d = torch.tensor([110, 90] * 32, device="cuda", dtype=torch.int32)
+    x = torch.randn((B, T, D), generator=gen, device="cuda").to(torch.bfloat16)
+    tgt = torch.randn((B, U, D), generator=gen, device="cuda").to(torch.bfloat16)
+    mem = torch.randn((B, T, D), generator=gen, device="cuda").to(torch.bfloat16)
+    kb = key_bias(fl_d, T)
+    mq = DL.quantize_memory(mem)
+    x2 = x.reshape(B * T, D)
+    layers = {"sanm_layer": lambda: SL.fused_sanm_layer(x, fl_d, sanm_w, NH, LEFT, kb),
+              "decoder_layer": lambda: DL.fused_decoder_layer(tgt, mem, tl_d, fl_d, dec_w,
+                                                              NH, LEFT, kb, mq),
+              "ffn": lambda: FF.fused_ffn_int8(x2, ffn_w)}
+    for name, fn in layers.items():
+        out[f"{name}_event_ms"] = S.cuda_ms(fn)
+        out[f"{name}_graph_ms"] = S.graph_ms(fn, iters=10, replays=3)
+
+    # rowquant at the int8 layers' row-quantize shapes
+    rq_shapes = {"memory (16384, 512) bf16": (16384, 512, torch.bfloat16, False),
+                 "LN1 (16384, 512) bf16 + LN": (16384, 512, torch.bfloat16, True),
+                 "hid (16384, 2048) f32": (16384, 2048, torch.float32, False),
+                 "decoder (8192, 512) f32 + LN": (8192, 512, torch.float32, True),
+                 "decoder (8192, 2048) f32 + LN": (8192, 2048, torch.float32, True)}
+    for name, (M, W, dt, norm) in rq_shapes.items():
+        xr = (torch.randn((M, W), generator=gen, device="cuda") * 2).to(dt)
+        ln = ((1 + 0.1 * torch.randn(W, generator=gen, device="cuda"),
+               0.1 * torch.randn(W, generator=gen, device="cuda")) if norm else None)
+        out[f"rowquant {name} graph_ms"] = S.graph_ms(lambda: RQ.rowquant(xr, ln))
+
+    # the int8 GEMM alone at the FFN's contractions (the rows quantized
+    # beforehand)
+    q1, s1 = RQ.rowquant(x2)
+    hid = torch.relu(torch.randn((B * T, 4 * D), generator=gen, device="cuda"))
+    q2, s2 = RQ.rowquant(hid)
+    gemms = {"FFN w1 (16384, 512) -> 2048 + relu":
+             lambda: G.int8_gemm(q1, s1, ffn_w.w1, ffn_w.s1, bias=ffn_w.b1, relu=True),
+             "FFN w2 (16384, 2048) -> 512 bf16":
+             lambda: G.int8_gemm(q2, s2, ffn_w.w2, ffn_w.s2, bias=ffn_w.b2,
+                                 out_dtype=torch.bfloat16)}
+    for name, fn in gemms.items():
+        out[f"int8_gemm {name} graph_ms"] = S.graph_ms(fn)
+    return out
+
+
+def main(argv) -> int:
+    if len(argv) >= 3 and argv[0] == "--one":
+        print(json.dumps(one(argv[1], argv[2])), flush=True)
+        return 0
+    if not argv or any("=" not in a for a in argv):
+        print(__doc__, file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    print(f"card: {smi}", flush=True)
+    rows = []
+    for arg in argv:
+        label, tree = arg.split("=", 1)
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", label, tree],
+                              capture_output=True, text=True, timeout=1500)
+        if proc.returncode:
+            print(proc.stdout[-4000:] + proc.stderr[-4000:], file=sys.stderr)
+            return proc.returncode
+        rows.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(json.dumps(rows[-1]), flush=True)
+    keys = [k for k in rows[0] if k.endswith("_ms")]
+    print("metric | " + " | ".join(r["label"] for r in rows))
+    for k in keys:
+        vals = [statistics.median(r[k]) if isinstance(r[k], list) else r[k] for r in rows]
+        print(f"{k} | " + " | ".join(f"{v:.4f}" for v in vals))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
