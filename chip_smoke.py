@@ -13,7 +13,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
 2. hold each kernel against its plain PyTorch twin on the card at the main
    paths' shapes and time kernel, twin and, where one exists, a library
    call the port never calls (the yardstick):
-   - fbank at 64 x 15 s, ragged, with and without the energy column;
+   - fbank at 64 x 15 s, ragged, with and without the energy column,
+     against its twin and against the float64 exact value
+     (``fbank_fft_route``), timed also in a CUDA graph (bar 0.40 ms) and
+     beside the float32 cuFFT route (several library calls);
      encoder self-attention and decoder cross-attention in bf16 and
      float32 (yardstick ``scaled_dot_product_attention``);
    - the int8 GEMM at every (M, K, N) of the int8 path and at edge
@@ -38,7 +41,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      the SANM layer with ``int8_attn``; the bf16 and float32 FFN at
      (16384, 512) -> 2048 -> 512 within FFN_TOL (yardstick: two
      ``F.linear`` and a relu), its only launches in this script;
-   - edge shapes: ragged T and U, one frame, lengths of 0; for the CTC
+   - edge shapes: ragged T and U, one frame, lengths of 0, fbank at 40
+     mels and with fewer samples than a frame; for the CTC
      kernel rows not a multiple of its block, T=1, rows NEG_INF throughout
      and T=1500 (60 s);
    - the int8 GEMM's row-quantizing entry (``int8_gemm_rq``: the SANM
@@ -109,6 +113,10 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12,
             "float64": 67e12}  # float64: the tensor cores' rate
 
 FBANK_TOL = 1e-3  # log-mel and dB, abs (the JAX package's "highest" bar)
+# the fbank kernel against the float64 exact value (chip_smoke.fbank_fft_route
+# in float64), log-mel abs: its arithmetic is float64 up to the log
+FBANK_EXACT_TOL = 1e-4
+FBANK_MS_BAR = 0.40  # the fbank kernel at B=64 x 15 s, CUDA graph, ms
 ATTN_TOL = {"float32": 1e-4, "bfloat16": 3e-2}  # abs, output in that dtype
 E2E_F32_LOGP_TOL = 1e-2  # kernels vs twins through 66 float32 layers
 E2E_F32_MIN_AGREE = 0.99  # greedy-token agreement, kernels vs twins
@@ -235,6 +243,28 @@ def fbank_ops_per_frame(n_mels: int, with_energy: bool) -> float:
     return float(ops + (2 * 400 + 1 if with_energy else 0))
 
 
+def fbank_fft_route(torch, wav, dtype, n_mels: int = 80, window: str = "hamming"):
+    """kaldi log-mel by ``torch.fft.rfft``, every step in ``dtype``: the same
+    preprocessing (scale, DC removal, preemphasis with the first sample
+    duplicated, window), the 512-point real FFT, the power, a dense mel
+    product and the log.  In float64 it is the exact value the kernel and
+    its twin are held to; in float32 it is the cuFFT yardstick (several
+    library calls, never on a path)."""
+    from funasr_torch.ops.fbank import LOG_EPS, _window, kaldi_mel_banks
+
+    dev = wav.device
+    T = (wav.shape[1] - 400) // 160 + 1
+    fr = (wav.to(dtype) * 32768.0).unfold(1, 400, 160)[:, :T]
+    fr = fr - fr.mean(dim=-1, keepdim=True)
+    fr = fr - 0.97 * torch.cat([fr[..., :1], fr[..., :-1]], dim=-1)
+    fr = fr * torch.as_tensor(_window(window, 400), dtype=dtype, device=dev)
+    spec = torch.fft.rfft(fr, n=512)[..., :256]
+    power = spec.real * spec.real + spec.imag * spec.imag
+    mel = torch.as_tensor(kaldi_mel_banks(n_mels, 512, float(FS))[:256],
+                          dtype=dtype, device=dev)
+    return torch.log(torch.clamp_min(power @ mel, LOG_EPS))
+
+
 def waveform(rng, n: int, f0: float):
     import numpy as np
 
@@ -257,6 +287,12 @@ def check_fbank(torch, FK, rng):
     wav_d = torch.from_numpy(wav).cuda()
     lens_d = torch.from_numpy(lens).cuda()
     T = (N - 400) // 160 + 1
+    exact = fbank_fft_route(torch, wav_d, torch.float64)
+    cufft = fbank_fft_route(torch, wav_d, torch.float32)
+    twin_exact = float((FK.fbank_ref(wav_d, lens_d)[0].double() - exact).abs().max())
+    cufft_exact = float((cufft.double() - exact).abs().max())
+    del cufft
+    route = cuda_ms(lambda: fbank_fft_route(torch, wav_d, torch.float32), iters=5)
     cases = []
     for with_energy in (False, True):
         got = FK.fused_fbank(wav_d, lens_d, with_energy=with_energy)
@@ -269,7 +305,11 @@ def check_fbank(torch, FK, rng):
               "fbank output finite")
         check(err <= FBANK_TOL, f"fbank(with_energy={with_energy}) max err "
               f"{err} > {FBANK_TOL}")
+        err_exact = float((got[0].double() - exact).abs().max())
+        check(err_exact <= FBANK_EXACT_TOL, f"fbank(with_energy={with_energy}) "
+              f"against the float64 exact value {err_exact} > {FBANK_EXACT_TOL}")
         ms = cuda_ms(lambda: FK.fused_fbank(wav_d, lens_d, with_energy=with_energy))
+        graph = graph_ms(lambda: FK.fused_fbank(wav_d, lens_d, with_energy=with_energy))
         plain = cuda_ms(lambda: FK.fbank_ref(wav_d, lens_d, with_energy=with_energy),
                         iters=5)
         n_out = 80 + (1 if with_energy else 0)
@@ -277,9 +317,14 @@ def check_fbank(torch, FK, rng):
         ops = B * T * fbank_ops_per_frame(80, with_energy)
         bnd, by = bound_ms(nbytes, {"float32": ops})
         case = dict(case=f"B=64 x 15 s ragged, with_energy={with_energy}",
-                    max_abs_err=err, tolerance=FBANK_TOL, ms=ms, plain_ms=plain,
-                    library_ms=None, bound_ms=bnd, bound_by=by)
+                    max_abs_err=err, tolerance=FBANK_TOL, ms=ms, graph_ms=graph,
+                    plain_ms=plain, library_ms=None, bound_ms=bnd, bound_by=by,
+                    err_vs_exact=err_exact, exact_tolerance=FBANK_EXACT_TOL,
+                    twin_err_vs_exact=twin_exact, cufft_route_ms=route,
+                    cufft_route_err_vs_exact=cufft_exact)
         log(f"fbank {case}")
+        check(graph <= FBANK_MS_BAR, f"fbank(with_energy={with_energy}) "
+              f"{graph} ms > {FBANK_MS_BAR} ms")
         cases.append(case)
     return cases
 
@@ -365,6 +410,30 @@ def check_edges(torch, FK, A, rng):
         err = float((got[0] - want[0]).abs().max())
         check(err <= FBANK_TOL, f"fbank edge window={window} err {err}")
         worst = max(worst, err)
+    # 40 mels (another range table), against the twin and the exact value;
+    # and N = 399, no frame at all.  A generator of their own leaves the
+    # main one's stream, which later phases draw from, as it was.
+    erng = np.random.default_rng(9)
+    wav = torch.from_numpy(np.stack([waveform(erng, 16123, f0) for f0 in (120.0, 230.0)])
+                           ).cuda()
+    lens_d = torch.tensor([16123, 9000], device="cuda")
+    got = FK.fused_fbank(wav, lens_d, num_mel_bins=40)
+    want = FK.fbank_ref(wav, lens_d, num_mel_bins=40)
+    err = float((got[0] - want[0]).abs().max())
+    err_exact = float((got[0].double() - fbank_fft_route(torch, wav, torch.float64, 40))
+                      .abs().max())
+    check(torch.equal(got[1], want[1]) and err <= FBANK_TOL
+          and err_exact <= FBANK_EXACT_TOL,
+          f"fbank edge n_mels=40 err {err}, against the exact value {err_exact}")
+    worst = max(worst, err)
+    wav = torch.from_numpy(erng.standard_normal((2, 399)).astype(np.float32)).cuda()
+    lens_d = torch.tensor([399, 250], device="cuda")
+    before = FK.fused_fbank.launches
+    got = FK.fused_fbank(wav, lens_d, with_energy=True)
+    want = FK.fbank_ref(wav, lens_d, with_energy=True)
+    check(FK.fused_fbank.launches == before and got[0].shape == want[0].shape == (2, 0, 80)
+          and got[2].shape == (2, 0) and torch.equal(got[1], want[1]),
+          "fbank edge N=399: no frame, no launch")
     for B, U, T, H, d in ((3, 37, 250, 4, 128), (2, 1, 1, 4, 128),
                           (3, 100, 300, 8, 128), (2, 64, 63, 2, 128),
                           (3, 77, 203, 4, 128)):
@@ -390,8 +459,8 @@ def check_edges(torch, FK, A, rng):
                   f"attention edge B={B} U={U} T={T} H={H} d={d} {dn} err {err}")
             worst = max(worst, err)
     torch.cuda.synchronize()
-    log(f"edge shapes: fbank (3 shapes, 4 windows) and attention (5 shapes x 2 dtypes) "
-        f"within tolerance, worst abs err {worst:.3e}")
+    log(f"edge shapes: fbank (3 shapes, 4 windows, 40 mels, N=399) and attention "
+        f"(5 shapes x 2 dtypes) within tolerance, worst abs err {worst:.3e}")
     return worst
 
 

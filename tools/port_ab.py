@@ -15,6 +15,7 @@ call on one card:
   it runs no int8 kernel, so it reads the host's speed), int8
   (``quantize=True``) and BiCif Paraformer-large int8 with the opt-in
   routes (``BiCifEngine.run_ts``).  These spans include the host;
+- the fbank kernel on those batches' waveforms, by CUDA graph;
 - the int8 SANM layer, decoder layer (memory quantized once) and FFN at
   ``chip_smoke.py``'s main shapes, by events (host included) and by CUDA
   graph (device time alone, ``graph_ms``);
@@ -67,6 +68,7 @@ def one(label: str, tree: str) -> dict:
     from funasr_torch.models.bicif_paraformer.model import BiCifParaformer
     from funasr_torch.models.paraformer.model import Paraformer, init_random_
     from funasr_torch.ops import decoder_layer as DL
+    from funasr_torch.ops import fbank_kernel as FK
     from funasr_torch.ops import ffn as FF
     from funasr_torch.ops import int8_gemm as G
     from funasr_torch.ops import rowquant as RQ
@@ -85,6 +87,7 @@ def one(label: str, tree: str) -> dict:
     wav = torch.from_numpy(np.stack([base * (np.arange(N) < n) for n in lens])
                            .astype(np.float32)).cuda()
     lens_d = torch.from_numpy(lens.astype(np.int32)).cuda()
+    out["fbank graph_ms"] = S.graph_ms(lambda: FK.fused_fbank(wav, lens_d))
 
     f32 = Paraformer(**fl, dtype=torch.float32)
     init_random_(f32, torch.Generator(device="cuda").manual_seed(2024))
