@@ -31,7 +31,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      on the same bf16-rounded q, k, v), and at T=1000 with its scores in the
      device scratch, row-chunked;
    - the CTC prefix recurrence at the beam's shape (B=32, K=10, W=16,
-     T=383), bit-equal to its twin (bar 1e-6 * max(1, |ref|));
+     T=383), bit-equal to its twin (bar 1e-6 * max(1, |ref|)); the beam's
+     whole CTC prefix step in one launch (gather, phi, recurrence, sigma)
+     at that shape, at step 0 and at edges, r_new and sigma against the
+     twin at the same bar, timed by events and CUDA graph (bar 0.10 ms) beside the unfused
+     composition it replaced and the chain floor (``ctc_chain_floor``);
    - the fused int8 matmul (qmm) at the three gated contractions of the
      BiCif path and edge shapes (K up to 3072), bit-equal to its twin
      (beside it the rowquant + int8 GEMM pair of the XLA route and
@@ -70,8 +74,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    batches through ``HybridEngine.transcribe`` in the serving configuration
    of ``bench_beam.py`` (bf16, ``quantize=True``, int8 KV cache, beam 10,
    maxlen 96, CTC weight 0.3) with the counters read the same way (one CTC
-   kernel launch per decode step); compare the float32 beam with the CTC
-   kernel and with its twin; time the beam at B=32 x 15 s;
+   prefix step launch per decode step, no launch of the recurrence entry);
+   compare the float32 beam with the step kernel and with its twin; time
+   the beam at B=32 x 15 s (kernel launches per decode step from its
+   profile);
    then build full-width int8 BiCif Paraformer-large with both opt-in
    routes (``qmm=True, int8_attn=True``) and serve the same three batches
    with 20 ms timestamps through ``BiCifEngine.transcribe``, counters read
@@ -134,6 +140,7 @@ E2E_INT8_MIN_AGREE = 0.99
 # CTC prefix kernel against its twin: the same IEEE operations in the same
 # order with the same expf/logf, so bit-equal is expected
 CTC_REL_TOL = 1e-6  # |kernel - twin| <= CTC_REL_TOL * max(1, |twin|)
+CTC_STEP_MS_BAR = 0.10  # the CTC prefix step at the beam's shape, CUDA graph, ms
 BEAM_F32_SCORE_TOL = 1e-3  # float32 beam, CTC kernel vs twin: |dscore|
 # bf16/float32 FFN against its twin, times max|twin|: the kernel sums in
 # another order (tensor-core tiles, or k-ordered FMA), which can move a bf16
@@ -730,6 +737,7 @@ def check_ctc_prefix(torch, CP):
         if not cases:  # time the main shape
             R = B * K * W
             case.update(ms=cuda_ms(lambda: CP.ctc_recurrence(xg, xb, phi), iters=20),
+                        graph_ms=graph_ms(lambda: CP.ctc_recurrence(xg, xb, phi)),
                         plain_ms=cuda_ms(lambda: CP.ctc_recurrence_ref(xg, xb, phi),
                                          iters=3),
                         library_ms=None)
@@ -738,6 +746,107 @@ def check_ctc_prefix(torch, CP):
                                {"float32": 16.0 * R * T})
             case.update(bound_ms=bnd, bound_by=by)
         log(f"ctc prefix {case}")
+        cases.append(case)
+    return cases
+
+
+def step_inputs(torch, gen, B, K, W, T, V, step0=False, neg_rows=False):
+    """x_t, r_prev, last, cand of the beam's CTC prefix step: masked
+    log-probs, time-minor (blank 0, eos V - 1, the last third of the frames
+    of every other row masked); the step-0 state broadcast over K (stride 0)
+    or a random one; candidates that repeat the last token, blank and eos;
+    ``neg_rows``: a token and a hypothesis with no mass at all."""
+    from funasr_torch.ops.beam_search import ctc_init_state, mask_ctc_frames
+    from funasr_torch.ops.ctc_prefix import NEG_INF
+
+    logp = torch.log_softmax(torch.randn((B, T, V), generator=gen, device="cuda") * 2, -1)
+    lens = torch.full((B,), T, dtype=torch.int64, device="cuda")
+    lens[1::2] = max(1, T - T // 3)
+    x = mask_ctc_frames(logp, lens, 0)
+    if neg_rows:
+        x[:, :, V - 2] = NEG_INF
+    x_t = x.transpose(1, 2).contiguous()
+    if step0:
+        r_prev = ctc_init_state(x, 0)[0][:, None].expand(B, K, T, 2)
+    else:
+        r_prev = torch.log(torch.rand((B, K, T, 2), generator=gen, device="cuda")) * 3 - 20
+        if neg_rows:
+            r_prev[:, K - 1] = NEG_INF
+    last = torch.randint(1, V - 1, (B, K), generator=gen, device="cuda")
+    cand = torch.randint(1, V, (B, K, W), generator=gen, device="cuda")
+    cand[..., 0] = last
+    for w, tok in enumerate((0, V - 1, V - 2)[:W - 1]):
+        cand[..., w + 1] = tok
+    return x_t, r_prev, last, cand
+
+
+def check_ctc_prefix_step(torch, CP):
+    """The beam's CTC prefix step in one launch against its twin, at the
+    beam's shape (B=32 x 15 s: K=10, W=16, T=383, V=4233) and edges.  Main
+    shape: events and CUDA graph (bar
+    CTC_STEP_MS_BAR), the unfused composition the beam ran before (the
+    twin's prologue and sigma around the recurrence kernel) by CUDA graph
+    (``tools/port_ab.py`` times the parent checkout's own), the twin, and
+    the chain floor (``ctc_chain_floor``: T frames of the dependent lse
+    chain in one warp, operands in registers).  Bound: bytes, the gathered
+    rows, r_prev, xb, cand and last read once, r_new and sigma written once."""
+    import ctypes
+
+    from funasr_torch.ops import cuda_build
+
+    floor_fn = cuda_build.function("ctc_prefix", "ctc_chain_floor",
+                                   [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    V = CONFORMER_HYBRID["vocab_size"]
+    cases = []
+    for B, K, W, T, step0, neg, what in (
+            (32, 10, 16, 383, False, False, "beam step, B=32 x 15 s"),
+            (32, 10, 16, 383, True, False, "step 0 (state broadcast over K, stride 0)"),
+            (2, 10, 16, 383, False, True, "edge: no-mass token and hypothesis"),
+            (3, 5, 7, 45, False, True, "edge: R=105 rows, 4 hypotheses a block"),
+            (1, 1, 1, 1, True, False, "edge: one row, T=1"),
+            (2, 3, 5, 1500, False, True, "edge: T=1500 (60 s)"),
+            (3, 2, 1, 13, False, False, "edge: W=1, T=13"),
+            (2, 2, 40, 70, False, True, "edge: W=40, two blocks a hypothesis")):
+        a = (*step_inputs(torch, gen, B, K, W, T, V, step0, neg), step0, 0)
+        got, want = CP.ctc_prefix_step(*a), CP.ctc_prefix_step_ref(*a)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(t).all()) for t in got), f"ctc step {what} finite")
+        err = max(float(((x - y).abs() / y.abs().clamp(min=1.0)).max())
+                  for x, y in zip(got, want))
+        check(err <= CTC_REL_TOL, f"ctc step {what}: relative err {err} > {CTC_REL_TOL}")
+        case = dict(case=f"{what}: x_t ({B}, {V}, {T}) f32, K={K}, W={W}",
+                    max_abs_err=max(float((x - y).abs().max()) for x, y in zip(got, want)),
+                    max_rel_err=err, bit_equal=all(torch.equal(x, y) for x, y in zip(got, want)),
+                    tolerance=CTC_REL_TOL)
+        if not cases:  # time the main shape
+            R, H = B * K * W, B * K
+            out = torch.empty((32, 2), device="cuda")
+            floor = lambda: cuda_build.check(floor_fn(T, out.data_ptr(), stream()),
+                                             "ctc chain floor launch")
+            # the unfused step that the beam ran before: the twin's prologue
+            # and sigma around this checkout's recurrence kernel (through its
+            # launcher, so that the swapped-in name never reaches the twin)
+            with swapped([(CP, "ctc_recurrence_ref", CP._launch)]):
+                unfused = graph_ms(lambda: CP.ctc_prefix_step_ref(*a), iters=10, replays=3)
+            case.update(ms=cuda_ms(lambda: CP.ctc_prefix_step(*a), iters=20),
+                        graph_ms=graph_ms(lambda: CP.ctc_prefix_step(*a)),
+                        unfused_graph_ms=unfused,
+                        plain_ms=cuda_ms(lambda: CP.ctc_prefix_step_ref(*a), iters=2,
+                                         warmup=1),
+                        chain_floor_ms=graph_ms(floor), library_ms=None)
+            # about 20 float32 operations per row and frame (two lse, two adds),
+            # 9 per hypothesis and frame (phi_all)
+            nbytes = (4.0 * (R * T + 2 * H * T + B * T) + 8.0 * (R + H)
+                      + 4.0 * (2 * R * T + R))
+            bnd, by = bound_ms(nbytes, {"float32": 20.0 * R * T + 9.0 * H * T})
+            case.update(bound_ms=bnd, bound_by=by)
+            check(case["graph_ms"] <= CTC_STEP_MS_BAR,
+                  f"ctc step {what}: {case['graph_ms']:.4f} ms by CUDA graph > "
+                  f"{CTC_STEP_MS_BAR}")
+        log(f"ctc step {case}")
         cases.append(case)
     return cases
 
@@ -1474,27 +1583,15 @@ def encoder_frames(n_samples: int) -> int:
     return ((t - 3) // 2 + 1 - 3) // 2 + 1
 
 
-def end_to_end_beam(torch, FK, CP, profile_dir, card, shared):
-    """Conformer CTC/attention beam serving (``HybridEngine``) at full width
-    on seeded random weights: three served batches with the launch counters
-    read, the float32 beam with the CTC kernel against its twin, and the
-    B=32 x 15 s batch of ``bench_beam.py`` timed and profiled."""
-    import numpy as np
-
+def beam_engine(torch):
+    """The full-width Conformer of ``configs/conformer_hybrid.yaml`` on seeded
+    random weights: (the float32 model, the served ``HybridEngine``: bf16,
+    int8 weights and KV cache, ``BEAM_SERVING``)."""
     from funasr_torch.auto.engines import FrontendConfig, HybridEngine
     from funasr_torch.models.paraformer.model import init_random_
     from funasr_torch.models.transformer.model import Conformer
-    from funasr_torch.ops import attention as A
-    from funasr_torch.ops import decoder_layer as DL
-    from funasr_torch.ops import ffn as FF
-    from funasr_torch.ops import fsmn as FM
-    from funasr_torch.ops import int8_gemm as G
-    from funasr_torch.ops import quant as Q
-    from funasr_torch.ops import rowquant as RQ
-    from funasr_torch.ops import sanm_layer as SL
     from funasr_torch.tokenizer.char_tokenizer import CharTokenizer
 
-    t0 = time.time()
     f32 = Conformer(**CONFORMER_HYBRID, dtype=torch.float32)
     init_random_(f32, torch.Generator(device="cuda").manual_seed(2025))
     served = Conformer(**CONFORMER_HYBRID, dtype=torch.bfloat16, quantize=True)
@@ -1504,7 +1601,29 @@ def end_to_end_beam(torch, FK, CP, profile_dir, card, shared):
     tok = CharTokenizer(["<blank>", "<s>", "</s>"]
                         + [chr(0x4E00 + i) for i in range(V - 4)] + ["<unk>"])
     frontend = FrontendConfig(n_mels=80, lfr_m=1, lfr_n=1)
-    engine = HybridEngine(served, frontend, tok, **BEAM_SERVING)
+    return f32, HybridEngine(served, frontend, tok, **BEAM_SERVING)
+
+
+def end_to_end_beam(torch, FK, CP, profile_dir, card, shared):
+    """Conformer CTC/attention beam serving (``HybridEngine``) at full width
+    on seeded random weights: three served batches with the launch counters
+    read, the float32 beam with the CTC kernel against its twin, and the
+    B=32 x 15 s batch of ``bench_beam.py`` timed and profiled."""
+    import numpy as np
+
+    from funasr_torch.auto.engines import HybridEngine
+    from funasr_torch.ops import attention as A
+    from funasr_torch.ops import decoder_layer as DL
+    from funasr_torch.ops import ffn as FF
+    from funasr_torch.ops import fsmn as FM
+    from funasr_torch.ops import int8_gemm as G
+    from funasr_torch.ops import quant as Q
+    from funasr_torch.ops import rowquant as RQ
+    from funasr_torch.ops import sanm_layer as SL
+
+    t0 = time.time()
+    f32, engine = beam_engine(torch)
+    frontend, tok = engine.frontend, engine.tokenizer
     n_params = sum(p.numel() for p in f32.parameters())
     log(f"e2e beam: Conformer hybrid {n_params / 1e6:.1f} M params built and "
         f"quantized in {time.time() - t0:.1f} s; serving {BEAM_SERVING}")
@@ -1513,7 +1632,8 @@ def end_to_end_beam(torch, FK, CP, profile_dir, card, shared):
     torch.cuda.synchronize()
 
     # ---- the beam main path: counters at 0 just before, read just after
-    counters = {"ctc_prefix": CP.ctc_recurrence, "fbank": FK.fused_fbank,
+    counters = {"ctc_prefix_step": CP.ctc_prefix_step, "ctc_prefix": CP.ctc_recurrence,
+                "fbank": FK.fused_fbank,
                 "int8_gemm": G.int8_gemm, "rowquant": RQ.rowquant,
                 # Paraformer kernels, off this path
                 "attention": A.fused_attention, "sanm_layer": SL.fused_sanm_layer,
@@ -1531,9 +1651,10 @@ def end_to_end_beam(torch, FK, CP, profile_dir, card, shared):
     steps = engine.steps
     log(f"e2e beam: served {sum(map(len, batches))} requests in 3 batches in "
         f"{serve_s:.3f} s, {steps} decode steps; kernel launches {launches}")
-    check(steps > 0 and launches["ctc_prefix"] == steps,
-          f"ctc prefix kernel launched once per decode step: {launches['ctc_prefix']}"
-          f" launches, {steps} steps")
+    check(steps > 0 and launches["ctc_prefix_step"] == steps and not launches["ctc_prefix"],
+          f"ctc prefix step kernel launched once per decode step, the recurrence entry "
+          f"never: {launches['ctc_prefix_step']} and {launches['ctc_prefix']} launches, "
+          f"{steps} steps")
     check(launches["fbank"] == len(batches), "fbank kernel launched per batch")
     check(not any(launches[k] for k in ("attention", "sanm_layer", "decoder_layer", "ffn",
                                         "int8_gemm_rq", "fsmn", "fsmn_ln")),
@@ -1562,7 +1683,7 @@ def end_to_end_beam(torch, FK, CP, profile_dir, card, shared):
     engine32 = HybridEngine(f32, frontend, tok, **dict(BEAM_SERVING, int8_kv=False))
     wav_d, lens_d = engine32._pack(batches[2])
     res_k = engine32.run(wav_d, lens_d)
-    with swapped([(CP, "ctc_recurrence", CP.ctc_recurrence_ref)]):
+    with swapped([(CP, "ctc_prefix_step", CP.ctc_prefix_step_ref)]):
         res_r = engine32.run(wav_d, lens_d)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(res_k.scores).all()), "float32 beam scores finite")
@@ -1605,11 +1726,13 @@ def end_to_end_beam(torch, FK, CP, profile_dir, card, shared):
                    "profile_beam.txt")
     prof["ctc prefix kernel share of kernel time"] = (
         prof.get("ctc prefix kernel", 0.0) / prof["kernels total"])
+    prof["kernel launches per decode step"] = prof["kernel launches"] / max(res.steps, 1)
     e2e["profile_beam"] = prof
     log(f"e2e beam B=32 x 15 s on {card}: {ms:.2f} ms per batch (CUDA events, mean "
         f"of 5 batches after 2 warm-ups: {[round(t, 1) for t in times]}) -> "
         f"{audio_s / (ms / 1e3):.1f} audio-s/s, "
-        f"{res.steps} decode steps ({ms / max(res.steps, 1):.3f} ms per step); "
+        f"{res.steps} decode steps ({ms / max(res.steps, 1):.3f} ms per step, "
+        f"{prof['kernel launches per decode step']:.1f} kernel launches per step); "
         f"device kernels {prof['kernels total']:.2f} ms of it; transcribe() incl. "
         f"host {host_ms:.1f} ms")
     return launches, e2e
@@ -1856,11 +1979,13 @@ def profile(torch, run, out_dir, batch_ms, fname):
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, fname), "w") as f:
             f.write(events.table(sort_by="self_cuda_time_total", row_limit=60))
-    groups = {}
+    groups, n_kernels = {}, 0
     for ev in events:  # kernels only: a CPU op's device time repeats them
         if ev.device_type != DeviceType.CUDA or not ev.self_device_time_total:
             continue
         name = ev.key.lower()
+        if not name.startswith(("memcpy", "memset")):
+            n_kernels += ev.count
         if "ctc_prefix_kernel" in name:
             g = "ctc prefix kernel"
         elif "attention_i8qk_kernel" in name:
@@ -1909,6 +2034,7 @@ def profile(torch, run, out_dir, batch_ms, fname):
     groups["rowquant + FSMN groups"] = sum(groups.get(g, 0.0) for g in (
         "rowquant kernel", "FSMN kernel", "LN + FSMN kernel"))
     groups["kernel share of batch_ms"] = busy / batch_ms
+    groups["kernel launches"] = n_kernels
     groups["aten::round calls"] = sum(ev.count for ev in events
                                       if ev.key == "aten::round")
     log(f"profile ({fname}) device ms by group: {json.dumps(groups, sort_keys=True)}")
@@ -1967,6 +2093,7 @@ def main(argv=None) -> int:
     gemm_cases = check_int8_gemm(torch, G)
     layer_cases = check_int8_layers(torch, SL, DL, FF)
     ctc_cases = check_ctc_prefix(torch, CP)
+    step_cases = check_ctc_prefix_step(torch, CP)
     qmm_cases = check_qmm(torch, QM, Q, RQ, G)
     f32ctx_cases = check_f32ctx(torch, A)
     i8qk_cases = check_i8qk(torch, A)
@@ -2027,6 +2154,11 @@ def main(argv=None) -> int:
                              "funasr_tpu/ops/quant.py int8_dot_general"]),
         entry("ctc_prefix", ["funasr_torch/csrc/ctc_prefix.cu"],
               "funasr_tpu/ops/ctc_prefix_pallas.py:47", ctc_cases[0], ctc_cases),
+        # the same TPU kernel with the prologue that XLA fuses around it in
+        # the JAX beam step: the beam's path
+        entry("ctc_prefix_step", ["funasr_torch/csrc/ctc_prefix.cu"],
+              "funasr_tpu/ops/ctc_prefix_pallas.py:47", step_cases[0], step_cases,
+              also_replaces=["funasr_tpu/ops/beam_search.py:125"]),
         entry("qmm", ["funasr_torch/csrc/qmm.cu", "funasr_torch/csrc/int8_wgmma.cuh"],
               "funasr_tpu/ops/quant_pallas.py:37",
               qmm_cases[0], qmm_cases),

@@ -7,8 +7,9 @@ Fixed beam tensors, as in the JAX package:
   (``step_score_fn``, ops/cached_decoder.py) or from a full-prefix decoder
   call (``decode_fn``);
 - CTC prefix scores from the (r_nb, r_b) recurrence over the encoder frames,
-  one launch of the ``ops/ctc_prefix.py`` kernel per step on the card,
-  evaluated only for the ``W`` pre-beam candidates of each hypothesis.
+  evaluated only for the ``W`` pre-beam candidates of each hypothesis: the
+  whole prefix step (gather, phi, recurrence, sigma) is one launch of the
+  ``ops/ctc_prefix.py`` step kernel per decode step on the card.
 
 The JAX ``lax.while_loop`` with early exit becomes a Python loop over steps:
 it ends when every hypothesis has emitted eos, read with one host sync per
@@ -61,34 +62,15 @@ def ctc_prefix_step(x_t: torch.Tensor, r_prev: torch.Tensor,
                     last: torch.Tensor, cand: torch.Tensor,
                     prefix_empty: bool, blank_id: int = 0
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Score extending each prefix with each candidate.
-
-    x_t (B, V, T) masked CTC log-probs, time-minor (transposed once before
-    the decode loop, so the candidates' emission rows are a row gather);
-    r_prev (B, K, T, 2) [nb, b] state of each prefix; last (B, K) last
-    token; cand (B, K, W) candidate extensions; prefix_empty: the prefixes
-    hold no token yet (step 0).  Returns (sigma (B, K, W) total prefix
-    scores, r_new (B, K, W, T, 2))."""
-    B, K, T, _ = r_prev.shape
-    W = cand.shape[-1]
-    xg = torch.gather(x_t, 1, cand.reshape(B, K * W, 1).expand(B, K * W, T))
-    xg = xg.reshape(B, K, W, T)
-    xb = x_t[:, blank_id, :].contiguous()  # (B, T)
-
-    r_nb_prev = r_prev[..., 0]  # (B, K, T)
-    r_b_prev = r_prev[..., 1]
-    same = cand == last[:, :, None]  # (B, K, W)
-    # phi(t): mass of g ending at frame t usable before emitting v at t+1
-    phi_all = logaddexp(r_nb_prev, r_b_prev)  # (B, K, T)
-    phi = torch.where(same[..., None], r_b_prev[:, :, None, :],
-                      phi_all[:, :, None, :])  # (B, K, W, T)
-    phi0 = torch.full((B, K, W, 1), 0.0 if prefix_empty else NEG_INF,
-                      dtype=torch.float32, device=x_t.device)
-    phi_shift = torch.cat([phi0, phi[..., :-1]], dim=-1)
-
-    r_new = CP.ctc_recurrence(xg, xb, phi_shift)  # (B, K, W, T, 2)
-    sigma = logaddexp(r_new[..., -1, 0], r_new[..., -1, 1])  # (B, K, W)
-    return sigma, r_new
+    """Score extending each prefix with each candidate: x_t (B, V, T) masked
+    CTC log-probs, time-minor (transposed once before the decode loop, so
+    the candidates' emission rows are a row gather); r_prev (B, K, T, 2)
+    [nb, b] state of each prefix; last (B, K) last token; cand (B, K, W)
+    candidate extensions; prefix_empty: the prefixes hold no token yet
+    (step 0).  Returns (sigma (B, K, W) total prefix scores, r_new (B, K,
+    W, T, 2)).  One launch of ``ops/ctc_prefix.py`` ``ctc_prefix_step`` on
+    the card, its twin on the CPU."""
+    return CP.ctc_prefix_step(x_t, r_prev, last, cand, prefix_empty, blank_id)
 
 
 def ctc_init_state(x: torch.Tensor, blank_id: int = 0

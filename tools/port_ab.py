@@ -21,6 +21,13 @@ call on one card:
   graph (device time alone, ``graph_ms``);
 - the rowquant kernel at the int8 layers' row-quantize shapes and the int8
   GEMM at the FFN's two contractions, by CUDA graph.
+- the beam's CTC prefix step (``ops/beam_search.py`` ``ctc_prefix_step``)
+  at B=32 x 15 s (K=10, W=16, T=383), by CUDA graph, and the Conformer
+  beam's B=32 x 15 s batch (``HybridEngine.run``, as ``chip_smoke.py``
+  builds it): CUDA events around each of 5 batches after 2 warm-ups (the
+  host's time included), then ``torch.profiler`` over one batch for its
+  kernel total, its CTC prefix kernel's time and its kernel launches per
+  decode step.
 
 Prints one JSON object per process and, last, a table of the medians.
 Helpers and shapes come from ``chip_smoke.py`` beside this directory.
@@ -113,6 +120,29 @@ def one(label: str, tree: str) -> dict:
     del eng, bi8
     torch.cuda.empty_cache()
 
+    # the beam's CTC prefix step at its B=32 x 15 s shape, by CUDA graph (the
+    # parent's: its unfused composition), and the B=32 x 15 s beam batch
+    from funasr_torch.ops import beam_search as TB
+
+    a = S.step_inputs(torch, torch.Generator(device="cuda").manual_seed(6), 32, 10, 16, 383,
+                      S.CONFORMER_HYBRID["vocab_size"])
+    out["ctc_prefix_step graph_ms"] = S.graph_ms(lambda: TB.ctc_prefix_step(*a, False, 0))
+    del a
+    _, beam = S.beam_engine(torch)
+    rng = np.random.default_rng(1)
+    wav_b, lens_b = beam._pack([S.waveform(rng, N, 150.0 + 7 * i) for i in range(32)])
+    run = lambda: beam.run(wav_b, lens_b)
+    out["beam_batch_ms"] = [S.cuda_ms(run, iters=1, warmup=2 if i == 0 else 0)
+                            for i in range(5)]
+    steps = run().steps
+    prof = S.profile(torch, run, None, statistics.median(out["beam_batch_ms"]), "beam")
+    out.update({"beam kernels_ms": prof["kernels total"],
+                "beam ctc prefix kernel_ms": prof.get("ctc prefix kernel", 0.0),
+                "beam_steps": steps,
+                "beam kernel launches_per_step": prof["kernel launches"] / steps})
+    del beam, run
+    torch.cuda.empty_cache()
+
     # the int8 layers at chip_smoke.py's main shapes
     D, NH, LEFT = 512, 4, 5
     sanm_w, dec_w, ffn_w = S.int8_layer_weights(torch, SL, DL, FF)
@@ -182,7 +212,7 @@ def main(argv) -> int:
             return proc.returncode
         rows.append(json.loads(proc.stdout.strip().splitlines()[-1]))
         print(json.dumps(rows[-1]), flush=True)
-    keys = [k for k in rows[0] if k.endswith("_ms")]
+    keys = [k for k in rows[0] if k.endswith(("_ms", "_per_step"))]
     print("metric | " + " | ".join(r["label"] for r in rows))
     for k in keys:
         vals = [statistics.median(r[k]) if isinstance(r[k], list) else r[k] for r in rows]
