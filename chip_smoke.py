@@ -43,8 +43,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      the int8-score attention at the SANM shape and edges (T=1000 with the
      scores in the scratch), bit-equal, and
      the SANM layer with ``int8_attn``; the bf16 and float32 FFN at
-     (16384, 512) -> 2048 -> 512 within FFN_TOL (yardstick: two
-     ``F.linear`` and a relu), its only launches in this script;
+     (16384, 512) -> 2048 -> 512 and ragged edges (M = 1 and 65, H = 544
+     and 8192) within FFN_TOL, timed by events and CUDA graph beside its
+     yardstick (two ``F.linear`` and a relu, which the bf16 kernel must beat
+     by CUDA graph), one kernel a call in a profile, its only launches in
+     this script;
    - edge shapes: ragged T and U, one frame, lengths of 0, fbank at 40
      mels and with fewer samples than a frame; for the CTC
      kernel rows not a multiple of its block, T=1, rows NEG_INF throughout
@@ -1247,40 +1250,93 @@ def check_i8qk(torch, A):
     return cases
 
 
+# (M, K, H, N) of the bf16/float32 FFN: the encoder FFN's shape, the shape
+# that was its first ragged edge, and edges of the hidden-chunk design (one
+# row, a band and one row, a hidden chunk of 32 columns, H = 8192)
+FFN_SHAPES = [(16384, 512, 2048, 512), (37, 256, 512, 100), (1, 512, 2048, 512),
+              (65, 512, 2048, 512), (300, 512, 544, 512), (300, 512, 8192, 512)]
+
+
+def kernels_per_call(torch, fn, name, calls=5):
+    """(launches of kernels whose name holds ``name``, all kernel launches)
+    per call of ``fn``, from a torch.profiler trace of ``calls`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as prof
+
+    fn()
+    torch.cuda.synchronize()
+    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [ev for ev in p.key_averages()
+               if ev.device_type == DeviceType.CUDA and ev.self_device_time_total
+               and not ev.key.lower().startswith(("memcpy", "memset"))]
+    return (sum(ev.count for ev in kernels if name in ev.key) / calls,
+            sum(ev.count for ev in kernels) / calls)
+
+
 def check_ffn(torch, FF):
-    """The bf16 and float32 FFN against its twin within FFN_TOL, at the
-    encoder FFN's shape and at ragged edges (M not a multiple of the row
-    block, N not a multiple of the 128-column tile).  No model routes this
-    kernel (the JAX package's neither): these are its only launches."""
+    """The bf16 and float32 FFN against its twin within FFN_TOL at
+    FFN_SHAPES, each call counted in ``fused_ffn.launches``.  At the
+    encoder FFN's shape: kernel, twin and the yardstick (two ``F.linear``
+    and a relu) by events and by CUDA graph, a profile that shows one
+    kernel a call, the bar (the bf16 kernel faster than the yardstick by
+    CUDA graph) and b1 given as a view that does not start on 16 bytes.
+    No model routes this kernel (the JAX package's neither): these are its
+    only launches."""
     import torch.nn.functional as F
+
+    from funasr_torch.ops import int8_gemm as G
 
     gen = torch.Generator(device="cuda").manual_seed(8)
     cases = []
-    for M, K, H, N in ((16384, 512, 2048, 512), (37, 256, 512, 100)):
+    for M, K, H, N in FFN_SHAPES:
         for dtype, dn in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
             x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
             w1 = (torch.randn((H, K), generator=gen, device="cuda") * K ** -0.5).to(dtype)
             w2 = (torch.randn((N, H), generator=gen, device="cuda") * H ** -0.5).to(dtype)
             b1 = 0.1 * torch.randn(H, generator=gen, device="cuda")
             b2 = 0.1 * torch.randn(N, generator=gen, device="cuda")
+            launches = FF.fused_ffn.launches
             got, want = FF.fused_ffn(x, w1, b1, w2, b2), FF.ffn_ref(x, w1, b1, w2, b2)
             torch.cuda.synchronize()
+            check(FF.fused_ffn.launches == launches + 1, "fused_ffn counts its launch")
             tol = FFN_TOL[dn] * float(want.float().abs().max())
             err = float((got.float() - want.float()).abs().max())
             check(bool(torch.isfinite(got).all()) and err <= tol,
                   f"FFN ({M}, {K}) -> {H} -> {N} {dn}: max err {err} > {tol}")
+            plan = FF.ffn_plan(M, K, H, N, dtype, G.sm_count(0))
             case = dict(case=f"FFN ({M}, {K}) -> {H} -> {N} {dn}", max_abs_err=err,
-                        tolerance=tol, elements_differing=int((got != want).sum()))
+                        tolerance=tol, elements_differing=int((got != want).sum()),
+                        plan=plan._asdict())
             if M == 16384:
                 el = x.element_size()
                 bnd, by = bound_ms(el * (M * K + M * N + K * H + H * N) + 4 * (H + N),
                                    {dn: 2.0 * M * K * H + 2.0 * M * H * N})
+                run = lambda: FF.fused_ffn(x, w1, b1, w2, b2)
                 b1d, b2d = b1.to(dtype), b2.to(dtype)
-                case.update(ms=cuda_ms(lambda: FF.fused_ffn(x, w1, b1, w2, b2)),
+                lib = lambda: F.linear(torch.relu(F.linear(x, w1, b1d)), w2, b2d)
+                case.update(ms=cuda_ms(run), graph_ms=graph_ms(run),
                             plain_ms=cuda_ms(lambda: FF.ffn_ref(x, w1, b1, w2, b2), iters=3),
-                            library_ms=cuda_ms(lambda: F.linear(
-                                torch.relu(F.linear(x, w1, b1d)), w2, b2d)),
+                            library_ms=cuda_ms(lib), library_graph_ms=graph_ms(lib),
                             bound_ms=bnd, bound_by=by)
+                if dtype == torch.bfloat16:
+                    ours, every = kernels_per_call(torch, run, "ffn_wgmma_kernel")
+                    check(ours == 1 and every == 1, f"bf16 FFN: {ours} FFN kernels and "
+                          f"{every} kernels a call, want 1 and 1")
+                    case["kernels_per_call"] = every
+                    check(case["graph_ms"] < case["library_graph_ms"],
+                          f"bf16 FFN {case['graph_ms']} ms by CUDA graph, not under two "
+                          f"F.linear and a relu ({case['library_graph_ms']} ms)")
+                # b1 4 bytes into a buffer: the wrapper copies it aligned
+                b1_off = torch.empty(H + 1, device="cuda")[1:].copy_(b1)
+                got = FF.fused_ffn(x, w1, b1_off, w2, b2)
+                err_off = float((got.float() - want.float()).abs().max())
+                check(b1_off.data_ptr() % 16 and bool(torch.isfinite(got).all())
+                      and err_off <= tol, f"FFN {dn} with b1 off 16 bytes: max err "
+                      f"{err_off} > {tol}")
+                case["b1_offset_max_abs_err"] = err_off
             log(f"ffn {case}")
             cases.append(case)
     return cases
@@ -2165,8 +2221,11 @@ def main(argv=None) -> int:
         entry("attention_i8qk", ["funasr_torch/csrc/attention.cu"],
               "funasr_tpu/ops/sanm_layer_pallas.py:112", i8qk_cases[0],
               i8qk_cases + layer_cases["sanm_layer_i8"]),
-        entry("ffn_bf16", ["funasr_torch/csrc/ffn.cu"], "funasr_tpu/ops/ffn_pallas.py:39",
-              ffn_cases[0], ffn_cases),
+        entry("ffn_bf16", ["funasr_torch/csrc/ffn.cu", "funasr_torch/csrc/int8_wgmma.cuh"],
+              "funasr_tpu/ops/ffn_pallas.py:39", ffn_cases[0], ffn_cases[0::2]),
+        # the same TPU kernel's float32 entry: the CUDA cores
+        entry("ffn_f32", ["funasr_torch/csrc/ffn.cu"], "funasr_tpu/ops/ffn_pallas.py:39",
+              ffn_cases[1], ffn_cases[1::2]),
         # the SANM layer's ctx row quantize, FSMN memory and wout
         # contraction: the row quantize in the GEMM's A producer, the FSMN in
         # its epilogue

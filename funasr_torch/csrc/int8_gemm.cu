@@ -498,19 +498,18 @@ bool aligned4(const void* p, long long ld, int bf16) {
 
 }  // namespace
 
-// Plain C entry point, called through ctypes.  Pointers may be null where
-// the step is optional (bias, res, add).  The plan (bn, stages, grid,
-// smem) is ops/int8_gemm.py `gemm_plan`'s.  Returns cudaGetLastError() (0
-// on success); cudaErrorInvalidValue (1) when K is not a multiple of 16,
-// the plan is not one this kernel runs (bn 128 or 256, 2-8 stages, shared
+// The GEMM's launch.  Pointers may be null where the step is optional
+// (bias, res, add).  The plan (bn, stages, grid, smem) is
+// ops/int8_gemm.py `gemm_plan`'s.  Returns cudaGetLastError() (0 on
+// success); cudaErrorInvalidValue (1) when K is not a multiple of 16, the
+// plan is not one this kernel runs (bn 128 or 256, 2-8 stages, shared
 // bytes as smem_bytes within the limit, a grid of at most one block per
 // SM) or a tensor map cannot be encoded.
-extern "C" int int8_gemm_forward(const void* A, const void* B, int M, int N, int K,
-                                 const float* sa, const float* sb, const float* bias,
-                                 const void* res, long long res_ld, int res_bf16,
-                                 const float* add, long long add_ld, int relu,
-                                 int round_bf16, void* out, long long out_ld, int out_bf16,
-                                 int bn, int stages, int grid, int smem, void* stream) {
+static int gemm_forward(const void* A, const void* B, int M, int N, int K, const float* sa,
+                        const float* sb, const float* bias, const void* res, long long res_ld,
+                        int res_bf16, const float* add, long long add_ld, int relu,
+                        int round_bf16, void* out, long long out_ld, int out_bf16, int bn,
+                        int stages, int grid, int smem, void* stream) {
   if (M <= 0 || N <= 0) return (int)cudaSuccess;
   if (K <= 0 || K % 16) return (int)cudaErrorInvalidValue;
   if ((bn != 128 && bn != 256) || stages < 2 || stages > 8 || grid < 1 ||
@@ -523,6 +522,21 @@ extern "C" int int8_gemm_forward(const void* A, const void* B, int M, int N, int
   cudaStream_t st = (cudaStream_t)stream;
   return bn == 256 ? launch<256>(A, B, M, N, K, stages, grid, smem, e, st)
                    : launch<128>(A, B, M, N, K, stages, grid, smem, e, st);
+}
+
+// Plain C entry point, called through ctypes with gemm_forward's 23
+// arguments packed as int64 in its order (ops/int8_gemm.py `_PACK`, null
+// pointers as 0): ctypes then converts one argument instead of 23.  At
+// the decoder's small GEMMs the wrapper's host time, not the kernel, sets
+// the pace of calls made back to back.
+extern "C" int int8_gemm_forward(const long long* p) {
+  auto ptr = [p](int i) { return reinterpret_cast<void*>(static_cast<uintptr_t>(p[i])); };
+  return gemm_forward(ptr(0), ptr(1), (int)p[2], (int)p[3], (int)p[4],
+                      static_cast<const float*>(ptr(5)), static_cast<const float*>(ptr(6)),
+                      static_cast<const float*>(ptr(7)), ptr(8), p[9], (int)p[10],
+                      static_cast<const float*>(ptr(11)), p[12], (int)p[13], (int)p[14],
+                      ptr(15), p[16], (int)p[17], (int)p[18], (int)p[19], (int)p[20],
+                      (int)p[21], ptr(22));
 }
 
 // The row-quantizing entry, called through ctypes: the SANM layer's

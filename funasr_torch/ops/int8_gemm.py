@@ -48,6 +48,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import struct
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
@@ -187,10 +188,10 @@ def check_args(a: torch.Tensor, sa: torch.Tensor, b: torch.Tensor,
             raise ValueError("int8_gemm: inputs on different devices")
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
-             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
-             + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_longlong]
-             + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+# int8_gemm_forward's 23 arguments packed as int64 in its order, null
+# pointers as 0: one bytes argument for ctypes to convert instead of 23
+_PACK = struct.Struct("23q").pack
+_ARGTYPES = [ctypes.c_char_p]
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -206,25 +207,28 @@ def int8_gemm(a: torch.Tensor, sa: torch.Tensor, b: torch.Tensor,
     (M, N) in ``out_dtype``.  res and add are (M, N) with a unit column
     stride; on the card K must be a multiple of 16 and a, b contiguous and
     16-byte aligned (:func:`check_args`)."""
-    if a.device.type == "cpu":
-        return int8_gemm_ref(a, sa, b, sb, bias, relu, res, add, round_bf16,
-                             out_dtype)
-    if a.device.type != "cuda":
+    if not a.is_cuda:
+        if a.device.type == "cpu":
+            return int8_gemm_ref(a, sa, b, sb, bias, relu, res, add, round_bf16,
+                                 out_dtype)
         raise ValueError(f"int8_gemm: unsupported device {a.device}")
     check_args(a, sa, b, sb, bias, res, add, out_dtype)
     (M, K), N = a.shape, b.shape[0]
     sa, sb = sa.contiguous(), sb.contiguous()
     bias = None if bias is None else bias.contiguous()
     dev = a.get_device()
-    out = torch.empty((M, N), dtype=out_dtype, device=a.device)
+    out = a.new_empty((M, N), dtype=out_dtype)
     plan = gemm_plan(M, N, K, sm_count(dev))
     fn = cuda_build.function("int8_gemm", "int8_gemm_forward", _ARGTYPES)
-    status = fn(a.data_ptr(), b.data_ptr(), M, N, K, sa.data_ptr(), sb.data_ptr(),
-                _ptr(bias), _ptr(res), 0 if res is None else res.stride(0),
-                int(res is not None and res.dtype == torch.bfloat16), _ptr(add),
-                0 if add is None else add.stride(0), int(relu), int(round_bf16),
-                out.data_ptr(), N, _OUT[out_dtype], plan.bn, plan.stages, plan.grid,
-                plan.smem, stream(dev))
+    status = fn(_PACK(a.data_ptr(), b.data_ptr(), M, N, K, sa.data_ptr(), sb.data_ptr(),
+                      0 if bias is None else bias.data_ptr(),
+                      0 if res is None else res.data_ptr(),
+                      0 if res is None else res.stride(0),
+                      int(res is not None and res.dtype == torch.bfloat16),
+                      0 if add is None else add.data_ptr(),
+                      0 if add is None else add.stride(0), int(relu), int(round_bf16),
+                      out.data_ptr(), N, _OUT[out_dtype], plan.bn, plan.stages, plan.grid,
+                      plan.smem, stream(dev)))
     cuda_build.check(status, "int8 GEMM kernel launch")
     int8_gemm.launches += 1
     return out

@@ -13,7 +13,7 @@ BANNED = ("jax", "jaxlib", "flax", "optax", "funasr_tpu")
 def _port_files():
     return sorted((ROOT / "funasr_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tools" / "port_ab.py",
-        ROOT / "tools" / "fbank_variants.py"]
+        ROOT / "tools" / "fbank_variants.py", ROOT / "tools" / "ffn_variants.py"]
 
 
 def _imports(path: Path):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """A/B of the PyTorch/CUDA port between checkouts, on one NVIDIA GPU.
 
-    python3 tools/port_ab.py LABEL=DIR [LABEL=DIR ...]
+    python3 tools/port_ab.py [--only ffn|gemm] LABEL=DIR [LABEL=DIR ...]
 
 Runs one process per argument, in the order given (for two checkouts:
 parent, change, change, parent), each importing ``funasr_torch`` from its
@@ -21,6 +21,13 @@ call on one card:
   graph (device time alone, ``graph_ms``);
 - the rowquant kernel at the int8 layers' row-quantize shapes and the int8
   GEMM at the FFN's two contractions, by CUDA graph.
+- the bf16 and float32 FFN (``ops/ffn.py`` ``fused_ffn``) at (16384, 512)
+  -> 2048 -> 512 on ``chip_smoke.py``'s seeded inputs, by CUDA graph;
+  ``--only ffn`` times this alone (each process then takes seconds);
+- the int8 GEMM at ``chip_smoke.py``'s decoder q/out shape beside
+  ``torch._int_mm``: the host's time a call (300 calls back to back),
+  ``chip_smoke.py``'s CUDA-event time (the time its speed bar holds, five
+  readings) and CUDA graph; ``--only gemm`` times this alone;
 - the beam's CTC prefix step (``ops/beam_search.py`` ``ctc_prefix_step``)
   at B=32 x 15 s (K=10, W=16, T=383), by CUDA graph, and the Conformer
   beam's B=32 x 15 s batch (``HybridEngine.run``, as ``chip_smoke.py``
@@ -59,31 +66,87 @@ def batch_times(torch, S, run, repeats=3):
     return [S.cuda_ms(run, iters=5) for _ in range(repeats)]
 
 
-def one(label: str, tree: str) -> dict:
+def ffn_times(torch, S, FF) -> dict:
+    """The bf16 and float32 FFN at the encoder FFN's shape, by CUDA graph,
+    on check_ffn's first inputs of each dtype."""
+    M, K, H, N = S.FFN_SHAPES[0]
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    out = {}
+    for dtype, dn in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
+        w1 = (torch.randn((H, K), generator=gen, device="cuda") * K ** -0.5).to(dtype)
+        w2 = (torch.randn((N, H), generator=gen, device="cuda") * H ** -0.5).to(dtype)
+        b1 = 0.1 * torch.randn(H, generator=gen, device="cuda")
+        b2 = 0.1 * torch.randn(N, generator=gen, device="cuda")
+        out[f"fused_ffn {dn} graph_ms"] = S.graph_ms(lambda: FF.fused_ffn(x, w1, b1, w2, b2))
+    return out
+
+
+def gemm_times(torch, S, G) -> dict:
+    """The int8 GEMM (scales and bias, float32 out) and ``torch._int_mm`` at
+    the decoder's q/out shape, on check_int8_gemm's inputs of that shape.
+    There the wrapper's host time, not the kernel, sets the pace of calls
+    made back to back, so the host's time a call is read beside the
+    CUDA-event time of ``chip_smoke.py``'s speed bar and the device time."""
+    M, K, N, _ = next(s for s in S.GEMM_SHAPES if s[3] == "decoder q, out")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    a = torch.randint(-127, 128, (M, K), generator=gen, device="cuda", dtype=torch.int8)
+    b = torch.randint(-127, 128, (N, K), generator=gen, device="cuda", dtype=torch.int8)
+    sa = torch.rand(M, generator=gen, device="cuda") * 0.01
+    sb = torch.rand(N, generator=gen, device="cuda") * 0.01
+    bias = torch.randn(N, generator=gen, device="cuda")
+    bt = b.t()
+    runs = {"int8_gemm": lambda: G.int8_gemm(a, sa, b, sb, bias=bias),
+            "torch._int_mm": lambda: torch._int_mm(a, bt)}
+    out = {}
+    for name, fn in runs.items():
+        host = []
+        for _ in range(3):
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(300):
+                fn()
+            host.append((time.perf_counter() - t0) / 300 * 1e3)
+            torch.cuda.synchronize()
+        out[f"{name} ({M}, {K}) x ({N}, {K}) host_ms"] = host
+        out[f"{name} ({M}, {K}) x ({N}, {K}) event_ms"] = [S.cuda_ms(fn) for _ in range(5)]
+        out[f"{name} ({M}, {K}) x ({N}, {K}) graph_ms"] = S.graph_ms(fn)
+    return out
+
+
+def one(label: str, tree: str, only: str = "") -> dict:
     import numpy as np
     import torch
 
     S = smoke()
     sys.path.insert(0, os.path.abspath(tree))
     from funasr_torch.ops import cuda_build
+    from funasr_torch.ops import ffn as FF
+    from funasr_torch.ops import int8_gemm as G
 
     t0 = time.time()
-    cuda_build.build()
+    cuda_build.build({"ffn": ["ffn"], "gemm": ["int8_gemm"]}.get(only, cuda_build.SOURCES))
     out = {"label": label, "tree": tree, "build_s": time.time() - t0}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if only != "gemm":
+        out.update(ffn_times(torch, S, FF))
+    if only != "ffn":
+        out.update(gemm_times(torch, S, G))
+    if only:
+        return out
 
     from funasr_torch.auto.engines import BiCifEngine, FrontendConfig, ParaformerEngine
     from funasr_torch.models.bicif_paraformer.model import BiCifParaformer
     from funasr_torch.models.paraformer.model import Paraformer, init_random_
     from funasr_torch.ops import decoder_layer as DL
     from funasr_torch.ops import fbank_kernel as FK
-    from funasr_torch.ops import ffn as FF
-    from funasr_torch.ops import int8_gemm as G
     from funasr_torch.ops import rowquant as RQ
     from funasr_torch.ops import sanm_layer as SL
     from funasr_torch.ops.masks import key_bias
     from funasr_torch.tokenizer.char_tokenizer import CharTokenizer
 
-    torch.backends.cuda.matmul.allow_tf32 = False
     fl = S.FLAGSHIP
     tok = CharTokenizer(["<blank>", "<s>", "</s>"]
                         + [chr(0x4E00 + i) for i in range(fl["vocab_size"] - 4)] + ["<unk>"])
@@ -193,8 +256,11 @@ def one(label: str, tree: str) -> dict:
 
 def main(argv) -> int:
     if len(argv) >= 3 and argv[0] == "--one":
-        print(json.dumps(one(argv[1], argv[2])), flush=True)
+        print(json.dumps(one(argv[1], argv[2], argv[3] if len(argv) > 3 else "")), flush=True)
         return 0
+    only = ""
+    if argv[:1] == ["--only"] and len(argv) > 1:
+        only, argv = argv[1], argv[2:]
     if not argv or any("=" not in a for a in argv):
         print(__doc__, file=sys.stderr)
         return 2
@@ -205,8 +271,8 @@ def main(argv) -> int:
     rows = []
     for arg in argv:
         label, tree = arg.split("=", 1)
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", label, tree],
-                              capture_output=True, text=True, timeout=1500)
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", label, tree,
+                               only], capture_output=True, text=True, timeout=1500)
         if proc.returncode:
             print(proc.stdout[-4000:] + proc.stderr[-4000:], file=sys.stderr)
             return proc.returncode
