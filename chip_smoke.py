@@ -92,6 +92,23 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    (``transcribe_from_fbank``) against ``transcribe`` of the sliced
    waveforms; serve one batch of the "cnn_blstm" variant; time the B=64 x
    15 s BiCif program with the routes on and off, in turns;
+   then the long-audio pipeline, the main path:
+   ``AutoModel(model=int8 BiCif, vad_model=FSMN-VAD,
+   punc_model=CT-Transformer, quantize=True).generate`` of a 600 s
+   recording (bursts of tone over noise, one of 20 s) at full width on
+   seeded random weights, (a) as it is and (b) with the state machine's
+   output replaced by the recording's burst plan merged to <= 15 s; each
+   with every counter held to its exact count (fbank once, the int8
+   layers' blocks per ASR batch, punctuation's head-size-32 attention once a
+   layer a window round) and no host sync inside a batch's dispatch
+   (``torch.cuda.set_sync_debug_mode("error")``); (b) again with the int8
+   layers' and punctuation's attention twins (BiCif bars; punctuation
+   labels agree >= 0.99); the VAD stage with the fbank kernel against its
+   twin (posteriors abs 5e-3, decibels abs 1e-3); the head-size-32
+   attention at punctuation's shape and edges (T = 1, ragged, a length of
+   0) in bf16 and float32 against its twin, timed beside SDPA; stage times
+   (VAD device and host, ASR device and host, punctuation) by CUDA events
+   and wall clock, and audio-s/s of each ``generate``;
 4. print one ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -99,7 +116,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
 batch, bf16 and int8, of one B=32 x 15 s beam batch and of one B=64 x 15 s
 BiCif batch with the routes on and off to ``DIR/profile_e2e.txt``,
 ``DIR/profile_e2e_int8.txt``, ``DIR/profile_beam.txt``,
-``DIR/profile_bicif_on.txt`` and ``DIR/profile_bicif_off.txt``.  Device time by kernel group, and the share of
+``DIR/profile_bicif_on.txt``, ``DIR/profile_bicif_off.txt`` and, for one
+``generate`` (b) of the pipeline, ``DIR/profile_pipeline.txt`` (its stage
+times and segments in ``DIR/pipeline.json``).  Device time by kernel group, and the share of
 each batch's span spent in kernels, is printed for every batch profiled;
 the beam batch is always profiled (its device time beside its host time).
 Without CUDA, or without the rest of the repository beside it, the script
@@ -2018,6 +2037,419 @@ def end_to_end_bicif(torch, FK, A, profile_dir, card, shared):
     return launches, e2e
 
 
+# ------------------------------------------------------------ the pipeline
+PIPELINE_AUDIO_S = 600  # one recording, as bench_pipeline.py
+FSMN_VAD = dict(  # configs/fsmn_vad.yaml
+    model="FsmnVADStreaming",
+    model_conf=dict(sample_rate=16000, detect_mode=1, max_end_silence_time=800,
+                    max_start_silence_time=3000, window_size_ms=200,
+                    speech_to_sil_time_thres=150, speech_noise_thres=0.6),
+    encoder="FSMN",
+    encoder_conf=dict(input_dim=400, input_affine_dim=140, fsmn_layers=4, linear_dim=250,
+                      proj_dim=128, lorder=20, rorder=0, lstride=1, rstride=1,
+                      output_affine_dim=140, output_dim=248),
+    frontend_conf=dict(fs=16000, n_mels=80, lfr_m=5, lfr_n=1))
+CT_PUNC = dict(  # configs/ct_transformer_punc.yaml
+    model="CTTransformer", vocab_size=272727,
+    punc_list=["<unk>", "_", "，", "。", "？", "、"], embed_unit=256, att_unit=256,
+    encoder="SANMEncoder",
+    encoder_conf=dict(output_size=256, attention_heads=8, linear_units=1024, num_blocks=4,
+                      kernel_size=11))
+# VAD posteriors with the fbank kernel against the fbank twin (whose log-mel
+# sits within FBANK_TOL of the kernel's), abs: the float32 scorer moves a
+# posterior by at most about a quarter of its logits' change
+VAD_POST_TOL = 5e-3
+PUNC_MIN_AGREE = 0.99  # punctuation labels, d = 32 attention kernel vs its twin
+
+
+def pipeline_configs():
+    """The pipeline's three configs as dicts (the card has no YAML package):
+    int8 BiCif Paraformer-large (configs/paraformer_large.yaml with
+    ``CifPredictorV3``, as bench_pipeline.py builds it; a single-CJK-char
+    vocabulary, so punctuation re-tokenizes the text one token a char), the
+    FSMN-VAD of configs/fsmn_vad.yaml and the CT-Transformer of
+    configs/ct_transformer_punc.yaml (vocab 272727, D = 256, 8 heads)."""
+    V = FLAGSHIP["vocab_size"]
+    tokens = ["<blank>", "<s>", "</s>"] + [chr(0x4E00 + i) for i in range(V - 3)]
+    asr = dict(model="BiCifParaformer", predictor="CifPredictorV3", vocab_size=V,
+               input_size=FLAGSHIP["input_size"], encoder_conf=FLAGSHIP["encoder_conf"],
+               decoder_conf=FLAGSHIP["decoder_conf"],
+               predictor_conf=FLAGSHIP["predictor_conf"],
+               model_conf={k: FLAGSHIP[k] for k in ("lsm_weight", "length_normalized_loss",
+                                                    "predictor_weight", "predictor_bias",
+                                                    "sampling_ratio")},
+               frontend_conf=dict(fs=FS, n_mels=80, lfr_m=7, lfr_n=6, window="hamming"),
+               tokenizer_conf=dict(token_list=tokens))
+    punc = dict(CT_PUNC, tokenizer_conf=dict(token_list=tokens))
+    return asr, FSMN_VAD, punc
+
+
+def pipeline_recording(rng):
+    """A 600 s, 16 kHz recording as bench_pipeline.py draws its segment
+    plan: bursts of a 260 Hz sine over noise, 2-12 s long (the sixth 20 s),
+    0.3-0.8 s gaps of faint noise alone, boundaries on 10 ms.  Returns
+    (waveform, the bursts as [start_ms, end_ms])."""
+    import numpy as np
+
+    n = PIPELINE_AUDIO_S * FS
+    wav = 0.002 * rng.standard_normal(n)
+    plan, t = [], 0.3
+    while t < PIPELINE_AUDIO_S - 2.0:
+        dur = 20.0 if len(plan) == 5 else float(rng.uniform(2.0, 12.0))
+        end = min(t + dur, PIPELINE_AUDIO_S - 0.1)
+        seg = [int(t * 100) * 10, int(end * 100) * 10]
+        i0, i1 = seg[0] * FS // 1000, seg[1] * FS // 1000
+        wav[i0:i1] += (0.1 * np.sin(2 * np.pi * 260 * np.arange(i1 - i0) / FS)
+                       + 0.02 * rng.standard_normal(i1 - i0))
+        plan.append(seg)
+        t = end + float(rng.uniform(0.3, 0.8))
+    return wav.astype(np.float32), plan
+
+
+def pipeline_batch_shapes(am, segments, total_frames):
+    """(B, T, U) of each ASR batch of the shared-grid path: the segment
+    batches of ``AutoModel.batches``, each's frames padded to 96, LFR by 6,
+    padded to 128, and its token budget."""
+    eng, shapes = am.engine, []
+    for batch in am.batches(segments, FS, 300):
+        _, nframes = eng.pack_segments_frames([segments[i] for i in batch], total_frames)
+        fmax = eng.quantize_frames(int(nframes.max()))
+        T = -(-(-(-fmax // 6)) // 128) * 128
+        shapes.append((len(batch), T, eng._max_tokens(int(nframes.max()) * 160 + 240)))
+    return shapes
+
+
+def check_attention_d32(torch, A, B, T=208):
+    """The head-size-32 attention at punctuation's shape (B windows, T <= 208
+    tokens padded to a multiple of 8, 8 heads, D = 256) and edges (T = 1,
+    ragged lengths, a length of 0), bf16 and float32, against the twin; the
+    main shape timed beside SDPA with its bound."""
+    import torch.nn.functional as F
+
+    H, d = 8, 32
+    D = H * d
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    cases = []
+    for b, t, name in ((B, T, "punctuation windows"), (3, 1, "T=1"),
+                       (5, 45, "ragged"), (4, 130, "ragged, a length of 0")):
+        lens = torch.randint(1, t + 1, (b,), generator=gen, device="cuda")
+        lens[0] = t
+        if name.endswith("of 0"):
+            lens[-1] = 0
+        bias = (1.0 - (torch.arange(t, device="cuda")[None] < lens[:, None]).float()) * -1e30
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = "bfloat16" if dtype == torch.bfloat16 else "float32"
+            qkv = torch.randn((b, t, 3 * D), generator=gen, device="cuda").to(dtype)
+            q, k, v = qkv.split(D, dim=-1)
+            q = q * d ** -0.5
+            got = A.fused_attention(q, k, v, bias, H)
+            want = A.attention_ref(q, k, v, bias, H)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            check(bool(torch.isfinite(got).all()) and err <= ATTN_TOL[dn],
+                  f"attention d=32 {name} B={b} T={t} {dn}: err {err} > {ATTN_TOL[dn]}")
+            case = dict(case=f"d=32 {name} q/k/v ({b},{t},{D}) {dn}, H=8", max_abs_err=err,
+                        tolerance=ATTN_TOL[dn])
+            if name == "punctuation windows":
+                q4, k4, v4 = (x.unflatten(-1, (H, d)).transpose(1, 2) for x in (q, k, v))
+                mask = bias[:, None, None, :].to(dtype)
+                n_keys = float(lens.sum())
+                el = q.element_size()
+                bnd, by = bound_ms(el * (2 * b * t * D + 2 * n_keys * D) + 4 * b * t,
+                                   {dn: 4.0 * t * D * n_keys})
+                case.update(
+                    ms=cuda_ms(lambda: A.fused_attention(q, k, v, bias, H), iters=50,
+                               warmup=10),
+                    graph_ms=graph_ms(lambda: A.fused_attention(q, k, v, bias, H)),
+                    plain_ms=cuda_ms(lambda: A.attention_ref(q, k, v, bias, H), iters=5),
+                    library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                        q4, k4, v4, attn_mask=mask, scale=1.0), iters=50, warmup=10),
+                    bound_ms=bnd, bound_by=by)
+            log(f"attention d=32 {case}")
+            cases.append(case)
+    return cases
+
+
+class StageClock:
+    """Wraps bound methods to time them: wall clock on the host (``wall``)
+    and CUDA events around the call (``spans``, read after a synchronize)."""
+
+    def __init__(self, torch):
+        self.torch, self.wall, self.spans, self._saved = torch, {}, {}, []
+
+    def wrap(self, obj, name, stage, events=False):
+        fn = getattr(obj, name)
+        torch = self.torch
+
+        def timed(*a, **k):
+            if events:
+                e0 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            self.wall[stage] = self.wall.get(stage, 0.0) + time.perf_counter() - t0
+            if events:
+                e1 = torch.cuda.Event(enable_timing=True)
+                e1.record()
+                self.spans.setdefault(stage, []).append((e0, e1))
+            return out
+
+        self._saved.append((obj, name, fn))
+        setattr(obj, name, timed)
+
+    def device_ms(self, stage, span=False):
+        """Summed event time of a stage's calls, or (``span``) first start
+        to last end."""
+        ev = self.spans.get(stage, [])
+        if not ev:
+            return 0.0
+        if span:
+            return ev[0][0].elapsed_time(ev[-1][1])
+        return sum(a.elapsed_time(b) for a, b in ev)
+
+    def restore(self):
+        for obj, name, fn in reversed(self._saved):
+            setattr(obj, name, fn)
+        self._saved.clear()
+
+
+def end_to_end_pipeline(torch, FK, A, profile_dir, card):
+    """The long-audio pipeline on the card: ``AutoModel(model=BiCif,
+    vad_model=FSMN-VAD, punc_model=CT-Transformer, quantize=True).generate``
+    of a 600 s recording, at full width on seeded random weights.  (a) as it
+    is, on whatever segments the random VAD finds; (b) with only the state
+    machine's output replaced by the recording's burst plan merged to <= 15
+    s (random weights make the VAD's decisions meaningless), the fbank and
+    the scorer still run.  Each run with every kernel's launch counter set
+    to 0 just before and held to its exact count just after; (b) again with
+    the int8 layers' twins and punctuation's attention twin, held to phase
+    3's BiCif bars and the punctuation bar; the VAD stage with the fbank
+    kernel against the fbank twin; the head-size-32 attention at
+    punctuation's shape; stage times by CUDA events and wall clock."""
+    import numpy as np
+
+    from funasr_torch.auto.auto_model import AutoModel
+    from funasr_torch.ops import decoder_layer as DL
+    from funasr_torch.ops import ffn as FF
+    from funasr_torch.ops import fsmn as FM
+    from funasr_torch.ops import int8_gemm as G
+    from funasr_torch.ops import qmm as QM
+    from funasr_torch.ops import quant as Q
+    from funasr_torch.ops import rowquant as RQ
+    from funasr_torch.ops import sanm_layer as SL
+    from funasr_torch.utils.vad_utils import merge_vad
+
+    t0 = time.time()
+    asr_cfg, vad_cfg, punc_cfg = pipeline_configs()
+    am = AutoModel(model=asr_cfg, vad_model=vad_cfg, punc_model=punc_cfg, quantize=True,
+                   seed=2028)
+    eng, ve, pm = am.engine, am.vad_engine, am.punc_engine.model
+    n_blocks = CT_PUNC["encoder_conf"]["num_blocks"]
+    log(f"e2e pipeline: AutoModel (int8 BiCif, FSMN-VAD, CT-Transformer) built in "
+        f"{time.time() - t0:.1f} s")
+    wav, bursts = pipeline_recording(np.random.default_rng(12))
+    plan = merge_vad(bursts, 15000)
+    am.warmup(seconds=(2,))
+    torch.cuda.synchronize()
+
+    counters = {"fbank": FK.fused_fbank, "attention": A.fused_attention,
+                "sanm_layer": SL.fused_sanm_layer, "decoder_layer": DL.fused_decoder_layer,
+                "ffn": FF.fused_ffn_int8, "qmm": QM.quant_matmul,
+                "attention_i8qk": A.attention_i8qk, "attention_f32ctx": A.attention_f32ctx,
+                "ffn_bf16": FF.fused_ffn, "int8_gemm": G.int8_gemm, "rowquant": RQ.rowquant,
+                "int8_gemm_rq": G.int8_gemm_rq, "fsmn": FM.fsmn, "fsmn_ln": FM.fsmn_ln}
+    seen = {}
+
+    def run(name, replace=None, twins=False):
+        """One ``generate`` with the counters read; returns (result, launches,
+        the punctuation device calls, the segments, per-batch outputs,
+        punctuation labels, the clock)."""
+        clock = StageClock(torch)
+        rounds, outs, labels = [0], [], []
+        real_argmax, real_batch = pm._argmax, pm.inference_batch
+        real_run = eng.run_ts_fbank
+
+        def counted_argmax(text, lens):
+            rounds[0] += 1
+            if not twins:
+                return real_argmax(text, lens)
+            with swapped([(A, "fused_attention", A.attention_ref)]):
+                return real_argmax(text, lens)
+
+        def kept_batch(texts, tok):
+            res = real_batch(texts, tok)
+            labels.extend(r["punc_array"] for r in res)
+            return res
+
+        def kept_run(*a):
+            out = real_run(*a)
+            outs.append([x.clone() for x in out])
+            return out
+
+        def dispatch_no_sync(*a, f=eng.transcribe_from_fbank_async):
+            torch.cuda.set_sync_debug_mode("error")  # a host sync here raises
+            try:
+                return f(*a)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        pm._argmax, pm.inference_batch, eng.run_ts_fbank = counted_argmax, kept_batch, kept_run
+        eng.transcribe_from_fbank_async = dispatch_no_sync
+        real_segs = ve.model.segments_from_posteriors
+        segs_seen = []
+
+        def segs(post, db):
+            out = real_segs(post, db)
+            segs_seen.append(out)
+            return replace if replace is not None else out
+
+        ve.model.segments_from_posteriors = segs
+        clock.wrap(ve, "front_shared", "vad_device", events=True)
+        clock.wrap(ve.model, "segments_from_posteriors", "vad_host")
+        clock.wrap(eng, "run_ts_fbank", "asr_device", events=True)
+        clock.wrap(eng, "_ts_results", "asr_host")
+        clock.wrap(pm, "inference_batch", "punc")
+        clock.wrap(pm, "_argmax", "punc_device", events=True)
+        for fn in counters.values():
+            fn.launches = 0
+        A.fused_attention.launches_by_head = dict.fromkeys(A.HEAD_SIZES, 0)
+        try:
+            stack = int8_twins() if twins else contextlib.nullcontext()
+            with stack:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = am.generate(wav, key=[name])[0]
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            clock.restore()
+            for obj, attr in ((pm, "_argmax"), (pm, "inference_batch"), (eng, "run_ts_fbank"),
+                              (eng, "transcribe_from_fbank_async"),
+                              (ve.model, "segments_from_posteriors")):
+                delattr(obj, attr)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        launches["attention_d32"] = A.fused_attention.launches_by_head[32]
+        times = dict(generate_wall_s=wall, audio_s_per_s=PIPELINE_AUDIO_S / wall,
+                     vad_device_ms=clock.device_ms("vad_device"),
+                     vad_host_wall_s=clock.wall.get("vad_host", 0.0),
+                     asr_device_span_ms=clock.device_ms("asr_device", span=True),
+                     asr_device_ms=clock.device_ms("asr_device"),
+                     asr_dispatch_wall_s=clock.wall.get("asr_device", 0.0),
+                     asr_host_wall_s=clock.wall.get("asr_host", 0.0),
+                     punc_wall_s=clock.wall.get("punc", 0.0),
+                     punc_device_ms=clock.device_ms("punc_device"),
+                     punc_rounds=rounds[0])
+        seen[name] = dict(segments=segs_seen[0], times=times)
+        return res, launches, rounds[0], outs, labels, times
+
+    def want_launches(segments, rounds):
+        """The exact count of every kernel on the path: one fbank launch for
+        the recording; per ASR batch the int8 layers' blocks
+        (``layer_launches``), the gated QDense contractions (a rowquant and an
+        int8 GEMM each, the routes being off), the float32-context attention
+        of the 49 encoder and 16 decoder layers, the bf16 attention of
+        encoder layer 0 (d = 128); punctuation's d = 32 attention once a
+        layer a window round."""
+        want = dict.fromkeys(counters, 0)
+        want["fbank"] = 1
+        shapes = pipeline_batch_shapes(am, segments, total_frames)
+        for B, T, U in shapes:
+            per = layer_launches()
+            n_qdense = qdense_gated(Q, (B, T, U))
+            per["int8_gemm"] += n_qdense
+            per["rowquant"] += n_qdense
+            for k, n in (("attention", 1), ("ffn", 1), ("sanm_layer", 49),
+                         ("decoder_layer", 16), *per.items()):
+                want[k] += n
+            want["attention_f32ctx"] += (49 * exact_attention_launches(A, B, T, T)
+                                         + 16 * exact_attention_launches(A, B, U, T))
+        want["attention"] += rounds * n_blocks
+        want["attention_d32"] = rounds * n_blocks
+        return want, shapes
+
+    total_frames = (len(wav) - 400) // 160 + 1
+    e2e = {}
+    results = {}
+    for name, replace in (("a", None), ("b", plan)):
+        res, launches, rounds, outs, labels, times = run(name, replace)
+        segments = merge_vad(seen[name]["segments"], 15000) if replace is None else plan
+        want, shapes = want_launches(segments, rounds)
+        log(f"e2e pipeline ({name}): {len(segments)} segments, ASR batches (B, T, U) "
+            f"{shapes}, {rounds} punctuation rounds; kernel launches {launches}")
+        check(launches == want, f"pipeline ({name}) launches {launches}, want {want}")
+        check(isinstance(res.get("text"), str) and res["text"]
+              and len(res["timestamp"]) > 0 and res.get("sentence_info"),
+              f"pipeline ({name}): text, timestamps and sentence_info")
+        ts = res["timestamp"]
+        check(all(b <= e for b, e in ts) and all(
+            0 <= b and e <= PIPELINE_AUDIO_S * 1000 for b, e in ts),
+            f"pipeline ({name}): timestamps within the recording")
+        check(all(np.isfinite(np.asarray(o[2].float().cpu())).all() for o in outs),
+              f"pipeline ({name}): finite fire tracks")
+        log(f"e2e pipeline ({name}) on {card}: {json.dumps(times)}; text "
+            f"{res['text'][:24]}... {len(ts)} stamps, {len(res['sentence_info'])} "
+            f"sentences")
+        e2e[f"pipeline_{name}"] = dict(times, segments=len(segments), batches=shapes,
+                                       launches=launches)
+        results[name] = (res, launches, outs, labels)
+
+    # ---- (b) again with the twins: int8 layers in ASR, attention in punctuation
+    res_t, _, _, outs_t, labels_t, _ = run("b_twins", plan, twins=True)
+    res_k, launches_b, outs_k, labels_k = results["b"]
+    same = dict(
+        token_lengths=all(torch.equal(a[1], b[1]) for a, b in zip(outs_k, outs_t)),
+        us_peaks=all(torch.equal(a[3], b[3]) for a, b in zip(outs_k, outs_t)),
+        timestamps=res_k["timestamp"] == res_t["timestamp"])
+    n_ok = n_all = 0
+    for a, b in zip(outs_k, outs_t):
+        valid = torch.arange(a[0].shape[1], device="cuda")[None] < a[1][:, None]
+        n_ok += int((a[0] == b[0])[valid].sum())
+        n_all += int(valid.sum())
+    agree = n_ok / max(n_all, 1)
+    lk, lt = np.concatenate(labels_k), np.concatenate(labels_t)
+    punc_agree = float((lk == lt).mean()) if len(lk) == len(lt) else 0.0
+    log(f"e2e pipeline (b), kernels vs twins: equal {same}, token agreement {agree:.5f}, "
+        f"punctuation label agreement {punc_agree:.5f} over {len(lk)} labels")
+    check(all(same.values()) and agree >= E2E_INT8_MIN_AGREE,
+          "pipeline (b): int8 BiCif kernels against twins")
+    check(punc_agree >= PUNC_MIN_AGREE, "pipeline (b): punctuation labels, d = 32 "
+          "attention kernel against its twin")
+    e2e["pipeline_b_twins"] = dict(equal=same, token_agreement=agree,
+                                   punc_label_agreement=punc_agree)
+
+    # ---- the VAD stage: the fbank kernel against its twin
+    wav_d = torch.from_numpy(wav).cuda()[None]
+    lens_d = torch.tensor([len(wav)], device="cuda")
+    _, _, post_k, _, db_k = ve.front_shared(wav_d, lens_d)
+    with swapped([(FK, "fused_fbank", FK.fbank_ref)]):
+        _, _, post_r, _, db_r = ve.front_shared(wav_d, lens_d)
+    torch.cuda.synchronize()
+    post_err = float((post_k - post_r).abs().max())
+    db_err = float((db_k - db_r).abs().max())
+    log(f"e2e pipeline VAD stage, fbank kernel vs twin: posteriors max |d| {post_err:.3e} "
+        f"(tol {VAD_POST_TOL}), decibels max |d| {db_err:.3e} (tol {FBANK_TOL})")
+    check(post_err <= VAD_POST_TOL and db_err <= FBANK_TOL,
+          "pipeline VAD stage: posteriors and decibels, kernel against twin")
+    e2e["pipeline_vad_post_max_abs_diff"] = post_err
+    e2e["pipeline_vad_db_max_abs_diff"] = db_err
+
+    d32_cases = check_attention_d32(torch, A, len(plan))
+    if profile_dir:
+        ve.model.segments_from_posteriors = lambda post, db: plan
+        try:
+            e2e["profile_pipeline"] = profile(
+                torch, lambda: am.generate(wav), profile_dir,
+                e2e["pipeline_b"]["generate_wall_s"] * 1e3, "profile_pipeline.txt")
+        finally:
+            del ve.model.segments_from_posteriors
+        os.makedirs(profile_dir, exist_ok=True)
+        with open(os.path.join(profile_dir, "pipeline.json"), "w") as f:
+            json.dump(dict(e2e=e2e, plan=plan, segments_a=seen["a"]["segments"],
+                           text_b=res_k["text"], sentence_info_b=res_k["sentence_info"][:20]),
+                      f, ensure_ascii=False, indent=1)
+    return launches_b, e2e, d32_cases
+
+
 def profile(torch, run, out_dir, batch_ms, fname):
     """Device kernel time by group for one batch (``run()``), and the share
     of the batch's span (``batch_ms``, CUDA events) spent in kernels.  The
@@ -2052,6 +2484,8 @@ def profile(torch, run, out_dir, batch_ms, fname):
             g = "ffn kernel"
         elif "attention_f32ctx_kernel" in name:
             g = "attention (int8 layers) kernel"
+        elif "attention_kernel" in name and "<32>" in name:
+            g = "attention kernel, d = 32"
         elif "attention_kernel" in name:
             g = "attention kernel"
         elif "int8_gemm_rq_kernel" in name:
@@ -2168,6 +2602,10 @@ def main(argv=None) -> int:
     e2e.update(e2e_beam)
     launches_bicif, e2e_bicif = end_to_end_bicif(torch, FK, A, args.profile, smi, shared)
     e2e.update(e2e_bicif)
+    shared.clear()
+    torch.cuda.empty_cache()
+    launches_pipe, e2e_pipe, d32_cases = end_to_end_pipeline(torch, FK, A, args.profile, smi)
+    e2e.update(e2e_pipe)
     log(f"end to end done in {time.time() - t0:.1f} s")
     log(f"e2e summary {json.dumps(e2e, sort_keys=True)}")
 
@@ -2177,7 +2615,8 @@ def main(argv=None) -> int:
         by_path = {"bf16": launches_bf16.get(name, 0),
                    "int8": launches_int8.get(name, 0),
                    "beam": launches_beam.get(name, 0),
-                   "bicif": launches_bicif.get(name, 0)}
+                   "bicif": launches_bicif.get(name, 0),
+                   "pipeline": launches_pipe.get(name, 0)}
         return dict(name=name, route="cuda", source=sources[0], sources=sources,
                     replaces=replaces, launches=sum(by_path.values()),
                     launches_by_path=by_path, shape=main_case["case"],
@@ -2192,6 +2631,9 @@ def main(argv=None) -> int:
               "funasr_tpu/ops/fbank_pallas.py:97", fbank_cases[0], fbank_cases),
         entry("attention", ["funasr_torch/csrc/attention.cu"],
               "funasr_tpu/ops/attention_pallas.py:37", attn_cases[0], attn_cases),
+        # the same kernel's head-size-32 instance: punctuation's attention
+        entry("attention_d32", ["funasr_torch/csrc/attention.cu"],
+              "funasr_tpu/ops/attention_pallas.py:37", d32_cases[0], d32_cases),
         entry("sanm_layer", gemm_src + attn_src, "funasr_tpu/ops/sanm_layer_pallas.py:189",
               layer_cases["sanm_layer"][0],
               layer_cases["sanm_layer"] + f32ctx_cases["sanm_layer"]),

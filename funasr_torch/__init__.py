@@ -6,10 +6,13 @@ ported path is a hand-written CUDA C++ kernel under ``csrc/``, built with
 ``ctypes``.  The package imports ``torch``, numpy and the standard library
 only; the JAX package stays the reference its tests compare against.
 
-Entry points (``auto.engines.ParaformerEngine``, ``BiCifEngine`` and
-``HybridEngine``, ``models.paraformer.model.Paraformer``,
+Entry points (``auto.auto_model.AutoModel``, the long-audio pipeline;
+``auto.engines.ParaformerEngine``, ``BiCifEngine``, ``HybridEngine``,
+``VadEngine`` and ``PuncEngine``; ``models.paraformer.model.Paraformer``,
 ``models.bicif_paraformer.model.BiCifParaformer``,
-``models.transformer.model.Conformer``)
+``models.transformer.model.Conformer``,
+``models.fsmn_vad.model.FsmnVADStreaming``,
+``models.ct_transformer.model.CTTransformerModel``)
 run on ``cuda`` by default and raise without a GPU unless the caller asks
 for ``device="cpu"``.
 """

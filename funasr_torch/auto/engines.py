@@ -1,5 +1,5 @@
-"""Serving engines for offline Paraformer and the CTC/attention beam (port of
-the Paraformer and HybridEngine parts of funasr_tpu/auto/engines.py).
+"""Serving engines (port of the Paraformer, BiCif, Hybrid, VAD and punctuation
+parts of funasr_tpu/auto/engines.py).
 
 The engine owns the model, the frontend and the tokenizer and exposes a
 batched ``transcribe``: pack waveforms into a bucketed (B, N) batch, run
@@ -15,8 +15,21 @@ through the ``ops/ctc_prefix.py`` kernel once per decode step.
 ``ParaformerEngine.transcribe(with_timestamp=True)`` adds 60 ms stamps from
 the CIF fire track, and ``BiCifEngine`` serves a BiCifParaformer with 20 ms
 stamps from its upsampled fire track (``utils/timestamp_tools.py`` on the
-host), from waveforms or from segments of one shared fbank grid.  The
-asynchronous variants, meshes and sequence parallelism are later slices.
+host), from waveforms or from segments of one shared fbank grid.
+
+The ``*_async`` entries (``engines.py:260,343,417``) queue a batch's kernels
+and non-blocking copies of its outputs into pinned host memory, record an
+event, and return a ``finalize()`` closure that waits on that event alone
+before the host work (detokenizing, the timestamp pass): the long-audio
+pipeline dispatches every batch before it finalizes the first, so batch
+k's host work overlaps batch k + 1's kernels.  Inputs go up the same way,
+from pinned memory, so no entry waits on the card between two batches.
+
+``VadEngine`` runs fbank, LFR, CMVN and the FSMN scorer on the device and
+the endpoint state machine on the host; ``segments_shared`` takes the fbank
+kernel's energy column as the decibel track and hands the raw fbank grid on
+to ``BiCifEngine.transcribe_from_fbank_async``.  ``PuncEngine`` wraps the
+CT-Transformer.  Meshes and sequence parallelism are later slices.
 """
 
 from __future__ import annotations
@@ -26,7 +39,8 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from funasr_torch.device import resolve_device
+from funasr_torch.device import resolve_device, upload
+from funasr_torch.models.fsmn_vad.model import frame_decibel_device
 from funasr_torch.ops import fbank as F
 from funasr_torch.ops import fbank_kernel as FK
 from funasr_torch.utils.postprocess import sentence_postprocess
@@ -46,6 +60,30 @@ def quantize(n: int, step: int = 2000, minimum: int = 4000) -> int:
     return max(minimum, step * ((n + step - 1) // step))
 
 
+def fetch_async(tensors: Sequence[torch.Tensor]):
+    """Start copying device tensors to the host: ``(host tensors, event)``.
+    On the card each goes into pinned memory by a non-blocking copy and the
+    event is recorded after the copies; wait on it (:func:`fetched`) before
+    reading them.  CPU tensors come back as they are, with no event."""
+    if not tensors or tensors[0].device.type != "cuda":
+        return list(tensors), None
+    host = []
+    for t in tensors:
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        host.append(h)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+def fetched(host, event):
+    """The host tensors of :func:`fetch_async`, once their copies are done."""
+    if event is not None:
+        event.synchronize()
+    return host
+
+
 class FrontendConfig:
     """Serving feature extractor: fbank (dither 0) -> LFR -> CMVN -> frame
     padding to a multiple of 128."""
@@ -63,22 +101,25 @@ class FrontendConfig:
         self.cmvn = torch.as_tensor(np.asarray(cmvn, np.float32))
         self._cmvn_on: Dict[torch.device, torch.Tensor] = {}
 
-    def raw_fbank(self, wav: torch.Tensor, lengths: torch.Tensor):
-        """Mel fbank only, no LFR/CMVN.  Each output frame is a function of
-        exactly its 400 samples, so a slice of this grid at a
-        160-sample-aligned offset equals fbank run on the sliced waveform.
+    def raw_fbank(self, wav: torch.Tensor, lengths: torch.Tensor,
+                  with_energy: bool = False):
+        """Mel fbank only, no LFR/CMVN (and with ``with_energy`` the frames'
+        decibel track, (B, T)).  Each output frame is a function of exactly
+        its 400 samples, so a slice of this grid at a 160-sample-aligned
+        offset equals fbank run on the sliced waveform.
 
-        16 kHz audio takes the fused kernel (any window).  The kernel's
-        frames are 400 samples at hop 160, so another rate runs only on the
-        CPU, through the plain frontend."""
+        16 kHz audio takes the fused kernel (any window), the decibels from
+        its energy column.  The kernel's frames are 400 samples at hop 160,
+        so another rate runs only on the CPU, through the plain frontend."""
         if self.fs == FK.SAMPLE_RATE:
             return FK.fused_fbank(wav, lengths, num_mel_bins=self.n_mels,
-                                  window=self.window)
+                                  with_energy=with_energy, window=self.window)
         if wav.device.type != "cpu":
             raise ValueError(f"raw_fbank: the fbank kernel computes {FK.SAMPLE_RATE}"
                              f" Hz frames; fs={self.fs} runs only on the CPU")
-        return F.fbank(wav, lengths, num_mel_bins=self.n_mels, fs=self.fs,
-                       window_type=self.window)
+        out = F.fbank(wav, lengths, num_mel_bins=self.n_mels, fs=self.fs,
+                      window_type=self.window)
+        return out + (frame_decibel_device(wav),) if with_energy else out
 
     def features_from_fbank(self, feats: torch.Tensor, flens: torch.Tensor):
         """LFR + CMVN + frame padding on a precomputed raw fbank grid."""
@@ -111,8 +152,7 @@ class BatchedAsrEngine:
         batch = np.zeros((len(wavs), pad), np.float32)
         for i, w in enumerate(wavs):
             batch[i, : len(w)] = w
-        return (torch.from_numpy(batch).to(self.device),
-                torch.from_numpy(lens.astype(np.int32)).to(self.device))
+        return upload(batch, self.device), upload(lens.astype(np.int32), self.device)
 
 
 class ParaformerEngine(BatchedAsrEngine):
@@ -155,17 +195,30 @@ class ParaformerEngine(BatchedAsrEngine):
         "raw_tokens"}`` dict each; ``with_timestamp`` adds ``"timestamp"``,
         [start_ms, end_ms] per kept token from the CIF fire track (60 ms
         grain), shifted by ``vad_offsets[i]`` ms."""
+        return self.transcribe_async(wavs, with_timestamp, vad_offsets)()
+
+    def transcribe_async(self, wavs: Sequence[np.ndarray], with_timestamp: bool = False,
+                         vad_offsets: Optional[Sequence[int]] = None):
+        """Queue :meth:`transcribe`'s device work and the copies of its
+        outputs now; returns ``finalize()`` -> the results."""
         if not len(wavs):
-            return []
+            return lambda: []
         wav_d, lens_d = self._pack(wavs)
         tokens, tok_lens, peaks, alphas = self.run(wav_d, lens_d,
                                                    self._max_tokens(wav_d.shape[1]))
-        tokens = tokens.cpu().numpy()
-        tok_lens = tok_lens.cpu().numpy()
+        out = fetch_async((tokens, tok_lens) + ((peaks, alphas) if with_timestamp else ()))
+        return lambda: self._host_results(len(wavs), *fetched(*out),
+                                          vad_offsets=vad_offsets)
+
+    def _host_results(self, n: int, tokens, tok_lens, peaks=None, alphas=None,
+                      vad_offsets=None) -> List[Dict[str, Any]]:
+        """Detokenize (and, given the fire track, stamp) a fetched batch."""
+        tokens, tok_lens = tokens.numpy(), tok_lens.numpy()
+        with_timestamp = peaks is not None
         if with_timestamp:
-            peaks, alphas = peaks.cpu().numpy(), alphas.cpu().numpy()
+            peaks, alphas = peaks.numpy(), alphas.numpy()
         results = []
-        for i in range(len(wavs)):
+        for i in range(n):
             ids = [t for t in tokens[i, : int(tok_lens[i])].tolist()
                    if t != self.blank_id]
             toks = self.tokenizer.ids2tokens(ids)
@@ -198,14 +251,20 @@ class BiCifEngine(ParaformerEngine):
                    vad_offsets: Optional[Sequence[int]] = None) -> List[Dict[str, Any]]:
         """Waveforms -> one ``{"text", "timestamp", "raw_tokens"}`` dict each
         (without ``with_timestamp``, :meth:`ParaformerEngine.transcribe`)."""
+        return self.transcribe_async(wavs, with_timestamp, vad_offsets)()
+
+    def transcribe_async(self, wavs: Sequence[np.ndarray], with_timestamp: bool = True,
+                         vad_offsets: Optional[Sequence[int]] = None):
+        """Queue :meth:`transcribe`'s device work and the copies of its
+        outputs now; returns ``finalize()`` -> the results."""
         if not len(wavs):
-            return []
+            return lambda: []
         if not with_timestamp:
-            return super().transcribe(wavs)
+            return super().transcribe_async(wavs)
         wav_d, lens_d = self._pack(wavs)
-        out = self.run_ts(wav_d, lens_d, self._max_tokens(wav_d.shape[1]))
-        return self._ts_results(len(wavs), *out, vad_offsets,
-                                self._us_lens([len(w) for w in wavs]))
+        out = fetch_async(self.run_ts(wav_d, lens_d, self._max_tokens(wav_d.shape[1])))
+        us_lens = self._us_lens([len(w) for w in wavs])
+        return lambda: self._ts_results(len(wavs), *fetched(*out), vad_offsets, us_lens)
 
     # ---- shared-frontend path: decode VAD segments from one fbank grid of
     # the whole recording (FrontendConfig.raw_fbank: a slice of the grid at
@@ -248,18 +307,27 @@ class BiCifEngine(ParaformerEngine):
         (F, n_mels) on the engine's device (padded past ``total_frames``
         when given).  The same records as :meth:`transcribe` of the sliced
         waveforms."""
+        return self.transcribe_from_fbank_async(raw_fbank, segments_ms, vad_offsets,
+                                                total_frames)()
+
+    def transcribe_from_fbank_async(self, raw_fbank: torch.Tensor, segments_ms,
+                                    vad_offsets: Optional[Sequence[int]] = None,
+                                    total_frames: Optional[int] = None):
+        """Queue :meth:`transcribe_from_fbank`'s device work and the copies
+        of its outputs now; returns ``finalize()`` -> the results."""
         if not len(segments_ms):
-            return []
+            return lambda: []
         starts, nframes = self.pack_segments_frames(
             segments_ms, int(raw_fbank.shape[0] if total_frames is None else total_frames))
         fmax = self.quantize_frames(int(nframes.max()))
         # the token budget of the true longest segment, as the waveform path
         max_tokens = self._max_tokens(int(nframes.max()) * 160 + 240)
-        out = self.run_ts_fbank(raw_fbank, torch.from_numpy(starts).to(raw_fbank.device),
-                                torch.from_numpy(nframes).to(raw_fbank.device),
-                                max_tokens, fmax)
-        return self._ts_results(len(segments_ms), *out, vad_offsets,
-                                self._us_lens(nframes, in_frames=True))
+        dev = raw_fbank.device
+        out = fetch_async(self.run_ts_fbank(raw_fbank, upload(starts, dev),
+                                            upload(nframes, dev), max_tokens, fmax))
+        us_lens = self._us_lens(nframes, in_frames=True)
+        return lambda: self._ts_results(len(segments_ms), *fetched(*out), vad_offsets,
+                                        us_lens)
 
     def _us_lens(self, n_samples_or_frames, in_frames: bool = False) -> np.ndarray:
         """True upsampled-track lengths: fbank frames -> LFR rows
@@ -272,13 +340,14 @@ class BiCifEngine(ParaformerEngine):
 
     def _ts_results(self, n: int, tokens, tok_lens, us_alphas, us_peaks,
                     vad_offsets, us_lens) -> List[Dict[str, Any]]:
-        tokens, tok_lens = tokens.cpu().numpy(), tok_lens.cpu().numpy()
+        """Detokenize a fetched batch and stamp it: one batched fire pass."""
+        tokens, tok_lens = tokens.numpy(), tok_lens.numpy()
         toks_per = []
         for i in range(n):
             ids = [t for t in tokens[i, : int(tok_lens[i])].tolist() if t != self.blank_id]
             toks_per.append(self.tokenizer.ids2tokens(ids))
         ts_lists = ts_prediction_lfr6_batch(
-            us_alphas.float().cpu().numpy(), us_peaks.cpu().numpy(), toks_per, us_lens,
+            us_alphas.float().numpy(), us_peaks.numpy(), toks_per, us_lens,
             vad_offsets)
         results = []
         for toks, ts in zip(toks_per, ts_lists):
@@ -347,3 +416,64 @@ class HybridEngine(BatchedAsrEngine):
                 res_i["nbest"] = [hyp_result(i, k) for k in range(nbest)]
             results.append(res_i)
         return results
+
+
+class VadEngine:
+    """FSMN-VAD serving (``engines.py:860``): fbank -> LFR -> CMVN -> the FSMN
+    scorer on the model's device, the endpoint state machine on the host.
+    ``model`` is a :class:`FsmnVADStreaming`."""
+
+    def __init__(self, model, frontend: FrontendConfig):
+        self.model = model
+        self.frontend = frontend
+        self.device = model.device
+
+    @torch.inference_mode()
+    def front(self, wav: torch.Tensor, lens: torch.Tensor):
+        """(B, N) waveforms -> features, feature lengths and the frame
+        decibels (``frame_decibel_device``)."""
+        feats, flens = self.frontend.device_features(wav, lens)
+        return feats, flens, frame_decibel_device(wav)
+
+    @torch.inference_mode()
+    def front_shared(self, wav: torch.Tensor, lens: torch.Tensor):
+        """The shared frontend's device work: one fbank launch with its energy
+        column (the decibel track) over the whole recording, then LFR, CMVN
+        and the scorer -> (raw fbank grid, its frame lengths, posteriors,
+        feature lengths, decibels)."""
+        raw, rlens, db = self.frontend.raw_fbank(wav, lens, with_energy=True)
+        feats, flens = self.frontend.features_from_fbank(raw, rlens)
+        return raw, rlens, self.model.score(feats), flens, db
+
+    def _one(self, wav: np.ndarray):
+        return (upload(np.asarray(wav, np.float32)[None], self.device),
+                upload(np.asarray([len(wav)], np.int32), self.device))
+
+    def segments(self, wav: np.ndarray) -> List[List[int]]:
+        """One waveform -> [[start_ms, end_ms], ...]."""
+        feats, _, db = self.front(*self._one(wav))
+        return self.model.segments_offline(feats, wav, decibels=db[0])
+
+    def segments_shared(self, wav: np.ndarray):
+        """One waveform -> (segments, the raw (F, n_mels) fbank grid on the
+        device, its true frame count): the grid feeds the ASR stage's
+        ``transcribe_from_fbank_async``."""
+        raw, rlens, post, _, db = self.front_shared(*self._one(wav))
+        segs = self.model.segments_from_posteriors(post, db[0])
+        return segs, raw[0], int(rlens[0])
+
+    def transcribe(self, wavs: Sequence[np.ndarray]) -> List[Dict[str, Any]]:
+        """Standalone VAD (reference fsmn_vad_streaming/model.py:648):
+        ``value`` holds the segment list, ``text`` stays empty."""
+        return [{"text": "", "value": self.segments(np.asarray(w))} for w in wavs]
+
+
+class PuncEngine:
+    """CT-Transformer punctuation serving (``engines.py:980``)."""
+
+    def __init__(self, model, tokenizer):
+        self.model = model  # CTTransformerModel
+        self.tokenizer = tokenizer
+
+    def punctuate(self, text: str) -> Dict[str, Any]:
+        return self.model.inference(text, self.tokenizer)

@@ -1,7 +1,8 @@
 """Flax variables -> FunASR torch ``state_dict`` for the port's models.
 
 The inverses of funasr_tpu/convert.py ``paraformer_from_torch`` (:205),
-``bicif_paraformer_from_torch`` (:228) and ``conformer_from_torch`` (:398),
+``bicif_paraformer_from_torch`` (:228), ``conformer_from_torch`` (:398),
+``fsmn_vad_from_torch`` (:332) and ``ct_transformer_from_torch`` (:385),
 written for the port (no import of the JAX
 package): each takes the flax tree with numpy leaves and returns the state
 dict that the port's model (and a reference FunASR ``model.pt``) uses:
@@ -11,6 +12,8 @@ dict that the port's model (and a reference FunASR ``model.pt``) uses:
 - CIF ``cif_conv1d (K, Din, Dout)`` -> Conv1d ``(Dout, Din, K)``,
 - LayerNorm ``scale/bias`` -> ``weight/bias``,
 - scanned stacks ``(L, ...)`` -> ``encoders.{i}.*`` / ``decoders.{i}.*``,
+- the VAD's FSMN memory ``(K, 1, D)`` -> depthwise Conv2d ``(D, 1, K, 1)``,
+- an embedding table ``embedding`` -> ``weight``,
 - Conv2d ``(kh, kw, in, out)`` -> ``(out, in, kh, kw)``, BatchNorm running
   statistics from the ``batch_stats`` collection,
 - BiCif ``upsample_cnn (u, Din, Dout)`` -> ConvTranspose1d ``(Din, Dout, u)``,
@@ -89,18 +92,23 @@ def _dec_layer(sd, p: str, node: Mapping):
         _norm(sd, f"{p}.norm3", node["norm3"])
 
 
+def _encoder(sd, prefix: str, enc: Mapping):
+    """A SANM encoder tree (``encoders0``, the scanned ``encoders``,
+    ``after_norm``) -> ``{prefix}.*``."""
+    _enc_layer(sd, f"{prefix}.encoders0.0", enc["encoders0"])
+    if "encoders" in enc:
+        for i in range(_num_layers(enc["encoders"])):
+            _enc_layer(sd, f"{prefix}.encoders.{i}", _unstack(enc["encoders"], i))
+    _norm(sd, f"{prefix}.after_norm", enc["after_norm"])
+
+
 def paraformer_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """``{'params': tree}`` (or the bare tree) of funasr_tpu's Paraformer
     -> the port's float32 ``state_dict``."""
     tree = params.get("params", params)
     sd: Dict[str, torch.Tensor] = {}
 
-    enc = tree["encoder"]
-    _enc_layer(sd, "encoder.encoders0.0", enc["encoders0"])
-    if "encoders" in enc:
-        for i in range(_num_layers(enc["encoders"])):
-            _enc_layer(sd, f"encoder.encoders.{i}", _unstack(enc["encoders"], i))
-    _norm(sd, "encoder.after_norm", enc["after_norm"])
+    _encoder(sd, "encoder", tree["encoder"])
 
     pred = tree["predictor"]
     sd["predictor.cif_conv1d.weight"] = _t(
@@ -151,6 +159,40 @@ def bicif_paraformer_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         sd[f"predictor.blstm.weight_hh_l0{suffix}"] = _t(stack("h"))
         sd[f"predictor.blstm.bias_ih_l0{suffix}"] = _t(bias)
         sd[f"predictor.blstm.bias_hh_l0{suffix}"] = torch.zeros(bias.shape)
+    return sd
+
+
+def fsmn_vad_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """``{'params': tree}`` (or the bare tree) of funasr_tpu's VAD scorer
+    (``models/fsmn_vad/encoder.py FSMN``) -> the port's FSMN ``state_dict``
+    (FunASR's names: ``in_linear1.linear``, ``fsmn.{i}.linear.linear``,
+    ``fsmn.{i}.fsmn_block.conv_left`` (D, 1, K, 1), ``fsmn.{i}.affine.linear``,
+    ``out_linear1.linear``, ``out_linear2.linear``)."""
+    tree = params.get("params", params)
+    sd: Dict[str, torch.Tensor] = {}
+    conv = lambda k: _t(np.transpose(np.asarray(k), (2, 1, 0))[..., None])  # (K,1,D)->(D,1,K,1)
+    for name in ("in_linear1", "in_linear2", "out_linear1", "out_linear2"):
+        _dense(sd, f"{name}.linear", tree[name])
+    i = 0
+    while f"fsmn_{i}" in tree:
+        node = tree[f"fsmn_{i}"]
+        _dense(sd, f"fsmn.{i}.linear.linear", node["linear"], bias=False)
+        sd[f"fsmn.{i}.fsmn_block.conv_left.weight"] = conv(node["conv_left"])
+        if "conv_right" in node:
+            sd[f"fsmn.{i}.fsmn_block.conv_right.weight"] = conv(node["conv_right"])
+        _dense(sd, f"fsmn.{i}.affine.linear", node["affine"])
+        i += 1
+    return sd
+
+
+def ct_transformer_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """``{'params': tree}`` (or the bare tree) of funasr_tpu's
+    ``CTTransformer`` -> the port's float32 ``state_dict``: ``embed.weight``,
+    the SANM encoder under ``encoder.``, the projection ``decoder``."""
+    tree = params.get("params", params)
+    sd: Dict[str, torch.Tensor] = {"embed.weight": _t(tree["embed"]["embedding"])}
+    _encoder(sd, "encoder", tree["encoder"])
+    _dense(sd, "decoder", tree["decoder"])
     return sd
 
 

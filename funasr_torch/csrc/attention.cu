@@ -12,6 +12,10 @@
 //    tensor, so k and v may be column slices of one fused projection),
 //    key_bias (B, T) float32, 0 for valid keys and -1e30 for padding.  A row
 //    whose keys are all masked gets uniform weights, as the TPU kernel does.
+//    The head size d is a template parameter, instantiated at 128 (the ASR
+//    models) and 32 (CT-Transformer punctuation: D = 256, H = 8); the TPU
+//    kernel takes any d, and the JAX package sends d = 32 to XLA only for
+//    its TPU alignment gate.
 //
 //    Bound on the H100 SXM, encoder self-attention (B=64, T=256, H=4, d=128,
 //    bf16, keys 250/200): q, out and the valid rows of k, v are 63 MB ->
@@ -29,9 +33,13 @@
 //    p = exp(s - m) / l in registers, rounds it to bf16 and multiplies it by
 //    V (ldmatrix.trans) without a trip through shared memory: the m16n8k16
 //    accumulator layout is the A-operand layout.  O is rounded to bf16 once
-//    and leaves through shared memory in 16-byte rows.  float32 inputs keep
-//    a CUDA-core body (float32 FMA, 4 x 4 score tile a thread): TF32 would not
-//    hold the float32 bar.
+//    and leaves through shared memory in 16-byte rows.  At d = 32 the same
+//    loops run 2 k-steps of m16n8k16 for S (8 at d = 128) and 4 n-tiles of
+//    O, the tile rows are 80 bytes (still free of ldmatrix bank conflicts)
+//    and a 64-key stage of K and V is 10 KB.  float32 inputs keep a
+//    CUDA-core body (float32 FMA, 4 x 4 score tile a thread; at d = 32 each
+//    of a row's 16 lanes owns 2 output columns, 8 at d = 128): TF32 would
+//    not hold the float32 bar.
 //
 // 2. `attention_forward_f32ctx`: the attention inside the int8 layers
 //    (sanm_layer_pallas.py:118-129, decoder_layer_pallas.py:101-115).  q, k,
@@ -120,12 +128,16 @@ __device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_g
 // 1a. bf16 attention on the tensor cores
 // ======================================================================
 
+// Instantiated at head sizes D = 128 and 32 (`attention_forward` picks one).
 constexpr int MB_NT = 128;          // 4 warps, 16 queries each
 constexpr int MB_BQ = 64;           // queries per block
 constexpr int MB_BK = 64;           // keys per tile
-constexpr int MB_LD = HD + 8;       // bf16 per shared row (272 bytes)
-constexpr int MB_TILE = MB_BK * MB_LD;  // bf16 per tile
-constexpr size_t MB_SMEM = 4 * MB_TILE * sizeof(__nv_bfloat16);  // 2 stages x (K, V)
+template <int D>  // bf16 per shared row (272 bytes at d = 128, 80 at 32)
+__host__ __device__ constexpr int mb_ld() { return D + 8; }
+template <int D>  // bf16 per tile
+__host__ __device__ constexpr int mb_tile() { return MB_BK * mb_ld<D>(); }
+template <int D>  // 2 stages x (K, V)
+__host__ __device__ constexpr size_t mb_smem() { return 4 * mb_tile<D>() * sizeof(__nv_bfloat16); }
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
@@ -152,23 +164,27 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// rows [r0, r0 + 64) of a (rows, 128) bf16 head slice with row stride `rs`
+// rows [r0, r0 + 64) of a (rows, D) bf16 head slice with row stride `rs`
 // into a shared tile; rows past `nrows` are zero-filled
+template <int D>
 __device__ __forceinline__ void mb_load(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                         int64_t rs, int r0, int nrows) {
+  constexpr int CPR = D / 8;  // 16-byte chunks a row
 #pragma unroll
-  for (int i = 0; i < (MB_BK * HD / 8) / MB_NT; ++i) {
+  for (int i = 0; i < (MB_BK * CPR) / MB_NT; ++i) {
     const int c = threadIdx.x + i * MB_NT;
-    const int r = c >> 4, col = (c & 15) * 8;
+    const int r = c / CPR, col = (c % CPR) * 8;
     const bool ok = r0 + r < nrows;
-    cp_async16(dst + r * MB_LD + col, ok ? src + (int64_t)(r0 + r) * rs + col : src, ok);
+    cp_async16(dst + r * mb_ld<D>() + col, ok ? src + (int64_t)(r0 + r) * rs + col : src, ok);
   }
 }
 
 // S (16 rows x 64 keys) = the warp's q fragments times a K tile, plus the
 // key bias (-inf past Tk): s[j] is the accumulator of keys 8j .. 8j + 7
-__device__ __forceinline__ void mb_scores(const uint32_t qa[8][4], const __nv_bfloat16* sK,
+template <int D>
+__device__ __forceinline__ void mb_scores(const uint32_t qa[D / 16][4], const __nv_bfloat16* sK,
                                           const float* bb, int k0, int Tk, float s[8][4]) {
+  constexpr int LD = mb_ld<D>();
   const int lane = threadIdx.x & 31, t = lane & 3;
   const int mi = lane >> 3, r = lane & 7;
 #pragma unroll
@@ -176,11 +192,11 @@ __device__ __forceinline__ void mb_scores(const uint32_t qa[8][4], const __nv_bf
 #pragma unroll
     for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
 #pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks)
+  for (int ks = 0; ks < D / 16; ++ks)
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
       uint32_t kb[4];  // keys 16 jj .. 16 jj + 15, d 16 ks .. 16 ks + 15
-      ldmatrix_x4(kb, sK + (16 * jj + (mi >> 1) * 8 + r) * MB_LD + 16 * ks + (mi & 1) * 8);
+      ldmatrix_x4(kb, sK + (16 * jj + (mi >> 1) * 8 + r) * LD + 16 * ks + (mi & 1) * 8);
       mma_bf16(s[2 * jj], qa[ks], kb[0], kb[1]);
       mma_bf16(s[2 * jj + 1], qa[ks], kb[2], kb[3]);
     }
@@ -204,31 +220,33 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+template <int D>
 __global__ void __launch_bounds__(MB_NT, 2)
 attention_kernel_bf16_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
                           __nv_bfloat16* __restrict__ out, int U, int Tk, int64_t q_bs,
                           int64_t q_rs, int64_t k_bs, int64_t k_rs, int64_t v_bs, int64_t v_rs,
                           int64_t o_bs, int64_t o_rs) {
+  constexpr int MB_LD = mb_ld<D>(), MB_TILE = mb_tile<D>();
   extern __shared__ __align__(16) __nv_bfloat16 sbuf[];  // stage s: K at 2 s TILE, V after it
   const int u0 = blockIdx.x * MB_BQ, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const __nv_bfloat16* qh = q + b * q_bs + (int64_t)h * HD;
-  const __nv_bfloat16* kh = k + b * k_bs + (int64_t)h * HD;
-  const __nv_bfloat16* vh = v + b * v_bs + (int64_t)h * HD;
+  const __nv_bfloat16* qh = q + b * q_bs + (int64_t)h * D;
+  const __nv_bfloat16* kh = k + b * k_bs + (int64_t)h * D;
+  const __nv_bfloat16* vh = v + b * v_bs + (int64_t)h * D;
   const float* bb = bias + (int64_t)b * Tk;
   const int nt = (Tk + MB_BK - 1) / MB_BK;
 
   // the q tile through stage 1's K slot, the first K tile into stage 0
-  mb_load(sbuf + 2 * MB_TILE, qh, q_rs, u0, U);
+  mb_load<D>(sbuf + 2 * MB_TILE, qh, q_rs, u0, U);
   cp_async_commit();
-  mb_load(sbuf, kh, k_rs, 0, Tk);
+  mb_load<D>(sbuf, kh, k_rs, 0, Tk);
   cp_async_commit();
   cp_async_wait1();
   __syncthreads();
-  uint32_t qa[HD / 16][4];  // A fragments of the warp's 16 rows
+  uint32_t qa[D / 16][4];  // A fragments of the warp's 16 rows
 #pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks)
+  for (int ks = 0; ks < D / 16; ++ks)
     ldmatrix_x4(qa[ks], sbuf + 2 * MB_TILE + (warp * 16 + (lane & 15)) * MB_LD + 16 * ks +
                             (lane >> 4) * 8);
   __syncthreads();
@@ -236,17 +254,17 @@ attention_kernel_bf16_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
   // steps 0 .. nt-1: pass 1 over K tiles; steps nt .. 2 nt - 1: pass 2 over
   // (K, V) tiles.  Each step prefetches the next one into the other stage.
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, inv_l[2];
-  float o[HD / 8][4];
+  float o[D / 8][4];
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j)
+  for (int j = 0; j < D / 8; ++j)
 #pragma unroll
     for (int c = 0; c < 4; ++c) o[j][c] = 0.f;
   for (int s = 0; s < 2 * nt; ++s) {
     if (s + 1 < 2 * nt) {
       __nv_bfloat16* nxt = sbuf + ((s + 1) & 1) * 2 * MB_TILE;
       const int tl = s + 1 < nt ? s + 1 : s + 1 - nt;
-      mb_load(nxt, kh, k_rs, tl * MB_BK, Tk);
-      if (s + 1 >= nt) mb_load(nxt + MB_TILE, vh, v_rs, tl * MB_BK, Tk);
+      mb_load<D>(nxt, kh, k_rs, tl * MB_BK, Tk);
+      if (s + 1 >= nt) mb_load<D>(nxt + MB_TILE, vh, v_rs, tl * MB_BK, Tk);
     }
     cp_async_commit();
     cp_async_wait1();
@@ -254,7 +272,7 @@ attention_kernel_bf16_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
     const __nv_bfloat16* sK = sbuf + (s & 1) * 2 * MB_TILE;
     const int k0 = (s < nt ? s : s - nt) * MB_BK;
     float sc[8][4];
-    mb_scores(qa, sK, bb, k0, Tk, sc);
+    mb_scores<D>(qa, sK, bb, k0, Tk, sc);
     if (s < nt) {  // ---- pass 1: online row max and sum
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
@@ -288,7 +306,7 @@ attention_kernel_bf16_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
         const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
                                 pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
 #pragma unroll
-        for (int dd = 0; dd < HD / 16; ++dd) {
+        for (int dd = 0; dd < D / 16; ++dd) {
           uint32_t vb[4];  // keys 16 kk .. +15, d 16 dd .. +15, transposed
           ldmatrix_x4_trans(vb,
                             sV + (16 * kk + (mi & 1) * 8 + r) * MB_LD + 16 * dd + (mi >> 1) * 8);
@@ -303,16 +321,17 @@ attention_kernel_bf16_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
   // O rounded to bf16 once, staged per warp, written as 16-byte rows
   __nv_bfloat16* sO = sbuf + warp * 16 * MB_LD;
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j) {
+  for (int j = 0; j < D / 8; ++j) {
     *reinterpret_cast<uint32_t*>(sO + g * MB_LD + 8 * j + 2 * t) = pack_bf16(o[j][0], o[j][1]);
     *reinterpret_cast<uint32_t*>(sO + (g + 8) * MB_LD + 8 * j + 2 * t) =
         pack_bf16(o[j][2], o[j][3]);
   }
   __syncwarp();
-  __nv_bfloat16* oh = out + b * o_bs + (int64_t)h * HD;
+  __nv_bfloat16* oh = out + b * o_bs + (int64_t)h * D;
+  constexpr int CPR = D / 8;  // 16-byte chunks a row
 #pragma unroll
-  for (int i = 0; i < 16 * HD / 8 / 32; ++i) {
-    const int c = lane + 32 * i, r = c >> 4, col = (c & 15) * 8;
+  for (int i = 0; i < 16 * CPR / 32; ++i) {
+    const int c = lane + 32 * i, r = c / CPR, col = (c % CPR) * 8;
     const int u = u0 + warp * 16 + r;
     if (u < U)
       *reinterpret_cast<uint4*>(oh + (int64_t)u * o_rs + col) =
@@ -329,28 +348,30 @@ constexpr int BK = 64;   // keys per tile
 constexpr int NT = 256;  // threads per block
 constexpr int LP = BK + 4;
 
-// rows [r0, r0 + 64) of a (rows, 128) head slice with row stride `rs` into
-// a tile with row stride 132; rows past `nrows` are zero
+// rows [r0, r0 + 64) of a (rows, D) head slice with row stride `rs` into
+// a tile with row stride D + 4; rows past `nrows` are zero
+template <int D>
 __device__ __forceinline__ void load_tile(float* dst, const float* src, int64_t rs, int r0,
                                           int nrows) {
-  constexpr int LD = HD + 4;
-  for (int i = threadIdx.x; i < 64 * HD; i += NT) {
-    const int r = i / HD, c = i % HD;
+  constexpr int LD = D + 4;
+  for (int i = threadIdx.x; i < 64 * D; i += NT) {
+    const int r = i / D, c = i % D;
     const int row = r0 + r;
     dst[r * LD + c] = (row < nrows) ? src[(int64_t)row * rs + c] : 0.f;
   }
 }
 
 // s[i][j] = q[4 ty + i] . k[tx + 16 j] over the d columns
+template <int D>
 __device__ __forceinline__ void scores(const float* sQ, const float* sK, int tx, int ty,
                                        float s[4][4]) {
-  constexpr int LD = HD + 4;
+  constexpr int LD = D + 4;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-  for (int c = 0; c < HD; c += 4) {
+  for (int c = 0; c < D; c += 4) {
     float4 qv[4], kv[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -384,14 +405,18 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
+template <int D>
 __global__ void __launch_bounds__(NT, 2)
 attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ bias,
                  float* __restrict__ out, int U, int Tk, int64_t q_bs, int64_t q_rs,
                  int64_t k_bs, int64_t k_rs, int64_t v_bs, int64_t v_rs, int64_t o_bs,
                  int64_t o_rs) {
-  constexpr int LD = HD + 4;
-  constexpr int NG = HD / 64;  // output column groups of 64
+  constexpr int LD = D + 4;
+  // the 16 lanes of a query row split its D output columns: VW adjacent
+  // columns a lane (a float4 at D >= 64), in NG groups of 16 VW
+  constexpr int VW = D >= 64 ? 4 : D / 16;
+  constexpr int NG = D / (16 * VW);
   extern __shared__ __align__(16) float smem[];
   float* sQ = smem;            // BQ x LD
   float* sKV = sQ + BQ * LD;   // BK x LD (keys, then values)
@@ -400,12 +425,12 @@ attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int u0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const float* qh = q + b * q_bs + (int64_t)h * HD;
-  const float* kh = k + b * k_bs + (int64_t)h * HD;
-  const float* vh = v + b * v_bs + (int64_t)h * HD;
+  const float* qh = q + b * q_bs + (int64_t)h * D;
+  const float* kh = k + b * k_bs + (int64_t)h * D;
+  const float* vh = v + b * v_bs + (int64_t)h * D;
   const float* bb = bias + (int64_t)b * Tk;
 
-  load_tile(sQ, qh, q_rs, u0, U);
+  load_tile<D>(sQ, qh, q_rs, u0, U);
 
   // ---- pass 1: row max m and row sum l of exp(s - m)
   float m_i[4], l_i[4];
@@ -417,10 +442,10 @@ attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float s[4][4];
   for (int k0 = 0; k0 < Tk; k0 += BK) {
     __syncthreads();
-    load_tile(sKV, kh, k_rs, k0, Tk);
+    load_tile<D>(sKV, kh, k_rs, k0, Tk);
     if (tid < BK) sB[tid] = (k0 + tid < Tk) ? bb[k0 + tid] : -INFINITY;
     __syncthreads();
-    scores(sQ, sKV, tx, ty, s);
+    scores<D>(sQ, sKV, tx, ty, s);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float mx = -INFINITY;
@@ -439,24 +464,24 @@ attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   // ---- pass 2: p = exp(s - m) / l, out = p v
-  float o[4][4 * NG];
+  float o[4][VW * NG];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < 4 * NG; ++c) o[i][c] = 0.f;
+    for (int c = 0; c < VW * NG; ++c) o[i][c] = 0.f;
   for (int k0 = 0; k0 < Tk; k0 += BK) {
     __syncthreads();
-    load_tile(sKV, kh, k_rs, k0, Tk);
+    load_tile<D>(sKV, kh, k_rs, k0, Tk);
     if (tid < BK) sB[tid] = (k0 + tid < Tk) ? bb[k0 + tid] : -INFINITY;
     __syncthreads();
-    scores(sQ, sKV, tx, ty, s);
+    scores<D>(sQ, sKV, tx, ty, s);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         sP[(4 * ty + i) * LP + tx + 16 * j] = expf(s[i][j] + sB[tx + 16 * j] - m_i[i]) / l_i[i];
     __syncthreads();
-    load_tile(sKV, vh, v_rs, k0, Tk);
+    load_tile<D>(sKV, vh, v_rs, k0, Tk);
     __syncthreads();
 #pragma unroll 4
     for (int kk = 0; kk < BK; ++kk) {
@@ -465,19 +490,23 @@ attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int i = 0; i < 4; ++i) p[i] = sP[(4 * ty + i) * LP + kk];
 #pragma unroll
       for (int g = 0; g < NG; ++g) {
-        const float4 vv = *reinterpret_cast<const float4*>(&sKV[kk * LD + 64 * g + 4 * tx]);
+        float vv[VW];
+        if constexpr (VW == 4) {
+          const float4 v4 = *reinterpret_cast<const float4*>(&sKV[kk * LD + 64 * g + 4 * tx]);
+          vv[0] = v4.x, vv[1] = v4.y, vv[2] = v4.z, vv[3] = v4.w;
+        } else {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          o[i][4 * g + 0] = fmaf(p[i], vv.x, o[i][4 * g + 0]);
-          o[i][4 * g + 1] = fmaf(p[i], vv.y, o[i][4 * g + 1]);
-          o[i][4 * g + 2] = fmaf(p[i], vv.z, o[i][4 * g + 2]);
-          o[i][4 * g + 3] = fmaf(p[i], vv.w, o[i][4 * g + 3]);
+          for (int e = 0; e < VW; ++e) vv[e] = sKV[kk * LD + 16 * VW * g + VW * tx + e];
         }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < VW; ++e) o[i][VW * g + e] = fmaf(p[i], vv[e], o[i][VW * g + e]);
       }
     }
   }
 
-  float* oh = out + b * o_bs + (int64_t)h * HD;
+  float* oh = out + b * o_bs + (int64_t)h * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int u = u0 + 4 * ty + i;
@@ -485,7 +514,8 @@ attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int g = 0; g < NG; ++g)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) oh[(int64_t)u * o_rs + 64 * g + 4 * tx + e] = o[i][4 * g + e];
+      for (int e = 0; e < VW; ++e)
+        oh[(int64_t)u * o_rs + 16 * VW * g + VW * tx + e] = o[i][VW * g + e];
   }
 }
 
@@ -976,37 +1006,26 @@ int launch_exact(ExactKernel onchip, ExactKernel spill, const float* q,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// Plain C entry point, called through ctypes.  `strides` holds the batch and
-// row strides (in elements) of q, k, v and out, in that order.  dtype: 0 =
-// float32, 1 = bfloat16; the head size d must be 128, and bf16 q, k, v
-// 16-byte aligned with strides that are multiples of 8 (the wrapper checks).
-// Returns cudaGetLastError() (0 on success); 1 (cudaErrorInvalidValue) for
-// another head size or dtype.
-extern "C" int attention_forward(const void* q, const void* k, const void* v,
-                                 const float* bias, void* out, int B, int U, int Tk,
-                                 int H, int d, int dtype, const long long* st,
-                                 void* stream) {
-  if (B <= 0 || U <= 0 || H <= 0) return (int)cudaSuccess;
-  if (Tk <= 0 || d != HD) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
+template <int D>
+int launch_forward(const void* q, const void* k, const void* v, const float* bias, void* out,
+                   int B, int U, int Tk, int H, int dtype, const long long* st,
+                   cudaStream_t s) {
   if (dtype == 1) {
-    auto kern = attention_kernel_bf16_mma;
-    cudaError_t err =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MB_SMEM);
+    auto kern = attention_kernel_bf16_mma<D>;
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)mb_smem<D>());
     if (err != cudaSuccess) return (int)err;
     dim3 grid((U + MB_BQ - 1) / MB_BQ, H, B);
-    kern<<<grid, MB_NT, MB_SMEM, s>>>(
+    kern<<<grid, MB_NT, mb_smem<D>(), s>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), bias, static_cast<__nv_bfloat16*>(out), U, Tk,
         st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7]);
     return (int)cudaGetLastError();
   }
   if (dtype != 0) return (int)cudaErrorInvalidValue;
-  constexpr int LD = HD + 4;
+  constexpr int LD = D + 4;
   const size_t smem = sizeof(float) * (BQ * LD + BK * LD + BQ * LP + BK);
-  auto kern = attention_kernel;
+  auto kern = attention_kernel<D>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -1015,6 +1034,26 @@ extern "C" int attention_forward(const void* q, const void* k, const void* v,
                               static_cast<const float*>(v), bias, static_cast<float*>(out), U,
                               Tk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7]);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry point, called through ctypes.  `strides` holds the batch and
+// row strides (in elements) of q, k, v and out, in that order.  dtype: 0 =
+// float32, 1 = bfloat16; the head size d is 128 or 32 (one instance each),
+// and bf16 q, k, v 16-byte aligned with strides that are multiples of 8 (the
+// wrapper checks).  Returns cudaGetLastError() (0 on success); 1
+// (cudaErrorInvalidValue) for another head size or dtype.
+extern "C" int attention_forward(const void* q, const void* k, const void* v,
+                                 const float* bias, void* out, int B, int U, int Tk,
+                                 int H, int d, int dtype, const long long* st,
+                                 void* stream) {
+  if (B <= 0 || U <= 0 || H <= 0) return (int)cudaSuccess;
+  if (Tk <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (d == 128) return launch_forward<128>(q, k, v, bias, out, B, U, Tk, H, dtype, st, s);
+  if (d == 32) return launch_forward<32>(q, k, v, bias, out, B, U, Tk, H, dtype, st, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The int8 layers' attention (second kernel above): float32 q, k, v rounded

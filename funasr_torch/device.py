@@ -3,12 +3,15 @@
 The port runs on CUDA.  ``resolve_device(None)`` means the card and raises
 when there is none; the CPU is used only when the caller asks for it
 (``device="cpu"``, as the tests do).  Nothing falls back silently.
+``upload`` moves a host array onto a device without waiting for the
+device's queued work.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 
@@ -27,3 +30,14 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def upload(arr: np.ndarray, device) -> torch.Tensor:
+    """A host array onto ``device``: on the card through pinned memory and a
+    non-blocking copy, so the host does not wait for the stream's queued
+    work (a copy from pageable memory synchronizes the stream)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    device = torch.device("cpu" if device is None else device)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

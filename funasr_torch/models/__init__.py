@@ -1,3 +1,4 @@
 """Model families of the port (importing registers them)."""
 
-from funasr_torch.models import bicif_paraformer, conformer, paraformer, transformer  # noqa: F401
+from funasr_torch.models import (  # noqa: F401
+    bicif_paraformer, conformer, ct_transformer, fsmn_vad, paraformer, transformer)

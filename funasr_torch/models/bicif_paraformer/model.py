@@ -74,8 +74,9 @@ class CifPredictorV3(CifPredictorV2):
         S = s + c
         P = S - a2
         # a tensor on a2's device: CUDA turns a Python-scalar divisor into a
-        # multiply by its reciprocal, which is another rounding
-        theta = a2.new_tensor(1.0 - 1e-4)
+        # multiply by its reciprocal, which is another rounding; filled on
+        # the device, since a copy from the host would wait for the stream
+        theta = torch.full((), 1.0 - 1e-4, dtype=a2.dtype, device=a2.device)
         return a2, torch.floor(S / theta) > torch.floor(P / theta)
 
     def forward(self, hidden: torch.Tensor, lengths: torch.Tensor,

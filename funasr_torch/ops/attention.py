@@ -11,7 +11,9 @@ funasr_tpu/ops/attention_pallas.py ``_attn_kernel``.  Contract
     out[b, :, h, :] = softmax(q[b, :, h, :] @ k[b, :, h, :]^T + key_bias[b]) @ v
 
 - q (B, U, H*d), k/v (B, T, H*d), bf16 or float32, in their natural
-  layout; the ``d**-0.5`` scale is already applied to q in its dtype;
+  layout; the ``d**-0.5`` scale is already applied to q in its dtype; the
+  kernel has instances at head sizes d = 128 (the ASR models) and d = 32
+  (CT-Transformer punctuation, D = 256 with 8 heads), ``HEAD_SIZES``;
 - key_bias (B, T) float32 additive row: 0 for valid keys, -1e30 padding;
 - scores and softmax in float32; ``p`` is normalised, THEN cast to v's
   dtype before the ``p v`` product (float32 accumulation), and the result
@@ -25,7 +27,8 @@ B=64 x 15 s shape); the bf16 kernel runs both products on the tensor cores
 (mma.sync m16n8k16, q in registers, K and V through a cp.async ring, p in
 registers between the two products), so it holds the twin to the bf16
 tolerance, not bit for bit; float32 stays on the CUDA cores (TF32 would
-not hold the float32 bar).  Launches count in ``fused_attention.launches``.
+not hold the float32 bar).  Launches count in ``fused_attention.launches``
+(and by head size in ``fused_attention.launches_by_head``).
 
 The int8 layers' attention (sanm_layer_pallas.py:118-129,
 decoder_layer_pallas.py:101-115) is :func:`attention_f32ctx` with its twin
@@ -68,7 +71,8 @@ from funasr_torch.ops import cuda_build
 from funasr_torch.ops import rowquant as RQ
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_SIZE = 128  # the only head size of the models on the ported path
+HEAD_SIZE = 128  # the head size of the int8 layers' attention (their only callers)
+HEAD_SIZES = (32, 128)  # fused_attention's instances (attention.cu launch_forward<D>)
 # The int8 layers' attention keeps a block's 64 rows of float32 scores in
 # shared memory for up to this many keys (attention.cu EXACT_ONCHIP_MAX_T);
 # past it they go to a device scratch capped at F32CTX_SCRATCH_BYTES a launch.
@@ -159,11 +163,12 @@ _ARGTYPES_F32CTX = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                     + [ctypes.c_float] + [ctypes.c_void_p] * 2)
 
 
-def _check_qkv(fn: str, q, k, v, key_bias, n_head):
+def _check_qkv(fn: str, q, k, v, key_bias, n_head, head_sizes=(HEAD_SIZE,)):
     B, U, D = q.shape
     T = k.shape[1]
-    if D // n_head != HEAD_SIZE or HEAD_SIZE * n_head != D:
-        raise ValueError(f"{fn}: head size {D}/{n_head}, the kernel has {HEAD_SIZE}")
+    if D % n_head or D // n_head not in head_sizes:
+        raise ValueError(f"{fn}: head size {D}/{n_head}, the kernel has "
+                         f"{' and '.join(map(str, head_sizes))}")
     if k.shape != (B, T, D) or v.shape != (B, T, D) or key_bias.shape != (B, T):
         raise ValueError(f"{fn}: shape mismatch {tuple(q.shape)} {tuple(k.shape)} "
                          f"{tuple(v.shape)} {tuple(key_bias.shape)}")
@@ -269,7 +274,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"fused_attention: q/k/v must share bf16 or float32, got "
                          f"{q.dtype}/{k.dtype}/{v.dtype}")
-    B, U, T, D = _check_qkv("fused_attention", q, k, v, key_bias, n_head)
+    B, U, T, D = _check_qkv("fused_attention", q, k, v, key_bias, n_head, HEAD_SIZES)
     if q.dtype == torch.bfloat16:
         _check_aligned("fused_attention", q, k, v)
     bias = key_bias.to(torch.float32).contiguous()
@@ -279,11 +284,13 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                       out.stride(0), out.stride(1))
     fn = cuda_build.function("attention", "attention_forward", _ARGTYPES)
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                out.data_ptr(), B, U, T, n_head, HEAD_SIZE, _DTYPES[q.dtype], strides,
+                out.data_ptr(), B, U, T, n_head, D // n_head, _DTYPES[q.dtype], strides,
                 torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(status, "attention kernel launch")
     fused_attention.launches += 1
+    fused_attention.launches_by_head[D // n_head] += 1
     return out
 
 
 fused_attention.launches = 0
+fused_attention.launches_by_head = dict.fromkeys(HEAD_SIZES, 0)  # the same launches by d

@@ -6,13 +6,16 @@ positions start at 1, the timescale uses ``depth/2 - 1`` in the denominator,
 and the encoding is ``concat([sin, cos], -1)`` (not interleaved).  Built in
 float64, then cast.  Paraformer's SANM encoder adds it at the input
 feature width (560 for LFR-stacked features).  ``transformer_encoding`` is
-the Transformer decoder's.
+the Transformer decoder's.  Both go up by ``device.upload``: a batch's
+dispatch does not wait for the card.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from funasr_torch.device import upload
 
 
 def sinusoidal_encoding(length: int, depth: int, start: int = 1,
@@ -25,7 +28,7 @@ def sinusoidal_encoding(length: int, depth: int, start: int = 1,
         np.arange(depth // 2, dtype=np.float64) * -log_timescale_increment)
     scaled = positions[:, None] * inv_timescales[None, :]
     enc = np.concatenate([np.sin(scaled), np.cos(scaled)], axis=-1)
-    return torch.as_tensor(enc.astype(np.float32), device=device).to(dtype)
+    return upload(enc.astype(np.float32), device).to(dtype)
 
 
 def transformer_encoding(length: int, depth: int,
@@ -41,4 +44,4 @@ def transformer_encoding(length: int, depth: int,
     pe = np.zeros((length, depth), dtype=np.float64)
     pe[:, 0::2] = np.sin(position * div_term)
     pe[:, 1::2] = np.cos(position * div_term)
-    return torch.as_tensor(pe.astype(np.float32), device=device).to(dtype)
+    return upload(pe.astype(np.float32), device).to(dtype)

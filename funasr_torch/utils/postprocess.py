@@ -1,9 +1,10 @@
-"""Text postprocessing (copy of ``sentence_postprocess`` from
-funasr_tpu/utils/postprocess.py; reference
+"""Text postprocessing (copy of ``sentence_postprocess`` and
+``join_segment_texts`` from funasr_tpu/utils/postprocess.py; reference
 funasr/utils/postprocess_utils.py:144).
 
 ``sentence_postprocess`` joins CJK chars without spaces and ascii words with
-spaces, merging BPE pieces ("@@" continuation).
+spaces, merging BPE pieces ("@@" continuation); ``join_segment_texts``
+joins the long-audio pipeline's per-segment texts by the same rule.
 """
 
 from __future__ import annotations
@@ -81,3 +82,17 @@ def sentence_postprocess(
     if timestamps is not None:
         return text, kept_ts, words
     return text, words
+
+
+def join_segment_texts(texts: List[str]) -> str:
+    """Join per-VAD-segment texts with sentence_postprocess semantics
+    (reference postprocess_utils.py:144): an ascii word is preceded by a
+    space, a CJK char is not, decided at every boundary."""
+    out = ""
+    for t in texts:
+        if not t:
+            continue
+        if out and not _is_cjk(t[0]) and not out.endswith(" "):
+            out += " "
+        out += t
+    return out

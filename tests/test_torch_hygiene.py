@@ -100,6 +100,35 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert BiCifEngine(bicif, fe, tok, device="cpu").device.type == "cpu"
 
 
+def test_pipeline_entry_points_raise_without_cuda(monkeypatch):
+    """``AutoModel``, the VAD and the punctuation model run on the card unless
+    given ``device="cpu"``."""
+    from funasr_torch.auto.auto_model import AutoModel
+    from funasr_torch.models.ct_transformer.model import CTTransformerModel
+    from funasr_torch.models.fsmn_vad.model import FsmnVADStreaming
+
+    _no_gpu(monkeypatch)
+    vad = dict(input_dim=16, input_affine_dim=8, fsmn_layers=1, linear_dim=8, proj_dim=4,
+               lorder=3, rorder=0, lstride=1, rstride=1, output_affine_dim=8, output_dim=4)
+    punc = dict(vocab_size=8, embed_unit=8, att_unit=8,
+                encoder_conf=dict(output_size=8, attention_heads=2, linear_units=8,
+                                  num_blocks=1, kernel_size=3))
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no GPU"):
+            AutoModel(device=device)
+        with pytest.raises(RuntimeError, match="no GPU"):
+            FsmnVADStreaming(encoder_conf=vad, device=device)
+        with pytest.raises(RuntimeError, match="no GPU"):
+            CTTransformerModel(**punc, device=device)
+    cfg = dict(model="FsmnVADStreaming", encoder_conf=vad,
+               frontend_conf=dict(n_mels=16, lfr_m=1, lfr_n=1))
+    am = AutoModel(model=cfg, punc_model=dict(model="CTTransformer", **punc,
+                                              tokenizer_conf={"token_list": list("abcdefgh")}),
+                   device="cpu")
+    assert am.device.type == "cpu" and am.engine.device.type == "cpu"
+    assert next(am.punc_engine.model.module.parameters()).device.type == "cpu"
+
+
 def test_unknown_model_arguments_raise():
     from funasr_torch.models.paraformer.model import Paraformer
 

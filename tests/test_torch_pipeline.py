@@ -1,0 +1,345 @@
+"""The port's long-audio pipeline (``funasr_torch/auto/auto_model.py``
+``AutoModel.generate`` with a VAD and punctuation) against the JAX
+package's ``AutoModel`` on the CPU.
+
+Tiny models as in ``tests/test_torch_vad.py`` (the scorer, its last layer
+set so that it separates tone from silence), ``tests/test_torch_bicif.py``
+(BiCif, D = 32) and ``tests/test_torch_punc.py`` (punctuation, head size
+32), initialised in JAX (jitted) and loaded by both packages' ``AutoModel``
+through ``init_param``: flax trees for the JAX package, the port's
+``convert.*_from_jax`` state dicts for the port.  The recording is
+``tests/test_auto_model.py:74``'s, and a longer one with two more bursts.
+
+- float32, BiCif main model (the shared fbank grid) and plain Paraformer
+  (the waveform path, 60 ms CIF stamps): the same segments, text,
+  timestamps and ``sentence_info`` as the JAX package.  The JAX BiCif
+  program's frame-0 fires are corrected as ``tests/test_torch_bicif.py``
+  does (``_jax_fires``).
+- The port's shared-grid path and its waveform path give the same result.
+- int8 (``quantize=True``, bf16 activations, the opt-in routes off; the JAX
+  package's fused layers forced on in interpret mode): segments equal, and
+  each ASR batch's token lengths equal and upsampled fires equal in number,
+  as ``test_torch_bicif.py``'s int8 bars hold them.  Its third bar, each
+  fire within one frame, does not hold here: with the routes off the two
+  packages' int8 attention differ (float64 sums against the TPU kernel's
+  float32 accumulation), the upsampled alphas differ by up to 0.03 at
+  random weights, and over a 7 s segment their running sum drifts by up to
+  0.2, which moves a fire by two 20 ms frames (measured on this
+  recording).  The fires are held within 2 frames.
+- Edges: an input shorter than a frame gives ``{"key", "text": ""}``; what
+  the port lacks raises ``NotImplementedError``.
+- Past 15 s: T = 384 LFR frames at Paraformer-large's D = 512, the served
+  bucket after 256 (frames pad to a multiple of 128; 15.4-23 s), where the
+  JAX package's fused layers' VMEM gate (T <= 312 at D = 512) sends it to
+  its XLA int8 module path, which it also takes on the CPU at every length:
+  the port's fused int8 encoder against that path.  Measured: 86 % of the
+  outputs differ, by at most 3 bf16 ulps of the largest magnitude (0.094 at
+  4.9; mean 0.011).  Held to 8 ulps.
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from funasr_tpu.auto import engines as JE
+from funasr_tpu.auto.auto_model import AutoModel as JaxAutoModel
+from funasr_torch import convert as C
+from funasr_torch.auto.auto_model import AutoModel
+from tests.test_torch_bicif import TOKENS, _conf, _init, _jax_fires
+from tests.test_torch_vad import (CONF as VAD_CONF, calibrated_params, init_params,
+                                  recording, tone)
+
+VAD_CFG = dict(model="FsmnVADStreaming", encoder="FSMN", encoder_conf=VAD_CONF,
+               frontend_conf=dict(n_mels=80, lfr_m=5, lfr_n=1),
+               model_conf=dict(max_end_silence_time=500))
+FIRE_FRAMES = 2  # int8: port and JAX upsampled fires, in 20 ms frames
+BAR_ULPS = 8  # past 15 s: port's fused int8 encoder against JAX's XLA int8 path
+PUNC_CFG = dict(model="CTTransformer", vocab_size=len(TOKENS),
+                tokenizer_conf={"token_list": TOKENS}, embed_unit=64, att_unit=64,
+                encoder_conf=dict(output_size=64, attention_heads=2, linear_units=96,
+                                  num_blocks=2, kernel_size=11))
+
+
+def asr_cfg(model="BiCifParaformer", conf=None):
+    conf = dict(conf or _conf(32, 2, 48, 2, 2))
+    if model == "Paraformer":
+        conf["predictor_conf"] = {k: v for k, v in conf["predictor_conf"].items()
+                                  if k != "upsample_type"}
+    return dict(model=model, tokenizer_conf={"token_list": TOKENS},
+                frontend_conf=dict(n_mels=80, lfr_m=7, lfr_n=6), **conf)
+
+
+def long_recording():
+    """tests/test_auto_model.py:74's recording with two more bursts."""
+    rng = np.random.default_rng(1)
+    return np.concatenate([recording(0), tone(rng, 2.5, 300.0), np.zeros(9000, np.float32),
+                           tone(rng, 1.2, 180.0), np.zeros(6000, np.float32)])
+
+
+def _save(path, sd):
+    np.savez(path, **{k: v.numpy() for k, v in sd.items()})
+    return str(path)
+
+
+def _save_flax(path, tree, prefix="params"):
+    """A flax tree as the JAX AutoModel's ``init_param`` (an .npz of
+    '/'-joined names)."""
+    flat = {}
+
+    def walk(node, name):
+        for k, v in node.items():
+            walk(v, f"{name}/{k}") if isinstance(v, dict) else flat.__setitem__(
+                f"{name}/{k}", np.asarray(v))
+
+    walk(tree, prefix)
+    np.savez(path, **flat)
+    return str(path)
+
+
+def _pair(tmp_path, cfg, quantize=False, jax_dtype=None, seed=0):
+    """The JAX AutoModel and the port's on the same random weights (the VAD's
+    head calibrated): jitted JAX inits, saved for the JAX AutoModel as flax
+    trees and for the port through ``convert.*_from_jax``."""
+    from funasr_tpu.models.ct_transformer.model import CTTransformerModel
+    from funasr_tpu.models.paraformer.model import Paraformer as JaxParaformer
+    from tests.test_torch_punc import jax_params
+
+    conf = {k: cfg[k] for k in ("vocab_size", "input_size", "encoder_conf", "decoder_conf",
+                                "predictor_conf")}
+    if cfg["model"] == "BiCifParaformer":
+        asr = _init(conf, seed)[1]
+        convert = C.bicif_paraformer_from_jax
+    else:
+        jm = JaxParaformer(**conf)
+        asr = jax.tree_util.tree_map(np.asarray, jax.jit(lambda key: jm.init(
+            {"params": key}, jnp.zeros((1, 16, 560)), jnp.array([16]), max_tokens=8,
+            method=jm.greedy_decode))(jax.random.PRNGKey(seed)))
+        convert = C.paraformer_from_jax
+    vad = calibrated_params(init_params(VAD_CONF, seed)[1], VAD_CONF, _port_frontend())
+    punc = jax_params(CTTransformerModel(**{k: v for k, v in PUNC_CFG.items()
+                                            if k in ("vocab_size", "embed_unit", "att_unit",
+                                                     "encoder_conf")}), seed)
+    jam = JaxAutoModel(
+        model=dict(cfg, init_param=_save_flax(tmp_path / "j_asr.npz", asr["params"]),
+                   **({"dtype": jax_dtype} if jax_dtype else {})),
+        vad_model=dict(VAD_CFG, init_param=_save_flax(tmp_path / "j_vad.npz", vad["params"])),
+        punc_model=dict(PUNC_CFG, init_param=_save_flax(tmp_path / "j_punc.npz",
+                                                        punc["params"])),
+        quantize=quantize)
+    files = dict(asr=_save(tmp_path / "asr.npz", convert(asr)),
+                 vad=_save(tmp_path / "vad.npz", C.fsmn_vad_from_jax(vad)),
+                 punc=_save(tmp_path / "punc.npz", C.ct_transformer_from_jax(punc)))
+    return jam, lambda **kw: AutoModel(
+        model=dict(cfg, init_param=files["asr"]),
+        vad_model=dict(VAD_CFG, init_param=files["vad"]),
+        punc_model=dict(PUNC_CFG, init_param=files["punc"]), quantize=quantize,
+        device="cpu", **kw)
+
+
+def _port_frontend():
+    from funasr_torch.auto.engines import FrontendConfig
+
+    return FrontendConfig(n_mels=80, lfr_m=5, lfr_n=1)
+
+
+def _correct_jax_fires(monkeypatch):
+    real = JE.BiCifEngine._ts_results
+
+    def fixed(self, wavs, tokens, tok_lens, us_alphas, us_peaks, vad_offsets, us_lens=None):
+        return real(self, wavs, tokens, tok_lens, us_alphas,
+                    _jax_fires(np.asarray(us_peaks), us_alphas), vad_offsets, us_lens=us_lens)
+
+    monkeypatch.setattr(JE.BiCifEngine, "_ts_results", fixed)
+
+
+@pytest.fixture(scope="module")
+def bicif_pair(tmp_path_factory):
+    return _pair(tmp_path_factory.mktemp("bicif"), asr_cfg())
+
+
+@pytest.mark.parametrize("which", ["test_auto_model", "long"])
+def test_generate_bicif_matches_jax(monkeypatch, bicif_pair, which):
+    _correct_jax_fires(monkeypatch)
+    jam, port = bicif_pair
+    am = port()
+    wav = recording(0) if which == "test_auto_model" else long_recording()
+    segs = am.vad_engine.segments_shared(wav)[0]
+    assert segs == jam.vad_engine.segments_shared(wav)[0] and len(segs) >= 2
+    want = jam.generate(wav, key=["long"])[0]
+    got = am.generate(wav, key=["long"])[0]
+    assert got == want
+    assert got["text"] and got["timestamp"] and got["sentence_info"]
+    assert len(got["timestamp"]) == sum(len(s["timestamp"]) for s in got["sentence_info"])
+
+
+def test_shared_grid_equals_waveform_path(bicif_pair):
+    _, port = bicif_pair
+    wav = long_recording()
+    shared = port().generate(wav, key=["k"])
+    wave = port(shared_frontend=False).generate(wav, key=["k"])
+    assert shared == wave and shared[0]["text"]
+
+
+def test_generate_paraformer_matches_jax(tmp_path):
+    """The plain Paraformer serves the waveform path (no fbank-grid entry):
+    ``ParaformerEngine.transcribe_async`` with 60 ms CIF stamps."""
+    jam, port = _pair(tmp_path, asr_cfg("Paraformer"))
+    wav = long_recording()
+    got = port().generate(wav, key=["p"])
+    assert got == jam.generate(wav, key=["p"]) and got[0]["timestamp"]
+    joint = port().generate(wav, key=["p"], punc_mode="joint")
+    assert joint == jam.generate(wav, key=["p"], punc_mode="joint")
+
+
+def test_generate_int8_matches_jax(monkeypatch, tmp_path):
+    from funasr_tpu.ops import decoder_layer_pallas as JDL
+    from funasr_tpu.ops import ffn_pallas as JFP
+    from funasr_tpu.ops import sanm_layer_pallas as JSL
+    from funasr_torch.auto import engines as TE
+
+    _correct_jax_fires(monkeypatch)
+    calls = {"sanm": 0}
+
+    def sanm_spy(*a, f=JSL._call, **k):
+        calls["sanm"] += 1
+        assert not k.get("int8_attn")
+        return f(*a, **k)
+
+    for mod in (JSL, JDL, JFP):
+        monkeypatch.setattr(mod, "enabled", lambda: True)
+    monkeypatch.setattr(JSL, "_call", sanm_spy)
+    jam, port = _pair(tmp_path, asr_cfg(conf=_conf(256, 2, 256, 3, 2)), quantize=True,
+                      jax_dtype="bfloat16")
+    outs = {"jax": [], "port": []}
+    real_fb = JE.BiCifEngine._fb_runner
+
+    def fb_runner(self):
+        run = real_fb(self)
+        return lambda *a: (outs["jax"].append([np.asarray(x) for x in run(*a)]),
+                           outs["jax"][-1])[1]
+
+    monkeypatch.setattr(JE.BiCifEngine, "_fb_runner", fb_runner)
+    real_run = TE.BiCifEngine.run_ts_fbank
+
+    def run_ts_fbank(self, *a):
+        out = real_run(self, *a)
+        outs["port"].append([x.numpy() for x in out])
+        return out
+
+    monkeypatch.setattr(TE.BiCifEngine, "run_ts_fbank", run_ts_fbank)
+    am = port()
+    assert am.engine.module.quantize and am.engine.module.dtype == torch.bfloat16
+    assert not am.engine.module.encoder.encoders[0].int8_attn
+    wav = long_recording()
+    assert am.vad_engine.segments_shared(wav)[0] == jam.vad_engine.segments_shared(wav)[0]
+    with pltpu.force_tpu_interpret_mode():
+        want = jam.generate(wav, key=["q"])[0]
+    got = am.generate(wav, key=["q"])[0]
+    assert calls["sanm"] and len(outs["jax"]) == len(outs["port"]) >= 1
+    for (gt, gl, _, gp), (wt, wl, wa, wp) in zip(outs["port"], outs["jax"]):
+        np.testing.assert_array_equal(gl, wl)
+        for g, w in zip(gp, _jax_fires(wp, wa)):
+            g, w = np.nonzero(g)[0], np.nonzero(w)[0]
+            assert len(g) == len(w) > 0 and np.abs(g - w).max() <= FIRE_FRAMES, (g, w)
+    assert len(got["timestamp"]) == len(want["timestamp"]) and got["text"]
+    assert [len(s["timestamp"]) for s in got["sentence_info"]] or not want["sentence_info"]
+
+
+def test_edges_and_not_ported(bicif_pair, tmp_path):
+    jam, port = bicif_pair
+    am = port()
+    short = np.zeros(300, np.float32)  # under one frame: no segment
+    assert am.generate(short, key=["s"]) == jam.generate(short, key=["s"]) == \
+        [{"key": "s", "text": ""}]
+    silence = np.zeros(32000, np.float32)
+    with pytest.raises(NotImplementedError, match="spk_model"):
+        AutoModel(model=asr_cfg(), spk_model={"model": "CAMPPlus"}, device="cpu")
+    with pytest.raises(NotImplementedError, match="use_itn"):
+        AutoModel(model=asr_cfg(), use_itn=True, device="cpu")
+    for kw in ({"hotword": "公园"}, {"use_itn": True}, {"output_dir": str(tmp_path)}):
+        with pytest.raises(NotImplementedError):
+            am.generate(silence, **kw)
+    with pytest.raises(NotImplementedError, match="URL"):
+        am.generate("https://example.invalid/a.wav")
+    with pytest.raises(ValueError, match="unsupported audio format"):
+        am.generate(str(tmp_path / "a.mp3"))
+    hybrid = dict(model="Conformer", vocab_size=len(TOKENS),
+                  tokenizer_conf={"token_list": TOKENS},
+                  frontend_conf=dict(n_mels=80, lfr_m=1, lfr_n=1), input_size=80,
+                  encoder_conf=dict(output_size=16, attention_heads=2, linear_units=16,
+                                    num_blocks=1, cnn_module_kernel=3),
+                  decoder_conf=dict(attention_heads=2, linear_units=16, num_blocks=1),
+                  decoding_conf=dict(beam_size=2, maxlenratio_tokens=4))
+    with pytest.raises(NotImplementedError, match="hybrid"):
+        AutoModel(model=hybrid, vad_model=VAD_CFG, device="cpu").generate(recording(0))
+    with pytest.raises(NotImplementedError, match="no engine"):
+        AutoModel(model=dict(asr_cfg(), model="SenseVoiceSmall"), device="cpu")
+
+
+def test_standalone_vad_and_punc_models(bicif_pair, tmp_path):
+    """A VAD config as the main model gives segment lists; a CT-Transformer
+    config as the main model punctuates text; wav files load."""
+    import wave
+
+    jam, port = bicif_pair
+    am = port()
+    wav = recording(0)
+    vad_only = AutoModel(model=am_vad_cfg(tmp_path, jam), device="cpu")
+    segs = am.vad_engine.segments(wav)
+    assert vad_only.generate(wav, key=["v"]) == [{"text": "", "value": segs, "key": "v"}]
+    path = tmp_path / "x.wav"
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1), w.setsampwidth(2), w.setframerate(8000)
+        w.writeframes((np.clip(wav[::2], -1, 1) * 32767).astype("<i2").tobytes())
+    res = vad_only.generate(str(path))
+    assert res[0]["key"] == "x" and len(res[0]["value"]) == len(segs)
+    text = "".join(TOKENS[4:20]) * 3
+    punc = AutoModel(model=dict(PUNC_CFG), device="cpu")
+    out = punc.generate(text, key=["t"])
+    assert out[0]["key"] == "t" and out[0]["text"] and len(out[0]["punc_array"]) == len(text)
+
+
+def am_vad_cfg(tmp_path, jam):
+    return dict(VAD_CFG, init_param=_save(tmp_path / "v.npz",
+                                          C.fsmn_vad_from_jax(jam.vad_engine.model.params)))
+
+
+
+def test_past_15s_int8_encoder_against_jax_xla_path():
+    """T = 384 LFR frames at D = 512, the served bucket after 256: past the
+    JAX package's fused-layer gate, so the JAX package runs its XLA int8
+    module path (bf16 projections under the QDense gate, casts between ops)
+    while the port keeps the fused int8 layers' function at every length."""
+    from funasr_tpu.models.sanm import SANMEncoder as JaxEncoder
+    from funasr_tpu.ops import quant as JQ
+    from funasr_tpu.ops import sanm_layer_pallas as JSL
+    from funasr_torch.models.sanm import SANMEncoder
+
+    T, D, H = 384, 512, 2048
+    conf = dict(input_size=560, output_size=D, attention_heads=4, linear_units=H,
+                num_blocks=3, kernel_size=11)
+    assert not JSL.enabled() and JSL.supported(256, D, H, 4) and not JSL.supported(T, D, H, 4)
+    assert JSL.supported(312, D, H, 4) and not JSL.supported(320, D, H, 4)
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((2, T, 560)).astype(np.float32)
+    lens = np.array([T, 301], np.int32)
+    je = JaxEncoder(**conf, dropout_rate=0.0, dtype=jnp.bfloat16)
+    p = jax.jit(je.init)(jax.random.PRNGKey(5), jnp.asarray(x), jnp.asarray(lens))
+    with JQ.quantized(True):
+        want, _ = jax.jit(je.apply)(p, jnp.asarray(x), jnp.asarray(lens))
+    want = np.asarray(want.astype(jnp.float32))
+    sd = {}
+    C._encoder(sd, "encoder", jax.tree_util.tree_map(np.asarray, p["params"]))
+    te = SANMEncoder(**conf, dtype=torch.bfloat16, param_dtype=torch.float32)
+    te.load_state_dict({k[len("encoder."):]: v for k, v in sd.items()}, strict=True)
+    te.quantize_weights()
+    with torch.no_grad():
+        got, _ = te(torch.from_numpy(x), torch.from_numpy(lens))
+    got = got.float().numpy()
+    valid = np.arange(T)[None] < lens[:, None]
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want[valid]).max())) - 7)
+    err = np.abs(got - want)[valid].max()
+    assert np.isfinite(got).all() and err <= BAR_ULPS * ulp, (err, ulp)
