@@ -109,6 +109,20 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    0) in bf16 and float32 against its twin, timed beside SDPA; stage times
    (VAD device and host, ASR device and host, punctuation) by CUDA events
    and wall clock, and audio-s/s of each ``generate``;
+   then streaming (``end_to_end_streaming``): the float32 attention kernel
+   at the window step's shapes (15 queries over a 40-frame KV cache plus
+   the 15-frame window, the cache empty, partial, full and a final window
+   of 3 frames; 18 decoder rows over 15 frames, prefixes 5 and 15) and the
+   fbank kernel on one 600 ms step, against their twins; full-width
+   float32 streaming Paraformer-large (``ParaformerStreaming``, chunk
+   (0, 10, 5), look-back 4) over a 60 s recording in 600 ms chunks, its
+   counters exact (attention 66 a window step, fbank once a frontend step
+   that yields frames) with no host sync inside a step's dispatch, and
+   again with the twins (per-window token counts equal, tokens >= 0.99,
+   log-probs abs 1e-2); the step's span, wall time, launches, real-time
+   factor and byte bound; one offline, one online and four concurrent
+   2pass sessions through ``AsrWebSocketServer`` (the pipeline's
+   ``AutoModel`` for the offline pass) with their replies checked;
 4. print one ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -116,9 +130,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
 batch, bf16 and int8, of one B=32 x 15 s beam batch and of one B=64 x 15 s
 BiCif batch with the routes on and off to ``DIR/profile_e2e.txt``,
 ``DIR/profile_e2e_int8.txt``, ``DIR/profile_beam.txt``,
-``DIR/profile_bicif_on.txt``, ``DIR/profile_bicif_off.txt`` and, for one
+``DIR/profile_bicif_on.txt``, ``DIR/profile_bicif_off.txt``, for one
 ``generate`` (b) of the pipeline, ``DIR/profile_pipeline.txt`` (its stage
-times and segments in ``DIR/pipeline.json``).  Device time by kernel group, and the share of
+times and segments in ``DIR/pipeline.json``) and, for one streaming window
+step, ``DIR/profile_streaming.txt`` (that step is profiled in every run).  Device time by kernel group, and the share of
 each batch's span spent in kernels, is printed for every batch profiled;
 the beam batch is always profiled (its device time beside its host time).
 Without CUDA, or without the rest of the repository beside it, the script
@@ -2084,19 +2099,19 @@ def pipeline_configs():
     return asr, FSMN_VAD, punc
 
 
-def pipeline_recording(rng):
-    """A 600 s, 16 kHz recording as bench_pipeline.py draws its segment
-    plan: bursts of a 260 Hz sine over noise, 2-12 s long (the sixth 20 s),
-    0.3-0.8 s gaps of faint noise alone, boundaries on 10 ms.  Returns
-    (waveform, the bursts as [start_ms, end_ms])."""
+def pipeline_recording(rng, seconds=PIPELINE_AUDIO_S):
+    """A 600 s (``seconds``), 16 kHz recording as bench_pipeline.py draws its
+    segment plan: bursts of a 260 Hz sine over noise, 2-12 s long (the sixth
+    20 s), 0.3-0.8 s gaps of faint noise alone, boundaries on 10 ms.
+    Returns (waveform, the bursts as [start_ms, end_ms])."""
     import numpy as np
 
-    n = PIPELINE_AUDIO_S * FS
+    n = seconds * FS
     wav = 0.002 * rng.standard_normal(n)
     plan, t = [], 0.3
-    while t < PIPELINE_AUDIO_S - 2.0:
+    while t < seconds - 2.0:
         dur = 20.0 if len(plan) == 5 else float(rng.uniform(2.0, 12.0))
-        end = min(t + dur, PIPELINE_AUDIO_S - 0.1)
+        end = min(t + dur, seconds - 0.1)
         seg = [int(t * 100) * 10, int(end * 100) * 10]
         i0, i1 = seg[0] * FS // 1000, seg[1] * FS // 1000
         wav[i0:i1] += (0.1 * np.sin(2 * np.pi * 260 * np.arange(i1 - i0) / FS)
@@ -2447,7 +2462,328 @@ def end_to_end_pipeline(torch, FK, A, profile_dir, card):
             json.dump(dict(e2e=e2e, plan=plan, segments_a=seen["a"]["segments"],
                            text_b=res_k["text"], sentence_info_b=res_k["sentence_info"][:20]),
                       f, ensure_ascii=False, indent=1)
-    return launches_b, e2e, d32_cases
+    return launches_b, e2e, d32_cases, am
+
+
+# ------------------------------------------------------------------ streaming
+STREAM_CHUNK = (0, 10, 5)  # (lookback, current, lookahead) LFR frames: 600 ms
+STREAM_LOOK_BACK = 4  # encoder_chunk_look_back: a KV cache of 4 x 10 frames
+STREAM_STEP = 9600  # samples a chunk: 600 ms at 16 kHz
+STREAM_AUDIO_S = 60
+STREAM_SEED = 19  # the 60 s recording's six bursts are each 5-20 s long
+
+
+def check_streaming_kernels(torch, FK, A):
+    """(a) The attention kernel, float32 d = 128, at the window step's two
+    shapes: the encoder's 15 queries over [KV cache (40) | window (15)] with
+    the cache empty, partly filled and full and on a final window of 3 real
+    frames, k and v column slices of the (1, 55, 1024) [k | v]; the
+    decoder's 18 query rows over the 15 window frames with prefixes of 5 and
+    15.  Against the twin at abs 1e-4, timed by events and CUDA graph beside
+    SDPA.  The fbank kernel on one 600 ms step's buffer against its twin."""
+    import torch.nn.functional as F
+
+    H, d, D = 4, 128, 512
+    l, c, r = STREAM_CHUNK
+    C, W, U = STREAM_LOOK_BACK * c, l + c + r, c + r + 3
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    attn_cases = []
+    shapes = [("encoder self-attention, cache empty", W, C, 0, W),
+              ("encoder self-attention, cache partial", W, C, c, W),
+              ("encoder self-attention, cache full", W, C, C, W),
+              ("encoder self-attention, final window of 3 frames", W, C, C, l + r + 3),
+              ("decoder cross-attention, prefix 5", U, 0, 0, 5),
+              ("decoder cross-attention, prefix 15", U, 0, 0, W)]
+    for name, nq, cache, kv_valid, win_valid in shapes:
+        T = cache + W
+        kv = torch.randn((1, T, 2 * D), generator=gen, device="cuda")
+        k, v = kv[..., :D], kv[..., D:]
+        q = torch.randn((1, nq, D), generator=gen, device="cuda") * d ** -0.5
+        bias = torch.full((1, T), -1e30, device="cuda")
+        bias[:, cache - kv_valid:cache + win_valid] = 0.0
+        got = A.fused_attention(q, k, v, bias, H)
+        want = A.attention_ref(q, k, v, bias, H)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(bool(torch.isfinite(got).all()) and err <= ATTN_TOL["float32"],
+              f"streaming attention {name}: err {err} > {ATTN_TOL['float32']}")
+        q4, k4, v4 = (x.unflatten(-1, (H, d)).transpose(1, 2) for x in (q, k, v))
+        n_keys = float(kv_valid + win_valid)
+        bnd, by = bound_ms(4 * (2 * nq * D + 2 * n_keys * D) + 4 * T,
+                           {"float32": 4.0 * nq * D * n_keys})
+        case = dict(case=f"streaming {name}: q (1, {nq}, {D}), k/v (1, {T}, {D}) of "
+                         f"(1, {T}, {2 * D}), float32, {int(n_keys)} keys",
+                    max_abs_err=err, tolerance=ATTN_TOL["float32"],
+                    ms=cuda_ms(lambda: A.fused_attention(q, k, v, bias, H), iters=50,
+                               warmup=10),
+                    graph_ms=graph_ms(lambda: A.fused_attention(q, k, v, bias, H)),
+                    plain_ms=cuda_ms(lambda: A.attention_ref(q, k, v, bias, H), iters=20),
+                    library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                        q4, k4, v4, attn_mask=bias[:, None, None, :], scale=1.0),
+                        iters=50, warmup=10),
+                    bound_ms=bnd, bound_by=by)
+        log(f"attention {case}")
+        attn_cases.append(case)
+
+    # the first 600 ms step: 58 frames of a 9520-sample buffer
+    import numpy as np
+
+    n = (STREAM_STEP - 400) // 160 * 160 + 400
+    wav = torch.from_numpy(waveform(np.random.default_rng(5), n, 260.0)).cuda()[None]
+    lens = torch.full((1,), n, dtype=torch.int32, device="cuda")
+    got = FK.fused_fbank(wav, lens)[0]
+    want = FK.fbank_ref(wav, lens)[0]
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    T = got.shape[1]
+    check(bool(torch.isfinite(got).all()) and err <= FBANK_TOL,
+          f"streaming fbank step: err {err} > {FBANK_TOL}")
+    bnd, by = bound_ms(n * 4 + T * 80 * 4 + 8, {"float32": T * fbank_ops_per_frame(80, False)})
+    fb_case = dict(case=f"streaming fbank: one 600 ms step, wav (1, {n}) -> (1, {T}, 80)",
+                   max_abs_err=err, tolerance=FBANK_TOL,
+                   ms=cuda_ms(lambda: FK.fused_fbank(wav, lens), iters=50, warmup=10),
+                   graph_ms=graph_ms(lambda: FK.fused_fbank(wav, lens)),
+                   plain_ms=cuda_ms(lambda: FK.fbank_ref(wav, lens), iters=20),
+                   library_ms=None, bound_ms=bnd, bound_by=by,
+                   cufft_route_ms=cuda_ms(lambda: fbank_fft_route(torch, wav, torch.float32),
+                                          iters=20))
+    log(f"fbank {fb_case}")
+    return attn_cases, fb_case
+
+
+def fbank_step_launches(chunk_lens) -> int:
+    """Steps of the streaming frontend that yield frames (one fbank launch
+    each), reckoned from the chunk lengths alone: the sample cache below a
+    frame boundary carries over, 400-sample frames at hop 160."""
+    cached = launches = 0
+    for n in chunk_lens:
+        buf = cached + n
+        frames = max(0, (buf - 400) // 160 + 1)
+        launches += frames > 0
+        cached = buf - frames * 160
+    return launches
+
+
+def end_to_end_streaming(torch, FK, A, am, profile_dir, card):
+    """The streaming phase.  (a) ``check_streaming_kernels``.  (b)
+    Full-width streaming Paraformer-large (float32, seeded random weights,
+    chunk (0, 10, 5), look-back 4, B = 1) streams a 60 s recording in 600
+    ms chunks with a final flush: counters exact (attention 66 a window
+    step, fbank once a frontend step that yields frames), no host sync
+    inside a window step's dispatch; the same stream with the kernels'
+    twins: the same token count in every window, tokens agreeing >= 0.99,
+    log-probs within 1e-2; the window step's device span (events), wall
+    time, launches (one profiled step), real-time factor and byte bound.
+    (c) ``AsrWebSocketServer(am, streaming_model)``: one offline, one
+    online and four concurrent 2pass sessions through ``on_text`` /
+    ``on_binary``, each a burst of 5-20 s in 600 ms PCM16 frames, the
+    replies checked against the protocol."""
+    import threading
+
+    import numpy as np
+
+    from funasr_torch.models.paraformer.model import Paraformer, init_random_
+    from funasr_torch.models.paraformer_streaming.model import ParaformerStreaming
+    from funasr_torch.runtime.websocket_server import AsrWebSocketServer, WsSession
+
+    attn_cases, fb_case = check_streaming_kernels(torch, FK, A)
+
+    t0 = time.time()
+    f32 = Paraformer(**FLAGSHIP, dtype=torch.float32)
+    init_random_(f32, torch.Generator(device="cuda").manual_seed(2029))
+    sm = ParaformerStreaming(f32, chunk_size=STREAM_CHUNK,
+                             encoder_chunk_look_back=STREAM_LOOK_BACK)
+    wav, bursts = pipeline_recording(np.random.default_rng(STREAM_SEED), STREAM_AUDIO_S)
+    chunks = [wav[i:i + STREAM_STEP] for i in range(0, len(wav), STREAM_STEP)]
+    log(f"e2e streaming: Paraformer-large float32 built in {time.time() - t0:.1f} s; "
+        f"{STREAM_AUDIO_S} s in {len(chunks)} chunks of 600 ms + a final flush")
+
+    def stream(check_sync):
+        """One stream; per window (n_tok, tokens, log_probs, events, wall s)."""
+        windows = []
+        real_step, real_run = sm._step, sm._run_window
+
+        def step(*a):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            if check_sync:
+                torch.cuda.set_sync_debug_mode("error")  # a host sync here raises
+            try:
+                out = real_step(*a)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            e1 = torch.cuda.Event(enable_timing=True)
+            e1.record()
+            windows.append(dict(out=out[0], log_probs=out[1], events=(e0, e1)))
+            return out
+
+        def run(*a, **k):
+            t = time.perf_counter()
+            out = real_run(*a, **k)
+            windows[-1]["wall_s"] = time.perf_counter() - t
+            return out
+
+        sm._step, sm._run_window = step, run
+        try:
+            cache = sm.init_cache()
+            t = time.perf_counter()
+            for ch in chunks:
+                sm.generate_chunk(cache, ch, False)
+            sm.generate_chunk(cache, wav[:0], True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        finally:
+            del sm._step, sm._run_window
+        for w in windows:
+            row = w.pop("out")[0][0][0]
+            w["n_tok"], w["tokens"] = int(row[0]), row[1:]
+        return cache.tokens, windows, wall
+
+    stream(False)  # warm-up: the libraries' handles, the pinned pool
+    for fn in (FK.fused_fbank, A.fused_attention):
+        fn.launches = 0
+    toks, win_k, wall = stream(True)
+    launches = {"fbank": FK.fused_fbank.launches, "attention": A.fused_attention.launches}
+    n_win = len(win_k)
+    want = {"fbank": fbank_step_launches([len(ch) for ch in chunks] + [0]),
+            "attention": n_win * (sm.n_enc_layers + sm.n_dec_layers)}
+    log(f"e2e streaming: {n_win} window steps, {len(toks)} tokens in {wall:.3f} s; kernel "
+        f"launches {launches}, want {want}")
+    check(launches == want, f"streaming launches {launches}, want {want}")
+    n_lfr = -(-((len(wav) - 400) // 160 + 1) // 6)  # LFR frames of the whole stream
+    check(n_win == n_lfr // STREAM_CHUNK[1] + 1,
+          f"streaming: {n_win} window steps for {n_lfr} LFR frames")
+    check(all(np.isfinite(w["log_probs"].cpu().numpy()).all() for w in win_k),
+          "streaming log-probs finite")
+    check(len(toks) > 0 and all(0 <= t < FLAGSHIP["vocab_size"] for t in toks),
+          "streaming tokens within the vocabulary")
+
+    with plain_twins(FK, A):
+        toks_t, win_t, _ = stream(False)
+    same_counts = [a["n_tok"] for a in win_k] == [b["n_tok"] for b in win_t]
+    n_ok = n_all = 0
+    lp_err = 0.0
+    for a, b in zip(win_k, win_t):
+        n = a["n_tok"]
+        n_ok += int((a["tokens"][:n] == b["tokens"][:n]).sum())
+        n_all += n
+        if n:
+            lp_err = max(lp_err, float((a["log_probs"][0, :n] - b["log_probs"][0, :n])
+                                       .abs().max()))
+    agree = n_ok / max(n_all, 1)
+    log(f"e2e streaming, kernels vs twins: per-window token counts equal {same_counts}, "
+        f"token agreement {agree:.5f} over {n_all}, max |dlogp| {lp_err:.3e} "
+        f"(tol {E2E_F32_LOGP_TOL})")
+    check(same_counts and len(win_t) == n_win, "streaming: per-window token counts, "
+          "kernels against twins")
+    check(agree >= E2E_F32_MIN_AGREE, "streaming: token agreement, kernels against twins")
+    check(lp_err <= E2E_F32_LOGP_TOL, "streaming: log-probs, kernels against twins")
+
+    # ---- the window step: time, launches, bound
+    span = [w["events"][0].elapsed_time(w["events"][1]) for w in win_k]
+    step_wall = [w["wall_s"] * 1e3 for w in win_k]
+    used = [m for name, m in f32.named_children() if name in ("encoder", "predictor")]
+    n_param = sum(p.numel() for m in used for p in m.parameters()) + sum(
+        p.numel() for n, p in f32.decoder.named_parameters() if not n.startswith("embed"))
+    l, c, r = STREAM_CHUNK
+    W, U, C, D = l + c + r, c + r + 3, STREAM_LOOK_BACK * c, 512
+    enc_p = sum(p.numel() for p in f32.encoder.parameters())
+    # the weights once; each encoder layer's KV cache and each decoder layer's
+    # FSMN tail in and out; the window in, the log-probs out
+    nbytes = (4 * n_param + 50 * 2 * 4 * C * 2 * D + 16 * 2 * 4 * (sm.dec_kernel - 1) * D
+              + 4 * (W * 560 + U * FLAGSHIP["vocab_size"]))
+    ops = (2.0 * enc_p * W + 2.0 * (n_param - enc_p) * U
+           + 50 * 4.0 * W * D * (C + W) + 16 * 4.0 * U * D * W)
+    bnd, by = bound_ms(nbytes, {"float32": ops})
+    cache_p = sm.init_cache()
+    feats = np.random.default_rng(3).standard_normal((c, 560)).astype(np.float32)
+    for _ in range(STREAM_LOOK_BACK + 1):  # a full KV cache
+        sm._run_window(cache_p, feats, final=False)
+    med = float(np.median(step_wall))
+    prof = profile(torch, lambda: sm._run_window(cache_p, feats, final=False), profile_dir,
+                   med, "profile_streaming.txt")
+    e2e = dict(window_steps=n_win, tokens=len(toks), stream_wall_s=wall,
+               step_span_ms_median=float(np.median(span)), step_span_ms_mean=float(np.mean(span)),
+               step_wall_ms_median=med, step_wall_ms_mean=float(np.mean(step_wall)),
+               step_wall_ms_max=float(np.max(step_wall)),
+               rtf_median=med / 600.0, audio_s_per_s=STREAM_AUDIO_S / wall,
+               launches_per_step=dict(attention=66, kernels=prof["kernel launches"]),
+               kernel_ms_per_step=prof["kernels total"],
+               step_bound_ms=bnd, step_bound_by=by, step_bytes=nbytes, weight_params=n_param,
+               twins=dict(counts_equal=same_counts, token_agreement=agree,
+                          logp_max_abs_diff=lp_err),
+               launches=launches)
+    log(f"e2e streaming window step on {card}: span {e2e['step_span_ms_median']:.3f} ms "
+        f"(events, median), wall {med:.3f} ms (median; mean {e2e['step_wall_ms_mean']:.3f}), "
+        f"RTF {med / 600.0:.4f}, {prof['kernel launches']} kernel launches a step "
+        f"(attention 66), kernels {prof['kernels total']:.3f} ms; bound {bnd:.4f} ms ({by}, "
+        f"{nbytes / 1e9:.3f} GB)")
+
+    # ---- (c) sessions through the protocol
+    server = AsrWebSocketServer(am, streaming_model=sm)
+    spans = [b for b in bursts if 5000 <= b[1] - b[0] <= 20000]
+    check(len(spans) >= 6, f"streaming: {len(spans)} bursts of 5-20 s, want 6")
+
+    def session(mode, span, name, out):
+        sess = WsSession(server)
+        msgs = server.on_text(sess, json.dumps({
+            "mode": mode, "wav_name": name, "is_speaking": True, "wav_format": "pcm",
+            "audio_fs": FS}))
+        seg = wav[span[0] * FS // 1000:span[1] * FS // 1000]
+        pcm = (np.clip(seg, -1.0, 1.0) * 32767).astype("<i2").tobytes()
+        for i in range(0, len(pcm), 2 * STREAM_STEP):
+            msgs += server.on_binary(sess, pcm[i:i + 2 * STREAM_STEP])
+        t = time.perf_counter()
+        msgs += server.on_text(sess, json.dumps({"is_speaking": False}))
+        out[name] = dict(mode=mode, seconds=len(seg) / FS, msgs=[json.loads(m) for m in msgs],
+                         end_to_final_s=time.perf_counter() - t)
+
+    results = {}
+    try:
+        session("offline", spans[0], "offline", results)
+        session("online", spans[1], "online", results)
+        threads = [threading.Thread(target=session, args=("2pass", spans[2 + i],
+                                                          f"2pass{i}", results))
+                   for i in range(4)]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        two_pass_wall = time.perf_counter() - t
+        check(not any(th.is_alive() for th in threads), "streaming: 2pass sessions ended")
+    finally:
+        server.decode_model.close()
+    check(len(results) == 6, f"streaming: {sorted(results)} sessions answered")
+    for name, res in results.items():
+        msgs, mode = res["msgs"], res["mode"]
+        check(all(m.get("wav_name") == name and isinstance(m.get("text"), str) for m in msgs),
+              f"session {name}: wav_name and text in every reply")
+        if mode == "offline":
+            check(len(msgs) == 1 and msgs[0]["mode"] == "offline" and msgs[0]["is_final"]
+                  and msgs[0]["text"], f"session {name}: one final offline reply")
+        elif mode == "online":
+            check(len(msgs) > 1 and all(m["mode"] == "online" for m in msgs)
+                  and msgs[-1]["is_final"] is True
+                  and not any(m["is_final"] for m in msgs[:-1]),
+                  f"session {name}: online partials, the last final")
+        else:
+            part = [m for m in msgs if m["mode"] == "2pass-online"]
+            fin = [m for m in msgs if m["mode"] == "2pass-offline"]
+            check(part and all(m["is_final"] is False for m in part),
+                  f"session {name}: 2pass-online partials, not final")
+            check(len(fin) == 1 and fin[0]["is_final"] is True and fin[0]["text"]
+                  and fin[0].get("timestamp") and fin[0].get("stamp_sents"),
+                  f"session {name}: one 2pass-offline with text, timestamp, stamp_sents")
+    sessions = {n: dict(mode=r["mode"], seconds=r["seconds"], replies=len(r["msgs"]),
+                        end_to_final_s=r["end_to_final_s"],
+                        final_text=r["msgs"][-1]["text"][:16]) for n, r in results.items()}
+    batch_sizes = list(server.decode_model.batcher.batch_sizes)
+    log(f"e2e streaming sessions on {card}: {json.dumps(sessions, ensure_ascii=False)}; "
+        f"offline batcher batch_sizes {batch_sizes}; four 2pass sessions in "
+        f"{two_pass_wall:.3f} s")
+    e2e.update(sessions=sessions, batch_sizes=batch_sizes, two_pass_wall_s=two_pass_wall)
+    return launches, {"streaming": e2e}, attn_cases, fb_case
 
 
 def profile(torch, run, out_dir, batch_ms, fname):
@@ -2604,8 +2940,12 @@ def main(argv=None) -> int:
     e2e.update(e2e_bicif)
     shared.clear()
     torch.cuda.empty_cache()
-    launches_pipe, e2e_pipe, d32_cases = end_to_end_pipeline(torch, FK, A, args.profile, smi)
+    launches_pipe, e2e_pipe, d32_cases, am = end_to_end_pipeline(torch, FK, A, args.profile,
+                                                                 smi)
     e2e.update(e2e_pipe)
+    launches_stream, e2e_stream, stream_attn, stream_fbank = end_to_end_streaming(
+        torch, FK, A, am, args.profile, smi)
+    e2e.update(e2e_stream)
     log(f"end to end done in {time.time() - t0:.1f} s")
     log(f"e2e summary {json.dumps(e2e, sort_keys=True)}")
 
@@ -2616,7 +2956,8 @@ def main(argv=None) -> int:
                    "int8": launches_int8.get(name, 0),
                    "beam": launches_beam.get(name, 0),
                    "bicif": launches_bicif.get(name, 0),
-                   "pipeline": launches_pipe.get(name, 0)}
+                   "pipeline": launches_pipe.get(name, 0),
+                   "streaming": launches_stream.get(name, 0)}
         return dict(name=name, route="cuda", source=sources[0], sources=sources,
                     replaces=replaces, launches=sum(by_path.values()),
                     launches_by_path=by_path, shape=main_case["case"],
@@ -2628,9 +2969,11 @@ def main(argv=None) -> int:
     dec_src = gemm_src + ["funasr_torch/csrc/fsmn.cu", "funasr_torch/csrc/rowquant.cu"] + attn_src
     kernels = [
         entry("fbank", ["funasr_torch/csrc/fbank.cu"],
-              "funasr_tpu/ops/fbank_pallas.py:97", fbank_cases[0], fbank_cases),
+              "funasr_tpu/ops/fbank_pallas.py:97", fbank_cases[0],
+              fbank_cases + [stream_fbank]),
         entry("attention", ["funasr_torch/csrc/attention.cu"],
-              "funasr_tpu/ops/attention_pallas.py:37", attn_cases[0], attn_cases),
+              "funasr_tpu/ops/attention_pallas.py:37", attn_cases[0],
+              attn_cases + stream_attn),
         # the same kernel's head-size-32 instance: punctuation's attention
         entry("attention_d32", ["funasr_torch/csrc/attention.cu"],
               "funasr_tpu/ops/attention_pallas.py:37", d32_cases[0], d32_cases),

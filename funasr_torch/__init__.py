@@ -12,9 +12,14 @@ Entry points (``auto.auto_model.AutoModel``, the long-audio pipeline;
 ``models.bicif_paraformer.model.BiCifParaformer``,
 ``models.transformer.model.Conformer``,
 ``models.fsmn_vad.model.FsmnVADStreaming``,
-``models.ct_transformer.model.CTTransformerModel``)
+``models.ct_transformer.model.CTTransformerModel``; streaming:
+``models.paraformer_streaming.model.ParaformerStreaming`` with
+``frontends.streaming.StreamingFrontend``, and
+``runtime.websocket_server.build_streaming_model``)
 run on ``cuda`` by default and raise without a GPU unless the caller asks
-for ``device="cpu"``.
+for ``device="cpu"``.  ``runtime.websocket_server.AsrWebSocketServer``
+serves the models it is given (offline, online and 2pass modes), its
+offline pass behind ``runtime.batcher.BatchingAutoModel``.
 """
 
 __version__ = "0.1.0"

@@ -39,7 +39,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from funasr_torch.device import resolve_device, upload
+from funasr_torch.device import fetch_async, fetched, resolve_device, upload
 from funasr_torch.models.fsmn_vad.model import frame_decibel_device
 from funasr_torch.ops import fbank as F
 from funasr_torch.ops import fbank_kernel as FK
@@ -58,30 +58,6 @@ def quantize(n: int, step: int = 2000, minimum: int = 4000) -> int:
     elif n > 16 * 16000:
         step = 16000         # 1 s
     return max(minimum, step * ((n + step - 1) // step))
-
-
-def fetch_async(tensors: Sequence[torch.Tensor]):
-    """Start copying device tensors to the host: ``(host tensors, event)``.
-    On the card each goes into pinned memory by a non-blocking copy and the
-    event is recorded after the copies; wait on it (:func:`fetched`) before
-    reading them.  CPU tensors come back as they are, with no event."""
-    if not tensors or tensors[0].device.type != "cuda":
-        return list(tensors), None
-    host = []
-    for t in tensors:
-        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        h.copy_(t, non_blocking=True)
-        host.append(h)
-    event = torch.cuda.Event()
-    event.record()
-    return host, event
-
-
-def fetched(host, event):
-    """The host tensors of :func:`fetch_async`, once their copies are done."""
-    if event is not None:
-        event.synchronize()
-    return host
 
 
 class FrontendConfig:

@@ -4,12 +4,13 @@ The port runs on CUDA.  ``resolve_device(None)`` means the card and raises
 when there is none; the CPU is used only when the caller asks for it
 (``device="cpu"``, as the tests do).  Nothing falls back silently.
 ``upload`` moves a host array onto a device without waiting for the
-device's queued work.
+device's queued work; ``fetch_async`` and ``fetched`` bring device tensors
+back the same way, through pinned memory behind one event.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -41,3 +42,27 @@ def upload(arr: np.ndarray, device) -> torch.Tensor:
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def fetch_async(tensors: Sequence[torch.Tensor]):
+    """Start copying device tensors to the host: ``(host tensors, event)``.
+    On the card each goes into pinned memory by a non-blocking copy and the
+    event is recorded after the copies; wait on it (:func:`fetched`) before
+    reading them.  CPU tensors come back as they are, with no event."""
+    if not tensors or tensors[0].device.type != "cuda":
+        return list(tensors), None
+    host = []
+    for t in tensors:
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        host.append(h)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+def fetched(host, event):
+    """The host tensors of :func:`fetch_async`, once their copies are done."""
+    if event is not None:
+        event.synchronize()
+    return host

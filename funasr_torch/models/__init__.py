@@ -1,4 +1,5 @@
 """Model families of the port (importing registers them)."""
 
 from funasr_torch.models import (  # noqa: F401
-    bicif_paraformer, conformer, ct_transformer, fsmn_vad, paraformer, transformer)
+    bicif_paraformer, conformer, ct_transformer, fsmn_vad, paraformer, paraformer_streaming,
+    transformer)

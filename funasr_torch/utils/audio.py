@@ -50,6 +50,8 @@ def resample_linear(x: np.ndarray, fs_in: int, fs_out: int) -> np.ndarray:
     if fs_in == fs_out:
         return x
     n_out = int(round(len(x) * fs_out / fs_in))
+    if n_out == 0 or len(x) == 0:  # a server's final flush sends no samples
+        return np.zeros(n_out if len(x) else 0, np.float32)
     t_out = np.arange(n_out, dtype=np.float64) * fs_in / fs_out
     return np.interp(t_out, np.arange(len(x), dtype=np.float64), x).astype(np.float32)
 

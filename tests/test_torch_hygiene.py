@@ -129,6 +129,44 @@ def test_pipeline_entry_points_raise_without_cuda(monkeypatch):
     assert next(am.punc_engine.model.module.parameters()).device.type == "cpu"
 
 
+def test_streaming_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """``ParaformerStreaming``, its frontend and the server's streaming model
+    builder run on the card unless given ``device="cpu"``."""
+    import numpy as np
+
+    from funasr_torch.frontends.streaming import StreamingFrontend
+    from funasr_torch.models.paraformer.model import Paraformer
+    from funasr_torch.models.paraformer_streaming.model import ParaformerStreaming
+    from funasr_torch.runtime.websocket_server import AsrWebSocketServer, build_streaming_model
+
+    _no_gpu(monkeypatch)
+    enc = dict(output_size=8, attention_heads=2, linear_units=8, num_blocks=2, kernel_size=3)
+    dec = dict(attention_heads=2, linear_units=8, num_blocks=1, att_layer_num=1,
+               kernel_size=3)
+    dims = dict(input_size=16, d_model=8, n_head=2, enc_kernel=3, dec_kernel=3,
+                n_enc_layers=2, n_dec_layers=1, chunk_size=(0, 4, 2))
+    model = Paraformer(vocab_size=8, input_size=16, encoder_conf=enc, decoder_conf=dec,
+                       device="cpu")
+    path = tmp_path / "stream.npz"
+    np.savez(path, **{k: v.numpy() for k, v in model.state_dict().items()})
+    cfg = dict(init_param=str(path), encoder_conf=enc, decoder_conf=dec, input_size=16,
+               chunk_size=[0, 4, 2], frontend_conf=dict(n_mels=16, lfr_m=1, lfr_n=1))
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no GPU"):
+            StreamingFrontend(device=device)
+        with pytest.raises(RuntimeError, match="no GPU"):
+            ParaformerStreaming(model.state_dict(), device=device, **dims)
+        with pytest.raises(RuntimeError, match="no GPU"):
+            build_streaming_model(cfg, device=device)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        ParaformerStreaming(model, **dims)
+    sm = build_streaming_model(cfg, device="cpu")
+    assert sm.device.type == "cpu" and sm.frontend.device.type == "cpu"
+    assert next(sm.model.parameters()).device.type == "cpu"
+    server = AsrWebSocketServer(None, streaming_model=sm, max_batch=1)
+    assert server.streaming_model is sm
+
+
 def test_unknown_model_arguments_raise():
     from funasr_torch.models.paraformer.model import Paraformer
 
