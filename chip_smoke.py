@@ -108,7 +108,27 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    attention at punctuation's shape and edges (T = 1, ragged, a length of
    0) in bf16 and float32 against its twin, timed beside SDPA; stage times
    (VAD device and host, ASR device and host, punctuation) by CUDA events
-   and wall clock, and audio-s/s of each ``generate``;
+   and wall clock, and audio-s/s of each ``generate``; pipeline run (c)
+   (``end_to_end_pipeline_c``): ``AutoModel(model=int8 SeACo-Paraformer,
+   vad_model=FSMN-VAD, punc_model=CT-Transformer, spk_model=CAM++,
+   quantize=True).generate(hotword=<10 words of 2-4 tokens>,
+   preset_spk_num=2)`` of a 600 s two-voice recording (the burst plan for
+   segments, as (b); the bias head's no-bias logit raised by the median
+   margin of a probe batch so both merge branches run), its counters exact
+   (fbank once for the VAD, once per ASR batch on the waveform path, once
+   for the speaker chunks; per batch the int8 layers' blocks plus the SeACo
+   decoder's 3 layers twice over the H + 1 = 11 hotword rows and its gated
+   FFN-only tail) with no host sync inside a batch's or the speaker chunks'
+   dispatch; again on the twins (int8 layers, punctuation's attention, fbank
+   of the speaker chunks): tokens >= 0.99, token lengths and fire counts
+   equal, merged log-probs abs 1e-3 where the merge branch did not flip
+   (flips counted), timestamps equal when none flipped, every speaker
+   embedding at cosine >= 0.999 to its twin's, ``spk_info`` equal; fbank on
+   the speaker-chunk batch against its twin (1e-3) and the exact value
+   (1e-4); the int8 decoder layer and its attention at the SeACo shapes
+   (H + 1 = 2, 11, 51 memory rows, 1024 units) against their twins; stage
+   times (VAD, ASR dispatch, punctuation, speaker embedding by events and
+   wall, clustering on the host);
    then streaming (``end_to_end_streaming``): the float32 attention kernel
    at the window step's shapes (15 queries over a 40-frame KV cache plus
    the 15-frame window, the cache empty, partial, full and a final window
@@ -2099,10 +2119,14 @@ def pipeline_configs():
     return asr, FSMN_VAD, punc
 
 
-def pipeline_recording(rng, seconds=PIPELINE_AUDIO_S):
+def pipeline_recording(rng, seconds=PIPELINE_AUDIO_S, two_voices=False):
     """A 600 s (``seconds``), 16 kHz recording as bench_pipeline.py draws its
     segment plan: bursts of a 260 Hz sine over noise, 2-12 s long (the sixth
     20 s), 0.3-0.8 s gaps of faint noise alone, boundaries on 10 ms.
+    ``two_voices``: the same plan and noise, the bursts alternately a 260 Hz
+    sine under a 4 Hz swell and a glide of 200 +- 80 Hz at 1.5 Hz, two
+    "speakers" whose fbank varies over time (each speaker chunk's mean is
+    taken out before CAM++, so a steady tone alone would tell nothing).
     Returns (waveform, the bursts as [start_ms, end_ms])."""
     import numpy as np
 
@@ -2114,8 +2138,14 @@ def pipeline_recording(rng, seconds=PIPELINE_AUDIO_S):
         end = min(t + dur, seconds - 0.1)
         seg = [int(t * 100) * 10, int(end * 100) * 10]
         i0, i1 = seg[0] * FS // 1000, seg[1] * FS // 1000
-        wav[i0:i1] += (0.1 * np.sin(2 * np.pi * 260 * np.arange(i1 - i0) / FS)
-                       + 0.02 * rng.standard_normal(i1 - i0))
+        ts = np.arange(i1 - i0) / FS
+        if not two_voices:
+            voice = np.sin(2 * np.pi * 260 * np.arange(i1 - i0) / FS)
+        elif len(plan) % 2 == 0:
+            voice = (0.6 + 0.4 * np.sin(2 * np.pi * 4 * ts)) * np.sin(2 * np.pi * 260 * ts)
+        else:
+            voice = np.sin(2 * np.pi * np.cumsum(200 + 80 * np.sin(2 * np.pi * 1.5 * ts)) / FS)
+        wav[i0:i1] += 0.1 * voice + 0.02 * rng.standard_normal(i1 - i0)
         plan.append(seg)
         t = end + float(rng.uniform(0.3, 0.8))
     return wav.astype(np.float32), plan
@@ -2463,6 +2493,423 @@ def end_to_end_pipeline(torch, FK, A, profile_dir, card):
                            text_b=res_k["text"], sentence_info_b=res_k["sentence_info"][:20]),
                       f, ensure_ascii=False, indent=1)
     return launches_b, e2e, d32_cases, am
+
+
+# ------------------------------------------- pipeline run (c): hotwords, speakers
+N_HOTWORDS = 10  # run (c)'s hotword list: 10 words of 2-4 tokens
+SPK_COS_MIN = 0.999  # each speaker embedding against its twin's, cosine
+SEACO_MEMORY_ROWS = (2, 11, 51)  # H + 1: the no-bias row alone, run (c)'s list, 50 words
+
+
+def seaco_spk_configs():
+    """Run (c)'s configs: ``pipeline_configs()``'s BiCif dict as
+    SeacoParaformer (Paraformer-large widths and the class's SeACo defaults:
+    inner_dim 512, no-bias id 8377, a 3-block bias decoder of 4 heads and
+    1024 units; the JAX package carries no SeACo YAML), the FSMN-VAD and
+    CT-Transformer of the pipeline, and configs/campplus_diar.yaml's CAM++
+    (the published widths: 80 mels in, 192-d embeddings)."""
+    asr, vad, punc = pipeline_configs()
+    spk = dict(model="CAMPPlus", model_conf=dict(feat_dim=80, embedding_size=192))
+    return dict(asr, model="SeacoParaformer"), vad, punc, spk
+
+
+def hotword_list(rng, tokens, no_bias_id, n=N_HOTWORDS):
+    """``n`` words of 2-4 distinct tokens drawn from the vocabulary (not the
+    specials, not the no-bias class)."""
+    ids = [i for i in range(3, len(tokens)) if i != no_bias_id]
+    return ["".join(tokens[i] for i in rng.choice(ids, size=int(rng.integers(2, 5)),
+                                                  replace=False)) for _ in range(n)]
+
+
+def check_seaco_decoder_layer(torch, SL, DL, FF, A, B, U):
+    """The int8 decoder layer at the SeACo decoder's shapes (D = 512, 4
+    heads, 1024 units, the memory H + 1 hotword rows, the same for every
+    batch row, quantized once as the stack does) against its twin, and its
+    float32-context attention alone over those keys, bit-equal: H + 1 = 2
+    (the no-bias row alone), 11 (run (c)'s list) and 51."""
+    from funasr_torch.ops import rowquant as RQ
+    from funasr_torch.ops.masks import key_bias
+
+    D, H, K, NH, LEFT = 512, 1024, 11, 4, 5
+    _, dec_w, _ = int8_layer_weights(torch, SL, DL, FF, D=D, H=H, seed=14)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    wbytes = 4 * D * D + 2 * D * H + 4 * (2 * D + 2 * D + H) * 2 + 4 * K * D
+    cases = []
+    for T in SEACO_MEMORY_ROWS:
+        tl = torch.randint(1, U + 1, (B,), generator=gen, device="cuda", dtype=torch.int32)
+        tl[0] = U
+        ml = torch.full((B,), T, device="cuda", dtype=torch.int32)
+        x = torch.randn((B, U, D), generator=gen, device="cuda").to(torch.bfloat16)
+        mem = torch.randn((1, T, D), generator=gen, device="cuda").expand(B, T, D).to(
+            torch.bfloat16)
+        kb = key_bias(ml, T)
+        got = DL.fused_decoder_layer(x, mem, tl, ml, dec_w, NH, LEFT, kb,
+                                     DL.quantize_memory(mem))
+        want = DL.decoder_layer_ref(x, mem, tl, ml, dec_w, NH, LEFT, kb,
+                                    RQ.rowquant_ref(mem.reshape(B * T, D)))
+        n_tok = float(tl.double().sum())
+        cases.append(_layer_case(
+            torch, f"SeACo decoder layer B={B} U={U} memory H+1={T}, units {H}", got, want,
+            torch.arange(U, device="cuda")[None, :, None] < tl[:, None, None], None, None,
+            2 * 2 * n_tok * D + (D + 4) * B * T + 4 * B * T + wbytes,
+            {"int8": 2.0 * n_tok * (2 * D * H + 2 * D * D) + 2.0 * B * T * D * 2 * D,
+             "bfloat16": 4.0 * D * n_tok * T, "float32": 2.0 * K * D * n_tok}))
+        q = torch.randn((B, U, D), generator=gen, device="cuda")
+        kv = torch.randn((B, T, 2 * D), generator=gen, device="cuda")
+        args = (q, kv[..., :D], kv[..., D:], kb, NH, 128 ** -0.5, None)
+        got, want = A.attention_f32ctx(*args), A.attention_f32ctx_ref(*args)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(got, want))
+        check(bool(torch.isfinite(got).all()) and equal,
+              f"float32-context attention over {T} hotword rows: bit-equal to its twin")
+        cases.append(dict(case=f"SeACo cross-attention alone: q ({B}, {U}, {D}), k/v "
+                               f"({B}, {T}, {D}) f32, H={NH}",
+                          max_abs_err=float((got - want).abs().max()), tolerance=0.0,
+                          bit_equal=equal))
+    for case in cases:
+        log(f"SeACo decoder layer {case}")
+    return cases
+
+
+def check_spk_fbank(torch, FK, wav):
+    """The fbank kernel on the speaker-chunk batch (N x 1.5 s, hamming, 80
+    mels, no energy) against its float32 twin (``FBANK_TOL``) and the float64
+    exact value (``FBANK_EXACT_TOL``)."""
+    lens = torch.full((wav.shape[0],), wav.shape[1], device=wav.device, dtype=torch.int32)
+    got, _ = FK.fused_fbank(wav, lens)
+    want, _ = FK.fbank_ref(wav, lens)
+    exact = fbank_fft_route(torch, wav, torch.float64)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    err_exact = float((got.double() - exact).abs().max())
+    twin_exact = float((want.double() - exact).abs().max())
+    log(f"fbank on the speaker chunks {tuple(wav.shape)}: kernel vs twin {err:.3e} (tol "
+        f"{FBANK_TOL}), kernel vs exact {err_exact:.3e} (tol {FBANK_EXACT_TOL}), twin vs "
+        f"exact {twin_exact:.3e}")
+    check(err <= FBANK_TOL and err_exact <= FBANK_EXACT_TOL,
+          "fbank kernel on the speaker chunks against its twin and the exact value")
+    return dict(case=f"speaker chunks {tuple(wav.shape)} hamming, 80 mels", max_abs_err=err,
+                tolerance=FBANK_TOL, max_abs_err_exact=err_exact,
+                twin_max_abs_err_exact=twin_exact)
+
+
+def end_to_end_pipeline_c(torch, FK, A, card):
+    """Pipeline run (c): ``AutoModel(model=SeACo, vad_model=FSMN-VAD,
+    punc_model=CT-Transformer, spk_model=CAM++, quantize=True).generate(wav,
+    hotword=<10 words>, preset_spk_num=2)`` of a 600 s two-voice
+    ``pipeline_recording`` at full width on seeded random weights, the VAD's
+    state machine output replaced by the burst plan merged to <= 15 s (as
+    run (b)).  The bias head's no-bias logit is raised by the median margin
+    of one probe batch so that both branches of the merge run.  Twice: on
+    the kernels, with every counter held to its exact count and no host sync
+    inside a batch's or the speaker chunks' dispatch; then on the twins of
+    the int8 layers (ASR), of the d = 32 attention (punctuation) and of
+    fbank (speaker chunks), the ASR fbank and encoder layer 0's attention
+    staying kernels as in run (b): tokens agree >= 0.99, token lengths and
+    fire counts equal, merged log-probs within 1e-3 where the merge took
+    the same branch (the flips counted), timestamps equal when none flipped,
+    every speaker embedding at cosine >= 0.999 to its twin's, ``spk_info``
+    equal.  Returns (launches, e2e record, kernel cases)."""
+    import numpy as np
+
+    from funasr_torch.auto import auto_model as AM
+    from funasr_torch.auto.auto_model import AutoModel
+    from funasr_torch.models.campplus import cluster as CL
+    from funasr_torch.ops import decoder_layer as DL
+    from funasr_torch.ops import ffn as FF
+    from funasr_torch.ops import fsmn as FM
+    from funasr_torch.ops import int8_gemm as G
+    from funasr_torch.ops import qmm as QM
+    from funasr_torch.ops import quant as Q
+    from funasr_torch.ops import rowquant as RQ
+    from funasr_torch.ops import sanm_layer as SL
+    from funasr_torch.utils.vad_utils import merge_vad, slice_audio_by_segments
+
+    def tok_mask(out):
+        """The valid token positions of one batch's (tokens, lengths, ...)."""
+        return (torch.arange(out[0].shape[1], device=out[0].device)[None]
+                < out[1][:, None])
+
+    t0 = time.time()
+    asr_cfg, vad_cfg, punc_cfg, spk_cfg = seaco_spk_configs()
+    am = AutoModel(model=asr_cfg, vad_model=vad_cfg, punc_model=punc_cfg, spk_model=spk_cfg,
+                   quantize=True, seed=2028)
+    eng, ve, pm, spk = am.engine, am.vad_engine, am.punc_engine.model, am.spk_engine
+    model = eng.module
+    nb = model.no_bias_id
+    n_blocks = CT_PUNC["encoder_conf"]["num_blocks"]
+    n_seaco = len(model.seaco_decoder.decoders)
+    seaco_units = model.seaco_decoder.decoders[0].feed_forward.w_1.out_features
+    log(f"e2e pipeline (c): AutoModel (int8 SeACo, FSMN-VAD, CT-Transformer, CAM++) built "
+        f"in {time.time() - t0:.1f} s; SeACo decoder {n_seaco} layers x {seaco_units} units, "
+        f"CAM++ {sum(p.numel() for p in spk.model.parameters())} parameters")
+    wav, bursts = pipeline_recording(np.random.default_rng(12), two_voices=True)
+    plan = merge_vad(bursts, 15000)
+    words = hotword_list(np.random.default_rng(14), asr_cfg["tokenizer_conf"]["token_list"], nb)
+    hotword = " ".join(words)
+    grid = eng.encode_hotwords(hotword)
+    n_rows = int(grid.pad.shape[0])
+    check(n_rows == N_HOTWORDS + 1, f"hotword grid rows {n_rows}")
+
+    # the no-bias logit raised by the median margin on one probe batch (15 s)
+    probe = [wav[s * 16: e * 16] for s, e in plan[:4]]
+    seen = {}
+    real_merge = model.merge_logprobs
+
+    def margin_spy(dec, dha):
+        seen["dha"] = dha.float()
+        return real_merge(dec, dha)
+
+    model.merge_logprobs = margin_spy
+    try:
+        wav_d, lens_d = eng._pack(probe)
+        _, tl, _, _ = eng.run_hw(wav_d, lens_d, grid, eng._max_tokens(wav_d.shape[1]))
+    finally:
+        del model.merge_logprobs
+    dha = seen["dha"]
+    valid = torch.arange(dha.shape[1], device=dha.device)[None] < tl[:, None]
+    others = torch.cat([dha[..., :nb], dha[..., nb + 1:]], -1).amax(-1)
+    shift = float((others - dha[..., nb])[valid].median())
+    with torch.no_grad():
+        model.hotword_output_layer.bias[nb] += shift
+    am.warmup(seconds=(2,))
+    eng.transcribe(probe[:1], hotword=grid)  # the hotword path's first call
+    torch.cuda.synchronize()
+    log(f"e2e pipeline (c): hotwords {words}; no-bias logit raised by {shift:.3f}")
+
+    counters = {"fbank": FK.fused_fbank, "attention": A.fused_attention,
+                "sanm_layer": SL.fused_sanm_layer, "decoder_layer": DL.fused_decoder_layer,
+                "ffn": FF.fused_ffn_int8, "qmm": QM.quant_matmul,
+                "attention_i8qk": A.attention_i8qk, "attention_f32ctx": A.attention_f32ctx,
+                "ffn_bf16": FF.fused_ffn, "int8_gemm": G.int8_gemm, "rowquant": RQ.rowquant,
+                "int8_gemm_rq": G.int8_gemm_rq, "fsmn": FM.fsmn, "fsmn_ln": FM.fsmn_ln}
+
+    def guarded(f):
+        def call(*a, **k):
+            torch.cuda.set_sync_debug_mode("error")  # a host sync here raises
+            try:
+                return f(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return call
+
+    def run(twins):
+        """One ``generate`` with the counters read -> (result, launches,
+        punctuation rounds, per-batch outputs, merged log-probs and branches,
+        speaker embeddings and chunk batches, stage times)."""
+        clock = StageClock(torch)
+        rounds, outs, merges, embs, chunk_wavs = [0], [], [], [], []
+        real_argmax, real_run, real_spk = pm._argmax, eng.run_hw, spk.run
+
+        def counted_argmax(text, lens):
+            rounds[0] += 1
+            if not twins:
+                return real_argmax(text, lens)
+            with swapped([(A, "fused_attention", A.attention_ref)]):
+                return real_argmax(text, lens)
+
+        def kept_run(*a):
+            out = real_run(*a)
+            outs.append([x.clone() for x in out])
+            return out
+
+        def kept_merge(dec, dha):
+            out = real_merge(dec, dha)
+            merges.append((out.clone(), torch.argmax(dha, -1) == nb))
+            return out
+
+        def kept_spk(wav_d, lens_d):
+            chunk_wavs.append(wav_d)
+            if not twins:
+                emb = real_spk(wav_d, lens_d)
+            else:
+                with swapped([(FK, "fused_fbank", FK.fbank_ref)]):
+                    emb = real_spk(wav_d, lens_d)
+            embs.append(emb.clone())
+            return emb
+
+        pm._argmax, eng.run_hw, spk.run = counted_argmax, kept_run, kept_spk
+        model.merge_logprobs = kept_merge
+        for obj, name in ((eng, "transcribe_async"), (eng, "encode_hotwords"),
+                          (spk, "embed_async")):
+            setattr(obj, name, guarded(getattr(obj, name)))
+        # the state machine runs, its segments replaced by the plan
+        ve.model.segments_from_posteriors = (
+            lambda post, db, f=ve.model.segments_from_posteriors: (f(post, db), plan)[1])
+        clock.wrap(ve, "front", "vad_device", events=True)
+        clock.wrap(ve.model, "segments_from_posteriors", "vad_host")
+        clock.wrap(eng, "run_hw", "asr_device", events=True)
+        clock.wrap(eng, "_ts_results", "asr_host")
+        clock.wrap(pm, "inference_batch", "punc")
+        clock.wrap(pm, "_argmax", "punc_device", events=True)
+        clock.wrap(spk, "run", "spk_device", events=True)
+        clock.wrap(spk, "embed_async", "spk_dispatch")
+        clock.wrap(CL.ClusterBackend, "__call__", "cluster")
+        clock.wrap(AM, "sv_chunk", "spk_chunking")
+        clock.wrap(AM, "distribute_spk", "spk_distribute")
+        clock.wrap(AM, "timestamp_sentence", "sentences")
+        for fn in counters.values():
+            fn.launches = 0
+        A.fused_attention.launches_by_head = dict.fromkeys(A.HEAD_SIZES, 0)
+        try:
+            stack = int8_twins() if twins else contextlib.nullcontext()
+            with stack:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = am.generate(wav, key=["c"], hotword=hotword, preset_spk_num=2)[0]
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            clock.restore()
+            for obj, attr in ((pm, "_argmax"), (eng, "run_hw"), (spk, "run"),
+                              (model, "merge_logprobs"), (eng, "transcribe_async"),
+                              (eng, "encode_hotwords"), (spk, "embed_async"),
+                              (ve.model, "segments_from_posteriors")):
+                delattr(obj, attr)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        launches["attention_d32"] = A.fused_attention.launches_by_head[32]
+        times = dict(generate_wall_s=wall, audio_s_per_s=PIPELINE_AUDIO_S / wall,
+                     vad_device_ms=clock.device_ms("vad_device"),
+                     vad_host_wall_s=clock.wall.get("vad_host", 0.0),
+                     asr_device_span_ms=clock.device_ms("asr_device", span=True),
+                     asr_device_ms=clock.device_ms("asr_device"),
+                     asr_dispatch_wall_s=clock.wall.get("asr_device", 0.0),
+                     asr_host_wall_s=clock.wall.get("asr_host", 0.0),
+                     punc_wall_s=clock.wall.get("punc", 0.0),
+                     punc_device_ms=clock.device_ms("punc_device"), punc_rounds=rounds[0],
+                     spk_device_ms=clock.device_ms("spk_device"),
+                     spk_dispatch_wall_s=clock.wall.get("spk_dispatch", 0.0),
+                     cluster_host_s=clock.wall.get("cluster", 0.0),
+                     spk_chunking_host_s=clock.wall.get("spk_chunking", 0.0),
+                     spk_distribute_host_s=clock.wall.get("spk_distribute", 0.0),
+                     sentence_info_host_s=clock.wall.get("sentences", 0.0))
+        return res, launches, rounds[0], outs, merges, embs, chunk_wavs, times
+
+    # one run first: the first call at the speaker batch's and the ASR
+    # batches' shapes (cuDNN plans, allocations) is not the one timed
+    first = run(twins=False)[-1]
+    log(f"e2e pipeline (c), the first call at these shapes: {json.dumps(first)}")
+    res, launches, rounds, outs, merges, embs, chunk_wavs, times = run(twins=False)
+    segments = plan
+    clips = slice_audio_by_segments(wav, segments, FS)
+    batches = am.batches(segments, FS, 300)
+    n_chunks = sum(len(CL.sv_chunk([s / 1000.0, e / 1000.0, c], fs=FS))
+                   for (s, e), c in zip(segments, clips))
+    want = dict.fromkeys(counters, 0)
+    # fbank: the VAD (the waveform path: no shared grid under a hotword), each
+    # ASR batch, the speaker chunks (one length: one call)
+    want["fbank"] = 1 + len(batches) + 1
+    shapes = []
+    for batch in batches:
+        B, T, U = served_shape(eng, [clips[i] for i in batch])
+        shapes.append((B, T, U))
+        per = layer_launches()
+        # the gated QDense contractions: the main model's, and the SeACo
+        # decoder's FFN-only tail w_1 in each of its two passes (its w_2 has
+        # 512 columns, under the gate; hotword_output_layer is never int8)
+        n_q = qdense_gated(Q, (B, T, U)) + 2 * Q.gate(B * U, seaco_units)
+        # each SeACo pass: its memory row-quantized once, per full layer 4
+        # rowquant + int8 GEMM pairs, the GEMM on the memory and one fsmn_ln
+        per["rowquant"] += n_q + 2 * (1 + 4 * n_seaco)
+        per["int8_gemm"] += n_q + 2 * 5 * n_seaco
+        per["fsmn_ln"] += 2 * n_seaco
+        for k, n in (("attention", 1), ("ffn", 1), ("sanm_layer", 49),
+                     ("decoder_layer", 16 + 2 * n_seaco), *per.items()):
+            want[k] += n
+        want["attention_f32ctx"] += (49 * exact_attention_launches(A, B, T, T)
+                                     + 16 * exact_attention_launches(A, B, U, T)
+                                     + 2 * n_seaco * exact_attention_launches(A, B, U, n_rows))
+    want["attention"] += rounds * n_blocks
+    want["attention_d32"] = rounds * n_blocks
+    log(f"e2e pipeline (c): {len(segments)} segments, ASR batches (B, T, U) {shapes}, "
+        f"memory {n_rows} hotword rows, {rounds} punctuation rounds, {n_chunks} speaker "
+        f"chunks in {len(chunk_wavs)} batch(es) of {[tuple(w.shape) for w in chunk_wavs]}; "
+        f"kernel launches {launches}")
+    check(launches == want, f"pipeline (c) launches {launches}, want {want}")
+    check(len(chunk_wavs) == 1 and chunk_wavs[0].shape == (n_chunks, int(1.5 * FS)),
+          "pipeline (c): the speaker chunks in one batch")
+    ts = res["timestamp"]
+    spk_info = res.get("spk_info", [])
+    check(isinstance(res.get("text"), str) and res["text"] and len(ts) > 0
+          and res.get("sentence_info") and all("spk" in s for s in res["sentence_info"]),
+          "pipeline (c): text, timestamps and sentence_info with speakers")
+    check(all(b <= e for b, e in ts) and all(0 <= b and e <= PIPELINE_AUDIO_S * 1000
+                                            for b, e in ts),
+          "pipeline (c): timestamps within the recording")
+    labels = [lab for _, _, lab in spk_info]
+    check(len(spk_info) == n_chunks and set(labels) == {0, 1},
+          f"pipeline (c): spk_info of {len(spk_info)} chunks, speakers {sorted(set(labels))}")
+    emb_k = torch.cat(embs)
+    check(emb_k.shape == (n_chunks, 192) and bool(torch.isfinite(emb_k).all()),
+          "pipeline (c): finite 192-d speaker embeddings")
+    # speakers against the voices: chunks wholly inside one burst
+    voice_of = []
+    for (c0, c1, lab) in spk_info:
+        hit = [i % 2 for i, (b0, b1) in enumerate(bursts) if b0 <= c0 and c1 <= b1]
+        if hit:
+            voice_of.append((hit[0], lab))
+    pure = max(np.mean([v == lab for v, lab in voice_of]),
+               np.mean([v != lab for v, lab in voice_of])) if voice_of else 0.0
+    branch_share = float(np.mean([float(b[tok_mask(o)].float().mean()) for (_, b), o in
+                                  zip(merges, outs)]))
+    log(f"e2e pipeline (c) on {card}: {json.dumps(times)}; text {res['text'][:24]}... "
+        f"{len(ts)} stamps, {len(res['sentence_info'])} sentences, speakers per chunk "
+        f"{np.bincount(labels).tolist()}, label purity against the two voices "
+        f"{pure:.4f} over {len(voice_of)} chunks inside one burst; the merge kept the "
+        f"decoder at {branch_share:.4f} of the positions")
+    e2e = {"pipeline_c": dict(times, first_call=first, segments=len(segments), batches=shapes,
+                              hotword_rows=n_rows, speaker_chunks=n_chunks,
+                              speaker_batch=[tuple(w.shape) for w in chunk_wavs],
+                              launches=launches, no_bias_shift=shift,
+                              speaker_label_purity=pure, decoder_branch_share=branch_share)}
+    spk_case = check_spk_fbank(torch, FK, chunk_wavs[0])
+
+    # ---- the same run on the twins
+    res_t, _, _, outs_t, merges_t, embs_t, _, times_t = run(twins=True)
+    same_len = all(torch.equal(a[1], b[1]) for a, b in zip(outs, outs_t))
+    same_fires = all(torch.equal(a[3].sum(-1), b[3].sum(-1)) for a, b in zip(outs, outs_t))
+    n_ok = n_all = flips = 0
+    logp_err = 0.0
+    for (a, (ma, ba)), (b, (mb, bb)) in zip(zip(outs, merges), zip(outs_t, merges_t)):
+        valid = tok_mask(a)
+        n_ok += int((a[0] == b[0])[valid].sum())
+        n_all += int(valid.sum())
+        flip = (ba != bb) & valid
+        flips += int(flip.sum())
+        keep = valid & ~flip
+        if keep.any():
+            logp_err = max(logp_err, float((ma - mb).abs()[keep].max()))
+    agree = n_ok / max(n_all, 1)
+    same_ts = res["timestamp"] == res_t["timestamp"]
+    emb_t = torch.cat(embs_t)
+    cos = torch.nn.functional.cosine_similarity(emb_k.double(), emb_t.double(), dim=-1)
+    mean = emb_k.double().mean(0)
+    cos_c = torch.nn.functional.cosine_similarity(emb_k.double() - mean,
+                                                  emb_t.double() - mean, dim=-1)
+    same_spk = res.get("spk_info") == res_t.get("spk_info")
+    log(f"e2e pipeline (c), kernels vs twins: token lengths equal {same_len}, fire counts "
+        f"equal {same_fires}, token agreement {agree:.5f} over {n_all}, merge branches "
+        f"flipped at {flips} positions, merged max |dlogp| {logp_err:.3e} where not "
+        f"(tol {E2E_INT8_LOGP_TOL}), timestamps equal {same_ts}; speaker embeddings "
+        f"cosine min {float(cos.min()):.7f} (bar {SPK_COS_MIN}), centered on the mean "
+        f"{float(cos_c.min()):.7f}; spk_info equal {same_spk}; twins' run "
+        f"{json.dumps(times_t)}")
+    check(same_len and same_fires and agree >= E2E_INT8_MIN_AGREE
+          and logp_err <= E2E_INT8_LOGP_TOL and (same_ts or flips > 0),
+          "pipeline (c): int8 SeACo kernels against twins")
+    check(float(cos.min()) >= SPK_COS_MIN and same_spk,
+          "pipeline (c): speaker embeddings and spk_info, fbank kernel against its twin")
+    e2e["pipeline_c_twins"] = dict(token_lengths_equal=same_len, fire_counts_equal=same_fires,
+                                   token_agreement=agree, branch_flips=flips,
+                                   merged_logp_max_abs_diff=logp_err, timestamps_equal=same_ts,
+                                   spk_cos_min=float(cos.min()),
+                                   spk_centered_cos_min=float(cos_c.min()),
+                                   spk_info_equal=same_spk)
+    B0, _, U0 = shapes[0]
+    cases = check_seaco_decoder_layer(torch, SL, DL, FF, A, B0, U0)
+    del am
+    torch.cuda.empty_cache()
+    return launches, e2e, cases, spk_case
 
 
 # ------------------------------------------------------------------ streaming
@@ -2943,6 +3390,8 @@ def main(argv=None) -> int:
     launches_pipe, e2e_pipe, d32_cases, am = end_to_end_pipeline(torch, FK, A, args.profile,
                                                                  smi)
     e2e.update(e2e_pipe)
+    launches_c, e2e_c, seaco_cases, spk_fbank_case = end_to_end_pipeline_c(torch, FK, A, smi)
+    e2e.update(e2e_c)
     launches_stream, e2e_stream, stream_attn, stream_fbank = end_to_end_streaming(
         torch, FK, A, am, args.profile, smi)
     e2e.update(e2e_stream)
@@ -2957,6 +3406,7 @@ def main(argv=None) -> int:
                    "beam": launches_beam.get(name, 0),
                    "bicif": launches_bicif.get(name, 0),
                    "pipeline": launches_pipe.get(name, 0),
+                   "pipeline_c": launches_c.get(name, 0),
                    "streaming": launches_stream.get(name, 0)}
         return dict(name=name, route="cuda", source=sources[0], sources=sources,
                     replaces=replaces, launches=sum(by_path.values()),
@@ -2970,7 +3420,7 @@ def main(argv=None) -> int:
     kernels = [
         entry("fbank", ["funasr_torch/csrc/fbank.cu"],
               "funasr_tpu/ops/fbank_pallas.py:97", fbank_cases[0],
-              fbank_cases + [stream_fbank]),
+              fbank_cases + [stream_fbank, spk_fbank_case]),
         entry("attention", ["funasr_torch/csrc/attention.cu"],
               "funasr_tpu/ops/attention_pallas.py:37", attn_cases[0],
               attn_cases + stream_attn),
@@ -2982,7 +3432,7 @@ def main(argv=None) -> int:
               layer_cases["sanm_layer"] + f32ctx_cases["sanm_layer"]),
         entry("decoder_layer", dec_src, "funasr_tpu/ops/decoder_layer_pallas.py:165",
               layer_cases["decoder_layer"][0],
-              layer_cases["decoder_layer"] + f32ctx_cases["decoder_layer"]),
+              layer_cases["decoder_layer"] + f32ctx_cases["decoder_layer"] + seaco_cases),
         entry("ffn", gemm_src, "funasr_tpu/ops/ffn_pallas.py:113",
               layer_cases["ffn"][0], layer_cases["ffn"]),
         # the building block of rows sanm_layer, decoder_layer and ffn (and

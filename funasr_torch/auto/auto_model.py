@@ -1,8 +1,8 @@
 """AutoModel: the user-facing pipeline API (port of funasr_tpu/auto/auto_model.py;
 reference funasr/auto/auto_model.py:111).
 
-Builds the main ASR model and, optionally, a VAD and a punctuation model
-from configs, and exposes ``generate()``:
+Builds the main ASR model and, optionally, a VAD, a punctuation and a
+speaker model from configs, and exposes ``generate()``:
 
 - plain batched inference without a VAD;
 - with a VAD, the long-audio pipeline (``_inference_with_vad``, reference
@@ -17,12 +17,24 @@ from configs, and exposes ``generate()``:
   column the VAD's decibel track) and the ASR stage gathers each segment's
   frames from that grid.
 
-Main models: Paraformer, BiCifParaformer and the Conformer CTC/attention
-hybrid (``ParaformerEngine``, ``BiCifEngine``, ``HybridEngine``); a
-FsmnVADStreaming or CTTransformer config as the main model serves VAD or
-punctuation alone.  ``quantize=True`` builds the int8 serving models (int8
-layers, bf16 activations between them, as ``bench.py`` serves them; a
-config's ``dtype`` overrides bf16) with the JAX package's two opt-in int8
+With a speaker model (CAM++, ``spk_model``) the pipeline also cuts each VAD
+segment into 1.5 s chunks at a 0.75 s step (``sv_chunk``), embeds them
+all in one device call dispatched after the ASR batches, clusters the
+embeddings on the host (``ClusterBackend``; ``preset_spk_num`` fixes the
+speaker count) into ``spk_info`` and gives each sentence of
+``sentence_info`` its speaker (``distribute_spk``).
+
+Main models: Paraformer, BiCifParaformer, SeacoParaformer and the Conformer
+CTC/attention hybrid (``ParaformerEngine``, ``BiCifEngine``,
+``HotwordEngine``, ``HybridEngine``); a FsmnVADStreaming or CTTransformer
+config as the main model serves VAD or punctuation alone.
+``generate(hotword=...)`` decodes a SeacoParaformer with its bias head; as
+in the JAX package a call with a hotword takes the waveform path, not the
+shared fbank grid, and another main model ignores the hotword.
+
+``quantize=True`` builds the int8 serving models (int8 layers, bf16
+activations between them, as ``bench.py`` serves them; a config's
+``dtype`` overrides bf16) with the JAX package's two opt-in int8
 routes off; ``qmm`` and ``int8_attn`` turn them on (arguments here, the
 JAX package's ``FUNASR_TPU_PALLAS_QMM`` / ``FUNASR_TPU_INT8_ATTN``).
 Punctuation computes in bf16 when ``quantize=True`` and never takes the
@@ -33,10 +45,10 @@ FunASR torch-layout names (``convert.*_from_jax`` produce them).  Without
 weights every model gets seeded random weights (``seed``).  ``device=None``
 means the card (raises without one unless ``device="cpu"``).
 
-Not ported, and raising ``NotImplementedError`` rather than skipped: the
-speaker branch (``spk_model``), inverse text normalization (``use_itn``),
-hotwords, a hybrid main model with a VAD, ``output_dir``, URL inputs; the
-JAX package's meshes and parallel serving options are not arguments here.
+Not ported, and raising ``NotImplementedError`` rather than skipped:
+inverse text normalization (``use_itn``), ContextualParaformer, a hybrid
+main model with a VAD, ``output_dir``, URL inputs; the JAX package's meshes
+and parallel serving options are not arguments here.
 """
 
 from __future__ import annotations
@@ -52,13 +64,16 @@ import torch
 from funasr_torch.auto.engines import (
     BiCifEngine,
     FrontendConfig,
+    HotwordEngine,
     HybridEngine,
     ParaformerEngine,
     PuncEngine,
+    SpkEngine,
     VadEngine,
 )
 from funasr_torch.config import deep_update, load_config
 from funasr_torch.device import resolve_device
+from funasr_torch.models.campplus.cluster import ClusterBackend, distribute_spk, sv_chunk
 from funasr_torch.models.paraformer.model import init_random_
 from funasr_torch.ops.fbank import load_cmvn_file
 from funasr_torch.registry import tables
@@ -144,9 +159,6 @@ class AutoModel:
                  **kwargs):
         """``shared_frontend=False`` keeps the waveform path in the pipeline
         (the JAX package's ``FUNASR_TPU_DISABLE_SHARED_FRONTEND``)."""
-        if spk_model is not None:
-            raise NotImplementedError("AutoModel: the speaker branch (spk_model) is not "
-                                      "ported")
         if kwargs.get("use_itn"):
             raise NotImplementedError("AutoModel: use_itn (inverse text normalization) "
                                       "is not ported")
@@ -156,7 +168,7 @@ class AutoModel:
         self._quantize = bool(quantize)
         self._qmm, self._int8_attn = bool(qmm), bool(int8_attn)
         self.shared_frontend = shared_frontend
-        self.engine = self.vad_engine = self.punc_engine = None
+        self.engine = self.vad_engine = self.punc_engine = self.spk_engine = None
         self.main_cfg: Dict = {}
         if model is not None:
             self.main_cfg = _resolve_cfg(model, model_conf)
@@ -165,6 +177,8 @@ class AutoModel:
             self.vad_engine = self._build_vad(_resolve_cfg(vad_model, vad_conf))
         if punc_model is not None:
             self.punc_engine = self._build_punc(_resolve_cfg(punc_model, punc_conf))
+        if spk_model is not None:
+            self.spk_engine = self._build_spk(_resolve_cfg(spk_model, spk_conf))
 
     # ------------------------------------------------------------- builders
     def _build_main(self, cfg: Dict):
@@ -173,9 +187,13 @@ class AutoModel:
             return self._build_punc(cfg)
         if name == "FsmnVADStreaming":  # standalone VAD: segment lists out
             return self._build_vad(cfg)
-        if name not in ("Paraformer", "BiCifParaformer", "Conformer"):
+        if name == "ContextualParaformer":
+            raise NotImplementedError("AutoModel: ContextualParaformer "
+                                      "(HotwordEngine(seaco=False)) is not ported")
+        if name not in ("Paraformer", "BiCifParaformer", "SeacoParaformer", "Conformer"):
             raise NotImplementedError(f"AutoModel: no engine for model class {name!r} in "
-                                      "the port (Paraformer, BiCifParaformer, Conformer)")
+                                      "the port (Paraformer, BiCifParaformer, "
+                                      "SeacoParaformer, Conformer)")
         tokenizer = _build_tokenizer(cfg)
         frontend = _build_frontend(cfg)
         dtype = cfg.get("dtype") or ("bfloat16" if self._quantize else "float32")
@@ -205,7 +223,8 @@ class AutoModel:
                                 maxlen=dec.get("maxlenratio_tokens", 96),
                                 decoding_ctc_weight=dec.get("decoding_ctc_weight", 0.3),
                                 device=self.device)
-        eng = BiCifEngine if name == "BiCifParaformer" else ParaformerEngine
+        eng = {"BiCifParaformer": BiCifEngine,
+               "SeacoParaformer": HotwordEngine}.get(name, ParaformerEngine)
         return eng(module, frontend, tokenizer, blank_id=module.blank_id, device=self.device)
 
     def _build_vad(self, cfg: Dict) -> VadEngine:
@@ -228,6 +247,12 @@ class AutoModel:
         _weights(model.module, _load_state(cfg), self.seed, self.device)
         return PuncEngine(model, tokenizer)
 
+    def _build_spk(self, cfg: Dict) -> SpkEngine:
+        cls = tables.get("model_classes", cfg.get("model", "CAMPPlus"))
+        model = cls(**(cfg.get("model_conf") or {}), device=self.device)
+        _weights(model, _load_state(cfg), self.seed, self.device)
+        return SpkEngine(model)
+
     # ------------------------------------------------------------ generate
     def generate(self, input, fs: int = 16000, key: Optional[List[str]] = None,
                  batch_size: int = 16, output_dir: Optional[str] = None, **kwargs):
@@ -236,11 +261,8 @@ class AutoModel:
         inputs) -> one result dict per input, with its ``key``."""
         if output_dir is not None:
             raise NotImplementedError("AutoModel.generate: output_dir is not ported")
-        for name in ("hotword", "use_itn"):
-            if kwargs.get(name):
-                raise NotImplementedError(f"AutoModel.generate: {name} is not ported")
-        kwargs.pop("use_itn", None)
-        kwargs.pop("hotword", None)
+        if kwargs.pop("use_itn", None):
+            raise NotImplementedError("AutoModel.generate: use_itn is not ported")
         if isinstance(self.engine, PuncEngine):
             texts = [input] if isinstance(input, str) else list(input)
             keys = key or [f"punc{i}" for i in range(len(texts))]
@@ -264,6 +286,12 @@ class AutoModel:
                                           "ported")
             return [self._inference_with_vad(w, k, fs=target_fs, **kwargs)
                     for w, k in zip(wavs, keys)]
+        # without a VAD there is no speaker branch; a hotword reaches only a
+        # hotword engine (the JAX engines take and ignore it)
+        kwargs.pop("preset_spk_num", None)
+        hotword = kwargs.pop("hotword", None)
+        if hotword is not None and isinstance(self.engine, HotwordEngine):
+            kwargs["hotword"] = hotword
         results = []
         for i in range(0, len(wavs), batch_size):
             for j, r in enumerate(self.engine.transcribe(wavs[i: i + batch_size], **kwargs)):
@@ -285,6 +313,8 @@ class AutoModel:
                     self.vad_engine.transcribe(wavs)
         if self.punc_engine is not None:
             self.punc_engine.punctuate("warmup")
+        if self.spk_engine is not None:  # a failure here surfaces
+            self.spk_engine.embed([np.zeros(int(seconds[0] * fs), np.float32)])
 
     def _prepare_inputs(self, input, fs, key, audio_fs=None):
         items = input if isinstance(input, (list, tuple)) else [input]
@@ -348,9 +378,10 @@ class AutoModel:
 
     def _inference_with_vad(self, wav: np.ndarray, key: str, batch_size_s: int = 300,
                             merge_length_s: int = 15, with_timestamp: bool = True,
-                            fs: int = 16000, punc_mode: str = "segment") -> Dict[str, Any]:
+                            fs: int = 16000, punc_mode: str = "segment", hotword=None,
+                            preset_spk_num: Optional[int] = None) -> Dict[str, Any]:
         afe, vfe = getattr(self.engine, "frontend", None), self.vad_engine.frontend
-        shared = (self.shared_frontend
+        shared = (self.shared_frontend and hotword is None
                   and hasattr(self.engine, "transcribe_from_fbank_async")
                   and afe is not None and afe.fs == vfe.fs and afe.n_mels == vfe.n_mels
                   and afe.window == vfe.window)
@@ -362,7 +393,12 @@ class AutoModel:
         segments = merge_vad(segments, merge_length_s * 1000)
         if not segments:
             return {"key": key, "text": ""}
-        clips = None if shared else slice_audio_by_segments(wav, segments, fs)
+        clips = None
+        if not shared or self.spk_engine is not None:
+            clips = slice_audio_by_segments(wav, segments, fs)
+        hw = {}
+        if hotword is not None and isinstance(self.engine, HotwordEngine):
+            hw["hotword"] = self.engine.encode_hotwords(hotword)  # one upload
 
         # every batch's device work queued before any batch is finalized
         pending = []
@@ -373,8 +409,14 @@ class AutoModel:
                     raw_fbank, [segments[i] for i in batch], offsets, total_frames)
             else:
                 fin = self.engine.transcribe_async([clips[i] for i in batch],
-                                                   with_timestamp, offsets)
+                                                   with_timestamp, offsets, **hw)
             pending.append((batch, fin))
+        # the speaker chunks' embeddings queued after the ASR batches
+        spk_chunks, spk_fin = [], None
+        if self.spk_engine is not None:
+            for (start_ms, end_ms), clip in zip(segments, clips):
+                spk_chunks.extend(sv_chunk([start_ms / 1000.0, end_ms / 1000.0, clip], fs=fs))
+            spk_fin = self.spk_engine.embed_async([c[2] for c in spk_chunks])
         seg_results: Dict[int, Dict] = {}
         for batch, finalize in pending:
             for i, r in zip(batch, finalize()):
@@ -424,4 +466,11 @@ class AutoModel:
             result["sentence_info"] = timestamp_sentence(
                 punc_array, all_ts_a, all_tokens_a,
                 punc_list=self.punc_engine.model.punc_list)
+        if spk_chunks:
+            labels = ClusterBackend()(spk_fin(), oracle_num=preset_spk_num)
+            sd_segments = [[int(c[0] * 1000), int(c[1] * 1000), int(lab)]
+                           for c, lab in zip(spk_chunks, labels)]
+            result["spk_info"] = sd_segments
+            if "sentence_info" in result:
+                result["sentence_info"] = distribute_spk(result["sentence_info"], sd_segments)
         return result

@@ -29,12 +29,16 @@ from pinned memory, so no entry waits on the card between two batches.
 the endpoint state machine on the host; ``segments_shared`` takes the fbank
 kernel's energy column as the decibel track and hands the raw fbank grid on
 to ``BiCifEngine.transcribe_from_fbank_async``.  ``PuncEngine`` wraps the
-CT-Transformer.  Meshes and sequence parallelism are later slices.
+CT-Transformer.  ``HotwordEngine`` serves SeacoParaformer: hotword strings
+become a padded id grid uploaded once, decoded with the bias head in the
+same pass as the BiCif timestamps.  ``SpkEngine`` embeds fixed-length
+speaker chunks through the fbank kernel and CAM++, one batch per chunk
+length.  Meshes and sequence parallelism are later slices.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -332,6 +336,90 @@ class BiCifEngine(ParaformerEngine):
         return results
 
 
+class HotwordGrid(NamedTuple):
+    """Hotwords as the model takes them, on the engine's device: (H, L) int32
+    token ids, zero-padded, the no-bias row last, and (H,) int32 lengths."""
+
+    pad: torch.Tensor
+    lengths: torch.Tensor
+
+
+class HotwordEngine(BiCifEngine):
+    """SeacoParaformer serving on ``device`` (default the GPU)
+    (``engines.py:476`` of the JAX package): with a hotword the bias head
+    decodes and the BiCif track stamps in one pass; with none it is
+    :class:`BiCifEngine`.  ``seaco=False`` (ContextualParaformer) is not
+    ported."""
+
+    def __init__(self, module, frontend: FrontendConfig, tokenizer, blank_id: int = 0,
+                 max_tokens_per_15s: int = 128, device=None, seaco: bool = True):
+        if not seaco:
+            raise NotImplementedError("HotwordEngine(seaco=False): ContextualParaformer "
+                                      "is not ported")
+        super().__init__(module, frontend, tokenizer, blank_id=blank_id,
+                         max_tokens_per_15s=max_tokens_per_15s, device=device)
+
+    def encode_hotwords(self, hotword: Union[str, Sequence[str]]) -> HotwordGrid:
+        """'word1 word2' (whitespace-split) or a list of words -> the grid:
+        words that tokenize to nothing dropped, the no-bias row appended,
+        rows padded to max(8, the longest) (``_encode_hotwords``, the
+        reference's ``proc_hotword``).  One upload, no wait on the card."""
+        words = hotword.split() if isinstance(hotword, str) else list(hotword)
+        rows = [r for r in (self.tokenizer.encode(w) for w in words) if len(r)]
+        rows.append([int(self.module.no_bias_id)])
+        L = max(8, max(len(r) for r in rows))
+        pad = np.zeros((len(rows), L), np.int32)
+        lens = np.zeros((len(rows),), np.int32)
+        for i, r in enumerate(rows):
+            pad[i, : len(r)] = r[:L]
+            lens[i] = min(len(r), L)
+        return HotwordGrid(upload(pad, self.device), upload(lens, self.device))
+
+    @torch.inference_mode()
+    def run_hw(self, wav: torch.Tensor, lens: torch.Tensor, grid: HotwordGrid,
+               max_tokens: int):
+        """The device program: (B, N) waveform batch and the hotword grid ->
+        tokens (B, U), token_lengths, us_alphas and us_peaks (B, 3 T)."""
+        feats, flens = self.frontend.device_features(wav, lens)
+        return self.module.decode_with_hotwords(feats, flens, grid.pad, grid.lengths,
+                                                max_tokens=max_tokens)
+
+    def transcribe(self, wavs: Sequence[np.ndarray], with_timestamp: bool = True,
+                   vad_offsets: Optional[Sequence[int]] = None,
+                   hotword: Union[None, str, Sequence[str], HotwordGrid] = None
+                   ) -> List[Dict[str, Any]]:
+        """Waveforms -> one ``{"text", "timestamp", "raw_tokens"}`` dict each
+        (``{"text", "raw_tokens"}`` without ``with_timestamp``), decoded with
+        ``hotword`` (words, or a grid from :meth:`encode_hotwords`)."""
+        return self.transcribe_async(wavs, with_timestamp, vad_offsets, hotword)()
+
+    def transcribe_async(self, wavs: Sequence[np.ndarray], with_timestamp: bool = True,
+                         vad_offsets: Optional[Sequence[int]] = None,
+                         hotword: Union[None, str, Sequence[str], HotwordGrid] = None):
+        """Queue :meth:`transcribe`'s device work and the copies of its
+        outputs now; returns ``finalize()`` -> the results."""
+        if hotword is None or not len(wavs):
+            return super().transcribe_async(wavs, with_timestamp, vad_offsets)
+        grid = hotword if isinstance(hotword, HotwordGrid) else self.encode_hotwords(hotword)
+        wav_d, lens_d = self._pack(wavs)
+        out = fetch_async(self.run_hw(wav_d, lens_d, grid, self._max_tokens(wav_d.shape[1])))
+        if not with_timestamp:
+            return lambda: self._text_results(len(wavs), *fetched(*out)[:2])
+        us_lens = self._us_lens([len(w) for w in wavs])
+        return lambda: self._ts_results(len(wavs), *fetched(*out), vad_offsets, us_lens)
+
+    def _text_results(self, n: int, tokens, tok_lens) -> List[Dict[str, Any]]:
+        """Detokenize a fetched batch, blanks dropped (the JAX engine's
+        hotword path keeps sos/eos ids, as here)."""
+        tokens, tok_lens = tokens.numpy(), tok_lens.numpy()
+        results = []
+        for i in range(n):
+            ids = [t for t in tokens[i, : int(tok_lens[i])].tolist() if t != self.blank_id]
+            text, words = sentence_postprocess(self.tokenizer.ids2tokens(ids))
+            results.append({"text": text, "raw_tokens": words})
+        return results
+
+
 class HybridEngine(BatchedAsrEngine):
     """Joint CTC/attention beam serving (Conformer) on ``device`` (default the
     GPU; raises without one unless ``device="cpu"``): device beam decode,
@@ -442,6 +530,56 @@ class VadEngine:
         """Standalone VAD (reference fsmn_vad_streaming/model.py:648):
         ``value`` holds the segment list, ``text`` stays empty."""
         return [{"text": "", "value": self.segments(np.asarray(w))} for w in wavs]
+
+
+class SpkEngine:
+    """CAM++ speaker embeddings (``engines.py:935`` of the JAX package; the
+    reference's speaker branch, auto_model.py:467-483): 80-mel fbank (the
+    fbank kernel, hamming, no LFR or CMVN), each chunk's mean over its
+    frames taken out, CAM++ in float32.  ``model`` is a :class:`CAMPPlus`."""
+
+    def __init__(self, model, fs: int = 16000):
+        self.model = model
+        self.device = model.device
+        self.frontend = FrontendConfig(fs=fs, n_mels=model.feat_dim, lfr_m=1, lfr_n=1)
+
+    @torch.inference_mode()
+    def run(self, wav: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+        """The device program: (B, N) chunks -> (B, emb) embeddings."""
+        feats, flens = self.frontend.raw_fbank(wav, lens)
+        mask = (torch.arange(feats.shape[1], device=feats.device)[None]
+                < flens[:, None]).to(feats.dtype)[..., None]
+        n = torch.clamp(flens.to(feats.dtype), min=1.0)[:, None, None]
+        mean = (feats * mask).sum(1, keepdim=True) / n
+        return self.model((feats - mean) * mask)
+
+    def embed(self, wavs: Sequence[np.ndarray]) -> np.ndarray:
+        """Chunk waveforms -> (N, emb) float32 embeddings in input order: the
+        chunks of one length in one device call (the pipeline's are all 1.5
+        s: one call), one upload and one read back each."""
+        return self.embed_async(wavs)()
+
+    def embed_async(self, wavs: Sequence[np.ndarray]):
+        """Queue :meth:`embed`'s device work and the copies of its outputs
+        now; returns ``finalize()`` -> the embeddings."""
+        if not len(wavs):
+            return lambda: np.zeros((0, 0), np.float32)
+        order: Dict[int, List[int]] = {}
+        for i, w in enumerate(wavs):
+            order.setdefault(len(w), []).append(i)
+        pending = []
+        for n, idxs in order.items():
+            batch = np.stack([np.asarray(wavs[i], np.float32) for i in idxs])
+            lens = np.full((len(idxs),), n, np.int32)
+            emb = self.run(upload(batch, self.device), upload(lens, self.device))
+            pending.append((idxs, fetch_async([emb])))
+
+        def finalize():
+            out = np.zeros((len(wavs), self.model.embedding_size), np.float32)
+            for idxs, host in pending:
+                out[idxs] = fetched(*host)[0].numpy()
+            return out
+        return finalize
 
 
 class PuncEngine:

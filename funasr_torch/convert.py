@@ -1,8 +1,9 @@
 """Flax variables -> FunASR torch ``state_dict`` for the port's models.
 
 The inverses of funasr_tpu/convert.py ``paraformer_from_torch`` (:205),
-``bicif_paraformer_from_torch`` (:228), ``conformer_from_torch`` (:398),
-``fsmn_vad_from_torch`` (:332) and ``ct_transformer_from_torch`` (:385),
+``bicif_paraformer_from_torch`` (:228), ``seaco_paraformer_from_torch``
+(:292), ``conformer_from_torch`` (:398), ``fsmn_vad_from_torch`` (:332),
+``ct_transformer_from_torch`` (:385) and ``campplus_from_torch`` (:517),
 written for the port (no import of the JAX
 package): each takes the flax tree with numpy leaves and returns the state
 dict that the port's model (and a reference FunASR ``model.pt``) uses:
@@ -17,7 +18,11 @@ dict that the port's model (and a reference FunASR ``model.pt``) uses:
 - Conv2d ``(kh, kw, in, out)`` -> ``(out, in, kh, kw)``, BatchNorm running
   statistics from the ``batch_stats`` collection,
 - BiCif ``upsample_cnn (u, Din, Dout)`` -> ConvTranspose1d ``(Din, Dout, u)``,
-  flax ``OptimizedLSTMCell`` gates -> ``nn.LSTM`` ``weight_ih/hh_l0``.
+  flax ``OptimizedLSTMCell`` gates -> ``nn.LSTM`` ``weight_ih/hh_l{n}``
+  (flax keeps one bias per gate, in the hidden-side dense layer: it goes to
+  ``bias_ih_l{n}``, and ``bias_hh_l{n}`` is zeros),
+- flax Conv ``(k, in, out)`` / ``(kh, kw, in, out)`` -> torch
+  ``(out, in, k)`` / ``(out, in, kh, kw)`` (CAM++).
 
 An inference-only flax tree has no decoder embedding (only the training
 sampler uses it); the state dict then carries zeros for
@@ -117,19 +122,38 @@ def paraformer_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     _dense(sd, "predictor.cif_output", pred["cif_output"])
 
     dec = tree["decoder"]
+    _decoder(sd, "decoder", dec, np.asarray(dec["output_layer"]["kernel"]).shape[1])
+    return sd
+
+
+def _decoder(sd, prefix: str, dec: Mapping, vocab: int):
+    """A ``ParaformerSANMDecoder`` tree -> ``{prefix}.*``; an absent
+    embedding (an inference tree) becomes zeros of (vocab, D)."""
     for stack in ("decoders", "decoders2"):
         if stack in dec:
             for i in range(_num_layers(dec[stack])):
-                _dec_layer(sd, f"decoder.{stack}.{i}", _unstack(dec[stack], i))
-    _dec_layer(sd, "decoder.decoders3.0", dec["decoders3"])
-    _norm(sd, "decoder.after_norm", dec["after_norm"])
-    _dense(sd, "decoder.output_layer", dec["output_layer"])
+                _dec_layer(sd, f"{prefix}.{stack}.{i}", _unstack(dec[stack], i))
+    _dec_layer(sd, f"{prefix}.decoders3.0", dec["decoders3"])
+    _norm(sd, f"{prefix}.after_norm", dec["after_norm"])
+    if "output_layer" in dec:
+        _dense(sd, f"{prefix}.output_layer", dec["output_layer"])
     if "embed" in dec:
-        sd["decoder.embed.0.weight"] = _t(dec["embed"]["embedding"])
+        sd[f"{prefix}.embed.0.weight"] = _t(dec["embed"]["embedding"])
     else:
-        vocab, d = np.asarray(dec["output_layer"]["kernel"]).shape[::-1]
-        sd["decoder.embed.0.weight"] = torch.zeros((vocab, d))
-    return sd
+        sd[f"{prefix}.embed.0.weight"] = torch.zeros(
+            (vocab, np.asarray(dec["after_norm"]["scale"]).shape[0]))
+
+
+def _lstm_cell(sd, prefix: str, suffix: str, cell: Mapping):
+    """One flax ``OptimizedLSTMCell`` -> ``nn.LSTM`` weights ``*{suffix}``."""
+    gates = ("i", "f", "g", "o")
+    stack = lambda kind: np.concatenate(
+        [np.asarray(cell[f"{kind}{g}"]["kernel"]).T for g in gates])
+    bias = np.concatenate([np.asarray(cell[f"h{g}"]["bias"]) for g in gates])
+    sd[f"{prefix}.weight_ih{suffix}"] = _t(stack("i"))
+    sd[f"{prefix}.weight_hh{suffix}"] = _t(stack("h"))
+    sd[f"{prefix}.bias_ih{suffix}"] = _t(bias)
+    sd[f"{prefix}.bias_hh{suffix}"] = torch.zeros(bias.shape)
 
 
 def bicif_paraformer_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
@@ -149,16 +173,27 @@ def bicif_paraformer_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     sd["predictor.upsample_cnn.bias"] = _t(pred["upsample_cnn_bias"])
     _dense(sd, "predictor.cif_output2", pred["cif_output2"])
     for name, suffix in (("blstm_fwd", ""), ("blstm_bwd", "_reverse")):
-        if name not in pred:
-            continue
-        cell, gates = pred[name], ("i", "f", "g", "o")
-        stack = lambda kind: np.concatenate(
-            [np.asarray(cell[f"{kind}{g}"]["kernel"]).T for g in gates])
-        bias = np.concatenate([np.asarray(cell[f"h{g}"]["bias"]) for g in gates])
-        sd[f"predictor.blstm.weight_ih_l0{suffix}"] = _t(stack("i"))
-        sd[f"predictor.blstm.weight_hh_l0{suffix}"] = _t(stack("h"))
-        sd[f"predictor.blstm.bias_ih_l0{suffix}"] = _t(bias)
-        sd[f"predictor.blstm.bias_hh_l0{suffix}"] = torch.zeros(bias.shape)
+        if name in pred:
+            _lstm_cell(sd, "predictor.blstm", f"_l0{suffix}", pred[name])
+    return sd
+
+
+def seaco_paraformer_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """``{'params': tree}`` (or the bare tree) of funasr_tpu's
+    SeacoParaformer -> the port's float32 ``state_dict``: the BiCif keys,
+    the 2-layer ``bias_encoder`` LSTM (``OptimizedLSTMCell_{n}`` ->
+    ``weight_ih/hh_l{n}``, the bias in ``bias_ih_l{n}``), the
+    ``seaco_decoder`` (no output layer; its unused embedding zeros) and
+    ``hotword_output_layer``."""
+    tree = params.get("params", params)
+    sd = bicif_paraformer_from_jax(tree)
+    n = 0
+    while f"OptimizedLSTMCell_{n}" in tree["bias_encoder"]:
+        _lstm_cell(sd, "bias_encoder", f"_l{n}", tree["bias_encoder"][f"OptimizedLSTMCell_{n}"])
+        n += 1
+    vocab = np.asarray(tree["hotword_output_layer"]["kernel"]).shape[1]
+    _decoder(sd, "seaco_decoder", tree["seaco_decoder"], vocab)
+    _dense(sd, "hotword_output_layer", tree["hotword_output_layer"])
     return sd
 
 
@@ -266,4 +301,75 @@ def conformer_hybrid_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     _norm(sd, "decoder.after_norm", dec["after_norm"])
     _dense(sd, "decoder.output_layer", dec["output_layer"])
     _dense(sd, "ctc.ctc_lo", tree["ctc_lo"])
+    return sd
+
+
+def campplus_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """``{'params': ..., 'batch_stats': ...}`` of funasr_tpu's CAMPPlus -> the
+    port's (and FunASR's) float32 ``state_dict``: ``head.*`` (the FCM),
+    ``xvector.tdnn`` / ``block{i}.tdnnd{j}`` / ``transit{i}`` /
+    ``out_nonlinear`` / ``dense`` (funasr_tpu/convert.py:517 inverted)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+
+    def node(tree, path):
+        for k in path.split("/"):
+            tree = tree.get(k, {})
+        return tree
+
+    def conv2d(t, jp):
+        k = np.asarray(node(params, jp)["kernel"])  # (kh, kw, in, out)
+        sd[f"{t}.weight"] = _t(np.transpose(k, (3, 2, 0, 1)))
+
+    def conv1d(t, jp):
+        p = node(params, jp)
+        sd[f"{t}.weight"] = _t(np.transpose(np.asarray(p["kernel"]), (2, 1, 0)))
+        if "bias" in p:
+            sd[f"{t}.bias"] = _t(p["bias"])
+
+    def bn(t, jp):
+        p = node(params, jp)
+        if "scale" in p:
+            sd[f"{t}.weight"] = _t(p["scale"])
+            sd[f"{t}.bias"] = _t(p["bias"])
+        s = node(stats, jp)
+        sd[f"{t}.running_mean"] = _t(s["mean"])
+        sd[f"{t}.running_var"] = _t(s["var"])
+        sd[f"{t}.num_batches_tracked"] = torch.tensor(0)
+
+    conv2d("head.conv1", "head/conv1")
+    bn("head.bn1", "head/bn1")
+    for stage in (1, 2):
+        for i in (0, 1):
+            p, jp = f"head.layer{stage}.{i}", f"head/layer{stage}_{i}"
+            for j in (1, 2):
+                conv2d(f"{p}.conv{j}", f"{jp}/conv{j}")
+                bn(f"{p}.bn{j}", f"{jp}/bn{j}")
+            if "shortcut_conv" in node(params, jp):
+                conv2d(f"{p}.shortcut.0", f"{jp}/shortcut_conv")
+                bn(f"{p}.shortcut.1", f"{jp}/shortcut_bn")
+    conv2d("head.conv2", "head/conv2")
+    bn("head.bn2", "head/bn2")
+
+    conv1d("xvector.tdnn.linear", "tdnn_conv")
+    bn("xvector.tdnn.nonlinear.batchnorm", "tdnn_bn")
+    bi = 1
+    while f"transit{bi}_linear" in params:
+        li = 1
+        while f"block{bi}_tdnnd{li}" in params:
+            p, jp = f"xvector.block{bi}.tdnnd{li}", f"block{bi}_tdnnd{li}"
+            bn(f"{p}.nonlinear1.batchnorm", f"{jp}/bn1")
+            conv1d(f"{p}.linear1", f"{jp}/linear1")
+            bn(f"{p}.nonlinear2.batchnorm", f"{jp}/bn2")
+            for c in ("linear_local", "linear1", "linear2"):
+                conv1d(f"{p}.cam_layer.{c}", f"{jp}/cam_layer/{c}")
+            li += 1
+        bn(f"xvector.transit{bi}.nonlinear.batchnorm", f"transit{bi}_bn")
+        conv1d(f"xvector.transit{bi}.linear", f"transit{bi}_linear")
+        bi += 1
+    bn("xvector.out_nonlinear.batchnorm", "out_bn")
+    # Dense (in, out) -> the kernel-1 conv (out, in, 1)
+    sd["xvector.dense.linear.weight"] = _t(
+        np.asarray(params["dense_linear"]["kernel"]).T[..., None])
+    bn("xvector.dense.nonlinear.batchnorm", "dense_bn")
     return sd

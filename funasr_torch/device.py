@@ -66,3 +66,12 @@ def fetched(host, event):
     if event is not None:
         event.synchronize()
     return host
+
+
+def cudnn_float32():
+    """A context in which cuDNN convolutions and RNNs compute in full float32
+    (TF32 off; cuDNN's default is on), every other cuDNN setting kept."""
+    c = torch.backends.cudnn
+    return c.flags(enabled=c.enabled, benchmark=c.benchmark,
+                   benchmark_limit=c.benchmark_limit, deterministic=c.deterministic,
+                   allow_tf32=False)

@@ -16,6 +16,12 @@ weights quantized once from the float32 parameters, the encoder memory
 row-quantized once per batch for all of them; the other layers
 (``decoders2``, ``decoders3``) and ``output_layer`` keep the module path,
 whose Dense layers follow the QDense rule (``models/sanm.py`` ``Dense``).
+
+``use_output_layer=False`` builds no projection and returns the hiddens
+(``after_norm(x)``): SeACo's bias decoder over its hotword memory;
+``return_hidden=True`` returns them from a model that has one, and
+:meth:`ParaformerSANMDecoder.project` applies it (decoder.py:318-396 of the
+JAX package).
 """
 
 from __future__ import annotations
@@ -181,7 +187,8 @@ class ParaformerSANMDecoder(nn.Module):
                  dropout_rate: float = 0.0,
                  self_attention_dropout_rate: float = 0.0,
                  src_attention_dropout_rate: float = 0.0,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None,
+                 use_output_layer: bool = True):
         """The dropout rates are the reference's training-only settings;
         inference ignores them.  ``param_dtype``: storage of the Dense and
         FSMN weights (default ``dtype``; float32 for int8 serving)."""
@@ -204,7 +211,8 @@ class ParaformerSANMDecoder(nn.Module):
             d, attention_heads, linear_units, kernel_size, sanm_shift,
             False, False, dtype, pd)])
         self.after_norm = LayerNormF32(d, dtype)
-        self.output_layer = Dense(d, vocab_size, dtype=dtype, param_dtype=pd)
+        self.output_layer = (Dense(d, vocab_size, dtype=dtype, param_dtype=pd)
+                             if use_output_layer else None)
 
     def _layers(self):
         return list(self.decoders) + list(self.decoders2 or []) + list(self.decoders3)
@@ -213,12 +221,16 @@ class ParaformerSANMDecoder(nn.Module):
         """Quantize every layer's weights and the output projection once."""
         for layer in self._layers():
             layer.quantize_weights()
-        self.output_layer.quantize_weights()
+        if self.output_layer is not None:
+            self.output_layer.quantize_weights()
 
     def forward(self, memory: torch.Tensor, memory_lengths: torch.Tensor,
-                semantic_embeds: torch.Tensor,
-                token_lengths: torch.Tensor) -> torch.Tensor:
-        """-> logits (B, U, vocab) in the compute dtype."""
+                semantic_embeds: torch.Tensor, token_lengths: torch.Tensor,
+                return_hidden: bool = False) -> torch.Tensor:
+        """-> logits (B, U, vocab) in the compute dtype, or the hiddens
+        (B, U, D) with ``return_hidden`` or without an output layer.  An int8
+        stack row-quantizes ``memory`` once for its full layers
+        (``DL.quantize_memory``), an encoder output or a hotword memory."""
         B, U, _ = semantic_embeds.shape
         T = memory.shape[1]
         tgt_mask = sequence_mask(token_lengths, U)[:, :, None]
@@ -231,4 +243,11 @@ class ParaformerSANMDecoder(nn.Module):
         for layer in self._layers():
             x = layer(x, tgt_mask, memory, mem_bias, token_lengths, memory_lengths,
                       memory_q)
-        return self.output_layer(self.after_norm(x))
+        hidden = self.after_norm(x)
+        if return_hidden or self.output_layer is None:
+            return hidden
+        return self.output_layer(hidden)
+
+    def project(self, hidden: torch.Tensor) -> torch.Tensor:
+        """The output projection of :meth:`forward`'s hiddens."""
+        return self.output_layer(hidden)

@@ -166,7 +166,8 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random weights, in place: LeCun-normal Linear/Conv weights
     (flax's default; a stride-equals-kernel ConvTranspose1d over its input
     channels), zero biases, unit/zero layer norms, N(0, 1)
-    embeddings; BatchNorm with unit/zero affine and running statistics away
+    embeddings; BatchNorm (1-D and 2-D) with unit/zero affine, where it has
+    one, and running statistics away
     from (0, 1): mean N(0, 0.1^2), var in [0.5, 1.5); any other parameter
     LeCun-normal over its last axis.  Draws on ``generator``'s device in
     float32."""
@@ -189,9 +190,10 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             elif isinstance(mod, LayerNormF32):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
-            elif isinstance(mod, nn.BatchNorm1d):
-                mod.weight.fill_(1.0)
-                mod.bias.zero_()
+            elif isinstance(mod, nn.modules.batchnorm._BatchNorm):
+                if mod.affine:
+                    mod.weight.fill_(1.0)
+                    mod.bias.zero_()
                 normal_(mod.running_mean, 0.1)
                 mod.running_var.copy_(0.5 + torch.rand(
                     mod.num_features, generator=generator, device=generator.device))

@@ -7,7 +7,7 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-BANNED = ("jax", "jaxlib", "flax", "optax", "funasr_tpu")
+BANNED = ("jax", "jaxlib", "flax", "optax", "funasr_tpu", "sklearn")
 
 
 def _port_files():
@@ -165,6 +165,41 @@ def test_streaming_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     assert next(sm.model.parameters()).device.type == "cpu"
     server = AsrWebSocketServer(None, streaming_model=sm, max_batch=1)
     assert server.streaming_model is sm
+
+
+def test_speaker_and_hotword_entry_points_raise_without_cuda(monkeypatch):
+    """CAM++, SeacoParaformer, ``SpkEngine`` and ``HotwordEngine`` run on
+    the card unless given ``device="cpu"``."""
+    from funasr_torch.auto.engines import FrontendConfig, HotwordEngine, SpkEngine
+    from funasr_torch.models.campplus.model import CAMPPlus
+    from funasr_torch.models.seaco_paraformer.model import SeacoParaformer
+    from funasr_torch.tokenizer.char_tokenizer import CharTokenizer
+
+    _no_gpu(monkeypatch)
+    camp = dict(feat_dim=16, embedding_size=8, growth_rate=4, bn_size=2, init_channels=8,
+                blocks=((1, 3, 1),))
+    seaco = dict(vocab_size=8, input_size=16, inner_dim=8, no_bias_id=7,
+                 encoder_conf=dict(output_size=8, attention_heads=2, linear_units=8,
+                                   num_blocks=1, kernel_size=3),
+                 decoder_conf=dict(attention_heads=2, linear_units=8, num_blocks=1,
+                                   att_layer_num=1, kernel_size=3),
+                 seaco_decoder_conf=dict(attention_heads=2, linear_units=8, num_blocks=1,
+                                         att_layer_num=1, kernel_size=3))
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no GPU"):
+            CAMPPlus(**camp, device=device)
+        with pytest.raises(RuntimeError, match="no GPU"):
+            SeacoParaformer(**seaco, device=device)
+    spk = SpkEngine(CAMPPlus(**camp, device="cpu"))
+    assert spk.device.type == "cpu" and spk.frontend.n_mels == 16
+    model = SeacoParaformer(**seaco, device="cpu")
+    assert all(p.device.type == "cpu" for p in model.parameters())
+    tok = CharTokenizer(["<blank>", "<s>", "</s>", "a", "b", "c", "d", "<unk>"])
+    fe = FrontendConfig(lfr_m=1, lfr_n=1, n_mels=16)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        HotwordEngine(model, fe, tok)
+    engine = HotwordEngine(model, fe, tok, device="cpu")
+    assert engine.encode_hotwords("ab c").pad.device.type == "cpu"
 
 
 def test_unknown_model_arguments_raise():

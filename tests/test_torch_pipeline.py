@@ -27,7 +27,16 @@ through ``init_param``: flax trees for the JAX package, the port's
   0.2, which moves a fire by two 20 ms frames (measured on this
   recording).  The fires are held within 2 frames.
 - Edges: an input shorter than a frame gives ``{"key", "text": ""}``; what
-  the port lacks raises ``NotImplementedError``.
+  the port lacks raises ``NotImplementedError``; ``hotword=`` on a main
+  model without a bias head is ignored, as the JAX engines ignore it.
+- SeACo hotwords and the CAM++ speaker branch, float32
+  (``AutoModel(SeacoParaformer, VAD, punctuation, CAMPPlus)``; the tiny
+  SeACo of ``tests/test_torch_seaco.py``, the narrow CAM++ of
+  ``tests/test_torch_campplus.py``): on a 25 s recording of eight bursts
+  of two alternating tones (32 speaker chunks), with a hotword and
+  ``preset_spk_num=2`` and with neither (the speaker count from the
+  eigen-gap), the same text, timestamps, ``sentence_info`` (each with its
+  ``spk``) and ``spk_info`` as the JAX ``AutoModel``: the records equal.
 - Past 15 s: T = 384 LFR frames at Paraformer-large's D = 512, the served
   bucket after 256 (frames pad to a multiple of 128; 15.4-23 s), where the
   JAX package's fused layers' VMEM gate (T <= 312 at D = 512) sends it to
@@ -248,20 +257,25 @@ def test_generate_int8_matches_jax(monkeypatch, tmp_path):
     assert [len(s["timestamp"]) for s in got["sentence_info"]] or not want["sentence_info"]
 
 
-def test_edges_and_not_ported(bicif_pair, tmp_path):
+def test_edges_and_not_ported(monkeypatch, bicif_pair, tmp_path):
+    _correct_jax_fires(monkeypatch)
     jam, port = bicif_pair
     am = port()
     short = np.zeros(300, np.float32)  # under one frame: no segment
     assert am.generate(short, key=["s"]) == jam.generate(short, key=["s"]) == \
         [{"key": "s", "text": ""}]
     silence = np.zeros(32000, np.float32)
-    with pytest.raises(NotImplementedError, match="spk_model"):
-        AutoModel(model=asr_cfg(), spk_model={"model": "CAMPPlus"}, device="cpu")
+    spk = AutoModel(model=asr_cfg(), spk_model=CAMP_CFG, device="cpu")
+    assert spk.spk_engine.model.embedding_size == 16 and spk.spk_engine.device.type == "cpu"
     with pytest.raises(NotImplementedError, match="use_itn"):
         AutoModel(model=asr_cfg(), use_itn=True, device="cpu")
-    for kw in ({"hotword": "公园"}, {"use_itn": True}, {"output_dir": str(tmp_path)}):
+    assert am.generate(silence, key=["s"], hotword="公园") == \
+        jam.generate(silence, key=["s"], hotword="公园")
+    for kw in ({"use_itn": True}, {"output_dir": str(tmp_path)}):
         with pytest.raises(NotImplementedError):
             am.generate(silence, **kw)
+    with pytest.raises(NotImplementedError, match="ContextualParaformer"):
+        AutoModel(model=dict(asr_cfg(), model="ContextualParaformer"), device="cpu")
     with pytest.raises(NotImplementedError, match="URL"):
         am.generate("https://example.invalid/a.wav")
     with pytest.raises(ValueError, match="unsupported audio format"):
@@ -343,3 +357,116 @@ def test_past_15s_int8_encoder_against_jax_xla_path():
     ulp = 2.0 ** (np.floor(np.log2(np.abs(want[valid]).max())) - 7)
     err = np.abs(got - want)[valid].max()
     assert np.isfinite(got).all() and err <= BAR_ULPS * ulp, (err, ulp)
+
+
+# ------------------------------------------- SeACo hotwords and CAM++ speakers
+NB = len(TOKENS) - 1
+SEACO_CFG = dict(asr_cfg(), model="SeacoParaformer", model_conf=dict(
+    inner_dim=32, no_bias_id=NB, seaco_decoder_conf=dict(
+        attention_heads=2, linear_units=64, num_blocks=2, att_layer_num=2, kernel_size=5)))
+CAMP_CFG = dict(model="CAMPPlus", model_conf=dict(
+    feat_dim=80, embedding_size=16, growth_rate=8, bn_size=2, init_channels=16,
+    blocks=((2, 3, 1), (2, 3, 2))))
+HOTWORD = " ".join(TOKENS[5:8]) + " " + TOKENS[10] + TOKENS[11] + " zz"
+
+
+def diarization_recording(seed=5):
+    """Eight 1.5-3 s bursts, alternately 220 and 330 Hz, 0.75 s apart."""
+    rng = np.random.default_rng(seed)
+    parts = [np.zeros(8000, np.float32)]
+    for i in range(8):
+        parts += [tone(rng, float(rng.uniform(1.5, 3.0)), 220.0 if i % 2 == 0 else 330.0),
+                  np.zeros(12000, np.float32)]
+    return np.concatenate(parts)
+
+
+def _save_variables(path, variables):
+    """Flax variables (``params`` and ``batch_stats``) as the JAX AutoModel's
+    ``init_param``."""
+    flat = {}
+    for coll, tree in variables.items():
+        _save_flax(path, tree, prefix=coll)
+        flat.update(np.load(path))
+    np.savez(path, **flat)
+    return str(path)
+
+
+@pytest.fixture(scope="module")
+def seaco_spk_pair(tmp_path_factory):
+    from funasr_tpu.models.ct_transformer.model import CTTransformerModel
+    from tests.test_torch_campplus import init_campplus
+    from tests.test_torch_punc import jax_params
+    from tests.test_torch_seaco import init_seaco
+
+    tmp = tmp_path_factory.mktemp("seaco_spk")
+    conf = {k: SEACO_CFG[k] for k in ("vocab_size", "input_size", "encoder_conf",
+                                      "decoder_conf", "predictor_conf")}
+    _, asr = init_seaco(dict(conf, **SEACO_CFG["model_conf"]), 0)
+    _, spk = init_campplus(CAMP_CFG["model_conf"], 1)
+    vad = calibrated_params(init_params(VAD_CONF, 0)[1], VAD_CONF, _port_frontend())
+    punc = jax_params(CTTransformerModel(**{k: v for k, v in PUNC_CFG.items()
+                                            if k in ("vocab_size", "embed_unit", "att_unit",
+                                                     "encoder_conf")}), 0)
+    jam = JaxAutoModel(
+        model=dict(SEACO_CFG, init_param=_save_flax(tmp / "j_asr.npz", asr["params"])),
+        vad_model=dict(VAD_CFG, init_param=_save_flax(tmp / "j_vad.npz", vad["params"])),
+        punc_model=dict(PUNC_CFG, init_param=_save_flax(tmp / "j_punc.npz", punc["params"])),
+        spk_model=dict(CAMP_CFG, init_param=_save_variables(tmp / "j_spk.npz", spk)))
+    am = AutoModel(
+        model=dict(SEACO_CFG, init_param=_save(tmp / "asr.npz",
+                                               C.seaco_paraformer_from_jax(asr))),
+        vad_model=dict(VAD_CFG, init_param=_save(tmp / "vad.npz", C.fsmn_vad_from_jax(vad))),
+        punc_model=dict(PUNC_CFG, init_param=_save(tmp / "punc.npz",
+                                                   C.ct_transformer_from_jax(punc))),
+        spk_model=dict(CAMP_CFG, init_param=_save(tmp / "spk.npz", C.campplus_from_jax(spk))),
+        device="cpu")
+    return jam, am
+
+
+@pytest.mark.parametrize("hotword, n_spk", [(HOTWORD, 2), (None, None)],
+                         ids=["hotword_two_speakers", "plain_eigen_gap"])
+def test_generate_seaco_spk_matches_jax(monkeypatch, seaco_spk_pair, hotword, n_spk):
+    from funasr_torch.auto.engines import HotwordEngine
+
+    _correct_jax_fires(monkeypatch)
+    jam, am = seaco_spk_pair
+    assert isinstance(am.engine, HotwordEngine)
+    wav = diarization_recording()
+    kw = {} if hotword is None else dict(hotword=hotword, preset_spk_num=n_spk)
+    want = jam.generate(wav, key=["d"], **kw)[0]
+    got = am.generate(wav, key=["d"], **kw)[0]
+    assert got == want
+    assert got["text"] and got["timestamp"] and len(got["spk_info"]) >= 20
+    assert {s["spk"] for s in got["sentence_info"]} <= {l for _, _, l in got["spk_info"]}
+    assert all(b - a == 1500 for a, b, _ in got["spk_info"])
+    if n_spk:
+        assert {l for _, _, l in got["spk_info"]} == set(range(n_spk))
+
+
+def test_hotword_changes_the_seaco_text(seaco_spk_pair):
+    """The bias head is in the path: a hotword changes the decoded text, and
+    its call (the waveform path) without the hotword equals the shared-grid
+    result."""
+    _, am = seaco_spk_pair
+    wav = diarization_recording()
+    plain = am.generate(wav, key=["d"])[0]
+    biased = am.generate(wav, key=["d"], hotword=HOTWORD)[0]
+    assert plain["text"] != biased["text"] and plain["spk_info"] == biased["spk_info"]
+    am.shared_frontend = False
+    try:
+        assert am.generate(wav, key=["d"])[0] == plain
+    finally:
+        am.shared_frontend = True
+    am.warmup(seconds=(2,))
+
+
+def test_hotword_on_bicif_is_ignored_as_in_jax(monkeypatch, bicif_pair):
+    """A main model without a bias head takes and ignores ``hotword=``, as
+    the JAX engines do (only the waveform path is chosen)."""
+    _correct_jax_fires(monkeypatch)
+    jam, port = bicif_pair
+    am = port()
+    wav = recording(0)
+    got = am.generate(wav, key=["h"], hotword=HOTWORD)
+    assert got == jam.generate(wav, key=["h"], hotword=HOTWORD) == am.generate(wav, key=["h"])
+    assert got[0]["text"]
