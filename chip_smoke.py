@@ -23,7 +23,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      shapes (ragged M, K below one stage, fewer tiles than SMs), its int32
      accumulator and its epilogue bit-equal to the twin (yardstick
      ``torch._int_mm`` where its shape rules allow); each served shape
-     within 2x ``torch._int_mm``, or 4x its bound where that does not run;
+     within 2x ``torch._int_mm``, or 4x its bound where that does not run
+     (``ctc_lo``'s N = 25055: 2x ``torch._int_mm`` at N = 25056);
    - the int8 SANM encoder layer (B=64, T=256, lengths 250/200), the int8
      decoder layer (B=64, U=128, T=256) and the int8 FFN (M=16384,
      512 -> 2048 -> 512); the layers' float32-context attention alone at
@@ -143,6 +144,27 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    factor and byte bound; one offline, one online and four concurrent
    2pass sessions through ``AsrWebSocketServer`` (the pipeline's
    ``AutoModel`` for the offline pass) with their replies checked;
+   then SenseVoiceSmall at the width and depth of
+   configs/sensevoice_small.yaml (50 + 20 SANM layers, D = 512, vocab 25055
+   with the generated token list, a CMVN file of the recording's features):
+   a SANM layer and encoders0's attention at a 16 x 15 s batch (T + 4 =
+   260) and the int8 GEMM at ``ctc_lo``'s (4160, 512) x (25055, 512),
+   against their twins and timed (the GEMM within 2x ``torch._int_mm``
+   on one more weight row, where its shape rules let it run); (a) ``SenseVoiceEngine.transcribe`` with
+   timestamps of three mixed 2-15 s batches in float32 and in int8, the
+   counters exact (int8: fbank 1, SANM layer 69, FFN 1, d = 128 attention
+   1 a batch plus the gated QDense) with no host sync in a dispatch,
+   kernels against twins (float32 log-probs 1e-2, frames >= 0.99; int8
+   1e-3, >= 0.99, token lengths equal; timestamps equal on every row whose
+   tokens are); (b) FunASR's README call ``AutoModel(model=SenseVoiceSmall,
+   vad_model=FSMN-VAD, max_single_segment_time 30 s, quantize=True)
+   .generate(language="auto", use_itn=True, batch_size_s=60, merge_vad=True,
+   merge_length_s=15)`` of the 600 s recording on (b)'s burst plan, its
+   counters exact, again on the int8 twins (text and timestamps equal),
+   with ``language="zh"`` (ITN rewrites segments: ``ctc_lo``'s number-word
+   bias is raised by a probe batch's median margin), and warm, profiled:
+   wall, audio-s/s, stages (VAD, ASR dispatch and span, alignment and ITN
+   on the host), idle share, launches;
 4. print one ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -152,8 +174,9 @@ BiCif batch with the routes on and off to ``DIR/profile_e2e.txt``,
 ``DIR/profile_e2e_int8.txt``, ``DIR/profile_beam.txt``,
 ``DIR/profile_bicif_on.txt``, ``DIR/profile_bicif_off.txt``, for one
 ``generate`` (b) of the pipeline, ``DIR/profile_pipeline.txt`` (its stage
-times and segments in ``DIR/pipeline.json``) and, for one streaming window
-step, ``DIR/profile_streaming.txt`` (that step is profiled in every run).  Device time by kernel group, and the share of
+times and segments in ``DIR/pipeline.json``), for one streaming window
+step, ``DIR/profile_streaming.txt`` and, for one SenseVoice README call,
+``DIR/profile_sensevoice.txt`` (those two are profiled in every run).  Device time by kernel group, and the share of
 each batch's span spent in kernels, is printed for every batch profiled;
 the beam batch is always profiled (its device time beside its host time).
 Without CUDA, or without the rest of the repository beside it, the script
@@ -3233,6 +3256,499 @@ def end_to_end_streaming(torch, FK, A, am, profile_dir, card):
     return launches, {"streaming": e2e}, attn_cases, fb_case
 
 
+# ------------------------------------------- SenseVoiceSmall: engine and README call
+SENSEVOICE = dict(  # configs/sensevoice_small.yaml
+    model="SenseVoiceSmall", vocab_size=25055, input_size=560,
+    encoder="SenseVoiceEncoderSmall",
+    encoder_conf=dict(output_size=512, attention_heads=4, linear_units=2048, num_blocks=50,
+                      tp_blocks=20, kernel_size=11),
+    frontend_conf=dict(fs=16000, n_mels=80, lfr_m=7, lfr_n=6))
+SV_LAYERS = 69  # fused int8 SANM layers: encoders 49 + tp_encoders 20
+# FunASR's README call: AutoModel(model="iic/SenseVoiceSmall", vad_model="fsmn-vad",
+# vad_kwargs={"max_single_segment_time": 30000}).generate(input, ...)
+SV_README_KW = dict(language="auto", use_itn=True, batch_size_s=60, merge_vad=True,
+                    merge_length_s=15)
+SV_VAD_CONF = {"model_conf": {"max_single_segment_time": 30000}}
+
+
+def sensevoice_config(torch, FK, wav, build_dir):
+    """SenseVoiceSmall's config as a dict: the generated 25055-entry token
+    list (``CharTokenizer``; the card has no sentencepiece) and a CMVN file
+    of the recording's LFR feature statistics (the released ``am.mvn`` is
+    not in the repo; without one, random weights read every frame alike)."""
+    import numpy as np
+
+    from funasr_torch.auto.engines import FrontendConfig
+    from funasr_torch.ops import fbank as F
+    from funasr_torch.tokenizer.sensevoice_tokenizer import generated_token_list
+
+    fe = FrontendConfig()
+    with torch.inference_mode():
+        wav_d = torch.from_numpy(wav).cuda()[None]
+        raw, rl = fe.raw_fbank(wav_d, torch.tensor([len(wav)], device="cuda"))
+        feats, fl = F.apply_lfr(raw, rl, fe.lfr_m, fe.lfr_n)
+        v = feats[0, : int(fl[0])].double()
+        mean, std = v.mean(0).cpu().numpy(), v.std(0).cpu().numpy()
+    os.makedirs(build_dir, exist_ok=True)
+    path = os.path.join(build_dir, "am.mvn")
+    row = lambda x: "<LearnRateCoef> 0 [ " + " ".join(f"{a:.8g}" for a in x) + " ]"
+    n = len(mean)
+    with open(path, "w") as f:
+        f.write("\n".join(["<Nnet>", f"<AddShift> {n} {n}", row(-mean), f"<Rescale> {n} {n}",
+                           row(1.0 / (std + 1e-5)), "</Nnet>", ""]))
+    return dict(SENSEVOICE, tokenizer="CharTokenizer", cmvn_file=path,
+                tokenizer_conf=dict(token_list=generated_token_list(SENSEVOICE["vocab_size"])))
+
+
+def sensevoice_shape(wavs):
+    """(B, T + 4) of a served SenseVoice batch: the bucket, fbank frames,
+    LFR by 6, padded to a multiple of 128, the 4 prompt rows."""
+    from funasr_torch.auto.engines import quantize
+
+    frames = (quantize(max(len(w) for w in wavs)) - 400) // 160 + 1
+    lfr = -(-frames // 6)
+    return len(wavs), -(-lfr // 128) * 128 + 4
+
+
+def sensevoice_launches(Q, A, shapes, fbank):
+    """The exact launches of the int8 SenseVoice path: ``fbank`` fbank launches
+    and per (B, T) batch 69 SANM layers (each three rowquant + int8 GEMM
+    pairs, one ``int8_gemm_rq`` and its float32-context attention by the
+    wrapper's plan), ``encoders0``'s bf16 d = 128 attention and int8 FFN (two
+    pairs), and a pair for each QDense contraction the gate admits
+    (``encoders0``'s QKV and out, ``ctc_lo``)."""
+    D, V = 512, SENSEVOICE["vocab_size"]
+    want = dict(fbank=fbank, attention=0, sanm_layer=0, ffn=0, int8_gemm_rq=0, rowquant=0,
+                int8_gemm=0, attention_f32ctx=0, decoder_layer=0, fsmn=0, fsmn_ln=0, qmm=0,
+                attention_i8qk=0, ffn_bf16=0)
+    for B, T in shapes:
+        n_qdense = sum(Q.gate(B * T, n) for n in (3 * D, D, V))
+        for k, n in (("attention", 1), ("sanm_layer", SV_LAYERS), ("ffn", 1),
+                     ("int8_gemm_rq", SV_LAYERS), ("rowquant", 3 * SV_LAYERS + 2 + n_qdense),
+                     ("int8_gemm", 3 * SV_LAYERS + 2 + n_qdense),
+                     ("attention_f32ctx", SV_LAYERS * exact_attention_launches(A, B, T, T))):
+            want[k] += n
+    return want
+
+
+def check_sensevoice_kernels(torch, SL, DL, FF, G, A):
+    """The kernels of the SenseVoice path at its own shapes, against their
+    twins: a SANM layer and encoders0's bf16 attention at a 16 x 15 s batch
+    (T + 4 = 260 rows, lengths 254/204: T never a multiple of 8), and the
+    int8 GEMM of ``ctc_lo`` (4160 rows x 512 -> 25055, the QDense
+    epilogue), each timed beside its twin and bound.  Returns the cases."""
+    import torch.nn.functional as F
+
+    from funasr_torch.ops.masks import key_bias
+
+    D, H, K, NH, LEFT, V = 512, 2048, 11, 4, 5, SENSEVOICE["vocab_size"]
+    B, T = 16, 260
+    sanm_w, _, _ = int8_layer_weights(torch, SL, DL, FF, seed=15)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    lens = torch.tensor([254, 204] * (B // 2), device="cuda", dtype=torch.int32)
+    kb = key_bias(lens, T)
+    x = torch.randn((B, T, D), generator=gen, device="cuda").to(torch.bfloat16)
+    frames = lens.double()
+    n_rows = float(frames.sum())
+    sanm = lambda f: f(x, lens, sanm_w, NH, LEFT, kb)
+    ops = {"int8": 2.0 * n_rows * (3 * D * D + D * D + 2 * D * H),
+           "bfloat16": 4.0 * D * float((frames * frames).sum()), "float32": 2.0 * K * D * n_rows}
+    wbytes = 4 * D * D + 2 * D * H + 4 * (3 * D + D + H + D) * 2 + 4 * K * D
+    layer = _layer_case(
+        torch, f"SenseVoice SANM layer B={B} T={T} lengths 254/204", sanm(SL.fused_sanm_layer),
+        sanm(SL.sanm_layer_ref), torch.arange(T, device="cuda")[None, :, None] < lens[:, None, None],
+        cuda_ms(lambda: sanm(SL.fused_sanm_layer)), cuda_ms(lambda: sanm(SL.sanm_layer_ref), iters=3),
+        2 * 2 * n_rows * D + 4 * B * T + wbytes, ops, lambda: sanm(SL.fused_sanm_layer))
+    log(f"sensevoice kernel {layer}")
+
+    qkv = torch.randn((B, T, 3 * D), generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = qkv.split(D, dim=-1)
+    q = q * (D // NH) ** -0.5
+    got, want = A.fused_attention(q, k, v, kb, NH), A.attention_ref(q, k, v, kb, NH)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    check(bool(torch.isfinite(got).all()) and err <= ATTN_TOL["bfloat16"],
+          f"SenseVoice encoders0 attention: err {err}")
+    q4, k4, v4 = (t.unflatten(-1, (NH, D // NH)).transpose(1, 2) for t in (q, k, v))
+    mask = kb[:, None, None, :].to(torch.bfloat16)
+    bnd, by = bound_ms(2 * (2 * B * T * D + 2 * n_rows * D) + 4 * B * T,
+                       {"bfloat16": 4.0 * D * float((frames * frames).sum())})
+    attn = dict(case=f"SenseVoice encoders0 attention q/k/v ({B},{T},{D}) bf16, H=4, keys "
+                     "254/204", max_abs_err=err, tolerance=ATTN_TOL["bfloat16"],
+                ms=cuda_ms(lambda: A.fused_attention(q, k, v, kb, NH), iters=20),
+                graph_ms=graph_ms(lambda: A.fused_attention(q, k, v, kb, NH)),
+                plain_ms=cuda_ms(lambda: A.attention_ref(q, k, v, kb, NH), iters=3),
+                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=mask, scale=1.0), iters=20),
+                bound_ms=bnd, bound_by=by)
+    log(f"sensevoice kernel {attn}")
+
+    M = B * T
+    a = torch.randint(-127, 128, (M, D), generator=gen, device="cuda", dtype=torch.int8)
+    w = torch.randint(-127, 128, (V, D), generator=gen, device="cuda", dtype=torch.int8)
+    sa = torch.rand(M, generator=gen, device="cuda") * 0.01
+    sw = torch.rand(V, generator=gen, device="cuda") * 0.01
+    bias = torch.randn(V, generator=gen, device="cuda")
+    qd = dict(bias=bias, round_bf16=True, out_dtype=torch.bfloat16)
+    equal = torch.equal(G.int8_gemm(a, sa, w, sw, **qd), G.int8_gemm_ref(a, sa, w, sw, **qd))
+    torch.cuda.synchronize()
+    check(equal, "int8 GEMM at ctc_lo's shape bit-equal to its twin")
+    bnd, by = bound_ms(M * D + V * D + 4 * (M + 2 * V) + 2 * M * V, {"int8": 2.0 * M * V * D})
+    ms = cuda_ms(lambda: G.int8_gemm(a, sa, w, sw, **qd))
+    plan = G.gemm_plan(M, V, D, G.sm_count(0))
+    # torch._int_mm's shape rules need N % 8 == 0: it runs on one more
+    # weight row (the same work to 0.004 %), and the kernel beside it
+    Vp = -(-V // 8) * 8
+    wp = torch.cat([w, w[:Vp - V]])
+    swp, bp = torch.cat([sw, sw[:Vp - V]]), torch.cat([bias, bias[:Vp - V]])
+    ms_aligned = cuda_ms(lambda: G.int8_gemm(a, sa, wp, swp, bias=bp, round_bf16=True,
+                                             out_dtype=torch.bfloat16))
+    lib = cuda_ms(lambda: torch._int_mm(a, wp.t()))
+    gemm = dict(case=f"ctc_lo (QDense, N={V}): ({M}, {D}) x ({V}, {D}) int8 -> bf16",
+                max_abs_err=0.0, tolerance=0.0, ms=ms,
+                plain_ms=cuda_ms(lambda: G.int8_gemm_ref(a, sa, w, sw, **qd), iters=3),
+                library_ms=lib, library=f"torch._int_mm at N={Vp}", ms_over_library=ms / lib,
+                bound_ms=bnd, bound_by=by, ms_over_bound=ms / bnd,
+                tops=2.0 * M * V * D / ms / 1e9, ms_at_n_multiple_of_8=ms_aligned,
+                plan=f"BM={plan.bm} BN={plan.bn} stages={plan.stages} grid={plan.grid} "
+                     f"tiles={plan.tiles}")
+    log(f"sensevoice kernel {gemm}")
+    speed_bar(gemm)  # a served shape: SenseVoice's batches reach M >= 1024
+    return dict(sanm_layer=[layer], attention=[attn], int8_gemm=[gemm])
+
+
+def end_to_end_sensevoice(torch, FK, A, profile_dir, card):
+    """SenseVoiceSmall at the full width and depth of configs/sensevoice_small.yaml
+    on seeded random weights.  (a) ``SenseVoiceEngine``: three mixed 2-15 s
+    batches in float32 and in int8 (``quantize=True``), each with the
+    counters read around it and no host sync inside a batch's dispatch;
+    float32 kernels against their twins (log-probs 1e-2, frames' argmax
+    >= 0.99), int8 kernels against theirs (token lengths equal, log-probs
+    1e-3, tokens >= 0.99); alignments and timestamps equal on every row
+    whose tokens are equal.  (b) FunASR's README call, ``AutoModel(model=
+    SenseVoiceSmall, vad_model=FSMN-VAD, vad_conf=max_single_segment_time
+    30 s, quantize=True).generate(wav, language="auto", use_itn=True,
+    batch_size_s=60, merge_vad=True, merge_length_s=15)`` of the 600 s
+    recording, the VAD's state machine output replaced by the burst plan as
+    pipeline run (b) does; counters exact; again on the int8 twins at the
+    same bars, the record's text and timestamps equal; once more with
+    ``language="zh"``, where the text ITN rewrites at least one segment
+    (with "auto" it passes every text through, as in the JAX package).
+    ``ctc_lo``'s bias of the number words is raised by the median margin of
+    a probe batch, so the random model emits numerals for ITN to rewrite.
+    Returns (the launches of every run on the path, summed; e2e record)."""
+    import numpy as np
+
+    from funasr_torch.auto import auto_model as AM
+    from funasr_torch.auto.auto_model import AutoModel
+    from funasr_torch.auto.engines import SenseVoiceEngine
+    from funasr_torch.models.sense_voice.model import N_PROMPT, SenseVoiceSmall
+    from funasr_torch.ops import ctc_align as CA
+    from funasr_torch.ops import decoder_layer as DL
+    from funasr_torch.ops import ffn as FF
+    from funasr_torch.ops import fsmn as FM
+    from funasr_torch.ops import int8_gemm as G
+    from funasr_torch.ops import qmm as QM
+    from funasr_torch.ops import quant as Q
+    from funasr_torch.ops import rowquant as RQ
+    from funasr_torch.ops import sanm_layer as SL
+    from funasr_torch.text import inverse_normalize
+    from funasr_torch.tokenizer.sensevoice_tokenizer import NUMBER_WORDS
+    from funasr_torch.utils.postprocess import join_segment_texts
+    from funasr_torch.utils.vad_utils import merge_vad, slice_audio_by_segments
+
+    counters = {"fbank": FK.fused_fbank, "attention": A.fused_attention,
+                "sanm_layer": SL.fused_sanm_layer, "decoder_layer": DL.fused_decoder_layer,
+                "ffn": FF.fused_ffn_int8, "qmm": QM.quant_matmul,
+                "attention_i8qk": A.attention_i8qk, "attention_f32ctx": A.attention_f32ctx,
+                "ffn_bf16": FF.fused_ffn, "int8_gemm": G.int8_gemm, "rowquant": RQ.rowquant,
+                "int8_gemm_rq": G.int8_gemm_rq, "fsmn": FM.fsmn, "fsmn_ln": FM.fsmn_ln}
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    t0 = time.time()
+    wav, bursts = pipeline_recording(np.random.default_rng(12))
+    plan = merge_vad(bursts, 15000)
+    cfg = sensevoice_config(torch, FK, wav, os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build", "sensevoice"))
+    vad_cfg = dict(FSMN_VAD, model_conf=dict(FSMN_VAD["model_conf"]))  # vad_conf merges in
+    am = AutoModel(model=cfg, vad_model=vad_cfg, vad_conf=SV_VAD_CONF, quantize=True, seed=2030)
+    eng8, ve = am.engine, am.vad_engine
+    model8 = eng8.module
+    check(isinstance(eng8, SenseVoiceEngine) and len(model8.encoder.encoders) == 49
+          and len(model8.encoder.tp_encoders) == 20 and model8.vocab_size == 25055,
+          "SenseVoiceSmall at full width and depth")
+    check(ve.model.opts.max_single_segment_time == 30000, "the README call's VAD setting")
+    n_params = sum(p.numel() for p in model8.parameters())
+
+    # the number words' ctc_lo bias raised by the median margin of a probe batch
+    tok = eng8.tokenizer
+    ids = torch.tensor(tok.tokens2ids(NUMBER_WORDS), device="cuda")
+    probe = [wav[s * 16: e * 16] for s, e in plan[:4]]
+    wav_d, lens_d = eng8._pack(probe)
+    with torch.inference_mode():
+        feats, flens = eng8.frontend.device_features(wav_d, lens_d)
+        enc, el = model8.encode(feats, flens, *eng8._prompts(len(probe), "auto", False))
+        logits = model8.ctc.ctc_lo(enc).float()[:, N_PROMPT:]
+        valid = torch.arange(logits.shape[1], device="cuda")[None] < (el - N_PROMPT)[:, None]
+        margin = (logits.max(-1).values - logits[..., ids].max(-1).values)[valid]
+        shift = float(margin.median())
+    with torch.no_grad():
+        model8.ctc.ctc_lo.bias[ids] += shift
+    model8.quantize_weights()
+    f32 = SenseVoiceSmall(**{k: cfg[k] for k in ("vocab_size", "input_size", "encoder_conf")},
+                          dtype=torch.float32)
+    f32.load_state_dict(model8.state_dict(), strict=True)
+    eng32 = SenseVoiceEngine(f32, eng8.frontend, tok)
+    log(f"e2e sensevoice: AutoModel (int8 SenseVoiceSmall {n_params / 1e6:.1f} M params, "
+        f"FSMN-VAD) and the float32 model built in {time.time() - t0:.1f} s; number words' "
+        f"ctc_lo bias raised by {shift:.3f}")
+
+    # ---- (a) the engine: three mixed 2-15 s batches, float32 and int8
+    rng = np.random.default_rng(30)
+    batches = []
+    for size in (8, 16, 5):
+        n = rng.integers(2 * FS, 15 * FS + 1, size)
+        batches.append([waveform(rng, int(m), float(rng.uniform(100, 400))) for m in n])
+    e2e = {}
+    runs, path_launches = {}, {}
+    for name, eng in (("f32", eng32), ("int8", eng8)):
+        eng.transcribe(batches[0][:2], with_timestamp=True)  # warm-up
+        torch.cuda.synchronize()
+        outs = []
+        real_run = eng.run
+
+        def kept(*a, real_run=real_run, outs=outs, **k):
+            out = real_run(*a, **k)
+            outs.append([t.clone() for t in out])
+            return out
+
+        eng.run = kept
+        zero()
+        t0 = time.time()
+        try:
+            pending = []
+            for b in batches:
+                torch.cuda.set_sync_debug_mode("error")  # a host sync here raises
+                try:
+                    pending.append(eng.transcribe_async(b, with_timestamp=True))
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            results = [fin() for fin in pending]
+        finally:
+            del eng.run
+        torch.cuda.synchronize()
+        serve_s = time.time() - t0
+        launches = read()
+        shapes = [sensevoice_shape(b) for b in batches]
+        if name == "int8":
+            want = sensevoice_launches(Q, A, shapes, len(batches))
+        else:
+            want = dict.fromkeys(counters, 0)
+            want.update(fbank=len(batches), attention=70 * len(batches))
+        log(f"e2e sensevoice (a) {name}: served {sum(map(len, batches))} requests in 3 "
+            f"batches {shapes} in {serve_s:.3f} s; kernel launches {launches}")
+        check(launches == want, f"sensevoice (a) {name} launches {launches}, want {want}")
+        for b, res in zip(batches, results):
+            check(len(res) == len(b) and all(isinstance(r["text"], str) and r["raw_text"]
+                                             and len(r["timestamp"]) == len(r["raw_tokens"])
+                                             for r in res), f"sensevoice (a) {name} results")
+        runs[name] = (outs, results)
+        path_launches[name] = launches
+        e2e[f"sensevoice_a_{name}_serve_3_batches_s"] = serve_s
+    log(f"e2e sensevoice (a): sample {runs['int8'][1][1][0]['text'][:16]!r} "
+        f"{runs['int8'][1][1][0]['timestamp'][:3]}")
+
+    def compare(name, eng, twins, bar_logp, bar_agree, lengths_equal):
+        """Kernels against twins on batch 1 (log-probs, frames' argmax) and on
+        all three served batches (tokens, alignments, timestamps)."""
+        b = batches[1]
+        wav_d, lens_d = eng._pack(b)
+        prompts = eng._prompts(len(b), "auto", False)
+
+        def log_probs():
+            with torch.inference_mode():
+                feats, flens = eng.frontend.device_features(wav_d, lens_d)
+                return eng.module.log_probs(feats, flens, *prompts)
+
+        lp_k, el = log_probs()
+        with twins():
+            lp_r, _ = log_probs()
+            res_t = [eng.transcribe(bb, with_timestamp=True) for bb in batches]
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(lp_k).all()), f"sensevoice {name} log-probs finite")
+        valid = torch.arange(lp_k.shape[1], device="cuda")[None] < el[:, None]
+        err = float((lp_k - lp_r).abs()[valid].max())
+        agree = float((lp_k.argmax(-1) == lp_r.argmax(-1))[valid].float().mean())
+        rows = same_tok = same_ts = same_len = 0
+        for res_k, res_r in zip(runs[name][1], res_t):
+            for a, r in zip(res_k, res_r):
+                rows += 1
+                same_len += len(a["raw_tokens"]) == len(r["raw_tokens"])
+                if a["raw_text"] == r["raw_text"]:
+                    same_tok += 1
+                    same_ts += a["timestamp"] == r["timestamp"]
+        rec = dict(logp_max_abs_diff=err, frame_agreement=agree, rows=rows,
+                   rows_tokens_equal=same_tok, rows_timestamps_equal_of_those=same_ts,
+                   rows_token_lengths_equal=same_len)
+        log(f"e2e sensevoice (a) {name} kernels vs twins: {json.dumps(rec)} (tol {bar_logp}, "
+            f"agreement >= {bar_agree})")
+        check(err <= bar_logp and agree >= bar_agree, f"sensevoice {name}: kernels vs twins")
+        check(same_ts == same_tok, f"sensevoice {name}: timestamps equal wherever tokens are")
+        if lengths_equal:
+            check(same_len == rows, f"sensevoice {name}: token lengths equal")
+        return rec
+
+    e2e["sensevoice_a_f32"] = compare("f32", eng32, lambda: plain_twins(FK, A),
+                                      E2E_F32_LOGP_TOL, E2E_F32_MIN_AGREE, False)
+    e2e["sensevoice_a_int8"] = compare("int8", eng8, int8_twins, E2E_INT8_LOGP_TOL,
+                                       E2E_INT8_MIN_AGREE, True)
+    del eng32, f32
+    torch.cuda.empty_cache()
+
+    # ---- (b) FunASR's README call on the 600 s recording
+    texts_seen = []
+
+    def run(name, twins=False, language="auto"):
+        clock = StageClock(torch)
+        outs = []
+        real_segs = ve.model.segments_from_posteriors
+        real_run, real_host = eng8.run, eng8._host_results
+
+        def kept_run(*a, **k):
+            out = real_run(*a, **k)
+            outs.append([t.clone() for t in out])
+            return out
+
+        def kept_host(*a, **k):
+            res = real_host(*a, **k)
+            texts_seen.append((name, [r["text"] for r in res]))
+            return res
+
+        def dispatch_no_sync(*a, f=eng8.transcribe_async, **k):
+            torch.cuda.set_sync_debug_mode("error")  # a host sync here raises
+            try:
+                return f(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        segs_seen = []
+
+        def segs(post, db):
+            segs_seen.append(real_segs(post, db))
+            return plan
+
+        ve.model.segments_from_posteriors = segs
+        eng8.run, eng8._host_results = kept_run, kept_host
+        eng8.transcribe_async = dispatch_no_sync
+        clock.wrap(ve, "front", "vad_device", events=True)
+        clock.wrap(ve.model, "segments_from_posteriors", "vad_host")
+        clock.wrap(eng8, "transcribe_async", "asr_dispatch")
+        clock.wrap(eng8, "run", "asr_device", events=True)
+        clock.wrap(eng8, "_host_results", "asr_host")
+        clock.wrap(CA, "viterbi", "align_host")
+        clock.wrap(AM, "inverse_normalize", "itn_host")
+        zero()
+        try:
+            stack = int8_twins() if twins else contextlib.nullcontext()
+            with stack:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = am.generate(wav, key=[name], **dict(SV_README_KW, language=language))[0]
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            clock.restore()
+            for obj, attr in ((eng8, "run"), (eng8, "_host_results"), (eng8, "transcribe_async"),
+                              (ve.model, "segments_from_posteriors")):
+                delattr(obj, attr)
+        launches = read()
+        times = dict(generate_wall_s=wall, audio_s_per_s=PIPELINE_AUDIO_S / wall,
+                     vad_device_ms=clock.device_ms("vad_device"),
+                     vad_host_wall_s=clock.wall.get("vad_host", 0.0),
+                     asr_dispatch_wall_s=clock.wall.get("asr_dispatch", 0.0),
+                     asr_device_span_ms=clock.device_ms("asr_device", span=True),
+                     asr_host_wall_s=clock.wall.get("asr_host", 0.0),
+                     align_host_wall_s=clock.wall.get("align_host", 0.0),
+                     itn_host_wall_s=clock.wall.get("itn_host", 0.0))
+        return res, launches, outs, times, segs_seen
+
+    res_k, launches_b, outs_k, times_first, segs_seen = run("b")  # new shapes: a first call
+    clips = slice_audio_by_segments(wav, plan, FS)
+    shapes = [sensevoice_shape([clips[i] for i in batch]) for batch in am.batches(plan, FS, 60)]
+    want = sensevoice_launches(Q, A, shapes, 1 + len(shapes))
+    log(f"e2e sensevoice (b): the VAD found {len(segs_seen[0])} segments, served the "
+        f"{len(plan)} of the burst plan in ASR batches (B, T + 4) {shapes}; kernel launches "
+        f"{launches_b}")
+    check(launches_b == want, f"sensevoice (b) launches {launches_b}, want {want}")
+    ts = res_k["timestamp"]
+    check(isinstance(res_k.get("text"), str) and res_k["text"] and len(ts) > 0,
+          "sensevoice (b): text and timestamps")
+    check(all(a <= b for a, b in ts) and all(0 <= a and b <= PIPELINE_AUDIO_S * 1000
+                                             for a, b in ts),
+          "sensevoice (b): timestamps within the recording")
+    seg_texts = texts_seen[-len(shapes):]
+    n_changed_auto = sum(inverse_normalize(t, "auto") != t for _, ts_ in seg_texts for t in ts_)
+    check(n_changed_auto == 0, "sensevoice (b): 'auto' names no ITN language")
+    res_t, _, outs_t, _, _ = run("b_twins", twins=True)
+    same_len = all(torch.equal(a[1], b[1]) for a, b in zip(outs_k, outs_t))
+    n_ok = n_all = 0
+    em_err = 0.0
+    for a, b in zip(outs_k, outs_t):
+        valid = torch.arange(a[0].shape[1], device="cuda")[None] < a[1][:, None]
+        n_ok += int((a[0] == b[0])[valid].sum())
+        n_all += int(valid.sum())
+        em_err = max(em_err, float((a[2] - b[2]).abs().max()))
+    agree = n_ok / max(n_all, 1)
+    same = dict(token_lengths=same_len, text=res_k["text"] == res_t["text"],
+                timestamps=ts == res_t["timestamp"])
+    log(f"e2e sensevoice (b), kernels vs twins: equal {same}, token agreement {agree:.5f} "
+        f"over {n_all} tokens, alignment emissions max |d| {em_err:.3e}")
+    check(same_len and agree >= E2E_INT8_MIN_AGREE and em_err <= E2E_INT8_LOGP_TOL,
+          "sensevoice (b): int8 kernels against twins")
+    check(n_ok < n_all or (same["text"] and same["timestamps"]),
+          "sensevoice (b): text and timestamps equal when the tokens are")
+
+    res_zh, _, _, times_zh, _ = run("b_zh", language="zh")
+    res_w, _, _, times, _ = run("b_warm")  # the same call again, warm
+    zh_texts = [t for name, ts_ in texts_seen if name == "b_zh" for t in ts_]
+    n_changed = sum(inverse_normalize(t, "zh") != t for t in zh_texts)
+    check(n_changed >= 1, "sensevoice (b) zh: ITN rewrote at least one segment")
+    by_segment = dict(zip([i for batch in am.batches(plan, FS, 60) for i in batch], zh_texts))
+    joined = join_segment_texts([by_segment[i] for i in range(len(plan)) if by_segment[i]])
+    check(res_zh["text"] == inverse_normalize(joined, "zh") != joined,
+          "sensevoice (b) zh: the joined text, normalized")
+    check(dict(res_w, key="b") == res_k, "sensevoice (b): the warm call gives the first "
+          "call's record")
+    ve.model.segments_from_posteriors = lambda post, db: plan
+    try:
+        prof = profile(torch, lambda: am.generate(wav, **SV_README_KW), profile_dir,
+                       times["generate_wall_s"] * 1e3, "profile_sensevoice.txt")
+    finally:
+        del ve.model.segments_from_posteriors
+    times.update(idle_share=1.0 - prof["kernel share of batch_ms"],
+                 kernel_ms=prof["kernels total"], kernel_launches=prof["kernel launches"])
+    log(f"e2e sensevoice (b) on {card}: warm {json.dumps(times)}; the first call "
+        f"{json.dumps(times_first)}; language zh: ITN rewrote {n_changed} of {len(zh_texts)} "
+        f"segments, itn host {times_zh['itn_host_wall_s']:.4f} s; text {res_k['text'][:24]!r}... "
+        f"{len(ts)} stamps")
+    e2e["sensevoice_b"] = dict(times, first_call=times_first, zh_call=times_zh,
+                               segments=len(plan), batches=shapes, launches=launches_b,
+                               vad_segments_found=len(segs_seen[0]), twins_equal=same,
+                               twins_token_agreement=agree, emission_max_abs_diff=em_err,
+                               itn_segments_changed_zh=n_changed, itn_segments_changed_auto=0,
+                               ctc_lo_number_bias_shift=shift)
+    e2e["sensevoice_a_launches"] = path_launches
+    path_launches["b"] = launches_b
+    total = {k: sum(d.get(k, 0) for d in path_launches.values()) for k in counters}
+    return total, e2e
+
+
 def profile(torch, run, out_dir, batch_ms, fname):
     """Device kernel time by group for one batch (``run()``), and the share
     of the batch's span (``batch_ms``, CUDA events) spent in kernels.  The
@@ -3395,6 +3911,11 @@ def main(argv=None) -> int:
     launches_stream, e2e_stream, stream_attn, stream_fbank = end_to_end_streaming(
         torch, FK, A, am, args.profile, smi)
     e2e.update(e2e_stream)
+    del am
+    torch.cuda.empty_cache()
+    sv_cases = check_sensevoice_kernels(torch, SL, DL, FF, G, A)
+    launches_sv, e2e_sv = end_to_end_sensevoice(torch, FK, A, args.profile, smi)
+    e2e.update(e2e_sv)
     log(f"end to end done in {time.time() - t0:.1f} s")
     log(f"e2e summary {json.dumps(e2e, sort_keys=True)}")
 
@@ -3407,7 +3928,8 @@ def main(argv=None) -> int:
                    "bicif": launches_bicif.get(name, 0),
                    "pipeline": launches_pipe.get(name, 0),
                    "pipeline_c": launches_c.get(name, 0),
-                   "streaming": launches_stream.get(name, 0)}
+                   "streaming": launches_stream.get(name, 0),
+                   "sensevoice": launches_sv.get(name, 0)}
         return dict(name=name, route="cuda", source=sources[0], sources=sources,
                     replaces=replaces, launches=sum(by_path.values()),
                     launches_by_path=by_path, shape=main_case["case"],
@@ -3423,13 +3945,13 @@ def main(argv=None) -> int:
               fbank_cases + [stream_fbank, spk_fbank_case]),
         entry("attention", ["funasr_torch/csrc/attention.cu"],
               "funasr_tpu/ops/attention_pallas.py:37", attn_cases[0],
-              attn_cases + stream_attn),
+              attn_cases + stream_attn + sv_cases["attention"]),
         # the same kernel's head-size-32 instance: punctuation's attention
         entry("attention_d32", ["funasr_torch/csrc/attention.cu"],
               "funasr_tpu/ops/attention_pallas.py:37", d32_cases[0], d32_cases),
         entry("sanm_layer", gemm_src + attn_src, "funasr_tpu/ops/sanm_layer_pallas.py:189",
               layer_cases["sanm_layer"][0],
-              layer_cases["sanm_layer"] + f32ctx_cases["sanm_layer"]),
+              layer_cases["sanm_layer"] + f32ctx_cases["sanm_layer"] + sv_cases["sanm_layer"]),
         entry("decoder_layer", dec_src, "funasr_tpu/ops/decoder_layer_pallas.py:165",
               layer_cases["decoder_layer"][0],
               layer_cases["decoder_layer"] + f32ctx_cases["decoder_layer"] + seaco_cases),
@@ -3439,7 +3961,8 @@ def main(argv=None) -> int:
         # QDense): the int8 contraction inside each of those TPU kernels
         entry("int8_gemm", ["funasr_torch/csrc/int8_gemm.cu",
                             "funasr_torch/csrc/int8_wgmma.cuh"],
-              "funasr_tpu/ops/sanm_layer_pallas.py:89", gemm_cases[1], gemm_cases,
+              "funasr_tpu/ops/sanm_layer_pallas.py:89", gemm_cases[1],
+              gemm_cases + sv_cases["int8_gemm"],
               also_replaces=["funasr_tpu/ops/decoder_layer_pallas.py:49",
                              "funasr_tpu/ops/ffn_pallas.py:54",
                              "funasr_tpu/ops/quant.py int8_dot_general"]),

@@ -24,10 +24,11 @@ embeddings on the host (``ClusterBackend``; ``preset_spk_num`` fixes the
 speaker count) into ``spk_info`` and gives each sentence of
 ``sentence_info`` its speaker (``distribute_spk``).
 
-Main models: Paraformer, BiCifParaformer, SeacoParaformer and the Conformer
-CTC/attention hybrid (``ParaformerEngine``, ``BiCifEngine``,
-``HotwordEngine``, ``HybridEngine``); a FsmnVADStreaming or CTTransformer
-config as the main model serves VAD or punctuation alone.
+Main models: Paraformer, BiCifParaformer, SeacoParaformer, SenseVoiceSmall
+and the Conformer CTC/attention hybrid (``ParaformerEngine``,
+``BiCifEngine``, ``HotwordEngine``, ``SenseVoiceEngine``,
+``HybridEngine``); a FsmnVADStreaming or CTTransformer config as the main
+model serves VAD or punctuation alone.
 ``generate(hotword=...)`` decodes a SeacoParaformer with its bias head; as
 in the JAX package a call with a hotword takes the waveform path, not the
 shared fbank grid, and another main model ignores the hotword.
@@ -45,10 +46,22 @@ FunASR torch-layout names (``convert.*_from_jax`` produce them).  Without
 weights every model gets seeded random weights (``seed``).  ``device=None``
 means the card (raises without one unless ``device="cpu"``).
 
+``use_itn`` (inverse text normalization, ``funasr_torch/text``) follows the
+JAX package, quirks included.  Without a VAD, an engine that normalizes
+itself (SenseVoice: ``handles_itn``) gets ``use_itn`` as its text-norm
+prompt, and any other engine's texts go through
+``inverse_normalize(text, language)``; ``language`` is consumed there and
+never reaches the engine.  With a VAD (``_inference_with_vad``) ``language``
+and ``use_itn`` are taken from the call, the engine decodes with its
+defaults (SenseVoice: language "auto", no text-norm prompt), and the joined
+text is normalized (``use_itn`` of the call or of the constructor), or each
+segment's text before "segment" punctuation.  ``merge_vad`` is accepted and
+ignored.
+
 Not ported, and raising ``NotImplementedError`` rather than skipped:
-inverse text normalization (``use_itn``), ContextualParaformer, a hybrid
-main model with a VAD, ``output_dir``, URL inputs; the JAX package's meshes
-and parallel serving options are not arguments here.
+ContextualParaformer, a hybrid main model with a VAD, ``output_dir``, URL
+inputs; the JAX package's meshes and parallel serving options are not
+arguments here.
 """
 
 from __future__ import annotations
@@ -68,6 +81,7 @@ from funasr_torch.auto.engines import (
     HybridEngine,
     ParaformerEngine,
     PuncEngine,
+    SenseVoiceEngine,
     SpkEngine,
     VadEngine,
 )
@@ -77,10 +91,11 @@ from funasr_torch.models.campplus.cluster import ClusterBackend, distribute_spk,
 from funasr_torch.models.paraformer.model import init_random_
 from funasr_torch.ops.fbank import load_cmvn_file
 from funasr_torch.registry import tables
+from funasr_torch.text.itn import inverse_normalize
+from funasr_torch.utils import vad_utils
 from funasr_torch.utils.audio import load_audio
 from funasr_torch.utils.postprocess import join_segment_texts
 from funasr_torch.utils.timestamp_tools import timestamp_sentence
-from funasr_torch.utils.vad_utils import merge_vad, slice_audio_by_segments
 
 _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
            "float32": torch.float32, "fp32": torch.float32}
@@ -158,10 +173,8 @@ class AutoModel:
                  int8_attn: bool = False, shared_frontend: bool = True, device=None,
                  **kwargs):
         """``shared_frontend=False`` keeps the waveform path in the pipeline
-        (the JAX package's ``FUNASR_TPU_DISABLE_SHARED_FRONTEND``)."""
-        if kwargs.get("use_itn"):
-            raise NotImplementedError("AutoModel: use_itn (inverse text normalization) "
-                                      "is not ported")
+        (the JAX package's ``FUNASR_TPU_DISABLE_SHARED_FRONTEND``);
+        ``use_itn=True`` here normalizes every pipeline text, as there."""
         self.kwargs = kwargs
         self.seed = seed
         self.device = resolve_device(device)
@@ -190,15 +203,18 @@ class AutoModel:
         if name == "ContextualParaformer":
             raise NotImplementedError("AutoModel: ContextualParaformer "
                                       "(HotwordEngine(seaco=False)) is not ported")
-        if name not in ("Paraformer", "BiCifParaformer", "SeacoParaformer", "Conformer"):
+        if name not in ("Paraformer", "BiCifParaformer", "SeacoParaformer", "SenseVoiceSmall",
+                        "Conformer"):
             raise NotImplementedError(f"AutoModel: no engine for model class {name!r} in "
                                       "the port (Paraformer, BiCifParaformer, "
-                                      "SeacoParaformer, Conformer)")
+                                      "SeacoParaformer, SenseVoiceSmall, Conformer)")
         tokenizer = _build_tokenizer(cfg)
         frontend = _build_frontend(cfg)
         dtype = cfg.get("dtype") or ("bfloat16" if self._quantize else "float32")
         if dtype not in _DTYPES:
             raise ValueError(f"unsupported dtype {dtype!r}")
+        if name == "SenseVoiceSmall":
+            return self._build_sense_voice(cfg, tokenizer, frontend, _DTYPES[dtype])
         common = dict(vocab_size=cfg.get("vocab_size") or tokenizer.get_vocab_size(),
                       input_size=cfg.get("input_size", frontend.n_mels * frontend.lfr_m),
                       encoder_conf=cfg.get("encoder_conf"),
@@ -226,6 +242,24 @@ class AutoModel:
         eng = {"BiCifParaformer": BiCifEngine,
                "SeacoParaformer": HotwordEngine}.get(name, ParaformerEngine)
         return eng(module, frontend, tokenizer, blank_id=module.blank_id, device=self.device)
+
+    def _build_sense_voice(self, cfg: Dict, tokenizer, frontend: FrontendConfig,
+                           dtype: torch.dtype) -> SenseVoiceEngine:
+        if self._qmm or self._int8_attn:
+            raise NotImplementedError("AutoModel: the qmm / int8_attn routes are not "
+                                      "ported for SenseVoiceSmall")
+        if cfg.get("encoder", "SenseVoiceEncoderSmall") != "SenseVoiceEncoderSmall":
+            raise NotImplementedError(f"AutoModel: encoder {cfg['encoder']!r} "
+                                      "(SenseVoiceEncoderSmall only)")
+        module = tables.get("model_classes", "SenseVoiceSmall")(
+            vocab_size=cfg.get("vocab_size") or tokenizer.get_vocab_size(),
+            input_size=cfg.get("input_size", frontend.n_mels * frontend.lfr_m),
+            encoder_conf=cfg.get("encoder_conf"), dtype=dtype, device=self.device,
+            quantize=self._quantize, **(cfg.get("model_conf") or {}))
+        _weights(module, _load_state(cfg), self.seed, self.device)
+        if self._quantize:
+            module.quantize_weights()
+        return SenseVoiceEngine(module, frontend, tokenizer, device=self.device)
 
     def _build_vad(self, cfg: Dict) -> VadEngine:
         cls = tables.get("model_classes", cfg.get("model", "FsmnVADStreaming"))
@@ -261,8 +295,6 @@ class AutoModel:
         inputs) -> one result dict per input, with its ``key``."""
         if output_dir is not None:
             raise NotImplementedError("AutoModel.generate: output_dir is not ported")
-        if kwargs.pop("use_itn", None):
-            raise NotImplementedError("AutoModel.generate: use_itn is not ported")
         if isinstance(self.engine, PuncEngine):
             texts = [input] if isinstance(input, str) else list(input)
             keys = key or [f"punc{i}" for i in range(len(texts))]
@@ -292,10 +324,17 @@ class AutoModel:
         hotword = kwargs.pop("hotword", None)
         if hotword is not None and isinstance(self.engine, HotwordEngine):
             kwargs["hotword"] = hotword
+        use_itn = kwargs.pop("use_itn", False)
+        itn_lang = kwargs.pop("language", "zh")
+        if getattr(self.engine, "handles_itn", False):  # the prompt token
+            kwargs["use_itn"] = use_itn
+            use_itn = False
         results = []
         for i in range(0, len(wavs), batch_size):
             for j, r in enumerate(self.engine.transcribe(wavs[i: i + batch_size], **kwargs)):
                 r["key"] = keys[i + j]
+                if use_itn and r.get("text"):
+                    r["text"] = inverse_normalize(r["text"], itn_lang)
                 results.append(r)
         return results
 
@@ -379,7 +418,12 @@ class AutoModel:
     def _inference_with_vad(self, wav: np.ndarray, key: str, batch_size_s: int = 300,
                             merge_length_s: int = 15, with_timestamp: bool = True,
                             fs: int = 16000, punc_mode: str = "segment", hotword=None,
-                            preset_spk_num: Optional[int] = None) -> Dict[str, Any]:
+                            preset_spk_num: Optional[int] = None, use_itn: bool = False,
+                            language: str = "zh", merge_vad: bool = True) -> Dict[str, Any]:
+        """One recording through the pipeline (``auto_model.py:670`` of the JAX
+        package).  ``language`` and ``use_itn`` only steer the text ITN
+        (``auto_model.py:680-681,791-821``): the engine decodes with its
+        defaults.  ``merge_vad`` is accepted and ignored, as there."""
         afe, vfe = getattr(self.engine, "frontend", None), self.vad_engine.frontend
         shared = (self.shared_frontend and hotword is None
                   and hasattr(self.engine, "transcribe_from_fbank_async")
@@ -390,12 +434,12 @@ class AutoModel:
             segments, raw_fbank, total_frames = self.vad_engine.segments_shared(wav)
         else:
             segments = self.vad_engine.segments(wav)
-        segments = merge_vad(segments, merge_length_s * 1000)
+        segments = vad_utils.merge_vad(segments, merge_length_s * 1000)
         if not segments:
             return {"key": key, "text": ""}
         clips = None
         if not shared or self.spk_engine is not None:
-            clips = slice_audio_by_segments(wav, segments, fs)
+            clips = vad_utils.slice_audio_by_segments(wav, segments, fs)
         hw = {}
         if hotword is not None and isinstance(self.engine, HotwordEngine):
             hw["hotword"] = self.engine.encode_hotwords(hotword)  # one upload
@@ -409,7 +453,8 @@ class AutoModel:
                     raw_fbank, [segments[i] for i in batch], offsets, total_frames)
             else:
                 fin = self.engine.transcribe_async([clips[i] for i in batch],
-                                                   with_timestamp, offsets, **hw)
+                                                   with_timestamp=with_timestamp,
+                                                   vad_offsets=offsets, **hw)
             pending.append((batch, fin))
         # the speaker chunks' embeddings queued after the ASR batches
         spk_chunks, spk_fin = [], None
@@ -434,13 +479,22 @@ class AutoModel:
         if with_timestamp:
             result["timestamp"] = all_ts
 
+        # ITN on the joined text, or on each segment's text before "segment"
+        # punctuation
+        do_itn = use_itn or self.kwargs.get("use_itn")
+        seg_punc = self.punc_engine is not None and text and punc_mode == "segment"
+        if do_itn and not seg_punc:
+            text = inverse_normalize(text, language)
+            result["text"] = text
+
         # "segment": each VAD segment is its own punctuation context, window
         # wi of every segment scored in one device call per round; "joint":
         # one window chain over the joined text (the reference's offline path)
         punc_out = None
         if self.punc_engine is not None and text:
             if punc_mode == "segment":
-                outs = self.punc_engine.model.inference_batch(texts,
+                seg_texts = [inverse_normalize(t, language) for t in texts] if do_itn else texts
+                outs = self.punc_engine.model.inference_batch(seg_texts,
                                                               self.punc_engine.tokenizer)
                 punc_out = {"text": join_segment_texts([o["text"] for o in outs]),
                             "punc_array": np.concatenate([o["punc_array"] for o in outs])}

@@ -1,5 +1,5 @@
-"""Serving engines (port of the Paraformer, BiCif, Hybrid, VAD and punctuation
-parts of funasr_tpu/auto/engines.py).
+"""Serving engines (port of the Paraformer, BiCif, hotword, SenseVoice, Hybrid,
+VAD, speaker and punctuation parts of funasr_tpu/auto/engines.py).
 
 The engine owns the model, the frontend and the tokenizer and exposes a
 batched ``transcribe``: pack waveforms into a bucketed (B, N) batch, run
@@ -33,11 +33,16 @@ CT-Transformer.  ``HotwordEngine`` serves SeacoParaformer: hotword strings
 become a padded id grid uploaded once, decoded with the bias head in the
 same pass as the BiCif timestamps.  ``SpkEngine`` embeds fixed-length
 speaker chunks through the fbank kernel and CAM++, one batch per chunk
-length.  Meshes and sequence parallelism are later slices.
+length.  ``SenseVoiceEngine`` serves SenseVoiceSmall: prompts for the
+language and text norm, greedy CTC, rich tags decoded on the host and,
+with timestamps, a CTC forced alignment whose emissions are gathered on
+the device and whose Viterbi runs on the host.  Meshes and sequence
+parallelism are later slices.
 """
 
 from __future__ import annotations
 
+from itertools import groupby
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
@@ -45,9 +50,11 @@ import torch
 
 from funasr_torch.device import fetch_async, fetched, resolve_device, upload
 from funasr_torch.models.fsmn_vad.model import frame_decibel_device
+from funasr_torch.models.sense_voice.model import N_PROMPT, lid_id, textnorm_id
+from funasr_torch.ops import ctc_align
 from funasr_torch.ops import fbank as F
 from funasr_torch.ops import fbank_kernel as FK
-from funasr_torch.utils.postprocess import sentence_postprocess
+from funasr_torch.utils.postprocess import rich_transcription_postprocess, sentence_postprocess
 from funasr_torch.utils.timestamp_tools import ts_from_cif_peaks, ts_prediction_lfr6_batch
 
 
@@ -417,6 +424,109 @@ class HotwordEngine(BiCifEngine):
             ids = [t for t in tokens[i, : int(tok_lens[i])].tolist() if t != self.blank_id]
             text, words = sentence_postprocess(self.tokenizer.ids2tokens(ids))
             results.append({"text": text, "raw_tokens": words})
+        return results
+
+
+def _ctc_align_timestamps(align_row, tokens, offset_ms: int = 0,
+                          frame_ms: int = 60) -> List[List[int]]:
+    """Frame alignment -> [[start_ms, end_ms], ...] per non-blank token
+    (``engines.py:579`` of the JAX package; reference
+    sense_voice/model.py:932-960): runs of equal labels, 60 ms frames with
+    a -30 ms half-frame shift, '▁' word separators dropped."""
+    ts = []
+    start = 0
+    token_id = 0
+    n = len(align_row)
+    for label, run in groupby(align_row):
+        end = start + len(list(run))
+        if label != 0 and token_id < len(tokens):
+            left = max((start * frame_ms - 30) / 1000.0, 0.0)
+            right = min((end * frame_ms - 30) / 1000.0,
+                        (n * frame_ms - 30) / 1000.0)
+            if tokens[token_id] != "▁":
+                ts.append([int(left * 1000) + offset_ms,
+                           int(right * 1000) + offset_ms])
+            token_id += 1
+        start = end
+    return ts
+
+
+class SenseVoiceEngine(BatchedAsrEngine):
+    """SenseVoiceSmall serving on ``device`` (default the GPU)
+    (``engines.py:604`` of the JAX package): the language and text-norm
+    prompts, greedy CTC on the device, rich-tag decoding on the host;
+    ``with_timestamp`` adds 60 ms stamps from the CTC forced alignment (its
+    emissions gathered on the device, the Viterbi on the host).  Text
+    normalization is the model's own prompt token (``handles_itn``)."""
+
+    handles_itn = True
+
+    def __init__(self, module, frontend: FrontendConfig, tokenizer, device=None):
+        super().__init__(frontend, tokenizer, device)
+        self.module = module.to(self.device).eval()
+
+    def _prompts(self, B: int, language: str, use_itn: bool):
+        full = lambda v: torch.full((B,), v, dtype=torch.int32, device=self.device)
+        return full(lid_id(language)), full(textnorm_id(use_itn))
+
+    @torch.inference_mode()
+    def run(self, wav: torch.Tensor, lens: torch.Tensor, lid: torch.Tensor,
+            tn: torch.Tensor, with_alignment: bool = False):
+        """The device program: (B, N) waveform batch and the prompt ids ->
+        tokens (B, T + 4), token_lengths; ``with_alignment`` adds the
+        alignment's emissions and lengths (``decode_for_alignment``)."""
+        feats, flens = self.frontend.device_features(wav, lens)
+        if with_alignment:
+            return self.module.decode_for_alignment(feats, flens, lid, tn)
+        return self.module.greedy_decode(feats, flens, lid, tn)
+
+    def transcribe(self, wavs: Sequence[np.ndarray], language: str = "auto",
+                   use_itn: bool = False, rich_text: bool = True,
+                   with_timestamp: bool = False,
+                   vad_offsets: Optional[Sequence[int]] = None, **kw) -> List[Dict[str, Any]]:
+        """Waveforms -> one ``{"text", "raw_text"}`` dict each (``text``
+        rich-tag decoded unless ``rich_text=False``); ``with_timestamp`` adds
+        ``"timestamp"`` (shifted by ``vad_offsets[i]`` ms) and
+        ``"raw_tokens"``.  Other keywords are accepted and ignored, as the
+        JAX engine does."""
+        return self.transcribe_async(wavs, language, use_itn, rich_text, with_timestamp,
+                                     vad_offsets)()
+
+    def transcribe_async(self, wavs: Sequence[np.ndarray], language: str = "auto",
+                         use_itn: bool = False, rich_text: bool = True,
+                         with_timestamp: bool = False,
+                         vad_offsets: Optional[Sequence[int]] = None, **kw):
+        """Queue :meth:`transcribe`'s device work and the copies of its
+        outputs now; returns ``finalize()`` -> the results."""
+        if not len(wavs):
+            return lambda: []
+        wav_d, lens_d = self._pack(wavs)
+        out = fetch_async(self.run(wav_d, lens_d, *self._prompts(len(wavs), language, use_itn),
+                                   with_alignment=with_timestamp))
+        return lambda: self._host_results(len(wavs), *fetched(*out), rich_text=rich_text,
+                                          vad_offsets=vad_offsets)
+
+    def _host_results(self, n: int, tokens, tok_lens, em=None, in_lens=None, tgt_lens=None,
+                      rich_text: bool = True, vad_offsets=None) -> List[Dict[str, Any]]:
+        """Detokenize a fetched batch (and, given the emissions, align and
+        stamp it: one batched Viterbi)."""
+        tokens, tok_lens = tokens.numpy(), tok_lens.numpy()
+        align = None
+        if em is not None:
+            align = ctc_align.viterbi(em.numpy(), tokens[:, N_PROMPT:], in_lens.numpy(),
+                            tgt_lens.numpy(), self.module.blank_id)
+        results = []
+        for i in range(n):
+            ids = tokens[i, : int(tok_lens[i])].tolist()
+            text = self.tokenizer.decode(ids)
+            res = {"text": rich_transcription_postprocess(text) if rich_text else text,
+                   "raw_text": text}
+            if align is not None:
+                offset = 0 if vad_offsets is None or not len(vad_offsets) else vad_offsets[i]
+                toks = self.tokenizer.ids2tokens(ids[N_PROMPT:])
+                res["timestamp"] = _ctc_align_timestamps(align[i], toks, offset_ms=offset)
+                res["raw_tokens"] = [t for t in toks if t != "▁"]
+            results.append(res)
         return results
 
 

@@ -3,8 +3,8 @@
 The inverses of funasr_tpu/convert.py ``paraformer_from_torch`` (:205),
 ``bicif_paraformer_from_torch`` (:228), ``seaco_paraformer_from_torch``
 (:292), ``conformer_from_torch`` (:398), ``fsmn_vad_from_torch`` (:332),
-``ct_transformer_from_torch`` (:385) and ``campplus_from_torch`` (:517),
-written for the port (no import of the JAX
+``ct_transformer_from_torch`` (:385), ``sense_voice_from_torch`` (:481) and
+``campplus_from_torch`` (:517), written for the port (no import of the JAX
 package): each takes the flax tree with numpy leaves and returns the state
 dict that the port's model (and a reference FunASR ``model.pt``) uses:
 
@@ -194,6 +194,24 @@ def seaco_paraformer_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     vocab = np.asarray(tree["hotword_output_layer"]["kernel"]).shape[1]
     _decoder(sd, "seaco_decoder", tree["seaco_decoder"], vocab)
     _dense(sd, "hotword_output_layer", tree["hotword_output_layer"])
+    return sd
+
+
+def sense_voice_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """``{'params': tree}`` (or the bare tree) of funasr_tpu's
+    SenseVoiceSmall -> the port's float32 ``state_dict``: the SANM encoder
+    with its ``tp_encoders`` stack and ``tp_norm`` under ``encoder.``, the
+    prompt table ``embed.weight`` (16, input_size) and ``ctc.ctc_lo``."""
+    tree = params.get("params", params)
+    enc = tree["encoder"]
+    sd: Dict[str, torch.Tensor] = {}
+    _encoder(sd, "encoder", enc)
+    if "tp_encoders" in enc:
+        for i in range(_num_layers(enc["tp_encoders"])):
+            _enc_layer(sd, f"encoder.tp_encoders.{i}", _unstack(enc["tp_encoders"], i))
+    _norm(sd, "encoder.tp_norm", enc["tp_norm"])
+    sd["embed.weight"] = _t(tree["embed"]["embedding"])
+    _dense(sd, "ctc.ctc_lo", tree["ctc_lo"])
     return sd
 
 

@@ -2,4 +2,4 @@
 
 from funasr_torch.models import (  # noqa: F401
     bicif_paraformer, campplus, conformer, ct_transformer, fsmn_vad, paraformer,
-    paraformer_streaming, seaco_paraformer, transformer)
+    paraformer_streaming, seaco_paraformer, sense_voice, transformer)

@@ -206,7 +206,10 @@ def int8_gemm(a: torch.Tensor, sa: torch.Tensor, b: torch.Tensor,
     """a int8 (M, K), sa (M,) float32, b int8 (N, K), sb (N,) float32 ->
     (M, N) in ``out_dtype``.  res and add are (M, N) with a unit column
     stride; on the card K must be a multiple of 16 and a, b contiguous and
-    16-byte aligned (:func:`check_args`)."""
+    16-byte aligned (:func:`check_args`).  On the card, where N is not a
+    multiple of 4 the result is a view of rows padded to one, so that the
+    epilogue keeps its 4-wide stores (at an odd row stride every store is
+    scalar: SenseVoice's ``ctc_lo``, N = 25055)."""
     if not a.is_cuda:
         if a.device.type == "cpu":
             return int8_gemm_ref(a, sa, b, sb, bias, relu, res, add, round_bf16,
@@ -217,7 +220,8 @@ def int8_gemm(a: torch.Tensor, sa: torch.Tensor, b: torch.Tensor,
     sa, sb = sa.contiguous(), sb.contiguous()
     bias = None if bias is None else bias.contiguous()
     dev = a.get_device()
-    out = a.new_empty((M, N), dtype=out_dtype)
+    ld = -(-N // 4) * 4
+    out = a.new_empty((M, ld), dtype=out_dtype)[:, :N]
     plan = gemm_plan(M, N, K, sm_count(dev))
     fn = cuda_build.function("int8_gemm", "int8_gemm_forward", _ARGTYPES)
     status = fn(_PACK(a.data_ptr(), b.data_ptr(), M, N, K, sa.data_ptr(), sb.data_ptr(),
@@ -227,7 +231,7 @@ def int8_gemm(a: torch.Tensor, sa: torch.Tensor, b: torch.Tensor,
                       int(res is not None and res.dtype == torch.bfloat16),
                       0 if add is None else add.data_ptr(),
                       0 if add is None else add.stride(0), int(relu), int(round_bf16),
-                      out.data_ptr(), N, _OUT[out_dtype], plan.bn, plan.stages, plan.grid,
+                      out.data_ptr(), ld, _OUT[out_dtype], plan.bn, plan.stages, plan.grid,
                       plan.smem, stream(dev)))
     cuda_build.check(status, "int8 GEMM kernel launch")
     int8_gemm.launches += 1

@@ -1,15 +1,50 @@
-"""Text postprocessing (copy of ``sentence_postprocess`` and
-``join_segment_texts`` from funasr_tpu/utils/postprocess.py; reference
-funasr/utils/postprocess_utils.py:144).
+"""Text postprocessing (copy of ``sentence_postprocess``,
+``join_segment_texts`` and the SenseVoice rich-tag decoding
+``rich_transcription_postprocess`` from funasr_tpu/utils/postprocess.py;
+reference funasr/utils/postprocess_utils.py:144, :399).
 
 ``sentence_postprocess`` joins CJK chars without spaces and ascii words with
 spaces, merging BPE pieces ("@@" continuation); ``join_segment_texts``
-joins the long-audio pipeline's per-segment texts by the same rule.
+joins the long-audio pipeline's per-segment texts by the same rule;
+``rich_transcription_postprocess`` turns SenseVoice's language, emotion,
+event and text-norm tags into plain text and emoji (the tag tables are
+part of SenseVoice's output protocol, reproduced verbatim).
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Tuple
+
+EMO_DICT = {
+    "<|HAPPY|>": "😊", "<|SAD|>": "😔", "<|ANGRY|>": "😡", "<|NEUTRAL|>": "",
+    "<|FEARFUL|>": "😰", "<|DISGUSTED|>": "🤢", "<|SURPRISED|>": "😮",
+}
+
+EVENT_DICT = {
+    "<|BGM|>": "🎼", "<|Speech|>": "", "<|Applause|>": "👏",
+    "<|Laughter|>": "😀", "<|Cry|>": "😭", "<|Sneeze|>": "🤧",
+    "<|Breath|>": "", "<|Cough|>": "🤧",
+}
+
+LANG_DICT = {
+    "<|zh|>": "<|lang|>", "<|en|>": "<|lang|>", "<|yue|>": "<|lang|>",
+    "<|ja|>": "<|lang|>", "<|ko|>": "<|lang|>", "<|nospeech|>": "<|lang|>",
+}
+
+EMOJI_DICT = {
+    "<|nospeech|><|Event_UNK|>": "❓", "<|zh|>": "", "<|en|>": "",
+    "<|yue|>": "", "<|ja|>": "", "<|ko|>": "", "<|nospeech|>": "",
+    "<|HAPPY|>": "😊", "<|SAD|>": "😔", "<|ANGRY|>": "😡", "<|NEUTRAL|>": "",
+    "<|BGM|>": "🎼", "<|Speech|>": "", "<|Applause|>": "👏",
+    "<|Laughter|>": "😀", "<|FEARFUL|>": "😰", "<|DISGUSTED|>": "🤢",
+    "<|SURPRISED|>": "😮", "<|Cry|>": "😭", "<|EMO_UNKNOWN|>": "",
+    "<|Sneeze|>": "🤧", "<|Breath|>": "", "<|Cough|>": "😷", "<|Sing|>": "",
+    "<|Speech_Noise|>": "", "<|withitn|>": "", "<|woitn|>": "",
+    "<|GBG|>": "", "<|Event_UNK|>": "",
+}
+
+EMO_SET = {"😊", "😔", "😡", "😰", "🤢", "😮"}
+EVENT_SET = {"🎼", "👏", "😀", "😭", "🤧", "😷"}
 
 
 def _is_cjk(ch: str) -> bool:
@@ -96,3 +131,50 @@ def join_segment_texts(texts: List[str]) -> str:
             out += " "
         out += t
     return out
+
+
+def format_str_v2(s: str) -> str:
+    """One-language-span normalization (postprocess_utils.py:379)."""
+    counts = {}
+    for tag in EMOJI_DICT:
+        counts[tag] = s.count(tag)
+        s = s.replace(tag, "")
+    emo = "<|NEUTRAL|>"
+    for e in EMO_DICT:
+        if counts.get(e, 0) > counts.get(emo, 0):
+            emo = e
+    for e in EVENT_DICT:
+        if counts.get(e, 0) > 0:
+            s = EVENT_DICT[e] + s
+    s = s + EMO_DICT[emo]
+    for emoji in EMO_SET | EVENT_SET:
+        s = s.replace(" " + emoji, emoji).replace(emoji + " ", emoji)
+    return s.strip()
+
+
+def rich_transcription_postprocess(s: str) -> str:
+    """Decode SenseVoice rich-tag output (postprocess_utils.py:399)."""
+
+    def get_emo(x):
+        return x[-1] if x and x[-1] in EMO_SET else None
+
+    def get_event(x):
+        return x[0] if x and x[0] in EVENT_SET else None
+
+    s = s.replace("<|nospeech|><|Event_UNK|>", "❓")
+    for lang in LANG_DICT:
+        s = s.replace(lang, "<|lang|>")
+    parts = [format_str_v2(p).strip(" ") for p in s.split("<|lang|>")]
+    new_s = " " + parts[0] if parts else ""
+    cur_event = get_event(new_s)
+    for p in parts[1:]:
+        if not p:
+            continue
+        if get_event(p) == cur_event and get_event(p) is not None:
+            p = p[1:]
+        cur_event = get_event(p)
+        if get_emo(p) is not None and get_emo(p) == get_emo(new_s):
+            new_s = new_s[:-1]
+        new_s += p.strip().lstrip()
+    new_s = new_s.replace("The.", " ")
+    return new_s.strip()

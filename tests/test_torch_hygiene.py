@@ -311,3 +311,71 @@ def test_int8_sources_are_built_and_hashed(monkeypatch, tmp_path):
     monkeypatch.setattr(cuda_build, "CSRC", csrc)
     after = cuda_build.library_path("int8_gemm").name
     assert after.startswith("libint8_gemm-") and after != before
+
+
+def test_sensevoice_entry_points_raise_without_cuda(monkeypatch):
+    """SenseVoiceSmall, ``SenseVoiceEngine`` and ``AutoModel`` with a
+    SenseVoice config run on the card unless given ``device="cpu"``; the
+    new text, tokenizer and CTC modules import no JAX."""
+    from funasr_torch.auto.auto_model import AutoModel
+    from funasr_torch.auto.engines import FrontendConfig, SenseVoiceEngine
+    from funasr_torch.models.sense_voice.model import SenseVoiceSmall
+    from funasr_torch.tokenizer.char_tokenizer import CharTokenizer
+    from funasr_torch.tokenizer.sensevoice_tokenizer import generated_token_list
+
+    _no_gpu(monkeypatch)
+    conf = dict(vocab_size=40, input_size=16,
+                encoder_conf=dict(output_size=8, attention_heads=2, linear_units=8,
+                                  num_blocks=2, tp_blocks=1, kernel_size=3))
+    cfg = dict(model="SenseVoiceSmall", tokenizer_conf={"token_list": generated_token_list(40)},
+               frontend_conf=dict(n_mels=16, lfr_m=1, lfr_n=1), **conf)
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no GPU"):
+            SenseVoiceSmall(**conf, device=device)
+        with pytest.raises(RuntimeError, match="no GPU"):
+            SenseVoiceSmall(**conf, device=device, quantize=True, dtype=torch.bfloat16)
+        with pytest.raises(RuntimeError, match="no GPU"):
+            AutoModel(model=cfg, device=device)
+    model = SenseVoiceSmall(**conf, device="cpu")
+    assert all(p.device.type == "cpu" for p in model.parameters())
+    tok = CharTokenizer(generated_token_list(40))
+    fe = FrontendConfig(lfr_m=1, lfr_n=1, n_mels=16)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        SenseVoiceEngine(model, fe, tok)
+    assert SenseVoiceEngine(model, fe, tok, device="cpu").device.type == "cpu"
+    am = AutoModel(model=cfg, device="cpu", quantize=True)
+    assert am.engine.handles_itn and am.engine.module.encoder.tp_encoders[0].int8 is not None
+    new = [ROOT / "funasr_torch" / p for p in (
+        "text/itn.py", "text/itn_classes.py", "text/itn_semiotic.py", "text/__init__.py",
+        "tokenizer/sentencepiece_tokenizer.py", "tokenizer/sensevoice_tokenizer.py",
+        "ops/ctc_decode.py", "ops/ctc_align.py", "models/sense_voice/model.py")]
+    assert all(p in _port_files() for p in new)
+    assert not [n for p in new for n in _imports(p) if n.split(".")[0] in BANNED]
+
+
+def test_generated_token_list_and_optional_tokenizers():
+    """The stand-in vocabulary holds the rich tags at the released ids; the
+    SentencePiece and tiktoken tokenizers are registered under their JAX
+    names and import their packages only when built."""
+    from funasr_torch.models.sense_voice.model import LID_INT_DICT, TEXTNORM_INT_DICT
+    from funasr_torch.registry import tables
+    from funasr_torch.tokenizer.sensevoice_tokenizer import NUMBER_WORDS, generated_token_list
+
+    full = generated_token_list()
+    assert len(full) == len(set(full)) == 25055 and full[0] == "<unk>"
+    assert [full[i] for i in sorted(LID_INT_DICT)] == [
+        "<|zh|>", "<|en|>", "<|yue|>", "<|ja|>", "<|ko|>", "<|nospeech|>"]
+    assert [full[i] for i in sorted(TEXTNORM_INT_DICT)] == ["<|withitn|>", "<|woitn|>"]
+    assert set(NUMBER_WORDS) <= set(full) and "<|HAPPY|>" in full and "<|Speech|>" in full
+    small = generated_token_list(40)
+    assert len(set(small)) == 40 and "<|zh|>" in small and "三" in small
+    for name in ("SentencepiecesTokenizer", "SenseVoiceTokenizer"):
+        assert tables.get("tokenizer_classes", name)
+    import importlib.util
+
+    if importlib.util.find_spec("sentencepiece") is None:
+        with pytest.raises(ImportError, match="sentencepiece"):
+            tables.get("tokenizer_classes", "SentencepiecesTokenizer")(bpemodel="x.model")
+    if importlib.util.find_spec("tiktoken") is None:
+        with pytest.raises(ImportError):
+            tables.get("tokenizer_classes", "SenseVoiceTokenizer")(vocab_path="x.tiktoken")

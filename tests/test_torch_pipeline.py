@@ -37,6 +37,17 @@ through ``init_param``: flax trees for the JAX package, the port's
   ``preset_spk_num=2`` and with neither (the speaker count from the
   eigen-gap), the same text, timestamps, ``sentence_info`` (each with its
   ``spk``) and ``spk_info`` as the JAX ``AutoModel``: the records equal.
+- SenseVoiceSmall through FunASR's README call (``vad_model`` FSMN-VAD,
+  ``max_single_segment_time`` 30 s, ``language``, ``use_itn=True``,
+  ``batch_size_s=60``, ``merge_vad=True``, ``merge_length_s=15``), float32,
+  the tiny model of ``tests/test_torch_sensevoice.py`` with a CMVN file of
+  the recording's feature statistics: the record (``text`` after ITN,
+  ``timestamp`` from the CTC alignment) equals the JAX ``AutoModel``'s.
+  With a VAD the call's ``language`` and ``use_itn`` steer only the text
+  ITN; ``language="auto"`` names no ITN language, so the text passes
+  through, as in the JAX package.  ``use_itn`` without a VAD (SenseVoice's
+  text-norm prompt; BiCif's texts through ITN), and on the BiCif pipeline
+  with "segment" and "joint" punctuation, also equal the JAX package.
 - Past 15 s: T = 384 LFR frames at Paraformer-large's D = 512, the served
   bucket after 256 (frames pad to a multiple of 128; 15.4-23 s), where the
   JAX package's fused layers' VMEM gate (T <= 312 at D = 512) sends it to
@@ -58,6 +69,7 @@ from funasr_tpu.auto.auto_model import AutoModel as JaxAutoModel
 from funasr_torch import convert as C
 from funasr_torch.auto.auto_model import AutoModel
 from tests.test_torch_bicif import TOKENS, _conf, _init, _jax_fires
+from tests.test_torch_sensevoice import CONF as SV_CONF, TOKENS as SV_TOKENS
 from tests.test_torch_vad import (CONF as VAD_CONF, calibrated_params, init_params,
                                   recording, tone)
 
@@ -267,13 +279,13 @@ def test_edges_and_not_ported(monkeypatch, bicif_pair, tmp_path):
     silence = np.zeros(32000, np.float32)
     spk = AutoModel(model=asr_cfg(), spk_model=CAMP_CFG, device="cpu")
     assert spk.spk_engine.model.embedding_size == 16 and spk.spk_engine.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="use_itn"):
-        AutoModel(model=asr_cfg(), use_itn=True, device="cpu")
+    assert AutoModel(model=asr_cfg(), use_itn=True, device="cpu").kwargs == {"use_itn": True}
     assert am.generate(silence, key=["s"], hotword="公园") == \
         jam.generate(silence, key=["s"], hotword="公园")
-    for kw in ({"use_itn": True}, {"output_dir": str(tmp_path)}):
-        with pytest.raises(NotImplementedError):
-            am.generate(silence, **kw)
+    assert am.generate(silence, key=["s"], use_itn=True, language="zh", merge_vad=True) == \
+        jam.generate(silence, key=["s"], use_itn=True, language="zh", merge_vad=True)
+    with pytest.raises(NotImplementedError):
+        am.generate(silence, output_dir=str(tmp_path))
     with pytest.raises(NotImplementedError, match="ContextualParaformer"):
         AutoModel(model=dict(asr_cfg(), model="ContextualParaformer"), device="cpu")
     with pytest.raises(NotImplementedError, match="URL"):
@@ -290,7 +302,9 @@ def test_edges_and_not_ported(monkeypatch, bicif_pair, tmp_path):
     with pytest.raises(NotImplementedError, match="hybrid"):
         AutoModel(model=hybrid, vad_model=VAD_CFG, device="cpu").generate(recording(0))
     with pytest.raises(NotImplementedError, match="no engine"):
-        AutoModel(model=dict(asr_cfg(), model="SenseVoiceSmall"), device="cpu")
+        AutoModel(model=dict(asr_cfg(), model="WhisperModel"), device="cpu")
+    with pytest.raises(NotImplementedError, match="qmm"):
+        AutoModel(model=SV_CFG, quantize=True, qmm=True, device="cpu")
 
 
 def test_standalone_vad_and_punc_models(bicif_pair, tmp_path):
@@ -470,3 +484,101 @@ def test_hotword_on_bicif_is_ignored_as_in_jax(monkeypatch, bicif_pair):
     got = am.generate(wav, key=["h"], hotword=HOTWORD)
     assert got == jam.generate(wav, key=["h"], hotword=HOTWORD) == am.generate(wav, key=["h"])
     assert got[0]["text"]
+
+
+# ------------------------------------------- SenseVoice and inverse text normalization
+SV_CFG = dict(model="SenseVoiceSmall", encoder="SenseVoiceEncoderSmall",
+              tokenizer="CharTokenizer", frontend_conf=dict(fs=16000, n_mels=80, lfr_m=7,
+                                                            lfr_n=6),
+              **{k: v for k, v in SV_CONF.items() if k != "vocab_size"},
+              vocab_size=len(SV_TOKENS), tokenizer_conf={"token_list": SV_TOKENS})
+README_KW = dict(language="auto", use_itn=True, batch_size_s=60, merge_vad=True,
+                 merge_length_s=15)
+VAD_README_CONF = {"model_conf": {"max_single_segment_time": 30000}}
+
+
+@pytest.fixture(scope="module")
+def sensevoice_pair(tmp_path_factory):
+    """The JAX AutoModel and the port's with SenseVoice as the main model and
+    the calibrated VAD, on the same weights and CMVN file."""
+    from tests.test_torch_sensevoice import feature_cmvn, init_sense_voice, write_cmvn
+
+    tmp = tmp_path_factory.mktemp("sensevoice")
+    _, sv = init_sense_voice(SV_CONF, 0)
+    vad = calibrated_params(init_params(VAD_CONF, 0)[1], VAD_CONF, _port_frontend())
+    cfg = dict(SV_CFG, cmvn_file=write_cmvn(tmp / "am.mvn", feature_cmvn([long_recording()])))
+    jam = JaxAutoModel(
+        model=dict(cfg, init_param=_save_flax(tmp / "j_sv.npz", sv["params"])),
+        vad_model=dict(VAD_CFG, init_param=_save_flax(tmp / "j_vad.npz", vad["params"])),
+        vad_conf=VAD_README_CONF)
+    files = dict(sv=_save(tmp / "sv.npz", C.sense_voice_from_jax(sv)),
+                 vad=_save(tmp / "vad.npz", C.fsmn_vad_from_jax(vad)),
+                 jax_sv=str(tmp / "j_sv.npz"))
+    port = lambda vad_model=True, **kw: AutoModel(
+        model=dict(cfg, init_param=files["sv"]),
+        vad_model=dict(VAD_CFG, init_param=files["vad"]) if vad_model else None,
+        vad_conf=VAD_README_CONF, device="cpu", **kw)
+    return jam, port, cfg, files
+
+
+@pytest.mark.parametrize("language", ["auto", "zh"])
+def test_readme_call_sensevoice_matches_jax(sensevoice_pair, language):
+    from funasr_torch.auto.engines import SenseVoiceEngine
+
+    jam, port, _, _ = sensevoice_pair
+    am = port()
+    assert isinstance(am.engine, SenseVoiceEngine)
+    assert am.vad_engine.model.opts.max_single_segment_time == 30000
+    wav = long_recording()
+    kw = dict(README_KW, language=language)
+    got = am.generate(wav, key=["sv"], **kw)
+    assert got == jam.generate(wav, key=["sv"], **kw)
+    r = got[0]
+    assert r["text"] and len(r["timestamp"]) >= 4 and "<|" not in r["text"]
+    assert all(0 <= a <= b <= len(wav) // 16 for a, b in r["timestamp"])
+    plain = am.generate(wav, key=["sv"], **dict(kw, use_itn=False))[0]
+    assert plain["timestamp"] == r["timestamp"]
+    assert (plain["text"] != r["text"]) == (language == "zh")  # "auto": no ITN language
+    assert port(use_itn=True).generate(wav, key=["sv"], **dict(kw, use_itn=False)) == got
+
+
+@pytest.mark.parametrize("main", ["sensevoice", "bicif"])
+def test_plain_path_itn_matches_jax(monkeypatch, tmp_path, sensevoice_pair, main):
+    """Without a VAD: SenseVoice gets ``use_itn`` as its text-norm prompt (the
+    call's ``language`` is consumed by the ITN step and never reaches the
+    engine, as in the JAX package); other engines' texts go through ITN."""
+    from tests.test_torch_vad import tone
+
+    _correct_jax_fires(monkeypatch)
+    if main == "sensevoice":
+        _, port, cfg, files = sensevoice_pair
+        am = port(vad_model=False)
+        jam = JaxAutoModel(model=dict(cfg, init_param=files["jax_sv"]))
+    else:
+        cfg = asr_cfg()
+        tree = _init({k: cfg[k] for k in ("vocab_size", "input_size", "encoder_conf",
+                                          "decoder_conf", "predictor_conf")}, 0)[1]
+        am = AutoModel(model=dict(cfg, init_param=_save(
+            tmp_path / "asr.npz", C.bicif_paraformer_from_jax(tree))), device="cpu")
+        jam = JaxAutoModel(model=dict(cfg, init_param=_save_flax(tmp_path / "j_asr.npz",
+                                                                 tree["params"])))
+    rng = np.random.default_rng(9)
+    wavs = [tone(rng, 1.1, 260.0), tone(rng, 2.3, 190.0)]
+    for kw in ({"use_itn": True, "language": "zh"}, {"use_itn": False}, {"use_itn": True}):
+        got = am.generate(wavs, key=["a", "b"], **kw)
+        assert got == jam.generate(wavs, key=["a", "b"], **kw), kw
+        assert all(r["text"] for r in got)
+
+
+@pytest.mark.parametrize("punc_mode", ["segment", "joint"])
+def test_bicif_pipeline_itn_matches_jax(monkeypatch, bicif_pair, punc_mode):
+    _correct_jax_fires(monkeypatch)
+    jam, port = bicif_pair
+    am = port()
+    wav = long_recording()
+    kw = dict(use_itn=True, language="zh", punc_mode=punc_mode)
+    got = am.generate(wav, key=["i"], **kw)
+    assert got == jam.generate(wav, key=["i"], **kw)
+    assert got[0]["text"] and got[0]["sentence_info"]
+    assert port(use_itn=True).generate(wav, key=["i"], language="zh",
+                                       punc_mode=punc_mode) == got
