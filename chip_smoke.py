@@ -165,6 +165,34 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    bias is raised by a probe batch's median margin), and warm, profiled:
    wall, audio-s/s, stages (VAD, ASR dispatch and span, alignment and ITN
    on the host), idle share, launches;
+   then (d) int8 ContextualParaformer at Paraformer-large width
+   (``end_to_end_contextual``; 16 decoder layers, the last one with the
+   hotword bias attention) through ``AutoModel(model=ContextualParaformer,
+   vad_model=FSMN-VAD, punc_model=CT-Transformer, quantize=True)`` with run
+   (c)'s 10 hotwords (no no-bias row): (d1) ``HotwordEngine(seaco=False)
+   .transcribe_async(hotword=...)`` of three mixed 2-15 s batches, the
+   counters exact (a batch: fbank 1, SANM layer 49, FFN 1, decoder layer
+   15, d = 128 attention 3, the blocks and gated QDense by
+   ``contextual_launches``) with no host sync in a dispatch, each of a
+   batch's 15 fused decoder layers bit-equal to its twin on its own inputs,
+   log-probs on the int8 twins within 1e-3 with tokens >= 0.99 and token
+   lengths equal, the bias attention over 1, 2, 10 and 51 keys with no key
+   mask against its twin (3e-2) and SDPA; (d2) ``generate`` of the 600 s
+   recording on (b)'s plan with the hotwords (the waveform path; no
+   timestamps) and without (CIF-peak stamps), each counter exact, no host
+   sync in a dispatch, the record equal on the int8 twins, wall, stages
+   and the idle share of a profile; then (e) the Conformer of
+   ``configs/conformer_hybrid.yaml`` through ``AutoModel(model=Conformer,
+   vad_model=FSMN-VAD, punc_model=CT-Transformer, quantize=True)``
+   (``end_to_end_hybrid``): (e1) ``HybridEngine.transcribe(nbest=3,
+   with_timestamp=True)`` of the beam cell's B = 32 x 15 s batch (its
+   serving, int8 KV), counters exact (the CTC prefix step one a decode
+   step), timed beside the call without timestamps with the host Viterbi's
+   seconds and the bytes read back, and on the twins (CTC step, int8
+   blocks) tokens equal, scores within 1e-3, alignments and timestamps
+   equal; (e2) ``generate`` with CTC-alignment timestamps of the 600 s
+   recording on (b)'s plan, counters exact, wall and stages, and its first
+   120 s on the kernels and on the twins, the records equal;
 4. print one ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -176,7 +204,9 @@ BiCif batch with the routes on and off to ``DIR/profile_e2e.txt``,
 ``generate`` (b) of the pipeline, ``DIR/profile_pipeline.txt`` (its stage
 times and segments in ``DIR/pipeline.json``), for one streaming window
 step, ``DIR/profile_streaming.txt`` and, for one SenseVoice README call,
-``DIR/profile_sensevoice.txt`` (those two are profiled in every run).  Device time by kernel group, and the share of
+``DIR/profile_sensevoice.txt`` and, for one contextual ``generate`` with
+hotwords, ``DIR/profile_contextual.txt`` (those three are profiled in every
+run).  Device time by kernel group, and the share of
 each batch's span spent in kernels, is printed for every batch profiled;
 the beam batch is always profiled (its device time beside its host time).
 Without CUDA, or without the rest of the repository beside it, the script
@@ -3749,6 +3779,596 @@ def end_to_end_sensevoice(torch, FK, A, profile_dir, card):
     return total, e2e
 
 
+# ------------------------- ContextualParaformer hotwords (d), the hybrid's timestamps (e)
+CTX_DECODER_LAYERS = 15  # fused int8 decoder layers: att_layer_num 16, the last one contextual
+CTX_BIAS_KEYS = (1, 2, 10, 51)  # hotword rows of the bias attention: 1, 2, run (d)'s 10, 50 + 1
+
+
+def sync_guarded(torch, f):
+    """``f`` with ``torch.cuda.set_sync_debug_mode("error")`` around it: a
+    host sync inside raises."""
+    def call(*a, **k):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return f(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return call
+
+
+def contextual_configs():
+    """Phase (d)'s configs: ``pipeline_configs()``'s Paraformer-large dict as
+    ContextualParaformer (``_flagship``'s widths, its CIF predictor,
+    ``inner_dim`` 512, 16 decoder layers of which the last is the contextual
+    one; the JAX package carries no contextual YAML), the FSMN-VAD and the
+    CT-Transformer of the pipeline."""
+    asr, vad, punc = pipeline_configs()
+    asr = {k: v for k, v in asr.items() if k != "predictor"}
+    return dict(asr, model="ContextualParaformer", decoder="ContextualParaformerDecoder",
+                model_conf=dict(asr["model_conf"], inner_dim=512)), vad, punc
+
+
+def contextual_launches(Q, A, shapes, n_rows, fbank, rounds=0, n_blocks=4):
+    """The exact launches of the int8 contextual path: ``fbank`` launches
+    and, per served (B, T, U), the int8 layers' blocks (``layer_launches``
+    with 15 fused decoder layers), a rowquant + int8 GEMM pair for each
+    gated QDense contraction (``qdense_gated``; the last layer's FFN w_1
+    and cross-attention k/v; with a hotword memory of ``n_rows`` rows the
+    bias attention's k/v, under the gate at these shapes), the bf16 d = 128
+    attention of encoder layer 0, of the last layer's cross-attention and,
+    with hotwords, of the bias attention; punctuation's d = 32 attention
+    ``n_blocks`` a window round."""
+    D, H, nd = 512, 2048, CTX_DECODER_LAYERS
+    want = dict(fbank=fbank, attention=0, sanm_layer=0, decoder_layer=0, ffn=0, qmm=0,
+                attention_i8qk=0, attention_f32ctx=0, ffn_bf16=0, int8_gemm=0, rowquant=0,
+                int8_gemm_rq=0, fsmn=0, fsmn_ln=0, attention_d32=rounds * n_blocks)
+    for B, T, U in shapes:
+        gated = qdense_gated(Q, (B, T, U)) + Q.gate(B * U, H) + Q.gate(B * T, 2 * D)
+        if n_rows:
+            gated += Q.gate(B * n_rows, 2 * D)
+        for k, n in (("attention", 3 if n_rows else 2), ("ffn", 1), ("sanm_layer", 49),
+                     ("decoder_layer", nd), ("int8_gemm_rq", 49), ("fsmn_ln", nd),
+                     ("rowquant", 49 * 3 + nd * 4 + 1 + 2 + gated),
+                     ("int8_gemm", 49 * 3 + nd * 5 + 2 + gated),
+                     ("attention_f32ctx", 49 * exact_attention_launches(A, B, T, T)
+                      + nd * exact_attention_launches(A, B, U, T))):
+            want[k] += n
+    want["attention"] += rounds * n_blocks
+    return want
+
+
+def check_bias_attention(torch, A, B, U):
+    """The bf16 d = 128 attention at the bias branch's shapes: q (B, U, 512)
+    over H = 1, 2, 10 and 51 hotword keys with no key mask (a zero bias), k
+    and v column slices of one projection, against its twin (``ATTN_TOL``),
+    timed beside the twin and SDPA."""
+    import torch.nn.functional as F
+
+    D, NH = 512, 4
+    d = D // NH
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    cases = []
+    for H in CTX_BIAS_KEYS:
+        q = torch.randn((B, U, D), generator=gen, device="cuda").to(torch.bfloat16) * d ** -0.5
+        kv = torch.randn((B, H, 2 * D), generator=gen, device="cuda").to(torch.bfloat16)
+        k, v = kv[..., :D], kv[..., D:]
+        bias = torch.zeros((B, H), device="cuda")
+        got, want = A.fused_attention(q, k, v, bias, NH), A.attention_ref(q, k, v, bias, NH)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        check(bool(torch.isfinite(got).all()) and err <= ATTN_TOL["bfloat16"],
+              f"bias attention over {H} hotword keys: err {err}")
+        q4, k4, v4 = (t.unflatten(-1, (NH, d)).transpose(1, 2) for t in (q, k, v))
+        bnd, by = bound_ms(2 * (2 * B * U * D + 2 * B * H * D) + 4 * B * H,
+                           {"bfloat16": 4.0 * D * B * U * H})
+        case = dict(case=f"bias attention q ({B}, {U}, {D}) over {H} hotword keys, bf16, "
+                         "H=4, no key mask",
+                    max_abs_err=err, tolerance=ATTN_TOL["bfloat16"],
+                    ms=cuda_ms(lambda: A.fused_attention(q, k, v, bias, NH), iters=20),
+                    plain_ms=cuda_ms(lambda: A.attention_ref(q, k, v, bias, NH), iters=5),
+                    library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                        q4, k4, v4, scale=1.0), iters=20),
+                    bound_ms=bnd, bound_by=by)
+        log(f"contextual kernel {case}")
+        cases.append(case)
+    return cases
+
+
+def end_to_end_contextual(torch, FK, A, profile_dir, card):
+    """Phase (d): int8 ContextualParaformer at Paraformer-large width on
+    seeded random weights, through ``AutoModel(model=ContextualParaformer,
+    vad_model=FSMN-VAD, punc_model=CT-Transformer, quantize=True)``, with
+    run (c)'s 10 hotwords (no no-bias row: H = 10).  (d1) its
+    ``HotwordEngine(seaco=False)``: three mixed 2-15 s batches with the
+    hotwords, counters exact (fbank 1, SANM layer 49, FFN 1, decoder layer
+    15, d = 128 attention 3 a batch, the blocks and gated QDense) with no
+    host sync in a batch's dispatch; each of the first batch's 15 fused
+    decoder layers bit-equal to its twin on the same inputs; log-probs of
+    the three batches on the int8 twins within 1e-3, tokens >= 0.99, token
+    lengths equal; the bias attention at 1-51 keys against its twin.  (d2)
+    ``generate`` of the 600 s recording on pipeline (b)'s plan with the
+    hotwords (the waveform path; no timestamps: the contextual decode yields
+    none), then without (the guarded path, CIF-peak stamps), each with its
+    counters exact and no host sync in a dispatch, and each again on the int8
+    twins with the record equal; wall, stages and, from a profile of the
+    hotword call, the idle share.  Returns (launches of every run on the
+    path, summed; e2e record; kernel cases)."""
+    import numpy as np
+
+    from funasr_torch.auto.auto_model import AutoModel
+    from funasr_torch.auto.engines import HotwordEngine
+    from funasr_torch.ops import decoder_layer as DL
+    from funasr_torch.ops import ffn as FF
+    from funasr_torch.ops import fsmn as FM
+    from funasr_torch.ops import int8_gemm as G
+    from funasr_torch.ops import qmm as QM
+    from funasr_torch.ops import quant as Q
+    from funasr_torch.ops import rowquant as RQ
+    from funasr_torch.ops import sanm_layer as SL
+    from funasr_torch.utils.vad_utils import merge_vad, slice_audio_by_segments
+
+    counters = {"fbank": FK.fused_fbank, "attention": A.fused_attention,
+                "sanm_layer": SL.fused_sanm_layer, "decoder_layer": DL.fused_decoder_layer,
+                "ffn": FF.fused_ffn_int8, "qmm": QM.quant_matmul,
+                "attention_i8qk": A.attention_i8qk, "attention_f32ctx": A.attention_f32ctx,
+                "ffn_bf16": FF.fused_ffn, "int8_gemm": G.int8_gemm, "rowquant": RQ.rowquant,
+                "int8_gemm_rq": G.int8_gemm_rq, "fsmn": FM.fsmn, "fsmn_ln": FM.fsmn_ln}
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+        A.fused_attention.launches_by_head = dict.fromkeys(A.HEAD_SIZES, 0)
+
+    def read():
+        out = {k: fn.launches for k, fn in counters.items()}
+        out["attention_d32"] = A.fused_attention.launches_by_head[32]
+        return out
+
+    t0 = time.time()
+    asr_cfg, vad_cfg, punc_cfg = contextual_configs()
+    am = AutoModel(model=asr_cfg, vad_model=vad_cfg, punc_model=punc_cfg, quantize=True,
+                   seed=2031)
+    eng, ve, pm = am.engine, am.vad_engine, am.punc_engine.model
+    model = eng.module
+    check(isinstance(eng, HotwordEngine) and not eng.seaco and not eng.from_fbank
+          and len(model.encoder.encoders) == 49 and model.vocab_size == FLAGSHIP["vocab_size"]
+          and len(model.decoder.decoders) == CTX_DECODER_LAYERS
+          and model.decoder.last_decoder.int8 is None,
+          "ContextualParaformer at Paraformer-large width, 15 fused decoder layers")
+    words = hotword_list(np.random.default_rng(14), asr_cfg["tokenizer_conf"]["token_list"], -1)
+    hotword = " ".join(words)
+    grid = eng.encode_hotwords(hotword)
+    n_rows = int(grid.pad.shape[0])
+    check(n_rows == N_HOTWORDS, f"contextual hotword grid rows {n_rows} (no no-bias row)")
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"e2e contextual: AutoModel (int8 ContextualParaformer {n_params / 1e6:.1f} M params, "
+        f"FSMN-VAD, CT-Transformer) built in {time.time() - t0:.1f} s; hotwords {words}")
+
+    # ---- (d1) the engine: three mixed 2-15 s batches with the hotwords
+    rng = np.random.default_rng(31)
+    batches = []
+    for size in (8, 16, 5):
+        n = rng.integers(2 * FS, 15 * FS + 1, size)
+        batches.append([waveform(rng, int(m), float(rng.uniform(100, 400))) for m in n])
+    eng.transcribe(batches[0][:2], hotword=grid)  # warm-up
+    torch.cuda.synchronize()
+    dec_calls = []
+
+    def kept_dec(layer, args, out):
+        if len(dec_calls) < CTX_DECODER_LAYERS:  # the first batch's layers
+            dec_calls.append((layer, args, out.clone()))
+
+    hooks = [layer.register_forward_hook(kept_dec) for layer in model.decoder.decoders]
+    zero()
+    t0 = time.time()
+    try:
+        dispatch = sync_guarded(torch, eng.transcribe_async)
+        pending = [dispatch(b, hotword=grid) for b in batches]
+        results = [fin() for fin in pending]
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+    serve_s = time.time() - t0
+    launches_d1 = read()
+    shapes = [served_shape(eng, b) for b in batches]
+    want = contextual_launches(Q, A, shapes, n_rows, len(batches))
+    log(f"e2e contextual (d1): served {sum(map(len, batches))} requests in 3 batches (B, T, U) "
+        f"{shapes} in {serve_s:.3f} s; kernel launches {launches_d1}")
+    check(launches_d1 == want, f"contextual (d1) launches {launches_d1}, want {want}")
+    for b, res in zip(batches, results):
+        check(len(res) == len(b) and all(isinstance(r["text"], str) and "timestamp" not in r
+                                         for r in res), "contextual (d1) results")
+    # DecoderLayerSANM.forward(tgt, tgt_mask, memory, mem_bias, tgt_lengths,
+    # mem_lengths, memory_q) -> its fused layer's twin on the same operands
+    n_equal = sum(bool(torch.equal(out, DL.decoder_layer_ref(
+        x.to(layer.dtype), mem.to(layer.dtype), tl, ml, layer.int8(layer), layer.n_head,
+        layer.self_attn.left, mb, mq))) for layer, (x, _, mem, mb, tl, ml, mq), out in dec_calls)
+    check(len(dec_calls) == CTX_DECODER_LAYERS and n_equal == len(dec_calls),
+          f"contextual (d1): {n_equal} of {len(dec_calls)} fused decoder layers bit-equal")
+    B0, T0, U0 = shapes[0]
+    dec_case = dict(case=f"the contextual decoder's {CTX_DECODER_LAYERS} fused layers on served "
+                         f"batch 0 (B={B0}, U={U0}, T={T0}), each on its own inputs",
+                    max_abs_err=0.0 if n_equal == len(dec_calls) else None, tolerance=0.0,
+                    bit_equal_layers=n_equal)
+    log(f"contextual kernel {dec_case}")
+
+    def logprobs(b):
+        wav_d, lens_d = eng._pack(b)
+        with torch.inference_mode():
+            feats, flens = eng.frontend.device_features(wav_d, lens_d)
+            return model.hotword_logprobs(feats, flens, grid.pad, grid.lengths,
+                                          eng._max_tokens(wav_d.shape[1]))[:2]
+
+    err = 0.0
+    n_ok = n_all = 0
+    same_len = True
+    for b in batches:
+        lp_k, tl_k = logprobs(b)
+        with int8_twins():
+            lp_r, tl_r = logprobs(b)
+        valid = torch.arange(lp_k.shape[1], device="cuda")[None] < tl_k[:, None]
+        check(bool(torch.isfinite(lp_k[valid]).all()), "contextual log-probs finite")
+        err = max(err, float((lp_k - lp_r).abs()[valid].max()))
+        n_ok += int((lp_k.argmax(-1) == lp_r.argmax(-1))[valid].sum())
+        n_all += int(valid.sum())
+        same_len = same_len and bool(torch.equal(tl_k, tl_r))
+    agree = n_ok / max(n_all, 1)
+    log(f"e2e contextual (d1), int8 kernels vs twins: max |dlogp| {err:.3e} (tol "
+        f"{E2E_INT8_LOGP_TOL}), token agreement {agree:.5f} over {n_all}, token lengths "
+        f"equal {same_len}")
+    check(err <= E2E_INT8_LOGP_TOL and agree >= E2E_INT8_MIN_AGREE and same_len,
+          "contextual (d1): int8 kernels against twins")
+    attn_cases = check_bias_attention(torch, A, B0, U0)
+    e2e = {"contextual_d1": dict(serve_3_batches_s=serve_s, batches=shapes, launches=launches_d1,
+                                 logp_max_abs_diff=err, token_agreement=agree,
+                                 token_lengths_equal=same_len, decoder_layers_bit_equal=n_equal)}
+
+    # ---- (d2) the pipeline on the 600 s recording, with and without hotwords
+    wav, bursts = pipeline_recording(np.random.default_rng(12))
+    plan = merge_vad(bursts, 15000)
+    clips = slice_audio_by_segments(wav, plan, FS)
+    pshapes = [served_shape(eng, [clips[i] for i in batch])
+               for batch in am.batches(plan, FS, 300)]
+
+    def run(name, hw, twins=False):
+        clock = StageClock(torch)
+        rounds = [0]
+        real_argmax = pm._argmax
+
+        def counted_argmax(text, lens):
+            rounds[0] += 1
+            return real_argmax(text, lens)
+
+        pm._argmax = counted_argmax
+        eng.transcribe_async = sync_guarded(torch, eng.transcribe_async)
+        ve.model.segments_from_posteriors = (
+            lambda post, db, f=ve.model.segments_from_posteriors: (f(post, db), plan)[1])
+        clock.wrap(ve, "front", "vad_device", events=True)
+        clock.wrap(ve.model, "segments_from_posteriors", "vad_host")
+        clock.wrap(eng, "transcribe_async", "asr_dispatch")
+        clock.wrap(eng, "run_hw" if hw else "run", "asr_device", events=True)
+        clock.wrap(eng, "_text_results" if hw else "_host_results", "asr_host")
+        clock.wrap(pm, "inference_batch", "punc")
+        zero()
+        try:
+            with int8_twins() if twins else contextlib.nullcontext():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = am.generate(wav, key=["d2"], **({"hotword": hw} if hw else {}))[0]
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            clock.restore()
+            for obj, attr in ((pm, "_argmax"), (eng, "transcribe_async"),
+                              (ve.model, "segments_from_posteriors")):
+                delattr(obj, attr)
+        times = dict(generate_wall_s=wall, audio_s_per_s=PIPELINE_AUDIO_S / wall,
+                     vad_device_ms=clock.device_ms("vad_device"),
+                     vad_host_wall_s=clock.wall.get("vad_host", 0.0),
+                     asr_dispatch_wall_s=clock.wall.get("asr_dispatch", 0.0),
+                     asr_device_span_ms=clock.device_ms("asr_device", span=True),
+                     asr_host_wall_s=clock.wall.get("asr_host", 0.0),
+                     punc_wall_s=clock.wall.get("punc", 0.0), punc_rounds=rounds[0])
+        return res, read(), rounds[0], times
+
+    first = run("first", hotword)[-1]  # the first call at these shapes
+    path_launches = {"d1": launches_d1}
+    for name, hw, rows in (("hotword", hotword, n_rows), ("no_hotword", None, None)):
+        res, launches, rounds, times = run(name, hw)
+        want = contextual_launches(Q, A, pshapes, rows, 1 + len(pshapes), rounds)
+        log(f"e2e contextual (d2) {name}: {len(plan)} segments in ASR batches (B, T, U) "
+            f"{pshapes}, {rounds} punctuation rounds; kernel launches {launches}")
+        check(launches == want, f"contextual (d2) {name} launches {launches}, want {want}")
+        ts = res.get("timestamp")
+        # with hotwords the decode yields no stamps, so no sentence has a span
+        check(isinstance(res.get("text"), str) and res["text"]
+              and (ts == [] == res["sentence_info"] if hw else ts and res["sentence_info"]),
+              f"contextual (d2) {name}: the record")
+        check(all(0 <= b <= e <= PIPELINE_AUDIO_S * 1000 for b, e in ts),
+              f"contextual (d2) {name}: timestamps within the recording")
+        res_t, _, _, times_t = run(name + "_twins", hw, twins=True)
+        check(res_t == res, f"contextual (d2) {name}: the record on the int8 twins equals it")
+        log(f"e2e contextual (d2) {name} on {card}: {json.dumps(times)}; text "
+            f"{res['text'][:24]}... {len(ts)} stamps, {len(res['sentence_info'])} sentences; "
+            f"equal on the twins (their run {times_t['generate_wall_s']:.3f} s)")
+        e2e[f"contextual_d2_{name}"] = dict(times, segments=len(plan), batches=pshapes,
+                                            launches=launches, twins_record_equal=True)
+        path_launches[name] = launches
+    e2e["contextual_d2_hotword"]["first_call"] = first
+    ve.model.segments_from_posteriors = lambda post, db: plan
+    try:
+        prof = profile(torch, lambda: am.generate(wav, hotword=hotword), profile_dir,
+                       e2e["contextual_d2_hotword"]["generate_wall_s"] * 1e3,
+                       "profile_contextual.txt")
+    finally:
+        del ve.model.segments_from_posteriors
+    e2e["contextual_d2_hotword"].update(idle_share=1.0 - prof["kernel share of batch_ms"],
+                                        kernel_ms=prof["kernels total"],
+                                        kernel_launches=prof["kernel launches"])
+    log(f"e2e contextual (d2) hotword: idle share "
+        f"{e2e['contextual_d2_hotword']['idle_share']:.4f}")
+    del am
+    torch.cuda.empty_cache()
+    total = {k: sum(d.get(k, 0) for d in path_launches.values()) for k in read()}
+    return total, e2e, dict(attention=attn_cases, decoder_layer=[dec_case])
+
+
+def hybrid_configs():
+    """Phase (e)'s configs: ``configs/conformer_hybrid.yaml`` as a dict (the
+    AutoModel defaults: beam 10, maxlen 96, CTC weight 0.3; 80 mels, no LFR;
+    a single-CJK-char vocabulary of 4233), the pipeline's FSMN-VAD and
+    CT-Transformer."""
+    _, vad, punc = pipeline_configs()
+    c = CONFORMER_HYBRID
+    V = c["vocab_size"]
+    tokens = ["<blank>", "<s>", "</s>"] + [chr(0x4E00 + i) for i in range(V - 4)] + ["<unk>"]
+    hybrid = dict(model="Conformer", vocab_size=V, input_size=c["input_size"],
+                  encoder_conf=c["encoder_conf"], decoder_conf=c["decoder_conf"],
+                  model_conf=dict(ctc_weight=c["ctc_weight"], lsm_weight=c["lsm_weight"]),
+                  frontend_conf=dict(fs=FS, n_mels=80, lfr_m=1, lfr_n=1),
+                  decoding_conf=dict(beam_size=10, maxlenratio_tokens=96,
+                                     decoding_ctc_weight=0.3),
+                  tokenizer_conf=dict(token_list=tokens))
+    return hybrid, vad, punc
+
+
+def beam_twins(CP):
+    """The beam path's twins: the CTC prefix step and the int8 blocks."""
+    stack = contextlib.ExitStack()
+    stack.enter_context(swapped([(CP, "ctc_prefix_step", CP.ctc_prefix_step_ref)]))
+    stack.enter_context(int8_twins())
+    return stack
+
+
+def end_to_end_hybrid(torch, FK, A, CP, card):
+    """Phase (e): the Conformer of ``configs/conformer_hybrid.yaml`` (int8
+    weights, bf16) on seeded random weights through ``AutoModel(model=
+    Conformer, vad_model=FSMN-VAD, punc_model=CT-Transformer,
+    quantize=True)``.  (e1) the beam cell's B = 32 x 15 s batch through
+    ``HybridEngine.transcribe(nbest=3, with_timestamp=True)`` (the beam
+    cell's serving, int8 KV, on the same module): counters exact (CTC prefix
+    step one a decode step, fbank 1, the gated FFN w_1 pairs), timed beside
+    the call without timestamps, the host Viterbi's seconds and the bytes
+    read back; on the twins (CTC step, int8 blocks) tokens equal, scores
+    within ``BEAM_F32_SCORE_TOL``, alignments and timestamps equal on every
+    row whose tokens are.  (e2) ``generate`` with timestamps of the 600 s
+    recording on pipeline (b)'s plan, counters exact, timed by wall clock
+    and stages; its first 120 s (the plan's segments inside them) on the
+    kernels and on the twins, the records equal.  Returns (launches, e2e
+    record)."""
+    import numpy as np
+
+    from funasr_torch.auto.auto_model import AutoModel
+    from funasr_torch.auto.engines import HybridEngine
+    from funasr_torch.models.transformer import model as TM
+    from funasr_torch.ops import decoder_layer as DL
+    from funasr_torch.ops import ffn as FF
+    from funasr_torch.ops import fsmn as FM
+    from funasr_torch.ops import int8_gemm as G
+    from funasr_torch.ops import quant as Q
+    from funasr_torch.ops import rowquant as RQ
+    from funasr_torch.ops import sanm_layer as SL
+    from funasr_torch.utils.vad_utils import merge_vad, slice_audio_by_segments
+
+    counters = {"ctc_prefix_step": CP.ctc_prefix_step, "ctc_prefix": CP.ctc_recurrence,
+                "fbank": FK.fused_fbank, "int8_gemm": G.int8_gemm, "rowquant": RQ.rowquant,
+                "attention": A.fused_attention, "sanm_layer": SL.fused_sanm_layer,
+                "decoder_layer": DL.fused_decoder_layer, "ffn": FF.fused_ffn_int8,
+                "int8_gemm_rq": G.int8_gemm_rq, "fsmn": FM.fsmn, "fsmn_ln": FM.fsmn_ln}
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+        A.fused_attention.launches_by_head = dict.fromkeys(A.HEAD_SIZES, 0)
+
+    def read():
+        out = {k: fn.launches for k, fn in counters.items()}
+        out["attention_d32"] = A.fused_attention.launches_by_head[32]
+        return out
+
+    n_ffn = 2 * CONFORMER_HYBRID["encoder_conf"]["num_blocks"]
+    units = CONFORMER_HYBRID["encoder_conf"]["linear_units"]
+
+    def want_launches(batch_shapes, steps, fbank, rounds=0, n_blocks=4):
+        """CTC prefix step one a decode step; per batch the FFN w_1 pairs the
+        int8 gate admits; punctuation's d = 32 attention n_blocks a round."""
+        want = dict.fromkeys(read(), 0)
+        n8 = sum(n_ffn for B, N in batch_shapes if Q.gate(B * encoder_frames(N), units))
+        want.update(ctc_prefix_step=steps, fbank=fbank, int8_gemm=n8, rowquant=n8,
+                    attention=rounds * n_blocks, attention_d32=rounds * n_blocks)
+        return want
+
+    t0 = time.time()
+    hybrid_cfg, vad_cfg, punc_cfg = hybrid_configs()
+    am = AutoModel(model=hybrid_cfg, vad_model=vad_cfg, punc_model=punc_cfg, quantize=True,
+                   seed=2032)
+    eng, ve, pm = am.engine, am.vad_engine, am.punc_engine.model
+    check(isinstance(eng, HybridEngine) and eng.beam == 10 and eng.maxlen == 96
+          and len(eng.module.encoder.encoders) == 12, "the hybrid at conformer_hybrid.yaml")
+    served = HybridEngine(eng.module, eng.frontend, eng.tokenizer, **BEAM_SERVING)
+    log(f"e2e hybrid: AutoModel (int8 Conformer hybrid, FSMN-VAD, CT-Transformer) built in "
+        f"{time.time() - t0:.1f} s")
+
+    # ---- (e1) the beam cell's batch with timestamps
+    B, N, K = 32, 15 * FS, 3
+    rng = np.random.default_rng(1)
+    wavs = [waveform(rng, N, 150.0 + 7 * i) for i in range(B)]
+    served.transcribe(wavs[:2], nbest=K, with_timestamp=True)  # warm-up
+    torch.cuda.synchronize()
+    seen = {"em": [], "align": [], "viterbi_s": []}
+    real_em, real_vit = TM.align_emissions, TM.viterbi
+
+    def kept_em(*a, **k):
+        out = real_em(*a, **k)
+        seen["em"].append(tuple(out.shape))
+        return out
+
+    def kept_vit(*a, **k):
+        t = time.perf_counter()
+        out = real_vit(*a, **k)
+        seen["viterbi_s"].append(time.perf_counter() - t)
+        seen["align"].append(out)
+        return out
+
+    def timed(f):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = f()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    TM.align_emissions, TM.viterbi = kept_em, kept_vit
+    zero()
+    steps0 = served.steps
+    try:
+        res_k, ms_ts = timed(lambda: served.transcribe(wavs, nbest=K, with_timestamp=True))
+        launches_e1 = read()
+        steps = served.steps - steps0
+        _, ms_plain = timed(lambda: served.transcribe(wavs, nbest=K))
+        _, ms_ts2 = timed(lambda: served.transcribe(wavs, nbest=K, with_timestamp=True))
+        _, ms_plain2 = timed(lambda: served.transcribe(wavs, nbest=K))
+        with beam_twins(CP):
+            res_t = served.transcribe(wavs, nbest=K, with_timestamp=True)
+    finally:
+        TM.align_emissions, TM.viterbi = real_em, real_vit
+    want = want_launches([(B, N)], steps, 1)
+    log(f"e2e hybrid (e1): B={B} x 15 s, nbest={K} with timestamps, {steps} decode steps; "
+        f"kernel launches {launches_e1}")
+    check(steps > 0 and launches_e1 == want, f"hybrid (e1) launches {launches_e1}, want {want}")
+    em_shape = seen["em"][0]
+    read_back = 4 * int(np.prod(em_shape))
+    tok_ok = ts_ok = al_ok = rows = 0
+    d_score = 0.0
+    al_k, al_t = seen["align"][0], seen["align"][-1]
+    for i, (rk, rt) in enumerate(zip(res_k, res_t)):
+        check(rk["timestamp"] == rk["nbest"][0]["timestamp"], "hybrid (e1): 1-best = nbest[0]")
+        for k, (hk, ht) in enumerate(zip(rk["nbest"], rt["nbest"])):
+            rows += 1
+            check(len(hk["timestamp"]) == len(hk["raw_tokens"]), "hybrid (e1): a stamp a token")
+            d_score = max(d_score, abs(hk["score"] - ht["score"]))
+            if hk["tokens"] == ht["tokens"]:
+                tok_ok += 1
+                ts_ok += hk["timestamp"] == ht["timestamp"]
+                al_ok += bool(np.array_equal(al_k[i * K + k], al_t[i * K + k]))
+    log(f"e2e hybrid (e1) on {card}: transcribe with timestamps {ms_ts:.1f} / {ms_ts2:.1f} ms, "
+        f"without {ms_plain:.1f} / {ms_plain2:.1f} ms (wall, in turns); host Viterbi "
+        f"{seen['viterbi_s'][:2]} s a batch; emissions {em_shape} float32 = {read_back} "
+        f"bytes read back; twins: {tok_ok} of {rows} hypotheses' tokens equal, alignments "
+        f"{al_ok} and timestamps {ts_ok} of those equal, max |dscore| {d_score:.3e} (tol "
+        f"{BEAM_F32_SCORE_TOL})")
+    check(tok_ok == rows and al_ok == rows and ts_ok == rows and d_score <= BEAM_F32_SCORE_TOL,
+          "hybrid (e1): kernels against twins")
+    e2e = {"hybrid_e1": dict(transcribe_ts_ms=[ms_ts, ms_ts2], transcribe_ms=[ms_plain, ms_plain2],
+                             steps=steps, viterbi_host_s=seen["viterbi_s"][:2],
+                             emissions_shape=em_shape, bytes_read_back=read_back,
+                             launches=launches_e1, twins_hypotheses_equal=tok_ok,
+                             twins_max_abs_dscore=d_score)}
+
+    # ---- (e2) the pipeline with timestamps: 600 s, then its first 120 s on the twins
+    wav, bursts = pipeline_recording(np.random.default_rng(12))
+    plan = merge_vad(bursts, 15000)
+
+    def run(name, wav, plan, twins=False):
+        clock = StageClock(torch)
+        rounds = [0]
+        real_argmax = pm._argmax
+
+        def counted_argmax(text, lens):
+            rounds[0] += 1
+            return real_argmax(text, lens)
+
+        pm._argmax = counted_argmax
+        ve.model.segments_from_posteriors = (
+            lambda post, db, f=ve.model.segments_from_posteriors: (f(post, db), plan)[1])
+        clock.wrap(ve, "front", "vad_device", events=True)
+        clock.wrap(ve.model, "segments_from_posteriors", "vad_host")
+        clock.wrap(eng, "run", "asr_beam", events=True)
+        clock.wrap(TM, "viterbi", "align_host")
+        clock.wrap(pm, "inference_batch", "punc")
+        zero()
+        steps0 = eng.steps
+        try:
+            with beam_twins(CP) if twins else contextlib.nullcontext():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = am.generate(wav, key=["e2"])[0]
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            clock.restore()
+            for obj, attr in ((pm, "_argmax"), (ve.model, "segments_from_posteriors")):
+                delattr(obj, attr)
+        clips = slice_audio_by_segments(wav, plan, FS)
+        shapes = [(len(batch), max(len(clips[i]) for i in batch))
+                  for batch in am.batches(plan, FS, 300)]
+        want = want_launches(shapes, eng.steps - steps0, 1 + len(shapes), rounds[0])
+        if twins:  # the swapped kernels launch nothing
+            want.update(ctc_prefix_step=0, int8_gemm=0, rowquant=0)
+        times = dict(generate_wall_s=wall, audio_s_per_s=len(wav) / FS / wall,
+                     vad_device_ms=clock.device_ms("vad_device"),
+                     vad_host_wall_s=clock.wall.get("vad_host", 0.0),
+                     asr_beam_wall_s=clock.wall.get("asr_beam", 0.0),
+                     asr_beam_span_ms=clock.device_ms("asr_beam", span=True),
+                     align_host_wall_s=clock.wall.get("align_host", 0.0),
+                     punc_wall_s=clock.wall.get("punc", 0.0), punc_rounds=rounds[0],
+                     decode_steps=eng.steps - steps0)
+        launches = read()
+        log(f"e2e hybrid (e2) {name}: {len(plan)} segments in batches (B, samples) {shapes}; "
+            f"kernel launches {launches}")
+        check(launches == want, f"hybrid (e2) {name} launches {launches}, want {want}")
+        ts = res.get("timestamp", [])
+        check(isinstance(res.get("text"), str) and res["text"] and len(ts) > 0
+              and res.get("sentence_info"), f"hybrid (e2) {name}: text, stamps, sentence_info")
+        check(all(0 <= b <= e <= len(wav) // 16 for b, e in ts),
+              f"hybrid (e2) {name}: timestamps within the recording")
+        return res, launches, times, shapes
+
+    first = run("first", wav, plan)[2]  # the first call at these shapes
+    res, launches_e2, times, shapes = run("600 s", wav, plan)
+    log(f"e2e hybrid (e2) 600 s on {card}: {json.dumps(times)}; the first call "
+        f"{json.dumps(first)}; text {res['text'][:24]}... {len(res['timestamp'])} stamps, "
+        f"{len(res['sentence_info'])} sentences")
+    cut = 120
+    wav_c, plan_c = wav[: cut * FS], [s for s in plan if s[1] <= cut * 1000]
+    res_c, launches_c, times_c, shapes_c = run(f"first {cut} s", wav_c, plan_c)
+    res_ct, _, times_ct, _ = run(f"first {cut} s on the twins", wav_c, plan_c, twins=True)
+    check(res_ct == res_c, f"hybrid (e2): the first {cut} s' record on the twins equals it")
+    log(f"e2e hybrid (e2) first {cut} s ({len(plan_c)} segments, batches {shapes_c}): "
+        f"kernels {times_c['generate_wall_s']:.3f} s, twins {times_ct['generate_wall_s']:.3f} s; "
+        f"records equal")
+    e2e.update(hybrid_e2=dict(times, first_call=first, segments=len(plan), batches=shapes,
+                              launches=launches_e2),
+               hybrid_e2_cut=dict(times_c, seconds=cut, segments=len(plan_c), batches=shapes_c,
+                                  twins_wall_s=times_ct["generate_wall_s"],
+                                  twins_record_equal=True))
+    del am, served
+    torch.cuda.empty_cache()
+    total = {k: launches_e1.get(k, 0) + launches_e2.get(k, 0) + launches_c.get(k, 0)
+             for k in launches_e1}
+    return total, e2e
+
+
 def profile(torch, run, out_dir, batch_ms, fname):
     """Device kernel time by group for one batch (``run()``), and the share
     of the batch's span (``batch_ms``, CUDA events) spent in kernels.  The
@@ -3916,6 +4536,10 @@ def main(argv=None) -> int:
     sv_cases = check_sensevoice_kernels(torch, SL, DL, FF, G, A)
     launches_sv, e2e_sv = end_to_end_sensevoice(torch, FK, A, args.profile, smi)
     e2e.update(e2e_sv)
+    launches_ctx, e2e_ctx, ctx_cases = end_to_end_contextual(torch, FK, A, args.profile, smi)
+    e2e.update(e2e_ctx)
+    launches_hyb, e2e_hyb = end_to_end_hybrid(torch, FK, A, CP, smi)
+    e2e.update(e2e_hyb)
     log(f"end to end done in {time.time() - t0:.1f} s")
     log(f"e2e summary {json.dumps(e2e, sort_keys=True)}")
 
@@ -3929,7 +4553,9 @@ def main(argv=None) -> int:
                    "pipeline": launches_pipe.get(name, 0),
                    "pipeline_c": launches_c.get(name, 0),
                    "streaming": launches_stream.get(name, 0),
-                   "sensevoice": launches_sv.get(name, 0)}
+                   "sensevoice": launches_sv.get(name, 0),
+                   "contextual": launches_ctx.get(name, 0),
+                   "hybrid_align": launches_hyb.get(name, 0)}
         return dict(name=name, route="cuda", source=sources[0], sources=sources,
                     replaces=replaces, launches=sum(by_path.values()),
                     launches_by_path=by_path, shape=main_case["case"],
@@ -3945,7 +4571,7 @@ def main(argv=None) -> int:
               fbank_cases + [stream_fbank, spk_fbank_case]),
         entry("attention", ["funasr_torch/csrc/attention.cu"],
               "funasr_tpu/ops/attention_pallas.py:37", attn_cases[0],
-              attn_cases + stream_attn + sv_cases["attention"]),
+              attn_cases + stream_attn + sv_cases["attention"] + ctx_cases["attention"]),
         # the same kernel's head-size-32 instance: punctuation's attention
         entry("attention_d32", ["funasr_torch/csrc/attention.cu"],
               "funasr_tpu/ops/attention_pallas.py:37", d32_cases[0], d32_cases),
@@ -3954,7 +4580,8 @@ def main(argv=None) -> int:
               layer_cases["sanm_layer"] + f32ctx_cases["sanm_layer"] + sv_cases["sanm_layer"]),
         entry("decoder_layer", dec_src, "funasr_tpu/ops/decoder_layer_pallas.py:165",
               layer_cases["decoder_layer"][0],
-              layer_cases["decoder_layer"] + f32ctx_cases["decoder_layer"] + seaco_cases),
+              layer_cases["decoder_layer"] + f32ctx_cases["decoder_layer"] + seaco_cases
+              + ctx_cases["decoder_layer"]),
         entry("ffn", gemm_src, "funasr_tpu/ops/ffn_pallas.py:113",
               layer_cases["ffn"][0], layer_cases["ffn"]),
         # the building block of rows sanm_layer, decoder_layer and ffn (and

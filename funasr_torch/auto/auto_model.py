@@ -24,14 +24,21 @@ embeddings on the host (``ClusterBackend``; ``preset_spk_num`` fixes the
 speaker count) into ``spk_info`` and gives each sentence of
 ``sentence_info`` its speaker (``distribute_spk``).
 
-Main models: Paraformer, BiCifParaformer, SeacoParaformer, SenseVoiceSmall
-and the Conformer CTC/attention hybrid (``ParaformerEngine``,
-``BiCifEngine``, ``HotwordEngine``, ``SenseVoiceEngine``,
-``HybridEngine``); a FsmnVADStreaming or CTTransformer config as the main
-model serves VAD or punctuation alone.
-``generate(hotword=...)`` decodes a SeacoParaformer with its bias head; as
-in the JAX package a call with a hotword takes the waveform path, not the
-shared fbank grid, and another main model ignores the hotword.
+Main models: Paraformer, BiCifParaformer, SeacoParaformer,
+ContextualParaformer, SenseVoiceSmall and the Conformer CTC/attention hybrid
+(``ParaformerEngine``, ``BiCifEngine``, ``HotwordEngine`` (``seaco=False``
+for ContextualParaformer), ``SenseVoiceEngine``, ``HybridEngine``); a
+FsmnVADStreaming or CTTransformer config as the main model serves VAD or
+punctuation alone.  ``generate(hotword=...)`` decodes a SeacoParaformer or
+a ContextualParaformer with its bias; as in the JAX package a call with a
+hotword takes the waveform path, not the shared fbank grid, and another
+main model ignores the hotword.  Only an engine with ``from_fbank`` (BiCif,
+SeACo) takes the shared grid: ContextualParaformer decodes the waveform
+path with or without a hotword (the JAX package, whose contextual engine
+inherits the fbank entry, fails there without one: ROADMAP.md Queue 3).  A
+hybrid main model with a VAD runs its batches one after another, each with
+CTC-alignment timestamps of its top hypothesis
+(``HybridEngine.transcribe(with_timestamp=True, vad_offsets=...)``).
 
 ``quantize=True`` builds the int8 serving models (int8 layers, bf16
 activations between them, as ``bench.py`` serves them; a config's
@@ -59,8 +66,7 @@ segment's text before "segment" punctuation.  ``merge_vad`` is accepted and
 ignored.
 
 Not ported, and raising ``NotImplementedError`` rather than skipped:
-ContextualParaformer, a hybrid main model with a VAD, ``output_dir``, URL
-inputs; the JAX package's meshes and parallel serving options are not
+``output_dir``, URL inputs; the JAX package's meshes and parallel serving options are not
 arguments here.
 """
 
@@ -200,14 +206,12 @@ class AutoModel:
             return self._build_punc(cfg)
         if name == "FsmnVADStreaming":  # standalone VAD: segment lists out
             return self._build_vad(cfg)
-        if name == "ContextualParaformer":
-            raise NotImplementedError("AutoModel: ContextualParaformer "
-                                      "(HotwordEngine(seaco=False)) is not ported")
-        if name not in ("Paraformer", "BiCifParaformer", "SeacoParaformer", "SenseVoiceSmall",
-                        "Conformer"):
+        if name not in ("Paraformer", "BiCifParaformer", "SeacoParaformer",
+                        "ContextualParaformer", "SenseVoiceSmall", "Conformer"):
             raise NotImplementedError(f"AutoModel: no engine for model class {name!r} in "
                                       "the port (Paraformer, BiCifParaformer, "
-                                      "SeacoParaformer, SenseVoiceSmall, Conformer)")
+                                      "SeacoParaformer, ContextualParaformer, "
+                                      "SenseVoiceSmall, Conformer)")
         tokenizer = _build_tokenizer(cfg)
         frontend = _build_frontend(cfg)
         dtype = cfg.get("dtype") or ("bfloat16" if self._quantize else "float32")
@@ -225,7 +229,9 @@ class AutoModel:
         if name == "Conformer":
             module = cls(**common)
         else:
-            for key, want in (("encoder", "SANMEncoder"), ("decoder", "ParaformerSANMDecoder")):
+            dec = ("ContextualParaformerDecoder" if name == "ContextualParaformer"
+                   else "ParaformerSANMDecoder")
+            for key, want in (("encoder", "SANMEncoder"), ("decoder", dec)):
                 if cfg.get(key, want) != want:
                     raise NotImplementedError(f"AutoModel: {key} {cfg[key]!r} ({want} only)")
             module = cls(**common, predictor_conf=cfg.get("predictor_conf"),
@@ -239,8 +245,10 @@ class AutoModel:
                                 maxlen=dec.get("maxlenratio_tokens", 96),
                                 decoding_ctc_weight=dec.get("decoding_ctc_weight", 0.3),
                                 device=self.device)
-        eng = {"BiCifParaformer": BiCifEngine,
-               "SeacoParaformer": HotwordEngine}.get(name, ParaformerEngine)
+        if name in ("SeacoParaformer", "ContextualParaformer"):
+            return HotwordEngine(module, frontend, tokenizer, blank_id=module.blank_id,
+                                 device=self.device, seaco=name == "SeacoParaformer")
+        eng = BiCifEngine if name == "BiCifParaformer" else ParaformerEngine
         return eng(module, frontend, tokenizer, blank_id=module.blank_id, device=self.device)
 
     def _build_sense_voice(self, cfg: Dict, tokenizer, frontend: FrontendConfig,
@@ -312,10 +320,6 @@ class AutoModel:
                 r["key"] = k
             return results
         if self.vad_engine is not None:
-            if isinstance(self.engine, HybridEngine):
-                raise NotImplementedError("AutoModel: a hybrid main model with a VAD "
-                                          "(HybridEngine.transcribe(vad_offsets=)) is not "
-                                          "ported")
             return [self._inference_with_vad(w, k, fs=target_fs, **kwargs)
                     for w, k in zip(wavs, keys)]
         # without a VAD there is no speaker branch; a hotword reaches only a
@@ -426,7 +430,7 @@ class AutoModel:
         defaults.  ``merge_vad`` is accepted and ignored, as there."""
         afe, vfe = getattr(self.engine, "frontend", None), self.vad_engine.frontend
         shared = (self.shared_frontend and hotword is None
-                  and hasattr(self.engine, "transcribe_from_fbank_async")
+                  and getattr(self.engine, "from_fbank", False)
                   and afe is not None and afe.fs == vfe.fs and afe.n_mels == vfe.n_mels
                   and afe.window == vfe.window)
         raw_fbank = total_frames = None
@@ -451,6 +455,12 @@ class AutoModel:
             if shared:
                 fin = self.engine.transcribe_from_fbank_async(
                     raw_fbank, [segments[i] for i in batch], offsets, total_frames)
+            elif isinstance(self.engine, HybridEngine):
+                # the beam reads a host flag every step: each batch runs
+                # when it is finalized (the JAX pipeline's fallback for an
+                # engine without an async entry)
+                fin = (lambda c=[clips[i] for i in batch], o=offsets: self.engine.transcribe(
+                    c, with_timestamp=with_timestamp, vad_offsets=o))
             else:
                 fin = self.engine.transcribe_async([clips[i] for i in batch],
                                                    with_timestamp=with_timestamp,

@@ -11,7 +11,8 @@ the CPU.  A module built with ``quantize=True`` and quantized
 (``Paraformer.quantize_weights``) is served the same way, through its
 int8 layer kernels.  ``HybridEngine`` serves the joint CTC/attention beam
 of a Conformer (``models/transformer/model.py``), whose CTC prefix scores run
-through the ``ops/ctc_prefix.py`` kernel once per decode step.
+through the ``ops/ctc_prefix.py`` kernel once per decode step, with CTC
+forced-alignment timestamps for each returned hypothesis.
 ``ParaformerEngine.transcribe(with_timestamp=True)`` adds 60 ms stamps from
 the CIF fire track, and ``BiCifEngine`` serves a BiCifParaformer with 20 ms
 stamps from its upsampled fire track (``utils/timestamp_tools.py`` on the
@@ -29,9 +30,10 @@ from pinned memory, so no entry waits on the card between two batches.
 the endpoint state machine on the host; ``segments_shared`` takes the fbank
 kernel's energy column as the decibel track and hands the raw fbank grid on
 to ``BiCifEngine.transcribe_from_fbank_async``.  ``PuncEngine`` wraps the
-CT-Transformer.  ``HotwordEngine`` serves SeacoParaformer: hotword strings
-become a padded id grid uploaded once, decoded with the bias head in the
-same pass as the BiCif timestamps.  ``SpkEngine`` embeds fixed-length
+CT-Transformer.  ``HotwordEngine`` serves SeacoParaformer and
+ContextualParaformer: hotword strings become a padded id grid uploaded
+once, decoded with the bias head (SeACo, in the same pass as the BiCif
+timestamps) or the decoder's bias attention (Contextual).  ``SpkEngine`` embeds fixed-length
 speaker chunks through the fbank kernel and CAM++, one batch per chunk
 length.  ``SenseVoiceEngine`` serves SenseVoiceSmall: prompts for the
 language and text norm, greedy CTC, rich tags decoded on the host and,
@@ -225,7 +227,10 @@ class BiCifEngine(ParaformerEngine):
     """BiCifParaformer serving on ``device`` (default the GPU): 20 ms
     timestamps from the upsampled fire track (reference
     bicif_paraformer/model.py:135 + timestamp_tools.py:31), one batched
-    fire pass on the host per batch."""
+    fire pass on the host per batch.  ``from_fbank``: the engine decodes
+    segments of a shared fbank grid (``transcribe_from_fbank_async``)."""
+
+    from_fbank = True
 
     @torch.inference_mode()
     def run_ts(self, wav: torch.Tensor, lens: torch.Tensor, max_tokens: int):
@@ -345,35 +350,45 @@ class BiCifEngine(ParaformerEngine):
 
 class HotwordGrid(NamedTuple):
     """Hotwords as the model takes them, on the engine's device: (H, L) int32
-    token ids, zero-padded, the no-bias row last, and (H,) int32 lengths."""
+    token ids, zero-padded (SeACo: the no-bias row last), and (H,) int32
+    lengths."""
 
     pad: torch.Tensor
     lengths: torch.Tensor
 
 
 class HotwordEngine(BiCifEngine):
-    """SeacoParaformer serving on ``device`` (default the GPU)
-    (``engines.py:476`` of the JAX package): with a hotword the bias head
-    decodes and the BiCif track stamps in one pass; with none it is
-    :class:`BiCifEngine`.  ``seaco=False`` (ContextualParaformer) is not
-    ported."""
+    """Hotword serving on ``device`` (default the GPU) (``engines.py:476`` of
+    the JAX package).  SeacoParaformer: with a hotword the bias head decodes
+    and the BiCif track stamps in one pass; with none it is
+    :class:`BiCifEngine`.  ``seaco=False``, ContextualParaformer: with a
+    hotword the biased decoder decodes, and the records carry no
+    timestamp (its decode yields none); with none it is
+    :class:`ParaformerEngine` (60 ms CIF-peak stamps), and it has no entry
+    from a shared fbank grid (``from_fbank`` is False)."""
 
     def __init__(self, module, frontend: FrontendConfig, tokenizer, blank_id: int = 0,
                  max_tokens_per_15s: int = 128, device=None, seaco: bool = True):
-        if not seaco:
-            raise NotImplementedError("HotwordEngine(seaco=False): ContextualParaformer "
-                                      "is not ported")
         super().__init__(module, frontend, tokenizer, blank_id=blank_id,
                          max_tokens_per_15s=max_tokens_per_15s, device=device)
+        self.seaco = self.from_fbank = seaco
 
     def encode_hotwords(self, hotword: Union[str, Sequence[str]]) -> HotwordGrid:
         """'word1 word2' (whitespace-split) or a list of words -> the grid:
-        words that tokenize to nothing dropped, the no-bias row appended,
-        rows padded to max(8, the longest) (``_encode_hotwords``, the
-        reference's ``proc_hotword``).  One upload, no wait on the card."""
+        words that tokenize to nothing dropped, SeACo's no-bias row
+        appended, rows padded to max(8, the longest) (``_encode_hotwords``,
+        the reference's ``proc_hotword``).  One upload, no wait on the card.
+        ContextualParaformer's grid has no no-bias row, so a hotword with no
+        token raises ``ValueError`` (the JAX engine fails later, on a None
+        grid)."""
         words = hotword.split() if isinstance(hotword, str) else list(hotword)
         rows = [r for r in (self.tokenizer.encode(w) for w in words) if len(r)]
-        rows.append([int(self.module.no_bias_id)])
+        if self.seaco:
+            rows.append([int(self.module.no_bias_id)])
+        if not rows:
+            raise ValueError(f"HotwordEngine(seaco=False): hotword {hotword!r} has no word "
+                             "that tokenizes to a token, and ContextualParaformer's grid has "
+                             "no no-bias row to fall back on")
         L = max(8, max(len(r) for r in rows))
         pad = np.zeros((len(rows), L), np.int32)
         lens = np.zeros((len(rows),), np.int32)
@@ -386,7 +401,8 @@ class HotwordEngine(BiCifEngine):
     def run_hw(self, wav: torch.Tensor, lens: torch.Tensor, grid: HotwordGrid,
                max_tokens: int):
         """The device program: (B, N) waveform batch and the hotword grid ->
-        tokens (B, U), token_lengths, us_alphas and us_peaks (B, 3 T)."""
+        tokens (B, U), token_lengths and, SeACo, us_alphas and us_peaks
+        (B, 3 T)."""
         feats, flens = self.frontend.device_features(wav, lens)
         return self.module.decode_with_hotwords(feats, flens, grid.pad, grid.lengths,
                                                 max_tokens=max_tokens)
@@ -396,8 +412,9 @@ class HotwordEngine(BiCifEngine):
                    hotword: Union[None, str, Sequence[str], HotwordGrid] = None
                    ) -> List[Dict[str, Any]]:
         """Waveforms -> one ``{"text", "timestamp", "raw_tokens"}`` dict each
-        (``{"text", "raw_tokens"}`` without ``with_timestamp``), decoded with
-        ``hotword`` (words, or a grid from :meth:`encode_hotwords`)."""
+        (``{"text", "raw_tokens"}`` without ``with_timestamp``, or with a
+        hotword and ``seaco=False``), decoded with ``hotword`` (words, or a
+        grid from :meth:`encode_hotwords`)."""
         return self.transcribe_async(wavs, with_timestamp, vad_offsets, hotword)()
 
     def transcribe_async(self, wavs: Sequence[np.ndarray], with_timestamp: bool = True,
@@ -406,11 +423,13 @@ class HotwordEngine(BiCifEngine):
         """Queue :meth:`transcribe`'s device work and the copies of its
         outputs now; returns ``finalize()`` -> the results."""
         if hotword is None or not len(wavs):
-            return super().transcribe_async(wavs, with_timestamp, vad_offsets)
+            if self.seaco:
+                return super().transcribe_async(wavs, with_timestamp, vad_offsets)
+            return ParaformerEngine.transcribe_async(self, wavs, with_timestamp, vad_offsets)
         grid = hotword if isinstance(hotword, HotwordGrid) else self.encode_hotwords(hotword)
         wav_d, lens_d = self._pack(wavs)
         out = fetch_async(self.run_hw(wav_d, lens_d, grid, self._max_tokens(wav_d.shape[1])))
-        if not with_timestamp:
+        if not with_timestamp or not self.seaco:
             return lambda: self._text_results(len(wavs), *fetched(*out)[:2])
         us_lens = self._us_lens([len(w) for w in wavs])
         return lambda: self._ts_results(len(wavs), *fetched(*out), vad_offsets, us_lens)
@@ -533,10 +552,11 @@ class SenseVoiceEngine(BatchedAsrEngine):
 class HybridEngine(BatchedAsrEngine):
     """Joint CTC/attention beam serving (Conformer) on ``device`` (default the
     GPU; raises without one unless ``device="cpu"``): device beam decode,
-    hypotheses detokenized on the host.  ``int8_kv`` stores the decoder's
-    attention K/V as per-row int8 (an argument here, where the JAX package
-    reads ``FUNASR_TPU_INT8_KV``).  ``steps`` counts the decode steps run
-    over all calls."""
+    hypotheses detokenized on the host; with timestamps each returned
+    hypothesis force-aligned to the encoder frames (``decode_beam_align``).
+    ``int8_kv`` stores the decoder's attention K/V as per-row int8 (an
+    argument here, where the JAX package reads ``FUNASR_TPU_INT8_KV``).
+    ``steps`` counts the decode steps run over all calls."""
 
     def __init__(self, module, frontend: FrontendConfig, tokenizer, beam: int = 10,
                  maxlen: int = 96, decoding_ctc_weight: float = 0.3,
@@ -550,37 +570,62 @@ class HybridEngine(BatchedAsrEngine):
         self.steps = 0
 
     @torch.inference_mode()
-    def run(self, wav: torch.Tensor, lens: torch.Tensor):
+    def run(self, wav: torch.Tensor, lens: torch.Tensor, align_rows: int = 0):
         """The device program: (B, N) waveform batch -> BeamResult (tokens
-        (B, K, L), lengths, scores, steps)."""
+        (B, K, L), lengths, scores, steps); with ``align_rows`` > 0 the
+        AlignedBeam of ``decode_beam_align`` (its first ``align_rows``
+        hypotheses aligned; one read back, the Viterbi on the host)."""
         feats, flens = self.frontend.device_features(wav, lens)
-        return self.module.decode_beam(
-            feats, flens, beam=self.beam, maxlen=self.maxlen,
-            decoding_ctc_weight=self.decoding_ctc_weight, int8_kv=self.int8_kv)
+        kw = dict(beam=self.beam, maxlen=self.maxlen,
+                  decoding_ctc_weight=self.decoding_ctc_weight, int8_kv=self.int8_kv)
+        if align_rows:
+            return self.module.decode_beam_align(feats, flens, nbest=align_rows, **kw)
+        return self.module.decode_beam(feats, flens, **kw)
 
     def transcribe(self, wavs: Sequence[np.ndarray], nbest: int = 1,
-                   with_timestamp: bool = False) -> List[Dict[str, Any]]:
+                   with_timestamp: bool = False,
+                   vad_offsets: Optional[Sequence[int]] = None, **kw) -> List[Dict[str, Any]]:
         """Waveforms (float in [-1, 1], 16 kHz) -> one ``{"text",
         "raw_tokens", "score"}`` dict each, the top hypothesis; ``nbest > 1``
         adds the best ``nbest`` hypotheses under ``"nbest"``, each with its
-        ``"tokens"``.  Timestamps (CTC forced alignment) are not ported yet."""
-        if with_timestamp:
-            raise NotImplementedError("HybridEngine: with_timestamp needs "
-                                      "decode_beam_align, not ported yet")
+        ``"tokens"``; ``with_timestamp`` gives every returned hypothesis its
+        own ``"timestamp"`` from its CTC forced alignment (frames of
+        ``10 * round(fbank frames / encoder frames)`` ms, shifted by
+        ``vad_offsets[i]`` ms) (``engines.py:709-777`` of the JAX package,
+        the reference WFST decoder's lattice-backed word timings).  Other
+        keywords are accepted and ignored, as the JAX engine does."""
         if not len(wavs):
             return []
-        res = self.run(*self._pack(wavs))
+        nbest = max(1, min(int(nbest), self.beam))
+        res = self.run(*self._pack(wavs), align_rows=nbest if with_timestamp else 0)
         self.steps += res.steps
         toks = res.tokens.cpu().numpy()
         tok_lens = res.lengths.cpu().numpy()
         scores = res.scores.cpu().numpy()
-        nbest = max(1, min(int(nbest), self.beam))
+        align = res.align.numpy() if with_timestamp else None
+        enc_lens = res.enc_lens.numpy() if with_timestamp else None
+
+        def frame_ms(i):
+            # the encoder frame from the true fbank frame count and the
+            # encoder's output length (LFR x conv subsampling)
+            nf = max((len(wavs[i]) - 400) // 160 + 1, 1)
+            return 10 * max(int(round(nf / max(int(enc_lens[i]), 1))), 1)
 
         def hyp_result(i, k):
             ids = toks[i, k, : int(tok_lens[i, k])].tolist()
-            text, raw = sentence_postprocess(self.tokenizer.ids2tokens(ids))
-            return {"score": float(scores[i, k]), "text": text, "raw_tokens": raw,
-                    "tokens": ids}
+            words = self.tokenizer.ids2tokens(ids)
+            res_k: Dict[str, Any] = {"score": float(scores[i, k])}
+            if align is not None:
+                offset = 0 if vad_offsets is None or not len(vad_offsets) else vad_offsets[i]
+                ts = _ctc_align_timestamps(align[i, k, : int(enc_lens[i])], words,
+                                           offset_ms=offset, frame_ms=frame_ms(i))
+                text, ts_kept, raw = sentence_postprocess(words, ts)
+                res_k.update(text=text, timestamp=ts_kept, raw_tokens=raw)
+            else:
+                text, raw = sentence_postprocess(words)
+                res_k.update(text=text, raw_tokens=raw)
+            res_k["tokens"] = ids
+            return res_k
 
         results = []
         for i in range(len(wavs)):

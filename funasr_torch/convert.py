@@ -1,7 +1,8 @@
 """Flax variables -> FunASR torch ``state_dict`` for the port's models.
 
 The inverses of funasr_tpu/convert.py ``paraformer_from_torch`` (:205),
-``bicif_paraformer_from_torch`` (:228), ``seaco_paraformer_from_torch``
+``bicif_paraformer_from_torch`` (:228),
+``contextual_paraformer_from_torch`` (:238), ``seaco_paraformer_from_torch``
 (:292), ``conformer_from_torch`` (:398), ``fsmn_vad_from_torch`` (:332),
 ``ct_transformer_from_torch`` (:385), ``sense_voice_from_torch`` (:481) and
 ``campplus_from_torch`` (:517), written for the port (no import of the JAX
@@ -194,6 +195,29 @@ def seaco_paraformer_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     vocab = np.asarray(tree["hotword_output_layer"]["kernel"]).shape[1]
     _decoder(sd, "seaco_decoder", tree["seaco_decoder"], vocab)
     _dense(sd, "hotword_output_layer", tree["hotword_output_layer"])
+    return sd
+
+
+def contextual_paraformer_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """``{'params': tree}`` (or the bare tree) of funasr_tpu's
+    ContextualParaformer -> the port's float32 ``state_dict``: the
+    Paraformer keys (the ``att_layer_num - 1`` stacked ``decoders``), the
+    ``decoder.last_decoder`` layer, the bias attention under FunASR's names
+    (flax ``bias_norm`` -> ``decoder.bias_decoder.norm3``, ``bias_decoder``
+    -> ``decoder.bias_decoder.src_attn``), the Dense ``bias_output`` as the
+    (D, 2D, 1) Conv1d weight, the 1-layer ``bias_encoder`` LSTM and
+    ``bias_embed``."""
+    tree = params.get("params", params)
+    sd = paraformer_from_jax(tree)
+    dec = tree["decoder"]
+    _dec_layer(sd, "decoder.last_decoder", dec["last_decoder"])
+    _norm(sd, "decoder.bias_decoder.norm3", dec["bias_norm"])
+    for name in ("linear_q", "linear_k_v", "linear_out"):
+        _dense(sd, f"decoder.bias_decoder.src_attn.{name}", dec["bias_decoder"][name])
+    sd["decoder.bias_output.weight"] = _t(np.asarray(dec["bias_output"]["kernel"]).T[..., None])
+    _lstm_cell(sd, "bias_encoder", "_l0", tree["bias_encoder"]["OptimizedLSTMCell_0"])
+    if "bias_embed" in tree:
+        sd["bias_embed.weight"] = _t(tree["bias_embed"]["embedding"])
     return sd
 
 

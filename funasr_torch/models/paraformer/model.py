@@ -90,9 +90,8 @@ class Paraformer(nn.Module):
                                        param_dtype=param_dtype, int8_attn=int8_attn,
                                        **enc_conf)
             d_model = self.encoder.output_size()
-            self.decoder = ParaformerSANMDecoder(
-                vocab_size=vocab_size, encoder_output_size=d_model,
-                dtype=dtype, param_dtype=param_dtype, **dec_conf)
+            self.decoder = self.make_decoder(vocab_size, d_model, dtype, param_dtype,
+                                             dec_conf)
             pred_conf.setdefault("idim", d_model)
             self.predictor = self.make_predictor(dtype, pred_conf)
         if qmm:  # the QDense layers off the fused kernels (sanm.py Dense)
@@ -102,6 +101,11 @@ class Paraformer(nn.Module):
                         mod.qmm = True
         self.eval()
         self.register_load_state_dict_post_hook(Paraformer._weights_changed)
+
+    def make_decoder(self, vocab_size: int, d_model: int, dtype: torch.dtype,
+                     param_dtype: Optional[torch.dtype], dec_conf: Dict[str, Any]) -> nn.Module:
+        return ParaformerSANMDecoder(vocab_size=vocab_size, encoder_output_size=d_model,
+                                     dtype=dtype, param_dtype=param_dtype, **dec_conf)
 
     def make_predictor(self, dtype: torch.dtype, pred_conf: Dict[str, Any]) -> nn.Module:
         return CifPredictorV2(dtype=dtype, **pred_conf)

@@ -43,7 +43,7 @@ from torch import nn
 
 from funasr_torch.device import resolve_device
 from funasr_torch.models.sanm import Dense, EncoderLayerSANM, LayerNormF32, SANMEncoder
-from funasr_torch.ops.ctc_align import align_emissions, viterbi
+from funasr_torch.ops.ctc_align import align_emissions
 from funasr_torch.ops.ctc_decode import ctc_greedy_decode
 from funasr_torch.ops.masks import key_bias, sequence_mask
 from funasr_torch.registry import tables
@@ -187,9 +187,10 @@ class SenseVoiceSmall(nn.Module):
 
     @torch.inference_mode()
     def decode_for_alignment(self, speech, speech_lengths, lid_ids, textnorm_ids):
-        """The device half of :meth:`greedy_decode_with_alignment`: (tokens,
-        token_lengths, the alignment's emissions (B, T, 2 T + 1) over the
-        speech rows, the speech frames' and speech tokens' lengths)."""
+        """Greedy decode and the device half of its CTC forced alignment:
+        (tokens, token_lengths, the alignment's emissions (B, T, 2 T + 1)
+        over the speech rows, the speech frames' and speech tokens'
+        lengths); ``ops/ctc_align.py`` ``viterbi`` on the host finishes it."""
         log_probs, enc_lens = self.log_probs(speech, speech_lengths, lid_ids, textnorm_ids)
         tokens, tok_lens = ctc_greedy_decode(log_probs, enc_lens, self.blank_id)
         probs = torch.exp(log_probs[:, N_PROMPT:])
@@ -200,12 +201,3 @@ class SenseVoiceSmall(nn.Module):
         tgt_lens = torch.clamp(tok_lens - N_PROMPT, min=0)
         em = align_emissions(probs, tokens[:, N_PROMPT:], in_lens, tgt_lens, self.blank_id)
         return tokens, tok_lens, em, in_lens, tgt_lens
-
-    def greedy_decode_with_alignment(self, speech, speech_lengths, lid_ids, textnorm_ids):
-        """Greedy decode plus the CTC forced alignment of the speech tokens
-        -> (tokens, token_lengths, align (B, T) int64 on the host)."""
-        tokens, tok_lens, em, in_lens, tgt_lens = self.decode_for_alignment(
-            speech, speech_lengths, lid_ids, textnorm_ids)
-        align = viterbi(em.cpu().numpy(), tokens[:, N_PROMPT:].cpu().numpy(),
-                        in_lens.cpu().numpy(), tgt_lens.cpu().numpy(), self.blank_id)
-        return tokens, tok_lens, torch.from_numpy(align)

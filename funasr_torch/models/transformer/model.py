@@ -3,8 +3,11 @@ funasr_tpu/models/transformer/model.py:43-195; reference
 funasr/models/conformer/model.py).
 
 encoder -> ``ctc.ctc_lo`` log-probs and the Transformer decoder, combined by
-the joint CTC/attention beam search (``ops/beam_search.py``).  No training
-forward; ``decode_beam_align`` and CTC timestamps are a later slice.
+the joint CTC/attention beam search (``ops/beam_search.py``).
+``decode_beam_align`` adds a CTC forced alignment of each returned
+hypothesis to the encoder frames (``ops/ctc_align.py``: the emissions
+gathered on the device, the Viterbi on the host), the frame spans of its
+timestamps.  No training forward.
 
 int8 serving, the JAX package's ``AutoModel(quantize=True)`` path: build
 with ``quantize=True`` (parameters then stored in float32 whatever the
@@ -19,17 +22,18 @@ cache is the separate ``int8_kv`` argument of :meth:`decode_beam`.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 from torch import nn
 
-from funasr_torch.device import resolve_device
+from funasr_torch.device import fetch_async, fetched, resolve_device
 from funasr_torch.models import conformer  # noqa: F401  (registers ConformerEncoder)
 from funasr_torch.models.sanm import Dense
 from funasr_torch.models.transformer.decoder import TransformerDecoder
 from funasr_torch.ops.beam_search import BeamResult, beam_search, mask_ctc_frames
 from funasr_torch.ops.cached_decoder import CachedTransformerDecoder, resize_state
+from funasr_torch.ops.ctc_align import align_emissions, viterbi
 from funasr_torch.registry import tables
 
 # training-only fields of funasr_tpu's hybrid models
@@ -39,6 +43,17 @@ _ENCODER_IGNORED = ("selfattention_layer_type", "pos_enc_class",
                     "positional_dropout_rate", "pos_enc_layer_type",
                     "rel_pos_type", "macaron_style", "use_cnn_module",
                     "activation_type", "normalize_before")
+
+
+class AlignedBeam(NamedTuple):
+    """:meth:`_HybridModel.decode_beam_align`'s result, on the host."""
+
+    tokens: torch.Tensor   # (B, K, L) int64, best first
+    lengths: torch.Tensor  # (B, K)
+    scores: torch.Tensor   # (B, K) float32
+    align: torch.Tensor    # (B, n, T) int64 frame labels of the first n hypotheses
+    enc_lens: torch.Tensor  # (B,) encoder frames
+    steps: int
 
 
 class CTC(nn.Module):
@@ -132,6 +147,14 @@ class _HybridModel(nn.Module):
         a cached decode (maxlen >= 32) into that many stages with the cache
         grown at each boundary (exact numerics).  ``int8_kv`` stores the
         scorer's self- and cross-attention K/V as per-row int8."""
+        return self._beam(speech, speech_lengths, beam, maxlen, decoding_ctc_weight, use_cache,
+                          cache_stages, int8_kv)[0]
+
+    def _beam(self, speech, speech_lengths, beam, maxlen, decoding_ctc_weight, use_cache,
+              cache_stages, int8_kv):
+        """:meth:`decode_beam` -> (BeamResult, the float32 CTC log-probs
+        (B, T, V), padded frames masked, or None without CTC scoring,
+        encoder lengths)."""
         enc, enc_lens = self.encode(speech, speech_lengths)
         B = enc.shape[0]
         decode_fn = step_score_fn = dec_state = reorder = None
@@ -161,12 +184,49 @@ class _HybridModel(nn.Module):
         if step_score_fn is not None and cache_stages > 1 and maxlen >= 32:
             stage_bounds = [maxlen * (i + 1) // cache_stages for i in range(cache_stages)]
             state_grow_fn = resize_state
-        return beam_search(
+        res = beam_search(
             decode_fn, B, beam, self.vocab_size, self.sos, self.eos, maxlen,
             ctc_logp=ctc_logp, ctc_weight=decoding_ctc_weight, blank_id=self.blank_id,
             step_score_fn=step_score_fn, dec_state=dec_state,
             state_reorder_fn=reorder, cache_stages=stage_bounds,
             state_grow_fn=state_grow_fn, device=enc.device)
+        if ctc_logp is None:
+            ctc_logp = torch.log_softmax(self.ctc.ctc_lo(enc).to(torch.float32), dim=-1)
+        return res, ctc_logp, enc_lens
+
+    @torch.inference_mode()
+    def decode_beam_align(self, speech: torch.Tensor, speech_lengths: torch.Tensor,
+                          beam: int = 10, maxlen: int = 64, decoding_ctc_weight: float = 0.3,
+                          use_cache: bool = True, cache_stages: int = 4, int8_kv: bool = False,
+                          nbest: Optional[int] = None) -> AlignedBeam:
+        """:meth:`decode_beam` plus the CTC forced alignment of each of the
+        first ``nbest`` hypotheses (default all K) against the encoder frames
+        (``models/transformer/model.py:197`` of the JAX package, which
+        aligns all K): each hypothesis masked to its length with blank, its
+        emissions gathered from the beam's own CTC log-probs on the device
+        (the JAX package encodes a second time, to the same values), one
+        read back of everything, the Viterbi on the host.  Rows are
+        independent, so the first ``nbest`` equal JAX's first ``nbest``."""
+        res, logp, enc_lens = self._beam(speech, speech_lengths, beam, maxlen,
+                                         decoding_ctc_weight, use_cache, cache_stages, int8_kv)
+        B, K, L = res.tokens.shape
+        n = K if nbest is None else max(1, min(int(nbest), K))
+        # a hypothesis gains at most one token a step: columns past the step
+        # count are blank in every row, and the Viterbi never reaches them
+        U = min(L, res.steps)
+        lengths = res.lengths[:, :n]
+        toks = res.tokens[:, :n, :U]
+        toks = torch.where(torch.arange(U, device=toks.device) < lengths[..., None], toks,
+                           self.blank_id)
+        em = align_emissions(logp, toks, enc_lens, lengths, self.blank_id)  # (B, n, T, S)
+        tokens, lens, scores, em, toks, enc_lens = fetched(*fetch_async(
+            [res.tokens, res.lengths, res.scores, em, toks, enc_lens]))
+        T, S = em.shape[2:]
+        align = viterbi(em.reshape(B * n, T, S).numpy(), toks.reshape(B * n, U).numpy(),
+                        enc_lens.repeat_interleave(n).numpy(), lens[:, :n].reshape(-1).numpy(),
+                        self.blank_id)
+        return AlignedBeam(tokens, lens, scores, torch.from_numpy(align.reshape(B, n, T)),
+                           enc_lens, res.steps)
 
 
 @tables.register("model_classes", "Conformer")

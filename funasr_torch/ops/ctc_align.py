@@ -16,6 +16,10 @@ kernel).  Here it is split where the work is:
   about ten launches a frame on a path whose batches the host already
   paces.
 
+An alignment is the two in turn with one read back between them:
+``SenseVoiceEngine`` (greedy CTC tokens) and ``decode_beam_align`` of the
+hybrid models (each returned beam hypothesis) compose them so.
+
 Kept exactly, so the alignments equal JAX's: float32 additions in the
 same order; ``NEG_INF`` = -1e30 for closed emissions and states; the
 three-way choice stay / step / skip with the first of equal maxima
@@ -37,22 +41,30 @@ def align_emissions(scores: torch.Tensor, targets: torch.Tensor,
                     input_lengths: torch.Tensor, target_lengths: torch.Tensor,
                     blank: int = 0) -> torch.Tensor:
     """scores (B, T, C) (log-probabilities, or the probabilities SenseVoice
-    passes); targets (B, U), blank-padded; lengths (B,) -> float32 (B, T,
-    2 U + 1) emissions, on the scores' device with no host sync."""
+    passes); targets (B, U), blank-padded, or (B, K, U), K targets aligned
+    to each row's scores; input lengths (B,), target lengths (B,) or (B, K)
+    -> float32 (B, T, 2 U + 1), or (B, K, T, 2 U + 1), emissions on the
+    scores' device with no host sync (one gather for all K)."""
+    rows = targets.dim() == 3
+    if not rows:
+        targets, target_lengths = targets[:, None], target_lengths[:, None]
     B, T, C = scores.shape
-    U = targets.shape[1]
+    K, U = targets.shape[1:]
     S = 2 * U + 1
     dev = scores.device
-    ext = torch.full((B, S), blank, dtype=torch.int64, device=dev)
-    ext[:, 1::2] = targets.to(torch.int64)
+    ext = torch.full((B, K, S), blank, dtype=torch.int64, device=dev)
+    ext[..., 1::2] = targets.to(torch.int64)
     lp = scores.to(torch.float32)
     tmask = torch.arange(T, device=dev)[None] < input_lengths.to(torch.int64)[:, None]
-    em = torch.gather(lp, 2, ext[:, None, :].expand(B, T, S))
+    em = torch.gather(lp, 2, ext.reshape(B, 1, K * S).expand(B, T, K * S))
+    em = em.reshape(B, T, K, S).transpose(1, 2)
     # pad frames: blank free (0), labels closed
     pad = torch.where(ext == blank, 0.0, NEG_INF).to(torch.float32)
-    em = torch.where(tmask[:, :, None], em, pad[:, None, :])
-    valid_state = torch.arange(S, device=dev)[None] <= 2 * target_lengths.to(torch.int64)[:, None]
-    return torch.where(valid_state[:, None, :], em, NEG_INF)
+    em = torch.where(tmask[:, None, :, None], em, pad[:, :, None, :])
+    valid_state = (torch.arange(S, device=dev)
+                   <= 2 * target_lengths.to(torch.int64)[..., None])  # (B, K, S)
+    em = torch.where(valid_state[:, :, None, :], em, NEG_INF)
+    return em if rows else em[:, 0]
 
 
 def viterbi(em: np.ndarray, targets: np.ndarray, input_lengths: np.ndarray,
@@ -80,16 +92,18 @@ def viterbi(em: np.ndarray, targets: np.ndarray, input_lengths: np.ndarray,
     if S > 1:
         score[:, 1] = np.where(tl > 0, em[:, 0, 1], neg)
     bps = np.empty((T, B, S), np.int8)
-    cand = np.empty((3, B, S), np.float32)
+    no_skip = ~diff
+    step = np.full((B, S), neg, np.float32)  # the score one state back
+    skip = np.full((B, S), neg, np.float32)  # two back, where a skip is allowed
+    best = np.empty((B, S), np.float32)
     for t in range(1, T):
-        cand[0] = score
-        cand[1, :, 0] = neg
-        cand[1, :, 1:] = score[:, :-1]
-        cand[2, :, :2] = neg
-        cand[2, :, 2:] = score[:, :-2]
-        cand[2][~diff] = neg
-        bps[t] = np.argmax(cand, axis=0)
-        score = em[:, t] + cand.max(axis=0)
+        step[:, 1:] = score[:, :-1]
+        skip[:, 2:] = score[:, :-2]
+        np.copyto(skip, neg, where=no_skip)
+        # argmax over (stay, step, skip), the first of equal maxima
+        np.maximum(score, step, out=best)
+        bps[t] = np.where(skip > best, 2, step > score)
+        score = em[:, t] + np.maximum(best, skip)
 
     rows = np.arange(B)
     e1, e2 = 2 * tl - 1, 2 * tl
@@ -103,13 +117,3 @@ def viterbi(em: np.ndarray, targets: np.ndarray, input_lengths: np.ndarray,
     align = np.take_along_axis(ext, states.T, axis=1)
     tmask = np.arange(T)[None] < np.asarray(input_lengths, np.int64)[:, None]
     return np.where(tmask, align, blank)
-
-
-def ctc_forced_align(scores: torch.Tensor, targets: torch.Tensor,
-                     input_lengths: torch.Tensor, target_lengths: torch.Tensor,
-                     blank: int = 0) -> np.ndarray:
-    """The whole alignment: :func:`align_emissions` on the scores' device,
-    one read back, :func:`viterbi` on the host -> (B, T) int64 labels."""
-    em = align_emissions(scores, targets, input_lengths, target_lengths, blank)
-    return viterbi(em.cpu().numpy(), targets.cpu().numpy(),
-                   input_lengths.cpu().numpy(), target_lengths.cpu().numpy(), blank)

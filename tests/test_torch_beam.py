@@ -13,7 +13,8 @@ packages.  Each JAX beam is jitted once per configuration.  Bars:
 - forced ties: the same tokens and order as ``lax.top_k``/``argsort``;
 - ``HybridEngine.transcribe(device="cpu")`` against the JAX
   ``HybridEngine``: texts and n-best token lists equal, scores atol 1e-3
-  (the frontends agree to 1e-3), n-best sorted.
+  (the frontends agree to 1e-3), n-best sorted; with timestamps the same
+  texts, a stamp a token.
 """
 
 import functools
@@ -192,8 +193,11 @@ def test_transcribe_matches_jax(engines, wavs):
         assert len(scores) == 3 and scores == sorted(scores, reverse=True)
         assert g["score"] == scores[0] and g["text"] == g["nbest"][0]["text"]
     assert port_engine.transcribe([]) == []
-    with pytest.raises(NotImplementedError):
-        port_engine.transcribe(wavs, with_timestamp=True)
+    # with timestamps (parity: tests/test_torch_hybrid_align.py): the same
+    # hypotheses, each token stamped
+    stamped = port_engine.transcribe(wavs, with_timestamp=True)
+    assert [r["text"] for r in stamped] == [r["text"] for r in got]
+    assert all(len(r["timestamp"]) == len(r["raw_tokens"]) for r in stamped)
 
 
 def test_quantized_int8_kv_engine_serves_on_cpu(engines, wavs, monkeypatch):

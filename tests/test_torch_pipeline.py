@@ -28,7 +28,10 @@ through ``init_param``: flax trees for the JAX package, the port's
   recording).  The fires are held within 2 frames.
 - Edges: an input shorter than a frame gives ``{"key", "text": ""}``; what
   the port lacks raises ``NotImplementedError``; ``hotword=`` on a main
-  model without a bias head is ignored, as the JAX engines ignore it.
+  model without a bias head is ignored, as the JAX engines ignore it; a
+  ContextualParaformer main model and a hybrid one behind a VAD build and
+  serve (their parity: ``test_torch_contextual.py``,
+  ``test_torch_hybrid_align.py``).
 - SeACo hotwords and the CAM++ speaker branch, float32
   (``AutoModel(SeacoParaformer, VAD, punctuation, CAMPPlus)``; the tiny
   SeACo of ``tests/test_torch_seaco.py``, the narrow CAM++ of
@@ -270,6 +273,8 @@ def test_generate_int8_matches_jax(monkeypatch, tmp_path):
 
 
 def test_edges_and_not_ported(monkeypatch, bicif_pair, tmp_path):
+    from funasr_torch.auto import engines as TE
+
     _correct_jax_fires(monkeypatch)
     jam, port = bicif_pair
     am = port()
@@ -286,8 +291,13 @@ def test_edges_and_not_ported(monkeypatch, bicif_pair, tmp_path):
         jam.generate(silence, key=["s"], use_itn=True, language="zh", merge_vad=True)
     with pytest.raises(NotImplementedError):
         am.generate(silence, output_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ContextualParaformer"):
-        AutoModel(model=dict(asr_cfg(), model="ContextualParaformer"), device="cpu")
+    # ContextualParaformer, ported: the hotword engine without SeACo's head
+    # (its parity: tests/test_torch_contextual.py)
+    ctx = AutoModel(model=dict(asr_cfg("Paraformer"), model="ContextualParaformer",
+                               model_conf=dict(inner_dim=32)), device="cpu")
+    assert isinstance(ctx.engine, TE.HotwordEngine) and not ctx.engine.seaco
+    out = ctx.generate(silence, key=["c"], hotword="公园")
+    assert out[0]["key"] == "c" and "raw_tokens" in out[0] and "timestamp" not in out[0]
     with pytest.raises(NotImplementedError, match="URL"):
         am.generate("https://example.invalid/a.wav")
     with pytest.raises(ValueError, match="unsupported audio format"):
@@ -299,8 +309,11 @@ def test_edges_and_not_ported(monkeypatch, bicif_pair, tmp_path):
                                     num_blocks=1, cnn_module_kernel=3),
                   decoder_conf=dict(attention_heads=2, linear_units=16, num_blocks=1),
                   decoding_conf=dict(beam_size=2, maxlenratio_tokens=4))
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        AutoModel(model=hybrid, vad_model=VAD_CFG, device="cpu").generate(recording(0))
+    # a hybrid main model with a VAD, ported: CTC-alignment timestamps (its
+    # parity: tests/test_torch_hybrid_align.py)
+    res = AutoModel(model=hybrid, vad_model=VAD_CFG, device="cpu").generate(recording(0),
+                                                                          key=["h"])
+    assert res[0]["key"] == "h" and isinstance(res[0]["text"], str) and "timestamp" in res[0]
     with pytest.raises(NotImplementedError, match="no engine"):
         AutoModel(model=dict(asr_cfg(), model="WhisperModel"), device="cpu")
     with pytest.raises(NotImplementedError, match="qmm"):

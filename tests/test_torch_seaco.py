@@ -248,10 +248,17 @@ def test_engine_without_hotword_is_bicif(models):
 
 
 def test_contextual_is_not_ported(models):
+    """``seaco=False``, ContextualParaformer's engine, is ported (its parity:
+    ``tests/test_torch_contextual.py``): its grid has no no-bias row, and it
+    has no entry from a shared fbank grid."""
     _, _, _, tm = models
-    with pytest.raises(NotImplementedError, match="ContextualParaformer"):
-        TE.HotwordEngine(tm, TE.FrontendConfig(), CharTokenizer(TOKENS), device="cpu",
-                         seaco=False)
+    eng = TE.HotwordEngine(tm, TE.FrontendConfig(), CharTokenizer(TOKENS), device="cpu",
+                           seaco=False)
+    seaco = TE.HotwordEngine(tm, TE.FrontendConfig(), CharTokenizer(TOKENS), device="cpu")
+    assert not eng.seaco and not eng.from_fbank and seaco.from_fbank
+    grid = eng.encode_hotwords("丅丆 丈")
+    assert grid.pad.shape[0] == 2 and NB not in grid.pad[:, 0].tolist()
+    assert seaco.encode_hotwords("丅丆 丈").pad.shape[0] == 3
 
 
 def test_seaco_defaults_and_hidden_decoder():

@@ -3,17 +3,20 @@
 the JAX package on the CPU.
 
 - ``ctc_greedy_decode``: equal to JAX's, ties (first maximum) included.
-- ``ctc_forced_align``: equal to JAX's, frame for frame, over repeated
-  labels, an empty target, ragged lengths, equal scores everywhere, one
-  frame, and probability-domain scores as ``tests/test_ctc_align.py`` has
-  them.  The port gathers the emissions in torch and runs the Viterbi in
-  numpy; the JAX package runs two ``lax.scan``s.
+- The CTC forced alignment, ``align_emissions`` then ``viterbi`` (the
+  composition the engines serve): equal to JAX's ``ctc_forced_align``,
+  frame for frame, over repeated labels, an empty target, ragged lengths,
+  equal scores everywhere, one frame, and probability-domain scores as
+  ``tests/test_ctc_align.py`` has them.  The port gathers the emissions in
+  torch and runs the Viterbi in numpy; the JAX package runs two
+  ``lax.scan``s.
 - The model, tiny (``tests/test_sensevoice.py``'s widths: D = 16, 3 + 2
   layers; input 560 so the engine's frontend feeds it; the generated
   vocabulary of 40 entries, rich tags and numerals inside), initialised in
   JAX and loaded through ``convert.sense_voice_from_jax``: float32 encoder
   output and log-probs within the float32 Paraformer bar (atol 1e-4),
-  tokens, token lengths and alignments equal; the state dict converts back
+  tokens, token lengths and alignments (``decode_for_alignment``, then
+  ``viterbi``) equal; the state dict converts back
   to the JAX tree (``funasr_tpu.convert.sense_voice_from_torch``).
 - int8 (``quantize=True``, bf16 activations) against the JAX package's int8
   module path (``quant.quantized(True)``; the QDense gate at its defaults,
@@ -48,10 +51,10 @@ from funasr_tpu.ops.ctc_decode import ctc_greedy_decode as jax_greedy
 from funasr_tpu.tokenizer.char_tokenizer import CharTokenizer as JaxCharTokenizer
 from funasr_torch import convert as C
 from funasr_torch.auto import engines as TE
-from funasr_torch.models.sense_voice.model import (LID_DICT, SenseVoiceSmall, lid_id,
-                                                   textnorm_id)
+from funasr_torch.models.sense_voice.model import (LID_DICT, N_PROMPT, SenseVoiceSmall,
+                                                   lid_id, textnorm_id)
 from funasr_torch.ops import quant as Q
-from funasr_torch.ops.ctc_align import ctc_forced_align
+from funasr_torch.ops.ctc_align import align_emissions, viterbi
 from funasr_torch.ops.ctc_decode import ctc_greedy_decode
 from funasr_torch.tokenizer.char_tokenizer import CharTokenizer
 from funasr_torch.tokenizer.sensevoice_tokenizer import generated_token_list
@@ -161,8 +164,9 @@ def test_ctc_forced_align_matches_jax(case):
     targets, ilens, tlens = (np.asarray(a, np.int32) for a in (targets, ilens, tlens))
     want = np.asarray(jax_align(jnp.asarray(scores), jnp.asarray(targets),
                                 jnp.asarray(ilens), jnp.asarray(tlens)))
-    got = ctc_forced_align(torch.from_numpy(scores), torch.from_numpy(targets),
-                           torch.from_numpy(ilens), torch.from_numpy(tlens))
+    em = align_emissions(torch.from_numpy(scores), torch.from_numpy(targets),
+                         torch.from_numpy(ilens), torch.from_numpy(tlens))
+    got = viterbi(em.numpy(), targets, ilens, tlens)
     np.testing.assert_array_equal(got, want)
     for row, n, u, tgt in zip(got, ilens, tlens, targets):  # collapses to the target
         lab = [k for k, _ in itertools.groupby(row[:n].tolist()) if k != 0]
@@ -202,10 +206,11 @@ def test_float32_matches_jax(models, language, use_itn):
     np.testing.assert_allclose(got_lp.numpy()[valid], np.asarray(want_lp)[valid],
                                atol=F32_ATOL, rtol=F32_ATOL)
     wt, wl, wa = jm.apply(p, *j_args, method=jm.greedy_decode_with_alignment)
-    gt, gl, ga = tm.greedy_decode_with_alignment(*t_args)
+    gt, gl, em, in_lens, tgt_lens = tm.decode_for_alignment(*t_args)
+    ga = viterbi(em.numpy(), gt[:, N_PROMPT:].numpy(), in_lens.numpy(), tgt_lens.numpy())
     np.testing.assert_array_equal(gl.numpy(), np.asarray(wl))
     np.testing.assert_array_equal(gt.numpy(), np.asarray(wt))
-    np.testing.assert_array_equal(ga.numpy(), np.asarray(wa))
+    np.testing.assert_array_equal(ga, np.asarray(wa))
     gt2, gl2 = tm.greedy_decode(*t_args)
     assert torch.equal(gt2, gt) and torch.equal(gl2, gl)
 
