@@ -192,7 +192,30 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    blocks) tokens equal, scores within 1e-3, alignments and timestamps
    equal; (e2) ``generate`` with CTC-alignment timestamps of the 600 s
    recording on (b)'s plan, counters exact, wall and stages, and its first
-   120 s on the kernels and on the twins, the records equal;
+   120 s on the kernels and on the twins, the records equal; then (f)
+   the four aishell recipes, each built from its YAML
+   (``examples/aishell/*/conf/``: 12-block encoders of D = 256, 6-block
+   decoders, vocab 4234) through ``AutoModel(quantize=True)``
+   (``end_to_end_aishell``): (f1) Transformer, Branchformer and
+   E-Branchformer, ``HybridEngine.transcribe(nbest=3,
+   with_timestamp=True)`` of the beam cell's B = 32 x 15 s batch (int8 KV),
+   (f2) the Conformer with the RWKV decoder (the full-prefix beam) on
+   B = 8 x 15 s, each with its counters exact (fbank 1, the CTC step one a
+   decode step, the fused int8 FFNs and the gated QDense pairs of each
+   recipe's stated layout, ``HYBRID_INT8``: 12 FFNs a batch for the
+   Transformer, 24 QDense for the E-Branchformer, none for the
+   Branchformer, 24 QDense and per decoder call 6 FFNs and the output layer
+   for the Conformer-RWKV), the batch's dispatch under
+   ``torch.cuda.set_sync_debug_mode("error")`` but for the beam's one sync a
+   step and the read back, the wall and the decode steps, and on the twins
+   tokens equal, scores within 1e-3, alignments and timestamps equal; (f2)
+   also times one full-prefix decoder call and counts its launches; (f3)
+   the E-Branchformer behind FSMN-VAD and CT-Transformer: ``generate`` of
+   the 600 s recording on (b)'s plan, as (e2). The kernel phase also holds
+   the int8 FFN at 256 -> 2048 -> 256 (the Transformer encoder's 12256 rows,
+   the RWKV decoder's 7760) and the int8 GEMM at those FFNs', the
+   E-Branchformer's macaron (N = 1024) and the RWKV output layer's
+   (N = 4234) shapes, bit-equal to their twins;
 4. print one ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -594,7 +617,13 @@ GEMM_SHAPES = (
     (8192, 512, 512, "decoder q, out"),
     (16384, 512, 1024, "decoder memory K/V"),
     (8192, 512, 8404, "output layer (QDense, N=8404)"),
-    (12256, 256, 2048, "Conformer FFN w_1 (QDense, beam path, B=32 x 383 frames)"),
+    (12256, 256, 2048, "Conformer FFN w_1 (QDense, beam path, B=32 x 383 frames); the "
+                       "Transformer encoder's fused FFN w_1"),
+    (12256, 2048, 256, "Transformer encoder's fused FFN w_2 (B=32 x 383 frames)"),
+    (12256, 256, 1024, "E-Branchformer macaron FFN w_1 (QDense, N=1024)"),
+    (7760, 256, 2048, "RWKV decoder's fused FFN w_1 (B=8 x beam 10 x 97 tokens)"),
+    (7760, 2048, 256, "RWKV decoder's fused FFN w_2"),
+    (7760, 256, 4234, "RWKV decoder output layer (QDense, N=4234)"),
     (37, 560, 100, "edge: ragged M, K and N"),
     (1000, 512, 1536, "edge: M not a multiple of the 128-row tile"),
     (8192, 16, 512, "edge: K below one 128-byte stage"),
@@ -797,6 +826,26 @@ def check_int8_layers(torch, SL, DL, FF):
 
     # the main path: bench.py's batch, 15 s rows (250 frames), every other 12 s
     run(64, 256, 128, [250, 200] * 32, [110, 90] * 32, timed=True)
+    # the aishell recipes' fused FFN, 256 -> 2048 -> 256: the Transformer
+    # encoder's B=32 x 383 frames, the RWKV decoder's B=8 x beam 10 x 97 tokens
+    g5 = torch.Generator(device="cuda").manual_seed(5)
+    r = lambda *shape, sc: torch.randn(shape, generator=g5, device="cuda") * sc  # noqa: E731
+    ffn256 = FF.quantize_ffn(r(H, 256, sc=256 ** -0.5), r(H, sc=0.1), r(256, H, sc=H ** -0.5),
+                             r(256, sc=0.1))
+    for M in (12256, 7760, 1):
+        x2 = torch.randn((M, 256), generator=gen, device="cuda").to(torch.bfloat16)
+        timed = M > 1
+        got, want = FF.fused_ffn_int8(x2, ffn256), FF.ffn_int8_ref(x2, ffn256)
+        ms = cuda_ms(lambda: FF.fused_ffn_int8(x2, ffn256)) if timed else None
+        plain = cuda_ms(lambda: FF.ffn_int8_ref(x2, ffn256), iters=3) if timed else None
+        cases["ffn"].append(_layer_case(
+            torch, f"FFN M={M} 256 -> {H} -> 256", got, want,
+            torch.ones_like(got, dtype=torch.float32), ms, plain,
+            2 * 2 * M * 256 + 2 * 256 * H + 4 * (2 * H + 2 * 256),
+            {"int8": 2.0 * M * 2 * 256 * H},
+            (lambda: FF.fused_ffn_int8(x2, ffn256)) if timed else None))
+        check(cases["ffn"][-1]["elements_differing"] == 0,
+              f"int8 FFN M={M} 256 -> {H} -> 256 bit-equal to its twin")
     # edges: ragged T and U, an empty utterance, a token length of 0, one frame
     run(3, 250, 37, [250, 137, 0], [37, 0, 20], timed=False)
     run(2, 1, 1, [1, 1], [1, 0], timed=False)
@@ -4141,6 +4190,242 @@ def beam_twins(CP):
     return stack
 
 
+def hybrid_counters(FK, A, CP):
+    """The hybrid phases' launch counters: (zero, read)."""
+    from funasr_torch.ops import decoder_layer as DL
+    from funasr_torch.ops import ffn as FF
+    from funasr_torch.ops import fsmn as FM
+    from funasr_torch.ops import int8_gemm as G
+    from funasr_torch.ops import rowquant as RQ
+    from funasr_torch.ops import sanm_layer as SL
+
+    counters = {"ctc_prefix_step": CP.ctc_prefix_step, "ctc_prefix": CP.ctc_recurrence,
+                "fbank": FK.fused_fbank, "int8_gemm": G.int8_gemm, "rowquant": RQ.rowquant,
+                "attention": A.fused_attention, "sanm_layer": SL.fused_sanm_layer,
+                "decoder_layer": DL.fused_decoder_layer, "ffn": FF.fused_ffn_int8,
+                "int8_gemm_rq": G.int8_gemm_rq, "fsmn": FM.fsmn, "fsmn_ln": FM.fsmn_ln}
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+        A.fused_attention.launches_by_head = dict.fromkeys(A.HEAD_SIZES, 0)
+
+    def read():
+        out = {k: fn.launches for k, fn in counters.items()}
+        out["attention_d32"] = A.fused_attention.launches_by_head[32]
+        return out
+
+    return zero, read
+
+
+# The int8 layers of each served hybrid under quantize=True, stated from the
+# JAX package's QDense / nn.Dense layout at the served widths (D = 256, 12
+# encoder blocks, 6 decoder blocks, vocab 4233 or 4234): the fused int8 FFNs
+# (``sanm.PositionwiseFeedForward``, fused at every row count) and the output
+# widths N of the QDense layers with N >= 1024, the only ones the int8 gate
+# can pass.  Every other projection has N <= 512 or is a plain ``nn.Dense``
+# that never takes int8 (the cgMLP's channel_proj1/2, merge_proj, the
+# Branchformer linear embed, ``ctc.ctc_lo``, the RWKV time mix).  ``enc``:
+# one encoder pass; ``dec``: one full-prefix decoder call (the cached
+# scorer's B x beam rows pass no gate).
+HYBRID_INT8 = {
+    # 12 blocks x 2 macaron FFN w_1 (linear_units 2048)
+    "conformer": dict(enc_ffn=0, enc_dense=(2048,) * 24, dec_ffn=0, dec_dense=()),
+    # 12 position-wise FFNs, 256 -> 2048 -> 256
+    "transformer": dict(enc_ffn=12, enc_dense=(), dec_ffn=0, dec_dense=()),
+    # none: the cgMLP and merge_proj are plain
+    "branchformer": dict(enc_ffn=0, enc_dense=(), dec_ffn=0, dec_dense=()),
+    # 12 blocks x 2 macaron FFN w_1 (linear_units 1024; w_2 has N = 256)
+    "ebranchformer": dict(enc_ffn=0, enc_dense=(1024,) * 24, dec_ffn=0, dec_dense=()),
+    # the Conformer's 24 w_1; a decoder call: 6 position-wise FFNs and the
+    # output layer (N = 4234)
+    "conformer_rwkv": dict(enc_ffn=0, enc_dense=(2048,) * 24, dec_ffn=6, dec_dense=(4234,)),
+}
+INT8_MIN_ROWS = INT8_MIN_N = 1024  # the JAX package's int8 gate (ops/quant.py:69-70)
+
+
+def hybrid_batch_launches(layout, B, n_samples, beam, maxlen, dec_calls):
+    """The int8 launches of one hybrid batch of B x ``n_samples`` by the
+    stated layout ``HYBRID_INT8[layout]``: a fused int8 FFN is one ``ffn``
+    launch of two rowquant and two int8 GEMM launches; a QDense of N
+    outputs whose rows M pass the gate (M, N >= 1024) is one rowquant and
+    one int8 GEMM, the encoder's at B x frames rows, the full-prefix
+    decoder's at B x beam x (maxlen + 1) rows once a call."""
+    lay = HYBRID_INT8[layout]
+
+    def gated(rows, widths):
+        return sum(rows >= INT8_MIN_ROWS and n >= INT8_MIN_N for n in widths)
+
+    f = lay["enc_ffn"] + dec_calls * lay["dec_ffn"]
+    q = (gated(B * encoder_frames(n_samples), lay["enc_dense"])
+         + dec_calls * gated(B * beam * (maxlen + 1), lay["dec_dense"]))
+    return dict(ffn=f, int8_gemm=2 * f + q, rowquant=2 * f + q)
+
+
+def hybrid_generate(torch, CP, am, zero, read, wav, plan, name, layout, twins=False):
+    """One ``generate`` of ``wav`` by a hybrid ``AutoModel`` behind its VAD
+    and punctuation, the VAD's segments replaced by ``plan``: every counter
+    held to its exact count (fbank once for the VAD and once a batch, the
+    CTC step one a decode step, the int8 launches of each batch by
+    ``hybrid_batch_launches`` of ``layout``, punctuation's d = 32 attention
+    once a layer a window round); ``twins`` swaps the CTC step and the int8 blocks for
+    their twins.  Returns (record, launches, stage times, batch shapes)."""
+    from funasr_torch.models.transformer import model as TM
+    from funasr_torch.utils.vad_utils import slice_audio_by_segments
+
+    eng, ve, pm = am.engine, am.vad_engine, am.punc_engine.model
+    clock = StageClock(torch)
+    rounds = [0]
+    real_argmax = pm._argmax
+
+    def counted_argmax(text, lens):
+        rounds[0] += 1
+        return real_argmax(text, lens)
+
+    pm._argmax = counted_argmax
+    ve.model.segments_from_posteriors = (
+        lambda post, db, f=ve.model.segments_from_posteriors: (f(post, db), plan)[1])
+    clock.wrap(ve, "front", "vad_device", events=True)
+    clock.wrap(ve.model, "segments_from_posteriors", "vad_host")
+    clock.wrap(eng, "run", "asr_beam", events=True)
+    clock.wrap(TM, "viterbi", "align_host")
+    clock.wrap(pm, "inference_batch", "punc")
+    zero()
+    steps0 = eng.steps
+    try:
+        with beam_twins(CP) if twins else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = am.generate(wav, key=["e2"])[0]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        clock.restore()
+        for obj, attr in ((pm, "_argmax"), (ve.model, "segments_from_posteriors")):
+            delattr(obj, attr)
+    clips = slice_audio_by_segments(wav, plan, FS)
+    shapes = [(len(batch), max(len(clips[i]) for i in batch))
+              for batch in am.batches(plan, FS, 300)]
+    steps = eng.steps - steps0
+    n_blocks = 4  # punctuation's layers
+    want = dict.fromkeys(read(), 0)
+    want.update(ctc_prefix_step=steps, fbank=1 + len(shapes),
+                attention=rounds[0] * n_blocks, attention_d32=rounds[0] * n_blocks)
+    if not twins:  # the swapped kernels launch nothing
+        for B, N in shapes:
+            for k, v in hybrid_batch_launches(layout, B, N, eng.beam, eng.maxlen,
+                                              0).items():
+                want[k] += v
+    else:
+        want.update(ctc_prefix_step=0)
+    times = dict(generate_wall_s=wall, audio_s_per_s=len(wav) / FS / wall,
+                 vad_device_ms=clock.device_ms("vad_device"),
+                 vad_host_wall_s=clock.wall.get("vad_host", 0.0),
+                 asr_beam_wall_s=clock.wall.get("asr_beam", 0.0),
+                 asr_beam_span_ms=clock.device_ms("asr_beam", span=True),
+                 align_host_wall_s=clock.wall.get("align_host", 0.0),
+                 punc_wall_s=clock.wall.get("punc", 0.0), punc_rounds=rounds[0],
+                 decode_steps=steps)
+    launches = read()
+    log(f"e2e hybrid {name}: {len(plan)} segments in batches (B, samples) {shapes}; "
+        f"kernel launches {launches}")
+    check(launches == want, f"hybrid {name} launches {launches}, want {want}")
+    ts = res.get("timestamp", [])
+    check(isinstance(res.get("text"), str) and res["text"] and len(ts) > 0
+          and res.get("sentence_info"), f"hybrid {name}: text, stamps, sentence_info")
+    check(all(0 <= b <= e <= len(wav) // 16 for b, e in ts),
+          f"hybrid {name}: timestamps within the recording")
+    return res, launches, times, shapes
+
+
+def hybrid_pipeline(torch, CP, am, zero, read, tag, layout, cut=120):
+    """``generate`` with CTC-alignment timestamps of the 600 s recording on
+    pipeline (b)'s plan, twice (the first call at these shapes, then the
+    timed one), and its first ``cut`` s on the kernels and on the twins,
+    the records equal.  Returns (launches of the three kernel runs, record)."""
+    import numpy as np
+
+    from funasr_torch.utils.vad_utils import merge_vad
+
+    wav, bursts = pipeline_recording(np.random.default_rng(12))
+    plan = merge_vad(bursts, 15000)
+    first = hybrid_generate(torch, CP, am, zero, read, wav, plan, f"{tag} first", layout)[2]
+    res, launches, times, shapes = hybrid_generate(torch, CP, am, zero, read, wav, plan,
+                                                   f"{tag} 600 s", layout)
+    log(f"e2e hybrid {tag} 600 s: {json.dumps(times)}; the first call {json.dumps(first)}; "
+        f"text {res['text'][:24]}... {len(res['timestamp'])} stamps, "
+        f"{len(res['sentence_info'])} sentences")
+    wav_c, plan_c = wav[: cut * FS], [s for s in plan if s[1] <= cut * 1000]
+    res_c, launches_c, times_c, shapes_c = hybrid_generate(
+        torch, CP, am, zero, read, wav_c, plan_c, f"{tag} first {cut} s", layout)
+    res_ct, _, times_ct, _ = hybrid_generate(torch, CP, am, zero, read, wav_c, plan_c,
+                                             f"{tag} first {cut} s on the twins", layout,
+                                             twins=True)
+    check(res_ct == res_c, f"hybrid {tag}: the first {cut} s' record on the twins equals it")
+    log(f"e2e hybrid {tag} first {cut} s ({len(plan_c)} segments, batches {shapes_c}): "
+        f"kernels {times_c['generate_wall_s']:.3f} s, twins "
+        f"{times_ct['generate_wall_s']:.3f} s; records equal")
+    total = {k: launches[k] + launches_c[k] for k in launches}
+    return total, {tag: dict(times, first_call=first, segments=len(plan), batches=shapes,
+                             launches=launches),
+                   f"{tag}_cut": dict(times_c, seconds=cut, segments=len(plan_c),
+                                      batches=shapes_c,
+                                      twins_wall_s=times_ct["generate_wall_s"],
+                                      twins_record_equal=True)}
+
+
+def expected_stamps(words, ids, blank=0):
+    """The stamps of one hypothesis (``words`` its token strings, ``ids``
+    its ids; a vocabulary without '▁'): its CTC alignment gives each
+    non-blank id one label run and each run a stamp, the runs taking the
+    words in order from the first (``_ctc_align_timestamps``), and
+    ``sentence_postprocess`` keeps a stamp where it keeps the word at its
+    index (not a ``<...>`` token).  A blank id among the ids is a word
+    (``<blank>``) but no run, so such a hypothesis's stamps fall short of
+    its words: the first (non-blank ids) words, the kept ones counted."""
+    n_runs = sum(i != blank for i in ids)
+    return sum(1 for w in words[:n_runs]
+               if w.strip() and not (w.strip().startswith("<") and w.strip().endswith(">")))
+
+
+def compare_nbest(res_k, res_t, al_k, al_t, K, tag, tokenizer):
+    """Kernels against twins, hypothesis by hypothesis (``K`` a row): tokens
+    equal, |dscore| within ``BEAM_F32_SCORE_TOL``, alignments and timestamps
+    equal; the 1-best equal to nbest[0]; each hypothesis's stamps exactly
+    ``expected_stamps`` (a stamp a kept token where it holds no blank id;
+    the beam takes blank as a candidate, as the JAX package's prefix scorer
+    does, and the alignment gives that token no run).  Returns (hypotheses,
+    max |dscore|)."""
+    import numpy as np
+
+    tok_ok = ts_ok = al_ok = rows = with_blank = 0
+    d_score = 0.0
+    for i, (rk, rt) in enumerate(zip(res_k, res_t)):
+        check(rk["timestamp"] == rk["nbest"][0]["timestamp"], f"{tag}: 1-best = nbest[0]")
+        for k, (hk, ht) in enumerate(zip(rk["nbest"], rt["nbest"])):
+            rows += 1
+            has_blank = 0 in hk["tokens"]
+            with_blank += has_blank
+            words = tokenizer.ids2tokens(hk["tokens"])
+            want = expected_stamps(words, hk["tokens"])
+            check(len(hk["timestamp"]) == want
+                  and (has_blank or want == len(hk["raw_tokens"])),
+                  f"{tag}: row {i} hypothesis {k}: {len(hk['timestamp'])} stamps, want "
+                  f"{want} (a stamp a token but for blank ids), tokens {hk['tokens']}")
+            d_score = max(d_score, abs(hk["score"] - ht["score"]))
+            if hk["tokens"] == ht["tokens"]:
+                tok_ok += 1
+                ts_ok += hk["timestamp"] == ht["timestamp"]
+                al_ok += bool(np.array_equal(al_k[i * K + k], al_t[i * K + k]))
+    log(f"{tag} twins: {tok_ok} of {rows} hypotheses' tokens equal, alignments {al_ok} and "
+        f"timestamps {ts_ok} of those equal, max |dscore| {d_score:.3e} "
+        f"(tol {BEAM_F32_SCORE_TOL}); {with_blank} hypotheses hold the blank id, their "
+        f"stamps held to the count of their non-blank runs")
+    check(tok_ok == rows and al_ok == rows and ts_ok == rows
+          and d_score <= BEAM_F32_SCORE_TOL, f"{tag}: kernels against twins")
+    return rows, d_score
+
+
 def end_to_end_hybrid(torch, FK, A, CP, card):
     """Phase (e): the Conformer of ``configs/conformer_hybrid.yaml`` (int8
     weights, bf16) on seeded random weights through ``AutoModel(model=
@@ -4162,48 +4447,13 @@ def end_to_end_hybrid(torch, FK, A, CP, card):
     from funasr_torch.auto.auto_model import AutoModel
     from funasr_torch.auto.engines import HybridEngine
     from funasr_torch.models.transformer import model as TM
-    from funasr_torch.ops import decoder_layer as DL
-    from funasr_torch.ops import ffn as FF
-    from funasr_torch.ops import fsmn as FM
-    from funasr_torch.ops import int8_gemm as G
-    from funasr_torch.ops import quant as Q
-    from funasr_torch.ops import rowquant as RQ
-    from funasr_torch.ops import sanm_layer as SL
-    from funasr_torch.utils.vad_utils import merge_vad, slice_audio_by_segments
 
-    counters = {"ctc_prefix_step": CP.ctc_prefix_step, "ctc_prefix": CP.ctc_recurrence,
-                "fbank": FK.fused_fbank, "int8_gemm": G.int8_gemm, "rowquant": RQ.rowquant,
-                "attention": A.fused_attention, "sanm_layer": SL.fused_sanm_layer,
-                "decoder_layer": DL.fused_decoder_layer, "ffn": FF.fused_ffn_int8,
-                "int8_gemm_rq": G.int8_gemm_rq, "fsmn": FM.fsmn, "fsmn_ln": FM.fsmn_ln}
-
-    def zero():
-        for fn in counters.values():
-            fn.launches = 0
-        A.fused_attention.launches_by_head = dict.fromkeys(A.HEAD_SIZES, 0)
-
-    def read():
-        out = {k: fn.launches for k, fn in counters.items()}
-        out["attention_d32"] = A.fused_attention.launches_by_head[32]
-        return out
-
-    n_ffn = 2 * CONFORMER_HYBRID["encoder_conf"]["num_blocks"]
-    units = CONFORMER_HYBRID["encoder_conf"]["linear_units"]
-
-    def want_launches(batch_shapes, steps, fbank, rounds=0, n_blocks=4):
-        """CTC prefix step one a decode step; per batch the FFN w_1 pairs the
-        int8 gate admits; punctuation's d = 32 attention n_blocks a round."""
-        want = dict.fromkeys(read(), 0)
-        n8 = sum(n_ffn for B, N in batch_shapes if Q.gate(B * encoder_frames(N), units))
-        want.update(ctc_prefix_step=steps, fbank=fbank, int8_gemm=n8, rowquant=n8,
-                    attention=rounds * n_blocks, attention_d32=rounds * n_blocks)
-        return want
-
+    zero, read = hybrid_counters(FK, A, CP)
     t0 = time.time()
     hybrid_cfg, vad_cfg, punc_cfg = hybrid_configs()
     am = AutoModel(model=hybrid_cfg, vad_model=vad_cfg, punc_model=punc_cfg, quantize=True,
                    seed=2032)
-    eng, ve, pm = am.engine, am.vad_engine, am.punc_engine.model
+    eng = am.engine
     check(isinstance(eng, HybridEngine) and eng.beam == 10 and eng.maxlen == 96
           and len(eng.module.encoder.encoders) == 12, "the hybrid at conformer_hybrid.yaml")
     served = HybridEngine(eng.module, eng.frontend, eng.tokenizer, **BEAM_SERVING)
@@ -4246,126 +4496,216 @@ def end_to_end_hybrid(torch, FK, A, CP, card):
         launches_e1 = read()
         steps = served.steps - steps0
         _, ms_plain = timed(lambda: served.transcribe(wavs, nbest=K))
-        _, ms_ts2 = timed(lambda: served.transcribe(wavs, nbest=K, with_timestamp=True))
-        _, ms_plain2 = timed(lambda: served.transcribe(wavs, nbest=K))
         with beam_twins(CP):
             res_t = served.transcribe(wavs, nbest=K, with_timestamp=True)
     finally:
         TM.align_emissions, TM.viterbi = real_em, real_vit
-    want = want_launches([(B, N)], steps, 1)
+    want = dict.fromkeys(read(), 0)
+    want.update(ctc_prefix_step=steps, fbank=1,
+                **hybrid_batch_launches("conformer", B, N, served.beam, served.maxlen, 0))
     log(f"e2e hybrid (e1): B={B} x 15 s, nbest={K} with timestamps, {steps} decode steps; "
         f"kernel launches {launches_e1}")
     check(steps > 0 and launches_e1 == want, f"hybrid (e1) launches {launches_e1}, want {want}")
     em_shape = seen["em"][0]
     read_back = 4 * int(np.prod(em_shape))
-    tok_ok = ts_ok = al_ok = rows = 0
-    d_score = 0.0
-    al_k, al_t = seen["align"][0], seen["align"][-1]
-    for i, (rk, rt) in enumerate(zip(res_k, res_t)):
-        check(rk["timestamp"] == rk["nbest"][0]["timestamp"], "hybrid (e1): 1-best = nbest[0]")
-        for k, (hk, ht) in enumerate(zip(rk["nbest"], rt["nbest"])):
-            rows += 1
-            check(len(hk["timestamp"]) == len(hk["raw_tokens"]), "hybrid (e1): a stamp a token")
-            d_score = max(d_score, abs(hk["score"] - ht["score"]))
-            if hk["tokens"] == ht["tokens"]:
-                tok_ok += 1
-                ts_ok += hk["timestamp"] == ht["timestamp"]
-                al_ok += bool(np.array_equal(al_k[i * K + k], al_t[i * K + k]))
-    log(f"e2e hybrid (e1) on {card}: transcribe with timestamps {ms_ts:.1f} / {ms_ts2:.1f} ms, "
-        f"without {ms_plain:.1f} / {ms_plain2:.1f} ms (wall, in turns); host Viterbi "
-        f"{seen['viterbi_s'][:2]} s a batch; emissions {em_shape} float32 = {read_back} "
-        f"bytes read back; twins: {tok_ok} of {rows} hypotheses' tokens equal, alignments "
-        f"{al_ok} and timestamps {ts_ok} of those equal, max |dscore| {d_score:.3e} (tol "
-        f"{BEAM_F32_SCORE_TOL})")
-    check(tok_ok == rows and al_ok == rows and ts_ok == rows and d_score <= BEAM_F32_SCORE_TOL,
-          "hybrid (e1): kernels against twins")
-    e2e = {"hybrid_e1": dict(transcribe_ts_ms=[ms_ts, ms_ts2], transcribe_ms=[ms_plain, ms_plain2],
-                             steps=steps, viterbi_host_s=seen["viterbi_s"][:2],
+    log(f"e2e hybrid (e1) on {card}: transcribe with timestamps {ms_ts:.1f} ms, without "
+        f"{ms_plain:.1f} ms (wall); host Viterbi {seen['viterbi_s'][:1]} s a batch; "
+        f"emissions {em_shape} float32 = {read_back} bytes read back")
+    rows, d_score = compare_nbest(res_k, res_t, seen["align"][0], seen["align"][-1], K,
+                                  "hybrid (e1)", served.tokenizer)
+    e2e = {"hybrid_e1": dict(transcribe_ts_ms=ms_ts, transcribe_ms=ms_plain,
+                             steps=steps, viterbi_host_s=seen["viterbi_s"][:1],
                              emissions_shape=em_shape, bytes_read_back=read_back,
-                             launches=launches_e1, twins_hypotheses_equal=tok_ok,
+                             launches=launches_e1, twins_hypotheses_equal=rows,
                              twins_max_abs_dscore=d_score)}
 
     # ---- (e2) the pipeline with timestamps: 600 s, then its first 120 s on the twins
-    wav, bursts = pipeline_recording(np.random.default_rng(12))
-    plan = merge_vad(bursts, 15000)
-
-    def run(name, wav, plan, twins=False):
-        clock = StageClock(torch)
-        rounds = [0]
-        real_argmax = pm._argmax
-
-        def counted_argmax(text, lens):
-            rounds[0] += 1
-            return real_argmax(text, lens)
-
-        pm._argmax = counted_argmax
-        ve.model.segments_from_posteriors = (
-            lambda post, db, f=ve.model.segments_from_posteriors: (f(post, db), plan)[1])
-        clock.wrap(ve, "front", "vad_device", events=True)
-        clock.wrap(ve.model, "segments_from_posteriors", "vad_host")
-        clock.wrap(eng, "run", "asr_beam", events=True)
-        clock.wrap(TM, "viterbi", "align_host")
-        clock.wrap(pm, "inference_batch", "punc")
-        zero()
-        steps0 = eng.steps
-        try:
-            with beam_twins(CP) if twins else contextlib.nullcontext():
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                res = am.generate(wav, key=["e2"])[0]
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-        finally:
-            clock.restore()
-            for obj, attr in ((pm, "_argmax"), (ve.model, "segments_from_posteriors")):
-                delattr(obj, attr)
-        clips = slice_audio_by_segments(wav, plan, FS)
-        shapes = [(len(batch), max(len(clips[i]) for i in batch))
-                  for batch in am.batches(plan, FS, 300)]
-        want = want_launches(shapes, eng.steps - steps0, 1 + len(shapes), rounds[0])
-        if twins:  # the swapped kernels launch nothing
-            want.update(ctc_prefix_step=0, int8_gemm=0, rowquant=0)
-        times = dict(generate_wall_s=wall, audio_s_per_s=len(wav) / FS / wall,
-                     vad_device_ms=clock.device_ms("vad_device"),
-                     vad_host_wall_s=clock.wall.get("vad_host", 0.0),
-                     asr_beam_wall_s=clock.wall.get("asr_beam", 0.0),
-                     asr_beam_span_ms=clock.device_ms("asr_beam", span=True),
-                     align_host_wall_s=clock.wall.get("align_host", 0.0),
-                     punc_wall_s=clock.wall.get("punc", 0.0), punc_rounds=rounds[0],
-                     decode_steps=eng.steps - steps0)
-        launches = read()
-        log(f"e2e hybrid (e2) {name}: {len(plan)} segments in batches (B, samples) {shapes}; "
-            f"kernel launches {launches}")
-        check(launches == want, f"hybrid (e2) {name} launches {launches}, want {want}")
-        ts = res.get("timestamp", [])
-        check(isinstance(res.get("text"), str) and res["text"] and len(ts) > 0
-              and res.get("sentence_info"), f"hybrid (e2) {name}: text, stamps, sentence_info")
-        check(all(0 <= b <= e <= len(wav) // 16 for b, e in ts),
-              f"hybrid (e2) {name}: timestamps within the recording")
-        return res, launches, times, shapes
-
-    first = run("first", wav, plan)[2]  # the first call at these shapes
-    res, launches_e2, times, shapes = run("600 s", wav, plan)
-    log(f"e2e hybrid (e2) 600 s on {card}: {json.dumps(times)}; the first call "
-        f"{json.dumps(first)}; text {res['text'][:24]}... {len(res['timestamp'])} stamps, "
-        f"{len(res['sentence_info'])} sentences")
-    cut = 120
-    wav_c, plan_c = wav[: cut * FS], [s for s in plan if s[1] <= cut * 1000]
-    res_c, launches_c, times_c, shapes_c = run(f"first {cut} s", wav_c, plan_c)
-    res_ct, _, times_ct, _ = run(f"first {cut} s on the twins", wav_c, plan_c, twins=True)
-    check(res_ct == res_c, f"hybrid (e2): the first {cut} s' record on the twins equals it")
-    log(f"e2e hybrid (e2) first {cut} s ({len(plan_c)} segments, batches {shapes_c}): "
-        f"kernels {times_c['generate_wall_s']:.3f} s, twins {times_ct['generate_wall_s']:.3f} s; "
-        f"records equal")
-    e2e.update(hybrid_e2=dict(times, first_call=first, segments=len(plan), batches=shapes,
-                              launches=launches_e2),
-               hybrid_e2_cut=dict(times_c, seconds=cut, segments=len(plan_c), batches=shapes_c,
-                                  twins_wall_s=times_ct["generate_wall_s"],
-                                  twins_record_equal=True))
+    launches_e2, rec = hybrid_pipeline(torch, CP, am, zero, read, "hybrid_e2", "conformer")
+    e2e.update(rec)
     del am, served
     torch.cuda.empty_cache()
-    total = {k: launches_e1.get(k, 0) + launches_e2.get(k, 0) + launches_c.get(k, 0)
-             for k in launches_e1}
+    total = {k: launches_e1[k] + launches_e2[k] for k in launches_e1}
+    return total, e2e
+
+
+# phase (f): the aishell recipes, each with its served batch (B x 15 s)
+AISHELL_RECIPES = (
+    ("transformer", "examples/aishell/transformer/conf/transformer_12e_6d_2048_256.yaml", 32),
+    ("branchformer", "examples/aishell/branchformer/conf/branchformer_12e_6d_2048_256.yaml",
+     32),
+    ("ebranchformer",
+     "examples/aishell/e_branchformer/conf/e_branchformer_12e_6d_2048_256.yaml", 32),
+    ("conformer_rwkv", "examples/aishell/conformer/conf/conformer_rwkv.yaml", 8),
+)
+
+
+def aishell_model(name, path, **kw):
+    """``AutoModel(model=<the recipe's YAML>, quantize=True)`` on seeded
+    random weights, with a 4234-entry single-CJK-char token list (the
+    recipes name ``CharTokenizer`` and no list)."""
+    from funasr_torch.auto.auto_model import AutoModel
+
+    V = 4234
+    tokens = ["<blank>", "<s>", "</s>"] + [chr(0x4E00 + i) for i in range(V - 4)] + ["<unk>"]
+    here = os.path.dirname(os.path.abspath(__file__))
+    seed = 2040 + [r[0] for r in AISHELL_RECIPES].index(name)
+    return AutoModel(model=os.path.join(here, path),
+                     model_conf=dict(tokenizer_conf=dict(token_list=tokens)),
+                     quantize=True, seed=seed, **kw)
+
+
+def end_to_end_aishell(torch, FK, A, CP, card):
+    """Phase (f): the four aishell recipes at full width (12-block encoders
+    of D = 256, 6-block decoders, vocab 4234), each from its YAML through
+    ``AutoModel(quantize=True)`` on seeded random weights.  (f1)
+    Transformer, Branchformer and E-Branchformer, (f2) the Conformer with
+    the RWKV decoder (the full-prefix beam) on B = 8: ``HybridEngine(...,
+    beam 10, maxlen 96, CTC 0.3, int8 KV).transcribe(nbest=3,
+    with_timestamp=True)`` of B x 15 s, the counters exact (fbank 1, the
+    CTC step one a decode step, the fused int8 FFNs and gated QDense pairs
+    of ``hybrid_batch_launches``), the batch's dispatch under
+    ``torch.cuda.set_sync_debug_mode("error")`` but for the beam's one sync
+    a step (``beam_search.all_finished``) and the read back
+    (``device.fetched``), the wall and the decode steps; on the twins (CTC
+    step, int8 blocks) tokens equal, scores within ``BEAM_F32_SCORE_TOL``,
+    alignments and timestamps equal.  (f2) also times one full-prefix
+    decoder call at the served shape and counts its kernel launches (a
+    profile).  (f3) the E-Branchformer behind FSMN-VAD and CT-Transformer:
+    ``generate`` of the 600 s recording on pipeline (b)'s plan, as (e2).
+    Returns (launches, e2e record)."""
+    import numpy as np
+
+    from funasr_torch.auto.engines import HybridEngine
+    from funasr_torch.models.transformer import model as TM
+    from funasr_torch.ops import beam_search as TB
+
+    zero, read = hybrid_counters(FK, A, CP)
+    e2e, total = {}, dict.fromkeys(read(), 0)
+    N, K = 15 * FS, 3
+
+    def lifted(f):
+        """``f`` with the sync debug mode off: the beam's allowed syncs."""
+        def call(*a, **k):
+            torch.cuda.set_sync_debug_mode("default")
+            try:
+                return f(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+        return call
+
+    for name, path, B in AISHELL_RECIPES:
+        t0 = time.time()
+        am = aishell_model(name, path)
+        eng = am.engine
+        module = eng.module
+        check(isinstance(eng, HybridEngine) and (eng.beam, eng.maxlen) == (10, 96)
+              and len(module.encoder.encoders) == 12 and len(module.decoder.decoders) == 6
+              and module.encoder.output_size() == 256 and module.vocab_size == 4234,
+              f"(f) {name}: the recipe's widths and decoding")
+        full_prefix = type(module.decoder).__name__ == "TransformerRWKVDecoder"
+        served = HybridEngine(module, eng.frontend, eng.tokenizer, **BEAM_SERVING)
+        log(f"e2e aishell {name}: {type(module).__name__} + {type(module.encoder).__name__} + "
+            f"{type(module.decoder).__name__} built in {time.time() - t0:.1f} s")
+        rng = np.random.default_rng(3)
+        wavs = [waveform(rng, N, 150.0 + 7 * i) for i in range(B)]
+        # warm-up (the full-prefix beam on an 8-step engine: its 96 steps take
+        # seconds whatever the batch)
+        HybridEngine(module, eng.frontend, eng.tokenizer,
+                     **dict(BEAM_SERVING, maxlen=8 if full_prefix else 96)).transcribe(
+            wavs[:2], nbest=K, with_timestamp=True)
+        torch.cuda.synchronize()
+        aligns, dec_calls = [], [0]
+        real = dict(all_finished=TB.all_finished, fetched=TM.fetched, viterbi=TM.viterbi,
+                    forward=module.decoder.forward)
+
+        def kept_vit(*a, **k):
+            out = real["viterbi"](*a, **k)
+            aligns.append(out)
+            return out
+
+        def counted_forward(*a, **k):
+            dec_calls[0] += 1
+            return real["forward"](*a, **k)
+
+        def transcribe():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = served.transcribe(wavs, nbest=K, with_timestamp=True)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t
+
+        TM.viterbi, module.decoder.forward = kept_vit, counted_forward
+        try:
+            # the main path: counters from 0, a host sync in the dispatch raises
+            TB.all_finished, TM.fetched = lifted(real["all_finished"]), lifted(real["fetched"])
+            served.run = sync_guarded(torch, served.run)
+            zero()
+            steps0 = served.steps
+            try:
+                res_k, wall = transcribe()
+            finally:
+                TB.all_finished, TM.fetched = real["all_finished"], real["fetched"]
+                del served.run
+            launches = read()
+            steps, n_dec = served.steps - steps0, dec_calls[0]
+            walls = [wall]
+            if not full_prefix:  # a second reading
+                walls.append(transcribe()[1])
+            with beam_twins(CP):
+                res_t = served.transcribe(wavs, nbest=K, with_timestamp=True)
+        finally:
+            TM.viterbi = real["viterbi"]
+            del module.decoder.forward
+        want = dict.fromkeys(launches, 0)
+        want.update(ctc_prefix_step=steps, fbank=1,
+                    **hybrid_batch_launches(name, B, N, served.beam, served.maxlen, n_dec))
+        log(f"e2e aishell {name}: B={B} x 15 s, nbest={K} with timestamps, {steps} decode "
+            f"steps, {n_dec} full-prefix decoder calls; kernel launches {launches}")
+        check(steps > 0 and launches == want, f"(f) {name} launches {launches}, want {want}")
+        check((n_dec >= steps) if full_prefix else n_dec == 0,
+              f"(f) {name}: the {'full-prefix' if full_prefix else 'cached'} scorer")
+        rows, d_score = compare_nbest(res_k, res_t, aligns[0], aligns[-1], K,
+                                      f"e2e aishell {name}", served.tokenizer)
+        rec = dict(B=B, transcribe_ts_wall_s=walls, steps=steps, decoder_calls=n_dec,
+                   launches=launches, twins_hypotheses_equal=rows,
+                   twins_max_abs_dscore=d_score,
+                   audio_s_per_s=[B * N / FS / w for w in walls])
+        if full_prefix:
+            # one decode step's decoder call at the served shape: time and launches
+            M = B * served.beam
+            with torch.inference_mode():
+                enc, enc_lens = module.encode(*eng.frontend.device_features(
+                    *served._pack(wavs)))
+                enc_rep = enc.repeat_interleave(served.beam, dim=0)
+                lens_rep = enc_lens.repeat_interleave(served.beam, dim=0)
+                ys = torch.randint(3, module.vocab_size, (M, served.maxlen + 1),
+                                   device=enc.device)
+                lens = torch.full((M,), served.maxlen + 1, device=enc.device)
+                call = lambda: module.decoder(enc_rep, lens_rep, ys, lens)  # noqa: E731
+                ms = cuda_ms(call, iters=3, warmup=1)
+                prof = profile(torch, call, None, ms, "profile_rwkv_decoder.txt")
+            rec.update(decoder_call_ms=ms, decoder_call_launches=prof["kernel launches"],
+                       decoder_call_profile=prof)
+            log(f"e2e aishell {name} on {card}: one full-prefix decoder call ({M} x "
+                f"{served.maxlen + 1} tokens) {ms:.2f} ms, {prof['kernel launches']} kernel "
+                f"launches")
+            del enc, enc_rep
+        log(f"e2e aishell {name} on {card}: transcribe with timestamps "
+            f"{[round(w, 3) for w in walls]} s wall, {steps} decode steps "
+            f"({1e3 * walls[0] / steps:.1f} ms a step)")
+        e2e[f"aishell_{name}"] = rec
+        for k in total:
+            total[k] += launches[k]
+        if name == "ebranchformer":
+            # ---- (f3) behind FSMN-VAD and CT-Transformer
+            _, vad_cfg, punc_cfg = pipeline_configs()
+            am = aishell_model(name, path, vad_model=vad_cfg, punc_model=punc_cfg)
+            launches_f3, rec3 = hybrid_pipeline(torch, CP, am, zero, read, "aishell_f3", name)
+            e2e.update(rec3)
+            for k in total:
+                total[k] += launches_f3[k]
+        del am, eng, module, served
+        torch.cuda.empty_cache()
     return total, e2e
 
 
@@ -4540,6 +4880,8 @@ def main(argv=None) -> int:
     e2e.update(e2e_ctx)
     launches_hyb, e2e_hyb = end_to_end_hybrid(torch, FK, A, CP, smi)
     e2e.update(e2e_hyb)
+    launches_ais, e2e_ais = end_to_end_aishell(torch, FK, A, CP, smi)
+    e2e.update(e2e_ais)
     log(f"end to end done in {time.time() - t0:.1f} s")
     log(f"e2e summary {json.dumps(e2e, sort_keys=True)}")
 
@@ -4555,7 +4897,8 @@ def main(argv=None) -> int:
                    "streaming": launches_stream.get(name, 0),
                    "sensevoice": launches_sv.get(name, 0),
                    "contextual": launches_ctx.get(name, 0),
-                   "hybrid_align": launches_hyb.get(name, 0)}
+                   "hybrid_align": launches_hyb.get(name, 0),
+                   "aishell": launches_ais.get(name, 0)}
         return dict(name=name, route="cuda", source=sources[0], sources=sources,
                     replaces=replaces, launches=sum(by_path.values()),
                     launches_by_path=by_path, shape=main_case["case"],

@@ -10,7 +10,8 @@ Entry points (``auto.auto_model.AutoModel``, the long-audio pipeline;
 ``auto.engines.ParaformerEngine``, ``BiCifEngine``, ``HybridEngine``,
 ``VadEngine`` and ``PuncEngine``; ``models.paraformer.model.Paraformer``,
 ``models.bicif_paraformer.model.BiCifParaformer``,
-``models.transformer.model.Conformer``,
+``models.transformer.model.Conformer`` and ``Transformer``,
+``models.branchformer.Branchformer`` and ``EBranchformer``,
 ``models.fsmn_vad.model.FsmnVADStreaming``,
 ``models.ct_transformer.model.CTTransformerModel``; streaming:
 ``models.paraformer_streaming.model.ParaformerStreaming`` with

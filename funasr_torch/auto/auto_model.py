@@ -25,9 +25,14 @@ speaker count) into ``spk_info`` and gives each sentence of
 ``sentence_info`` its speaker (``distribute_spk``).
 
 Main models: Paraformer, BiCifParaformer, SeacoParaformer,
-ContextualParaformer, SenseVoiceSmall and the Conformer CTC/attention hybrid
-(``ParaformerEngine``, ``BiCifEngine``, ``HotwordEngine`` (``seaco=False``
-for ContextualParaformer), ``SenseVoiceEngine``, ``HybridEngine``); a
+ContextualParaformer, SenseVoiceSmall and the CTC/attention hybrids
+Conformer, Transformer, Branchformer and EBranchformer, whose config's
+``encoder`` (Conformer and Transformer), ``decoder`` (``TransformerDecoder``
+or ``TransformerRWKVDecoder``) and ``decoding_conf`` are honoured as in the
+JAX package (``ParaformerEngine``, ``BiCifEngine``, ``HotwordEngine``
+(``seaco=False`` for ContextualParaformer), ``SenseVoiceEngine``,
+``HybridEngine``; the ``SANM`` hybrid and the ``CTC`` class raise
+``NotImplementedError``); a
 FsmnVADStreaming or CTTransformer config as the main model serves VAD or
 punctuation alone.  ``generate(hotword=...)`` decodes a SeacoParaformer or
 a ContextualParaformer with its bias; as in the JAX package a call with a
@@ -105,6 +110,8 @@ from funasr_torch.utils.timestamp_tools import timestamp_sentence
 
 _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
            "float32": torch.float32, "fp32": torch.float32}
+# the CTC/attention hybrids the JAX AutoModel serves through HybridEngine
+_HYBRIDS = ("Conformer", "Transformer", "SANM", "Branchformer", "EBranchformer")
 
 
 def _resolve_cfg(model: Union[str, Dict, None], conf: Optional[Dict]) -> Dict:
@@ -207,11 +214,12 @@ class AutoModel:
         if name == "FsmnVADStreaming":  # standalone VAD: segment lists out
             return self._build_vad(cfg)
         if name not in ("Paraformer", "BiCifParaformer", "SeacoParaformer",
-                        "ContextualParaformer", "SenseVoiceSmall", "Conformer"):
+                        "ContextualParaformer", "SenseVoiceSmall") + _HYBRIDS:
             raise NotImplementedError(f"AutoModel: no engine for model class {name!r} in "
                                       "the port (Paraformer, BiCifParaformer, "
                                       "SeacoParaformer, ContextualParaformer, "
-                                      "SenseVoiceSmall, Conformer)")
+                                      "SenseVoiceSmall, Conformer, Transformer, "
+                                      "Branchformer, EBranchformer)")
         tokenizer = _build_tokenizer(cfg)
         frontend = _build_frontend(cfg)
         dtype = cfg.get("dtype") or ("bfloat16" if self._quantize else "float32")
@@ -226,8 +234,12 @@ class AutoModel:
                       device=self.device, quantize=self._quantize,
                       **(cfg.get("model_conf") or {}))
         cls = tables.get("model_classes", name)
-        if name == "Conformer":
-            module = cls(**common)
+        if name in _HYBRIDS:
+            # the JAX AutoModel passes the config's encoder to these three only
+            # (auto_model.py:324-350); SANM raises, not ported
+            kw = ({"encoder_name": cfg["encoder"]}
+                  if name in ("Conformer", "Transformer", "SANM") and cfg.get("encoder") else {})
+            module = cls(decoder=cfg.get("decoder", "TransformerDecoder"), **common, **kw)
         else:
             dec = ("ContextualParaformerDecoder" if name == "ContextualParaformer"
                    else "ParaformerSANMDecoder")
@@ -239,7 +251,7 @@ class AutoModel:
         _weights(module, _load_state(cfg), self.seed, self.device)
         if self._quantize:
             module.quantize_weights()
-        if name == "Conformer":
+        if name in _HYBRIDS:
             dec = cfg.get("decoding_conf") or {}
             return HybridEngine(module, frontend, tokenizer, beam=dec.get("beam_size", 10),
                                 maxlen=dec.get("maxlenratio_tokens", 96),

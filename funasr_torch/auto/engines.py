@@ -10,7 +10,9 @@ wrapper (``ops/fbank_kernel.py``) and attention through
 the CPU.  A module built with ``quantize=True`` and quantized
 (``Paraformer.quantize_weights``) is served the same way, through its
 int8 layer kernels.  ``HybridEngine`` serves the joint CTC/attention beam
-of a Conformer (``models/transformer/model.py``), whose CTC prefix scores run
+of a CTC/attention hybrid (``models/transformer/model.py``: Conformer,
+Transformer; ``models/branchformer.py``: Branchformer, E-Branchformer; each
+with the Transformer or the RWKV decoder), whose CTC prefix scores run
 through the ``ops/ctc_prefix.py`` kernel once per decode step, with CTC
 forced-alignment timestamps for each returned hypothesis.
 ``ParaformerEngine.transcribe(with_timestamp=True)`` adds 60 ms stamps from
@@ -550,8 +552,10 @@ class SenseVoiceEngine(BatchedAsrEngine):
 
 
 class HybridEngine(BatchedAsrEngine):
-    """Joint CTC/attention beam serving (Conformer) on ``device`` (default the
-    GPU; raises without one unless ``device="cpu"``): device beam decode,
+    """Joint CTC/attention beam serving (any ``_HybridModel``: Conformer,
+    Transformer, Branchformer, E-Branchformer; the RWKV decoder through the
+    full-prefix beam) on ``device`` (default the GPU; raises without one
+    unless ``device="cpu"``): device beam decode,
     hypotheses detokenized on the host; with timestamps each returned
     hypothesis force-aligned to the encoder frames (``decode_beam_align``).
     ``int8_kv`` stores the decoder's attention K/V as per-row int8 (an

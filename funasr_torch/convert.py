@@ -3,7 +3,8 @@
 The inverses of funasr_tpu/convert.py ``paraformer_from_torch`` (:205),
 ``bicif_paraformer_from_torch`` (:228),
 ``contextual_paraformer_from_torch`` (:238), ``seaco_paraformer_from_torch``
-(:292), ``conformer_from_torch`` (:398), ``fsmn_vad_from_torch`` (:332),
+(:292), ``conformer_from_torch`` (:398) with ``_std_transformer_decoder_tree``
+(:1383), ``fsmn_vad_from_torch`` (:332),
 ``ct_transformer_from_torch`` (:385), ``sense_voice_from_torch`` (:481) and
 ``campplus_from_torch`` (:517), written for the port (no import of the JAX
 package): each takes the flax tree with numpy leaves and returns the state
@@ -273,18 +274,29 @@ def ct_transformer_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _mha(sd, p: str, node: Mapping):
+    for q in ("linear_q", "linear_k", "linear_v", "linear_out"):
+        _dense(sd, f"{p}.{q}", node[q])
+
+
+def _rel_mha(sd, p: str, att: Mapping):
+    _mha(sd, p, att)
+    _dense(sd, f"{p}.linear_pos", att["linear_pos"], bias=False)
+    sd[f"{p}.pos_bias_u"] = _t(att["pos_bias_u"])
+    sd[f"{p}.pos_bias_v"] = _t(att["pos_bias_v"])
+
+
+def _ffn(sd, p: str, node: Mapping):
+    _dense(sd, f"{p}.w_1", node["w_1"])
+    _dense(sd, f"{p}.w_2", node["w_2"])
+
+
 def _conformer_layer(sd, p: str, node: Mapping, stats: Mapping):
-    for ff in ("feed_forward", "feed_forward_macaron"):
-        _dense(sd, f"{p}.{ff}.w_1", node[ff]["w_1"])
-        _dense(sd, f"{p}.{ff}.w_2", node[ff]["w_2"])
+    _ffn(sd, f"{p}.feed_forward", node["feed_forward"])
+    _ffn(sd, f"{p}.feed_forward_macaron", node["feed_forward_macaron"])
     for nm in ("norm_ff", "norm_mha", "norm_conv", "norm_final", "norm_ff_macaron"):
         _norm(sd, f"{p}.{nm}", node[nm])
-    att = node["self_attn"]
-    for q in ("linear_q", "linear_k", "linear_v", "linear_out"):
-        _dense(sd, f"{p}.self_attn.{q}", att[q])
-    _dense(sd, f"{p}.self_attn.linear_pos", att["linear_pos"], bias=False)
-    sd[f"{p}.self_attn.pos_bias_u"] = _t(att["pos_bias_u"])
-    sd[f"{p}.self_attn.pos_bias_v"] = _t(att["pos_bias_v"])
+    _rel_mha(sd, f"{p}.self_attn", node["self_attn"])
     cm, c = f"{p}.conv_module", node["conv_module"]
     for pw in ("pointwise_conv1", "pointwise_conv2"):  # (in, out) -> (out, in, 1)
         sd[f"{cm}.{pw}.weight"] = _t(np.asarray(c[pw]["kernel"]).T[..., None])
@@ -298,28 +310,79 @@ def _conformer_layer(sd, p: str, node: Mapping, stats: Mapping):
     sd[f"{cm}.norm.num_batches_tracked"] = torch.tensor(0)
 
 
+def _transformer_layer(sd, p: str, node: Mapping, stats: Mapping):
+    _mha(sd, f"{p}.self_attn", node["self_attn"])
+    _ffn(sd, f"{p}.feed_forward", node["feed_forward"])
+    _norm(sd, f"{p}.norm1", node["norm1"])
+    _norm(sd, f"{p}.norm2", node["norm2"])
+
+
+def _cgmlp(sd, p: str, node: Mapping):
+    _dense(sd, f"{p}.channel_proj1.0", node["channel_proj1"])
+    _norm(sd, f"{p}.csgu.norm", node["csgu"]["norm"])
+    _fsmn(sd, f"{p}.csgu.conv.weight", node["csgu"]["conv"])  # (K,1,C)->(C,1,K)
+    sd[f"{p}.csgu.conv.bias"] = _t(node["csgu"]["conv_bias"])
+    _dense(sd, f"{p}.channel_proj2", node["channel_proj2"])
+
+
+def _branchformer_layer(sd, p: str, node: Mapping, stats: Mapping):
+    for nm in ("norm_mha", "norm_mlp", "norm_final"):
+        _norm(sd, f"{p}.{nm}", node[nm])
+    _rel_mha(sd, f"{p}.attn", node["attn"])
+    _cgmlp(sd, f"{p}.cgmlp", node["cgmlp"])
+    _dense(sd, f"{p}.merge_proj", node["merge_proj"])
+
+
+def _ebranchformer_layer(sd, p: str, node: Mapping, stats: Mapping):
+    _branchformer_layer(sd, p, node, stats)
+    for jax_name, name in (("1", "_macaron"), ("2", "")):
+        _norm(sd, f"{p}.norm_ff{name}", node[f"norm_ff{jax_name}"])
+        _ffn(sd, f"{p}.feed_forward{name}", node[f"feed_forward{jax_name}"])
+    kernel = np.asarray(node["merge_conv"])  # (K, 1, 2D), no bias in the JAX package
+    _fsmn(sd, f"{p}.depthwise_conv_fusion.weight", kernel)
+    sd[f"{p}.depthwise_conv_fusion.bias"] = torch.zeros(kernel.shape[-1])
+
+
 def _transformer_decoder_layer(sd, p: str, node: Mapping):
     for att in ("self_attn", "src_attn"):
-        for q in ("linear_q", "linear_k", "linear_v", "linear_out"):
-            _dense(sd, f"{p}.{att}.{q}", node[att][q])
-    _dense(sd, f"{p}.feed_forward.w_1", node["feed_forward"]["w_1"])
-    _dense(sd, f"{p}.feed_forward.w_2", node["feed_forward"]["w_2"])
+        _mha(sd, f"{p}.{att}", node[att])
+    _ffn(sd, f"{p}.feed_forward", node["feed_forward"])
     for nm in ("norm1", "norm2", "norm3"):
         _norm(sd, f"{p}.{nm}", node[nm])
 
 
-def conformer_hybrid_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """``{'params': ..., 'batch_stats': ...}`` of funasr_tpu's Conformer
-    (ConformerEncoder + TransformerDecoder + ctc_lo) -> the port's float32
-    ``state_dict``.
+def _rwkv_decoder_layer(sd, p: str, node: Mapping):
+    tm, a = node["self_attn"], f"{p}.self_attn"
+    for mu in ("k", "v", "r"):
+        sd[f"{a}.time_mix_{mu}"] = _t(tm[f"mu_{mu}"])
+    for jax_name, name in (("key", "key"), ("value", "value"), ("recept", "receptance"),
+                           ("output", "output")):
+        _dense(sd, f"{a}.{name}", tm[jax_name], bias=False)
+    sd[f"{a}.time_decay"] = _t(tm["time_decay"])
+    sd[f"{a}.time_first"] = _t(tm["time_first"])
+    _mha(sd, f"{p}.src_attn", node["src_attn"])
+    _ffn(sd, f"{p}.feed_forward", node["feed_forward"])
+    for nm in ("norm1", "norm2", "norm3"):
+        _norm(sd, f"{p}.{nm}", node[nm])
 
-    The subsampling output Linear reads the flattened (channel, frequency)
-    features freq-major in flax (f * C + c) and channel-major in torch
-    (c * F + f), so its input axis is permuted (funasr_tpu/convert.py:420)."""
-    tree, stats = variables["params"], variables["batch_stats"]
-    sd: Dict[str, torch.Tensor] = {}
 
-    enc, emb = tree["encoder"], tree["encoder"]["embed"]
+def _encoder_layer_fn(layers: Mapping):
+    """The layer converter of a scanned encoder stack, by its parameters."""
+    if "conv_module" in layers:
+        return _conformer_layer
+    if "feed_forward1" in layers:
+        return _ebranchformer_layer
+    if "cgmlp" in layers:
+        return _branchformer_layer
+    return _transformer_layer
+
+
+def _subsampling(sd, enc: Mapping):
+    """Conv2dSubsampling: the output Linear reads the flattened (channel,
+    frequency) features freq-major in flax (f * C + c) and channel-major in
+    torch (c * F + f), so its input axis is permuted
+    (funasr_tpu/convert.py:420)."""
+    emb = enc["embed"]
     for j, t in (("conv0", "encoder.embed.conv.0"), ("conv1", "encoder.embed.conv.2")):
         sd[f"{t}.weight"] = _t(np.transpose(np.asarray(emb[j]["kernel"]), (3, 2, 0, 1)))
         sd[f"{t}.bias"] = _t(emb[j]["bias"])
@@ -329,17 +392,40 @@ def conformer_hybrid_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     k = k.reshape(F, C, -1).transpose(1, 0, 2).reshape(C * F, -1)
     sd["encoder.embed.out.0.weight"] = _t(k.T)
     sd["encoder.embed.out.0.bias"] = _t(emb["out"]["bias"])
-    enc_stats = stats["encoder"]["encoders"]
+
+
+def hybrid_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """``{'params': ...}`` (with ``'batch_stats'`` for a Conformer) of one of
+    funasr_tpu's CTC/attention hybrids -> the port's float32 ``state_dict``.
+
+    The encoder is read from its parameters: Conformer, Transformer,
+    Branchformer or E-Branchformer, with the conv2d subsampling or the
+    linear input layer (``embed.0``, and the Transformer's ``embed.1`` layer
+    norm); the decoder: Transformer, or RWKV when its self-attention holds a
+    ``time_decay``.  ``ctc_lo`` goes to ``ctc.ctc_lo``."""
+    tree, stats = variables["params"], variables.get("batch_stats", {})
+    sd: Dict[str, torch.Tensor] = {}
+
+    enc = tree["encoder"]
+    if "conv0" in enc["embed"]:
+        _subsampling(sd, enc)
+    else:
+        _dense(sd, "encoder.embed.0", enc["embed"])
+        if "embed_norm" in enc:
+            _norm(sd, "encoder.embed.1", enc["embed_norm"])
+    layer = _encoder_layer_fn(enc["encoders"])
+    enc_stats = stats.get("encoder", {}).get("encoders", {})
     for i in range(_num_layers(enc["encoders"])):
-        _conformer_layer(sd, f"encoder.encoders.{i}", _unstack(enc["encoders"], i),
-                         _unstack(enc_stats, i))
+        layer(sd, f"encoder.encoders.{i}", _unstack(enc["encoders"], i),
+              _unstack(enc_stats, i) if enc_stats else {})
     _norm(sd, "encoder.after_norm", enc["after_norm"])
 
     dec = tree["decoder"]
+    dec_layer = (_rwkv_decoder_layer if "time_decay" in dec["decoders"]["self_attn"]
+                 else _transformer_decoder_layer)
     sd["decoder.embed.0.weight"] = _t(dec["embed"]["embedding"])
     for i in range(_num_layers(dec["decoders"])):
-        _transformer_decoder_layer(sd, f"decoder.decoders.{i}",
-                                   _unstack(dec["decoders"], i))
+        dec_layer(sd, f"decoder.decoders.{i}", _unstack(dec["decoders"], i))
     _norm(sd, "decoder.after_norm", dec["after_norm"])
     _dense(sd, "decoder.output_layer", dec["output_layer"])
     _dense(sd, "ctc.ctc_lo", tree["ctc_lo"])

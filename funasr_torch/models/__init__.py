@@ -1,5 +1,5 @@
 """Model families of the port (importing registers them)."""
 
 from funasr_torch.models import (  # noqa: F401
-    bicif_paraformer, campplus, conformer, contextual_paraformer, ct_transformer, fsmn_vad,
-    paraformer, paraformer_streaming, seaco_paraformer, sense_voice, transformer)
+    bicif_paraformer, branchformer, campplus, conformer, contextual_paraformer, ct_transformer,
+    fsmn_vad, paraformer, paraformer_streaming, seaco_paraformer, sense_voice, transformer)

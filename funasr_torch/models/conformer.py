@@ -26,8 +26,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from funasr_torch.models.sanm import (Dense, LayerNormF32, PointwiseConv,
-                                      masked_softmax)
+from funasr_torch.device import upload
+from funasr_torch.models.sanm import Dense, LayerNormF32, PointwiseConv, masked_softmax
+from funasr_torch.ops.dwconv import depthwise_conv1d
 from funasr_torch.ops.masks import key_mask
 from funasr_torch.registry import tables
 
@@ -36,14 +37,15 @@ def rel_positional_encoding(length: int, d_model: int,
                             dtype: torch.dtype = torch.float32,
                             device=None) -> torch.Tensor:
     """espnet RelPositionalEncoding: positions T-1 .. -(T-1), interleaved
-    sin/cos; shape (2T-1, d).  Built in float64, then cast."""
+    sin/cos; shape (2T-1, d).  Built in float64, then cast; up by
+    ``device.upload`` (no wait for the card)."""
     pos = np.arange(length - 1, -length, -1, dtype=np.float64)[:, None]
     div = np.exp(np.arange(0, d_model, 2, dtype=np.float64)
                  * -(np.log(10000.0) / d_model))
     pe = np.zeros((2 * length - 1, d_model))
     pe[:, 0::2] = np.sin(pos * div)
     pe[:, 1::2] = np.cos(pos * div)
-    return torch.as_tensor(pe.astype(np.float32), device=device).to(dtype)
+    return upload(pe.astype(np.float32), device).to(dtype)
 
 
 def rel_shift(x: torch.Tensor) -> torch.Tensor:
@@ -109,16 +111,12 @@ class ConvolutionModule(nn.Module):
                                         dtype=param_dtype or dtype)
         self.norm = nn.BatchNorm1d(channels)
         self.pointwise_conv2 = PointwiseConv(channels, channels, **kw)
-        self.pad = (kernel_size - 1) // 2
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         a, b = self.pointwise_conv1(x).chunk(2, dim=-1)
         h = a * torch.sigmoid(b)  # GLU
-        dw = self.depthwise_conv
-        h = F.conv1d(h.transpose(1, 2), dw.weight.to(h.dtype), None,
-                     padding=self.pad, groups=h.shape[-1]).transpose(1, 2)
-        h = h + dw.bias.to(h.dtype)
+        h = depthwise_conv1d(h, self.depthwise_conv.weight, self.depthwise_conv.bias)
         # flax BatchNorm: (x - mean) * (rsqrt(var + eps) * scale) + bias
         bn = self.norm
         mul = torch.rsqrt(bn.running_var.to(torch.float32) + bn.eps) * bn.weight
@@ -223,12 +221,6 @@ class ConformerEncoder(nn.Module):
 
     def output_size(self) -> int:
         return self._output_size
-
-    def quantize_weights(self) -> None:
-        """int8 weights of every :class:`Dense` (used where the gate passes)."""
-        for mod in self.modules():
-            if isinstance(mod, Dense):
-                mod.quantize_weights()
 
     def forward(self, xs: torch.Tensor, lengths: torch.Tensor):
         """xs (B, T, input_size); lengths (B,) -> (out (B, T', D), lengths')."""

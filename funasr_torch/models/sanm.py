@@ -125,6 +125,28 @@ class Dense(nn.Linear):
         return F.linear(x, self.matrix().to(dt), bias)
 
 
+class PlainDense(Dense):
+    """A dense layer in ``dtype`` that never takes int8: the JAX package's
+    plain ``nn.Dense`` (no QDense contraction), which ``quantize=True`` leaves
+    as it is.  :meth:`quantize_weights` does nothing."""
+
+    def quantize_weights(self) -> None:
+        pass
+
+
+def quantize_dense_layers(root: nn.Module) -> None:
+    """``quantize_weights()`` of every :class:`PositionwiseFeedForward` and
+    every :class:`Dense` under ``root``, a feed-forward's own two layers left
+    to it (it runs on its fused int8 weights)."""
+    ffn = [name for name, mod in root.named_modules()
+           if isinstance(mod, PositionwiseFeedForward)]
+    for name, mod in root.named_modules():
+        if isinstance(mod, PositionwiseFeedForward):
+            mod.quantize_weights()
+        elif isinstance(mod, Dense) and not any(name.startswith(f + ".") for f in ffn):
+            mod.quantize_weights()
+
+
 class PointwiseConv(Dense):
     """A kernel-size-1 ``nn.Conv1d`` over the last axis, computed as a
     :class:`Dense` (the JAX package's QDense): the weight keeps the Conv1d

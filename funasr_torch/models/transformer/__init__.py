@@ -1,3 +1,4 @@
-"""Transformer decoder and the CTC/attention hybrid models (Conformer)."""
+"""The CTC/attention hybrid models (Transformer, Conformer) with their
+Transformer encoder and Transformer / RWKV decoders."""
 
-from funasr_torch.models.transformer.model import Conformer  # noqa: F401
+from funasr_torch.models.transformer.model import Conformer, Transformer  # noqa: F401

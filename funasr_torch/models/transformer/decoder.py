@@ -1,6 +1,7 @@
-"""Autoregressive Transformer decoder, full-prefix forward (port of
-funasr_tpu/models/transformer/decoder.py:31-151; reference
-funasr/models/transformer/decoder.py ``TransformerDecoder``).
+"""Autoregressive Transformer and RWKV decoders, full-prefix forward (port
+of funasr_tpu/models/transformer/decoder.py:31-245; reference
+funasr/models/transformer/decoder.py ``TransformerDecoder``,
+funasr/models/conformer_rwkv/decoder.py ``TransformerRWKVDecoder``).
 
 embed + scaled positional encoding -> N x (causal self-attn, cross-attn,
 FFN) pre-norm -> after_norm -> output projection.  ``forward`` scores whole
@@ -12,6 +13,15 @@ Parameter names are FunASR's torch names (``embed.0``, ``decoders.{i}.
 self_attn.linear_q``, ``src_attn``, ``feed_forward.w_1``, ``norm1..3``,
 ``after_norm``, ``output_layer``).  Every projection is a
 :class:`~funasr_torch.models.sanm.Dense` (the JAX QDense).
+
+``TransformerRWKVDecoder`` (the reference's conformer_rwkv decoder) puts
+the RWKV time mix (``models/rwkv.py``, float32, causal by construction) in
+place of the causal self-attention, ``decoders.{i}.self_attn.time_decay``
+...; its FFN is the SANM :class:`~funasr_torch.models.sanm.
+PositionwiseFeedForward`, fused int8 after ``quantize_weights()``.  The
+beam scores it through the full prefix every step.  The four
+``*ConvolutionTransformerDecoder`` classes of the JAX package
+(decoder.py:489-509) are registered and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,10 +31,12 @@ from typing import Optional
 import torch
 from torch import nn
 
-from funasr_torch.models.sanm import Dense, LayerNormF32, masked_softmax
+from funasr_torch.models.rwkv import TimeMix
+from funasr_torch.models.sanm import (Dense, LayerNormF32, PositionwiseFeedForward,
+                                      masked_softmax)
 from funasr_torch.ops.masks import key_mask, sequence_mask
 from funasr_torch.ops.posenc import transformer_encoding
-from funasr_torch.registry import tables
+from funasr_torch.registry import not_ported, tables
 
 
 class MultiHeadAttention(nn.Module):
@@ -111,12 +123,6 @@ class TransformerDecoder(nn.Module):
         self.after_norm = LayerNormF32(d, dtype)
         self.output_layer = Dense(d, vocab_size, dtype=dtype, param_dtype=param_dtype)
 
-    def quantize_weights(self) -> None:
-        """int8 weights of every :class:`Dense` (used where the gate passes)."""
-        for mod in self.modules():
-            if isinstance(mod, Dense):
-                mod.quantize_weights()
-
     def forward(self, memory: torch.Tensor, memory_lengths: torch.Tensor,
                 ys_in: torch.Tensor, ys_in_lengths: torch.Tensor) -> torch.Tensor:
         """memory (B, T, D); ys_in (B, U) with sos prepended -> logits
@@ -134,3 +140,74 @@ class TransformerDecoder(nn.Module):
         for layer in self.decoders:
             x = layer(x, tgt_mask, memory, memory_mask)
         return self.output_layer(self.after_norm(x))
+
+
+class RWKVDecoderLayer(nn.Module):
+    """norm1 -> RWKV time mix (float32, cast back) -> norm2 -> cross-attention
+    -> norm3 -> position-wise FFN, each with its residual
+    (decoder.py:154-197 of the JAX package)."""
+
+    def __init__(self, size: int, n_head: int, linear_units: int,
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.self_attn = TimeMix(size)
+        self.src_attn = MultiHeadAttention(n_head, size, dtype, param_dtype)
+        self.feed_forward = PositionwiseFeedForward(size, linear_units, dtype, param_dtype)
+        self.norm1 = LayerNormF32(size, dtype)
+        self.norm2 = LayerNormF32(size, dtype)
+        self.norm3 = LayerNormF32(size, dtype)
+
+    def forward(self, x, memory, memory_mask):
+        x = x + self.self_attn(self.norm1(x)).to(x.dtype)
+        x = x + self.src_attn(self.norm2(x), memory, memory_mask)
+        return x + self.feed_forward(self.norm3(x))
+
+
+@tables.register("decoder_classes", "TransformerRWKVDecoder")
+class TransformerRWKVDecoder(nn.Module):
+    """embed + scaled positional encoding -> N RWKV decoder layers ->
+    after_norm -> output projection; ``TransformerDecoder``'s call
+    contract (decoder.py:200-245 of the JAX package)."""
+
+    def __init__(self, vocab_size: int, encoder_output_size: int,
+                 attention_heads: int = 4, linear_units: int = 2048,
+                 num_blocks: int = 6, dtype: torch.dtype = torch.float32,
+                 dropout_rate: float = 0.0, self_attention_dropout_rate: float = 0.0,
+                 src_attention_dropout_rate: float = 0.0,
+                 param_dtype: Optional[torch.dtype] = None):
+        """The dropout rates are training-only settings that inference
+        ignores."""
+        super().__init__()
+        d = encoder_output_size
+        self.attention_heads = attention_heads
+        self.dtype = dtype
+        self.embed = nn.Sequential(nn.Embedding(vocab_size, d))
+        self.decoders = nn.ModuleList([
+            RWKVDecoderLayer(d, attention_heads, linear_units, dtype, param_dtype)
+            for _ in range(num_blocks)])
+        self.after_norm = LayerNormF32(d, dtype)
+        self.output_layer = Dense(d, vocab_size, dtype=dtype, param_dtype=param_dtype)
+
+    def forward(self, memory: torch.Tensor, memory_lengths: torch.Tensor,
+                ys_in: torch.Tensor, ys_in_lengths: torch.Tensor) -> torch.Tensor:
+        """memory (B, T, D); ys_in (B, U) with sos prepended -> logits
+        (B, U, V) in the compute dtype.  ``ys_in_lengths`` is unused: the
+        time mix is causal, so padding after a prefix cannot reach it."""
+        U, T = ys_in.shape[1], memory.shape[1]
+        d = self.embed[0].embedding_dim
+        x = self.embed[0].weight[ys_in].to(self.dtype)
+        x = x * (d ** 0.5) + transformer_encoding(U, d, device=x.device)[None].to(x.dtype)
+        memory_mask = key_mask(memory_lengths, T)[:, None, :, :]
+        memory = memory.to(self.dtype)
+        for layer in self.decoders:
+            x = layer(x, memory, memory_mask)
+        return self.output_layer(self.after_norm(x))
+
+
+for _name in ("LightweightConvolutionTransformerDecoder",
+              "LightweightConvolution2DTransformerDecoder",
+              "DynamicConvolutionTransformerDecoder",
+              "DynamicConvolution2DTransformerDecoder"):
+    tables.register("decoder_classes", _name)(not_ported(
+        "decoder", _name, "a lightweight/dynamic convolution decoder"))

@@ -1,23 +1,39 @@
-"""Conformer CTC/attention hybrid ASR, inference path (port of
-funasr_tpu/models/transformer/model.py:43-195; reference
-funasr/models/conformer/model.py).
+"""CTC/attention hybrid ASR, inference path (port of
+funasr_tpu/models/transformer/model.py:43-270; reference
+funasr/models/transformer/model.py, funasr/models/conformer/model.py).
 
-encoder -> ``ctc.ctc_lo`` log-probs and the Transformer decoder, combined by
-the joint CTC/attention beam search (``ops/beam_search.py``).
-``decode_beam_align`` adds a CTC forced alignment of each returned
+encoder -> ``ctc.ctc_lo`` log-probs and an autoregressive decoder, combined
+by the joint CTC/attention beam search (``ops/beam_search.py``).  The
+encoder is picked by registry name as the JAX ``make_encoder`` picks it:
+the config's ``encoder`` (``encoder_name``), else the family's default
+(``Transformer``: TransformerEncoder, ``Conformer``: ConformerEncoder;
+Branchformer and E-Branchformer, ``models/branchformer.py``, always take
+their own).  The decoder is ``decoder`` from ``decoder_classes``:
+``TransformerDecoder`` or ``TransformerRWKVDecoder``
+(``models/transformer/decoder.py``).  As in the JAX package the beam
+scores steps through the KV-cached scorer only when the decoder is exactly
+a ``TransformerDecoder``; any other decoder re-runs the full prefix each
+step.  ``decode_beam_align`` adds a CTC forced alignment of each returned
 hypothesis to the encoder frames (``ops/ctc_align.py``: the emissions
 gathered on the device, the Viterbi on the host), the frame spans of its
 timestamps.  No training forward.
 
+Not ported, raising ``NotImplementedError`` that names them: the SANM
+hybrid (model class ``SANM``, or an ``SANMEncoder`` in a hybrid) and the
+``CTC`` model class (ROADMAP.md Queue 1).
+
 int8 serving, the JAX package's ``AutoModel(quantize=True)`` path: build
 with ``quantize=True`` (parameters then stored in float32 whatever the
 compute ``dtype``), load the weights, then call :meth:`quantize_weights`
-once.  Every encoder and decoder projection is a QDense-rule
-:class:`~funasr_torch.models.sanm.Dense`: int8 where the ``ops/quant.py``
-gate passes (at the ``conformer_hybrid.yaml`` widths only the encoder FFNs'
-``w_1``), the compute dtype elsewhere.  ``ctc.ctc_lo`` is a plain dense
-layer, never quantized (the JAX ``nn.Dense``).  The int8 self-attention KV
-cache is the separate ``int8_kv`` argument of :meth:`decode_beam`.
+once.  The projections the JAX package computes with QDense are
+QDense-rule :class:`~funasr_torch.models.sanm.Dense` layers: int8 where the
+``ops/quant.py`` gate passes (at the aishell widths the Conformer's and
+E-Branchformer's FFN ``w_1``, and the full-prefix decoder's output layer),
+the compute dtype elsewhere; the position-wise FFNs of the Transformer
+encoder and the RWKV decoder run fused in int8; the JAX package's plain
+``nn.Dense`` layers (``ctc.ctc_lo``, the cgMLP, the RWKV time mix) never
+take int8.  The int8 self-attention KV cache is the separate ``int8_kv``
+argument of :meth:`decode_beam`.
 """
 
 from __future__ import annotations
@@ -29,12 +45,13 @@ from torch import nn
 
 from funasr_torch.device import fetch_async, fetched, resolve_device
 from funasr_torch.models import conformer  # noqa: F401  (registers ConformerEncoder)
-from funasr_torch.models.sanm import Dense
+from funasr_torch.models.sanm import PlainDense, quantize_dense_layers
+from funasr_torch.models.transformer import encoder  # noqa: F401  (TransformerEncoder)
 from funasr_torch.models.transformer.decoder import TransformerDecoder
 from funasr_torch.ops.beam_search import BeamResult, beam_search, mask_ctc_frames
 from funasr_torch.ops.cached_decoder import CachedTransformerDecoder, resize_state
 from funasr_torch.ops.ctc_align import align_emissions, viterbi
-from funasr_torch.registry import tables
+from funasr_torch.registry import not_ported, tables
 
 # training-only fields of funasr_tpu's hybrid models
 _TRAINING_FIELDS = {"lsm_weight", "length_normalized_loss", "ignore_id"}
@@ -57,25 +74,27 @@ class AlignedBeam(NamedTuple):
 
 
 class CTC(nn.Module):
-    """The CTC head: ``ctc_lo``, a dense layer in the compute dtype."""
+    """The CTC head: ``ctc_lo``, a plain dense layer in the compute dtype."""
 
     def __init__(self, vocab_size: int, d: int, dtype: torch.dtype,
                  param_dtype: Optional[torch.dtype]):
         super().__init__()
-        self.ctc_lo = Dense(d, vocab_size, dtype=dtype, param_dtype=param_dtype)
+        self.ctc_lo = PlainDense(d, vocab_size, dtype=dtype, param_dtype=param_dtype)
 
 
 class _HybridModel(nn.Module):
     """Shared CTC/attention model body; subclasses pick the encoder.  Builds
     on ``device`` (default: the GPU, raising without one; ``"cpu"`` only
-    when asked)."""
+    when asked).  ``encoder_name`` overrides the family's encoder (the
+    config's ``encoder`` key); ``decoder`` names the decoder class."""
 
     def __init__(self, vocab_size: int, input_size: int = 80,
                  encoder_conf: Optional[Dict[str, Any]] = None,
                  decoder_conf: Optional[Dict[str, Any]] = None,
                  ctc_weight: float = 0.3, blank_id: int = 0, sos: int = 1,
                  eos: int = 2, dtype: torch.dtype = torch.float32, device=None,
-                 quantize: bool = False, **training_conf):
+                 quantize: bool = False, encoder_name: Optional[str] = None,
+                 decoder: str = "TransformerDecoder", **training_conf):
         unknown = set(training_conf) - _TRAINING_FIELDS
         if unknown:
             raise TypeError(f"{type(self).__name__}: unexpected arguments "
@@ -89,27 +108,40 @@ class _HybridModel(nn.Module):
         self.dtype = dtype
         self.quantize = quantize
         self._int8_ready = False
+        self.encoder_name = encoder_name
         param_dtype = torch.float32 if quantize else None
         dev = resolve_device(device)
-
-        enc_conf = dict(encoder_conf or {})
-        for key in _ENCODER_IGNORED:
-            enc_conf.pop(key, None)
-        enc_conf.setdefault("input_layer", "conv2d")
-        enc_cls = tables.get("encoder_classes", self.default_encoder())
+        dec_cls = tables.get("decoder_classes", decoder)
         with torch.device(dev):
-            self.encoder = enc_cls(input_size=input_size, dtype=dtype,
-                                   param_dtype=param_dtype, **enc_conf)
+            self.encoder = self.make_encoder(input_size, encoder_conf, dtype, param_dtype)
             d = self.encoder.output_size()
-            self.decoder = TransformerDecoder(vocab_size=vocab_size, encoder_output_size=d,
-                                              dtype=dtype, param_dtype=param_dtype,
-                                              **dict(decoder_conf or {}))
+            self.decoder = dec_cls(vocab_size=vocab_size, encoder_output_size=d,
+                                   dtype=dtype, param_dtype=param_dtype,
+                                   **dict(decoder_conf or {}))
             self.ctc = CTC(vocab_size, d, dtype, param_dtype)
         self.eval()
         self.register_load_state_dict_post_hook(_HybridModel._weights_changed)
 
     def default_encoder(self) -> str:
         raise NotImplementedError
+
+    def make_encoder(self, input_size: int, encoder_conf: Optional[Dict[str, Any]],
+                     dtype: torch.dtype, param_dtype: Optional[torch.dtype]) -> nn.Module:
+        """The encoder by registry name: ``encoder_name`` when set, else the
+        family default, with the reference keys the JAX package drops
+        removed and ``input_layer`` defaulting to conv2d."""
+        name = self.encoder_name or self.default_encoder()
+        if name == "SANMEncoder":
+            raise NotImplementedError(
+                "the SANM hybrid (SANMEncoder in a CTC/attention model) is not ported to "
+                "funasr_torch: its head size 64 needs attention kernel instances the port "
+                "lacks (ROADMAP.md Queue 1)")
+        conf = dict(encoder_conf or {})
+        for key in _ENCODER_IGNORED:
+            conf.pop(key, None)
+        conf.setdefault("input_layer", "conv2d")
+        return tables.get("encoder_classes", name)(input_size=input_size, dtype=dtype,
+                                                    param_dtype=param_dtype, **conf)
 
     @staticmethod
     def _weights_changed(module, incompatible_keys) -> None:
@@ -122,8 +154,7 @@ class _HybridModel(nn.Module):
         ``quantize=True`` model only)."""
         if not self.quantize:
             raise RuntimeError("quantize_weights() needs quantize=True")
-        self.encoder.quantize_weights()
-        self.decoder.quantize_weights()
+        quantize_dense_layers(self)
         self._int8_ready = True
         return self
 
@@ -142,9 +173,11 @@ class _HybridModel(nn.Module):
         lengths, scores, steps).
 
         ``use_cache=True`` scores steps incrementally with the KV-cached
-        scorer (``ops/cached_decoder.py``); ``use_cache=False`` re-runs the
-        full prefix through the decoder each step.  ``cache_stages`` splits
-        a cached decode (maxlen >= 32) into that many stages with the cache
+        scorer (``ops/cached_decoder.py``) when the decoder is exactly a
+        ``TransformerDecoder``; ``use_cache=False``, or any other decoder
+        (RWKV), re-runs the full prefix through the decoder each step.
+        ``cache_stages`` splits a cached decode (maxlen >= 32) into that
+        many stages with the cache
         grown at each boundary (exact numerics).  ``int8_kv`` stores the
         scorer's self- and cross-attention K/V as per-row int8."""
         return self._beam(speech, speech_lengths, beam, maxlen, decoding_ctc_weight, use_cache,
@@ -158,7 +191,7 @@ class _HybridModel(nn.Module):
         enc, enc_lens = self.encode(speech, speech_lengths)
         B = enc.shape[0]
         decode_fn = step_score_fn = dec_state = reorder = None
-        if use_cache:
+        if use_cache and type(self.decoder) is TransformerDecoder:
             scorer = CachedTransformerDecoder(
                 self.decoder, enc, enc_lens,
                 n_head=self.decoder.attention_heads, maxlen=maxlen,
@@ -229,11 +262,27 @@ class _HybridModel(nn.Module):
                            enc_lens, res.steps)
 
 
+@tables.register("model_classes", "Transformer")
+class Transformer(_HybridModel):
+    """CTC/attention model over the TransformerEncoder (reference
+    funasr/models/transformer/model.py)."""
+
+    def default_encoder(self) -> str:
+        return "TransformerEncoder"
+
+
 @tables.register("model_classes", "Conformer")
 class Conformer(_HybridModel):
     """CTC/attention model over the ConformerEncoder (reference
-    funasr/models/conformer/model.py)."""
+    funasr/models/conformer/model.py); with ``decoder=
+    "TransformerRWKVDecoder"`` the reference's conformer_rwkv."""
 
     def default_encoder(self) -> str:
         return "ConformerEncoder"
+
+
+tables.register("model_classes", "SANM")(not_ported(
+    "model class", "SANM", "the SAN-M CTC/attention hybrid: its head size 64 needs "
+    "attention kernel instances the port lacks"))
+tables.register("model_classes", "CTC")(not_ported("model class", "CTC", "encoder + CTC head"))
 

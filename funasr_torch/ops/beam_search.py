@@ -13,8 +13,9 @@ Fixed beam tensors, as in the JAX package:
 
 The JAX ``lax.while_loop`` with early exit becomes a Python loop over steps:
 it ends when every hypothesis has emitted eos, read with one host sync per
-step (``finished.all()``), or at ``maxlen``.  Staged cache growth
-(``cache_stages``) grows the scorer's buffers at each stage bound as there.
+step (:func:`all_finished`, the search's only host sync), or at ``maxlen``.
+Staged cache growth (``cache_stages``) grows the scorer's buffers at each
+stage bound as there.
 
 Ties: ``lax.top_k`` returns equal values lowest index first and
 ``jnp.argsort`` is stable; ``torch.topk`` promises neither, and ties are
@@ -47,7 +48,7 @@ def mask_ctc_frames(ctc_logp: torch.Tensor, lengths: torch.Tensor,
     B, T, V = ctc_logp.shape
     valid = torch.arange(T, device=ctc_logp.device)[None, :] < lengths[:, None]
     pad_row = torch.full((V,), NEG_INF, dtype=ctc_logp.dtype, device=ctc_logp.device)
-    pad_row[blank_id] = 0.0
+    pad_row[blank_id].fill_(0.0)  # fill_: a Python value set by index syncs the card
     return torch.where(valid[:, :, None], ctc_logp, pad_row)
 
 
@@ -80,6 +81,12 @@ def ctc_init_state(x: torch.Tensor, blank_id: int = 0
     r_b = torch.cumsum(x[:, :, blank_id], dim=-1)
     r_nb = torch.full_like(r_b, NEG_INF)
     return torch.stack([r_nb, r_b], dim=-1), r_b[:, -1]
+
+
+def all_finished(finished: torch.Tensor) -> bool:
+    """Whether every hypothesis has emitted eos: the beam's one host sync a
+    step (and one before the forced-eos rescore)."""
+    return bool(finished.all())
 
 
 class BeamResult(NamedTuple):
@@ -134,9 +141,9 @@ def beam_search(
     i64 = dict(dtype=torch.int64, device=device)
 
     ys = torch.full((B, K, maxlen + 1), eos, **i64)
-    ys[:, :, 0] = sos
+    ys[:, :, 0].fill_(sos)
     scores = torch.full((B, K), NEG_INF, dtype=torch.float32, device=device)
-    scores[:, 0] = 0.0
+    scores[:, 0].fill_(0.0)
     finished = torch.zeros((B, K), dtype=torch.bool, device=device)
     lengths = torch.zeros((B, K), **i64)
     b_idx = torch.arange(B, **i64)[:, None]  # (B, 1)
@@ -148,7 +155,7 @@ def beam_search(
         ctc_logp_t = ctc_logp.transpose(1, 2).contiguous()  # (B, V, T)
     att_w = 1.0 - ctc_weight if use_ctc else 1.0
     eos_only = torch.full((V,), NEG_INF, dtype=torch.float32, device=device)
-    eos_only[eos] = 0.0
+    eos_only[eos].fill_(0.0)
 
     def gather_hyp(x, src):
         return x[b_idx, src]
@@ -225,8 +232,7 @@ def beam_search(
     for hi in bounds:
         if len(bounds) > 1:
             dec_state = state_grow_fn(dec_state, hi)
-        # the one host sync per step: stop when every hypothesis has finished
-        while step < hi and not bool(finished.all()):
+        while step < hi and not all_finished(finished):
             step_fn(step)
             step += 1
     if len(bounds) > 1:
@@ -236,7 +242,7 @@ def beam_search(
     # forced-eos finalisation: hypotheses still running at maxlen pay the eos
     # term before ranking against finished ones.  When every hypothesis has
     # finished the term is never used, so the rescore is skipped.
-    if not bool(finished.all()):
+    if not all_finished(finished):
         if incremental:
             final_logp, _ = step_score_fn(ys[:, :, maxlen].reshape(B * K), maxlen,
                                           dec_state)

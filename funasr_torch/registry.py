@@ -104,4 +104,14 @@ class RegisterTables:
         return "\n".join(lines)
 
 
+def not_ported(kind: str, name: str, what: str):
+    """A registry entry for a component the port lacks: building it raises
+    ``NotImplementedError`` naming it."""
+    def build(*args, **kwargs):
+        raise NotImplementedError(f"{kind} {name!r} ({what}) is not ported to funasr_torch "
+                                  "(ROADMAP.md Queue 1)")
+    build.__name__ = name
+    return build
+
+
 tables = RegisterTables()

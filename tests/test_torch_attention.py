@@ -12,6 +12,7 @@ import torch
 
 from funasr_tpu.ops.attention_pallas import fused_attention as pallas_attention
 from funasr_torch.ops import attention as A
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 _JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 

@@ -16,6 +16,7 @@ import torch
 
 from funasr_torch.ops import attention as A
 from funasr_torch.ops.masks import key_bias
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 B, H, d = 2, 2, 128
 REFS = {"f32ctx": A.attention_f32ctx_ref, "i8qk": A.attention_i8qk_ref}

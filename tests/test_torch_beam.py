@@ -30,12 +30,13 @@ from funasr_tpu.models.transformer.model import Conformer as JaxConformer
 from funasr_tpu.ops import beam_search as JB
 from funasr_tpu.tokenizer.char_tokenizer import CharTokenizer as JaxTokenizer
 from funasr_torch.auto import engines as TE
-from funasr_torch.convert import conformer_hybrid_from_jax
+from funasr_torch.convert import hybrid_from_jax
 from funasr_torch.models.transformer.model import Conformer
 from funasr_torch.ops import beam_search as TB
 from funasr_torch.ops import quant as Q
 from funasr_torch.tokenizer.char_tokenizer import CharTokenizer
 from tests.test_torch_conformer import CONF, jax_variables, perturb_batch_stats
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SCORE_TOL = 1e-4
 
@@ -44,7 +45,7 @@ SCORE_TOL = 1e-4
 def models():
     jm, variables = jax_variables()
     tm = Conformer(**CONF, device="cpu")
-    tm.load_state_dict(conformer_hybrid_from_jax(variables), strict=True)
+    tm.load_state_dict(hybrid_from_jax(variables), strict=True)
     rng = np.random.default_rng(5)
     B, T = 3, 44
     speech = rng.standard_normal((B, T, 20)).astype(np.float32)
@@ -163,7 +164,7 @@ def engines():
     jax_engine = JE.HybridEngine(jm, variables, JE.FrontendConfig(lfr_m=1, lfr_n=1),
                                  JaxTokenizer(TOKENS), **kw)
     tm = Conformer(**ENGINE_CONF, device="cpu")
-    tm.load_state_dict(conformer_hybrid_from_jax(variables), strict=True)
+    tm.load_state_dict(hybrid_from_jax(variables), strict=True)
     port_engine = TE.HybridEngine(tm, TE.FrontendConfig(lfr_m=1, lfr_n=1),
                                   CharTokenizer(TOKENS), device="cpu", **kw)
     return jax_engine, port_engine, variables
@@ -211,7 +212,7 @@ def test_quantized_int8_kv_engine_serves_on_cpu(engines, wavs, monkeypatch):
     real = Q.int8_linear
     monkeypatch.setattr(Q, "int8_linear", lambda *a, **k: calls.append(1) or real(*a, **k))
     tm = Conformer(**ENGINE_CONF, device="cpu", dtype=torch.bfloat16, quantize=True)
-    tm.load_state_dict(conformer_hybrid_from_jax(variables), strict=True)
+    tm.load_state_dict(hybrid_from_jax(variables), strict=True)
     with pytest.raises(RuntimeError, match="quantize_weights"):
         tm.decode_beam(torch.zeros((1, 64, 80)), torch.tensor([64]))
     tm.quantize_weights()

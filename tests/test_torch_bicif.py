@@ -49,6 +49,7 @@ from funasr_torch.convert import bicif_paraformer_from_jax
 from funasr_torch.models.bicif_paraformer.model import BiCifParaformer
 from funasr_torch.tokenizer.char_tokenizer import CharTokenizer
 from tests.test_torch_paraformer_int8 import LOGP_ATOL, MIN_AGREE
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 V = 32
 TOKENS = ["<blank>", "<s>", "</s>"] + [chr(0x4E00 + i) for i in range(V - 4)] + ["<unk>"]

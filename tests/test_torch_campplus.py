@@ -30,6 +30,7 @@ from funasr_tpu.models.campplus.model import CAMPPlus as JaxCAMPPlus
 from funasr_torch.convert import campplus_from_jax
 from funasr_torch.models.campplus import cluster as TC
 from funasr_torch.models.campplus.model import CAMPPlus
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CONF = dict(feat_dim=80, embedding_size=24, growth_rate=8, bn_size=2, init_channels=16,
             blocks=((2, 3, 1), (3, 3, 2), (2, 3, 2)))

@@ -3,7 +3,7 @@
 A tiny hybrid Conformer (V=16, D=16, 2 heads, 2 blocks, conv kernel 7) is
 initialised in JAX, its BatchNorm statistics moved away from (mean 0,
 var 1) so that a BatchNorm fault cannot hide, and carried into the port by
-``conformer_hybrid_from_jax``.  Inputs come from numpy with a seed; both run
+``hybrid_from_jax``.  Inputs come from numpy with a seed; both run
 in float32.  Encoder and decoder outputs agree to atol 1e-4 (different
 float32 summation orders); lengths, position encodings and the relative
 shift are exact.
@@ -19,10 +19,11 @@ from funasr_tpu.convert import conformer_from_torch
 from funasr_tpu.models import conformer as JC
 from funasr_tpu.models.transformer.model import Conformer as JaxConformer
 from funasr_tpu.ops.posenc import transformer_encoding as jax_transformer_encoding
-from funasr_torch.convert import conformer_hybrid_from_jax
+from funasr_torch.convert import hybrid_from_jax
 from funasr_torch.models import conformer as TC
 from funasr_torch.models.transformer.model import Conformer
 from funasr_torch.ops.posenc import transformer_encoding
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CONF = dict(
     vocab_size=16, input_size=20,
@@ -62,7 +63,7 @@ def jax_variables(seed=0):
 def models():
     jm, variables = jax_variables()
     tm = Conformer(**CONF, device="cpu")
-    tm.load_state_dict(conformer_hybrid_from_jax(variables), strict=True)
+    tm.load_state_dict(hybrid_from_jax(variables), strict=True)
     return jm, variables, tm
 
 

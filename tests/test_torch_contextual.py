@@ -54,6 +54,7 @@ from tests.test_torch_paraformer_int8 import LOGP_ATOL, MIN_AGREE
 from tests.test_torch_pipeline import (PUNC_CFG, VAD_CFG, _port_frontend, _save,
                                        _save_flax)
 from tests.test_torch_vad import CONF as VAD_CONF, calibrated_params, init_params, recording
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 LOGP_F32_ATOL = 1e-4
 MAX_TOKENS = 48

@@ -19,6 +19,7 @@ from funasr_tpu.ops import ctc_prefix_pallas as JCP
 from funasr_torch.ops import beam_search as TB
 from funasr_torch.ops import ctc_prefix as CP
 from funasr_torch.ops import cuda_build
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

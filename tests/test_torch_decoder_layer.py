@@ -19,6 +19,7 @@ import torch
 
 from funasr_tpu.models.paraformer.decoder import _fused_decoder_layer
 from funasr_torch.ops import decoder_layer as DL
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 D, H, NH, K = 256, 256, 2, 11
 LEFT = (K - 1) // 2

@@ -21,6 +21,7 @@ from funasr_torch.auto import engines as TE
 from funasr_torch.convert import paraformer_from_jax
 from funasr_torch.models.paraformer.model import Paraformer
 from funasr_torch.tokenizer.char_tokenizer import CharTokenizer
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 V, D = 32, 32
 CONF = dict(

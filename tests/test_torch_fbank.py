@@ -14,6 +14,7 @@ import torch
 from funasr_tpu.ops import fbank as JF
 from funasr_torch.ops import fbank as TF
 from funasr_torch.ops import fbank_kernel as FK
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _wav(rng, lengths, n=None):

@@ -24,6 +24,7 @@ import torch
 
 from funasr_torch.ops import fbank_kernel as FK
 from funasr_torch.ops.fbank import LOG_EPS, _window, kaldi_mel_banks
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # the float64 table's layout, as the TAB_* offsets of csrc/fbank.cu
 TAB_TW, TAB_SPLIT, TAB_MEL = 400, 400 + 512, 400 + 1024

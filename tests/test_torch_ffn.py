@@ -18,6 +18,7 @@ import torch
 
 from funasr_tpu.ops import ffn_pallas as FP
 from funasr_torch.ops import ffn as FF
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _case(lead, K, H, N, seed):

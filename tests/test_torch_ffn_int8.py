@@ -17,6 +17,7 @@ import torch
 from funasr_tpu.ops import ffn_pallas as FP
 from funasr_tpu.ops.quant import quantize_rows
 from funasr_torch.ops import ffn as FF
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _case(M, K, H, N, seed):

@@ -27,6 +27,7 @@ import torch
 
 from chip_smoke import FFN_TOL
 from funasr_torch.ops import ffn as FF
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SMS = 132  # the H100 SXM
 BF16, F32 = torch.bfloat16, torch.float32

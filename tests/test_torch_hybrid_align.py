@@ -36,6 +36,7 @@ from tests.test_torch_conformer import CONF, jax_variables
 from tests.test_torch_pipeline import (PUNC_CFG, VAD_CFG, _port_frontend, _save, _save_flax,
                                        _save_variables)
 from tests.test_torch_vad import CONF as VAD_CONF, calibrated_params, init_params, recording
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SCORE_TOL = 1e-4  # test_torch_beam.py's float32 bar
 ENGINE_SCORE_TOL = 1e-3  # test_torch_beam.py's engine bar
@@ -44,7 +45,7 @@ ENGINE_SCORE_TOL = 1e-3  # test_torch_beam.py's engine bar
 def test_decode_beam_align_matches_jax():
     jm, variables = jax_variables()
     tm = Conformer(**CONF, device="cpu")
-    tm.load_state_dict(C.conformer_hybrid_from_jax(variables), strict=True)
+    tm.load_state_dict(C.hybrid_from_jax(variables), strict=True)
     rng = np.random.default_rng(5)
     B, T = 3, 60
     speech = rng.standard_normal((B, T, 20)).astype(np.float32)
@@ -115,7 +116,7 @@ def test_generate_with_vad_matches_jax(tmp_path, engines):  # noqa: F811
                                                         punc["params"])))
     am = AutoModel(
         model=dict(cfg, init_param=_save(tmp_path / "asr.npz",
-                                         C.conformer_hybrid_from_jax(variables))),
+                                         C.hybrid_from_jax(variables))),
         vad_model=dict(VAD_CFG, init_param=_save(tmp_path / "vad.npz",
                                                  C.fsmn_vad_from_jax(vad))),
         punc_model=dict(PUNC_CFG, init_param=_save(tmp_path / "punc.npz",

@@ -5,6 +5,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 BANNED = ("jax", "jaxlib", "flax", "optax", "funasr_tpu", "sklearn")

@@ -23,6 +23,7 @@ import torch
 from funasr_torch.ops import fsmn as FS
 from funasr_torch.ops import int8_gemm as G
 from funasr_torch.ops import rowquant as RQ
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SMS = 132  # the H100 SXM
 

@@ -18,6 +18,7 @@ from hypothesis import given, settings, strategies as st
 
 from funasr_torch.ops import int8_gemm as G
 from funasr_torch.ops import qmm as QM
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SMS = 132  # the H100 SXM
 # (M, K, N): chip_smoke.py's GEMM_SHAPES and QMM_SHAPES, and a tiny one

@@ -25,6 +25,7 @@ import pytest
 import funasr_tpu.text.itn as JI
 from funasr_tpu.text.itn import inverse_normalize as jax_itn
 from funasr_torch.text import inverse_normalize as port_itn
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parent
 SOURCES = ("test_itn_classes.py", "test_itn_aligner.py")

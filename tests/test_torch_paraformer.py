@@ -18,6 +18,7 @@ import torch
 from funasr_tpu.models.paraformer.model import Paraformer as JaxParaformer
 from funasr_torch.convert import paraformer_from_jax
 from funasr_torch.models.paraformer.model import Paraformer
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 V, IN, D = 32, 24, 32
 ENC = dict(output_size=D, attention_heads=2, linear_units=48, num_blocks=3,

@@ -49,6 +49,7 @@ from funasr_torch.convert import paraformer_from_jax
 from funasr_torch.models.paraformer.model import Paraformer
 from funasr_torch.ops import decoder_layer as DL
 from funasr_torch.ops import quant as Q
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 V, IN, D = 32, 560, 256
 CONF = dict(

@@ -28,6 +28,7 @@ from funasr_torch.auto import engines as TE
 from funasr_torch.convert import ct_transformer_from_jax
 from funasr_torch.models.ct_transformer import model as TM
 from funasr_torch.tokenizer.char_tokenizer import CharTokenizer
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 WORDS = ["hello", "world", "ok", "go"]
 TOKENS = ["<blank>", "<s>", "</s>", "<unk>"] + WORDS + [chr(0x4E00 + i) for i in range(56)]

@@ -26,6 +26,7 @@ from funasr_tpu.ops import quant_pallas as QP
 from funasr_torch.models.sanm import Dense
 from funasr_torch.ops import qmm as QM
 from funasr_torch.ops import quant as Q
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REL = 1e-5
 

@@ -20,6 +20,7 @@ from funasr_tpu.ops import quant as JQ
 from funasr_torch.ops import int8_gemm as G
 from funasr_torch.ops import quant as Q
 from funasr_torch.ops import rowquant as RQ
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _inputs(dtype=np.float32):

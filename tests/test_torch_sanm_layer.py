@@ -30,6 +30,7 @@ import torch
 
 from funasr_tpu.ops import sanm_layer_pallas as JSL
 from funasr_torch.ops import sanm_layer as SL
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 D, H, NH, K = 256, 512, 2, 11
 LEFT = (K - 1) // 2

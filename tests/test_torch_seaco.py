@@ -45,6 +45,7 @@ from funasr_torch.models.seaco_paraformer.model import SeacoParaformer
 from funasr_torch.tokenizer.char_tokenizer import CharTokenizer
 from tests.test_torch_bicif import TOKENS, US_ATOL, _conf, _jax_fires, _wavs
 from tests.test_torch_paraformer_int8 import LOGP_ATOL, MIN_AGREE
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 NB = len(TOKENS) - 1  # the no-bias class: the vocabulary's last id
 NO_BIAS_SHIFT = 2.5  # raises the no-bias logit: about half the positions keep the decoder
@@ -185,7 +186,10 @@ def test_convert_round_trips_through_jax_converter(models):
         len(TOKENS), 32)
 
 
-def _engines(models):
+@pytest.fixture(scope="module")
+def engines(models):
+    """The JAX and port hotword engines, built once for the module (the JAX
+    engine jits its programs per instance)."""
     conf, jm, p, tm = models
     jax_engine = JE.HotwordEngine(jm, p, JE.FrontendConfig(), JaxTokenizer(TOKENS),
                                   seaco=True)
@@ -194,10 +198,10 @@ def _engines(models):
 
 
 @pytest.mark.parametrize("hotword", ["丅丆 丈 zz 丒且丘", ["丅丆", "丈", "丒且丘"], "", "zz"])
-def test_encode_hotwords_matches_jax(models, hotword):
+def test_encode_hotwords_matches_jax(engines, hotword):
     """Whitespace words or a list; a word with no known token dropped; the
     no-bias row appended; padded to max(8, the longest)."""
-    jax_engine, port = _engines(models)
+    jax_engine, port = engines
     want_pad, want_lens = map(np.asarray, jax_engine._encode_hotwords(hotword))
     grid = port.encode_hotwords(hotword)
     np.testing.assert_array_equal(grid.pad.numpy(), want_pad)
@@ -207,7 +211,7 @@ def test_encode_hotwords_matches_jax(models, hotword):
 
 
 @pytest.mark.parametrize("with_timestamp", [True, False])
-def test_engine_hotword_matches_jax(monkeypatch, models, with_timestamp):
+def test_engine_hotword_matches_jax(monkeypatch, engines, with_timestamp):
     real = JE.BiCifEngine._ts_results
 
     def fixed(self, wavs, tokens, tok_lens, us_alphas, us_peaks, vad_offsets, us_lens=None):
@@ -215,7 +219,7 @@ def test_engine_hotword_matches_jax(monkeypatch, models, with_timestamp):
                     _jax_fires(np.asarray(us_peaks), us_alphas), vad_offsets, us_lens=us_lens)
 
     monkeypatch.setattr(JE.BiCifEngine, "_ts_results", fixed)
-    jax_engine, port = _engines(models)
+    jax_engine, port = engines
     wavs, offsets = _wavs(), [0, 120, 5000]
     hot = "丅丆 丈 丒且丘"
     want = jax_engine.transcribe(wavs, hotword=hot, with_timestamp=with_timestamp,
@@ -227,11 +231,11 @@ def test_engine_hotword_matches_jax(monkeypatch, models, with_timestamp):
     assert port.transcribe([], hotword=hot) == []
 
 
-def test_engine_without_hotword_is_bicif(models):
+def test_engine_without_hotword_is_bicif(models, engines):
     """``hotword=None``: the BiCif path, the same records as ``BiCifEngine``
     on the model's BiCif weights and as the JAX engine's."""
     conf, jm, p, tm = models
-    jax_engine, port = _engines(models)
+    jax_engine, port = engines
     bconf = {k: v for k, v in conf.items()
              if k not in ("inner_dim", "no_bias_id", "seaco_decoder_conf")}
     bicif = BiCifParaformer(**bconf, device="cpu")

@@ -58,6 +58,7 @@ from funasr_torch.ops.ctc_align import align_emissions, viterbi
 from funasr_torch.ops.ctc_decode import ctc_greedy_decode
 from funasr_torch.tokenizer.char_tokenizer import CharTokenizer
 from funasr_torch.tokenizer.sensevoice_tokenizer import generated_token_list
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 V = 40
 TOKENS = generated_token_list(V)

@@ -28,6 +28,7 @@ from funasr_torch.auto.engines import FrontendConfig
 from funasr_torch.frontends.streaming import StreamingFrontend
 from funasr_torch.models.paraformer_streaming import functional as SF
 from funasr_torch.models.paraformer_streaming.model import ParaformerStreaming
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 1e-4  # float32 activations, caches, embeds, log-probs
 FE_TOL = dict(rtol=1e-4, atol=1e-3)  # fbank frames (tests/test_torch_fbank.py)

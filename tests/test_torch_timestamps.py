@@ -15,6 +15,7 @@ import pytest
 
 from funasr_tpu.utils import timestamp_tools as JT
 from funasr_torch.utils import timestamp_tools as TT
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _tracks(rng, case):

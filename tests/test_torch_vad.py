@@ -35,6 +35,7 @@ from funasr_torch.auto import engines as TE
 from funasr_torch.convert import fsmn_vad_from_jax
 from funasr_torch.models.fsmn_vad import model as TM
 from funasr_torch.models.fsmn_vad.encoder import FSMN
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CONF = dict(input_dim=400, input_affine_dim=32, fsmn_layers=2, linear_dim=32, proj_dim=16,
             lorder=20, rorder=0, lstride=1, rstride=1, output_affine_dim=32, output_dim=248)

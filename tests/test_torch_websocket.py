@@ -29,6 +29,7 @@ from funasr_torch.runtime.websocket_server import AsrWebSocketServer, WsSession
 from tests.test_torch_pipeline import _save, _save_flax
 from tests.test_torch_streaming import TINY, _streaming_pair, jax_paraformer_params
 from tests.test_websocket import ASR_CFG, VOCAB
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")
