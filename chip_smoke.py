@@ -215,7 +215,21 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    the int8 FFN at 256 -> 2048 -> 256 (the Transformer encoder's 12256 rows,
    the RWKV decoder's 7760) and the int8 GEMM at those FFNs', the
    E-Branchformer's macaron (N = 1024) and the RWKV output layer's
-   (N = 4234) shapes, bit-equal to their twins;
+   (N = 4234) shapes, bit-equal to their twins; then (g) the 256-wide SANM
+   family and the aishell Paraformer-Conformer (``end_to_end_sanm_family``;
+   4 heads: head size 64), each from its YAML: (g1) E-Paraformer (SANM
+   encoder, PIF predictor, SAN decoder) on B = 32 x 15 s through
+   ``ParaformerEngine``, int8 and float32, (g2) the Paraformer-Conformer
+   (linear input layer, CIF, SAN decoder), int8, (g3) the SANM hybrid (the
+   Transformer recipe with ``model: SANM``, ``encoder: SANMEncoder``) as
+   (f1), (g4) E-Paraformer behind FSMN-VAD and CT-Transformer on the 600 s
+   recording; counters exact by the stated layouts (``PARAFORMER256_INT8``,
+   ``HYBRID_INT8["sanm"]``), no host sync in a dispatch, the records equal
+   on the int8 twins (float32: log-probs within 1e-2, tokens >= 0.99).  The
+   kernel phase holds the head-size-64 instances at those models' shapes
+   (``check_head64_kernels``): ``attention_forward<64>`` bf16 and float32
+   against its twin beside SDPA, the exact-sum entries, ``int8_gemm_rq`` at
+   (8000, 256, 256) with the FSMN and the SANM layer at D = 256 bit-equal;
 4. print one ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -469,18 +483,22 @@ def check_fbank(torch, FK, rng):
     return cases
 
 
-def check_attention(torch, A):
+def check_attention(torch, A, B=64, D=512, seed=0):
+    """The fused attention against its twin at the served shapes of width D
+    with 4 heads (d = 128 at Paraformer-large's B=64 batch; d = 64 at the
+    256-wide models' B=32 one), timed beside the twin and SDPA."""
     import torch.nn.functional as F
 
     cases = []
-    B, H, d, D = 64, 4, 128, 512
+    H = 4
+    d = D // H
     T = 256  # 15 s -> 250 LFR frames -> padded to 256
     # the B=64 batch of bench.py: 15 s rows (250 frames), every other row
     # 12 s (200 frames); ragged lengths are held in check_edges
     lens = torch.full((B,), 250, device="cuda")
     lens[1::2] = 200
     bias = (1.0 - (torch.arange(T, device="cuda")[None] < lens[:, None]).float()) * -1e30
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     for name, U, kv_cols in (("encoder self-attention", T, 3 * D),
                              ("decoder cross-attention", 128, 2 * D)):
         for dtype in (torch.bfloat16, torch.float32):
@@ -737,9 +755,10 @@ def _layer_case(torch, name, got, want, valid, ms, plain, nbytes, ops, run=None)
                 plain_ms=plain, library_ms=None, bound_ms=bnd, bound_by=by)
 
 
-def check_int8_layers(torch, SL, DL, FF):
-    """The three int8 layer kernels against their twins: the main path's
-    shapes (bench.py's B=64 batch) and edge shapes.  On the main shapes the
+def check_int8_layers(torch, SL, DL, FF, D=512, B=64, seed=3, aishell_ffn=True):
+    """The three int8 layer kernels against their twins at width D (4 heads,
+    FFN 2048): the main path's shapes (bench.py's B=64 batch at D = 512; the
+    256-wide models' B=32 one at D = 256, head size 64) and edge shapes.  On the main shapes the
     decoder layer takes its memory row-quantized, as the decoder stack
     passes it (once per batch); on the edges it quantizes the memory itself.
     Bounds count the valid rows only (frames within the lengths, tokens
@@ -748,8 +767,8 @@ def check_int8_layers(torch, SL, DL, FF):
     from funasr_torch.ops import rowquant as RQ
     from funasr_torch.ops.masks import key_bias
 
-    D, H, K, NH, LEFT = 512, 2048, 11, 4, 5
-    sanm_w, dec_w, ffn_w = int8_layer_weights(torch, SL, DL, FF)
+    H, K, NH, LEFT = 2048, 11, 4, 5
+    sanm_w, dec_w, ffn_w = int8_layer_weights(torch, SL, DL, FF, D=D, seed=seed)
     wbytes_sanm = 4 * D * D + 2 * D * H + 4 * (3 * D + D + H + D) * 2 + 4 * K * D
     wbytes_dec = 4 * D * D + 2 * D * H + 4 * (2 * D + 2 * D + H) * 2 + 4 * K * D
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -825,14 +844,14 @@ def check_int8_layers(torch, SL, DL, FF):
             (lambda: FF.fused_ffn_int8(x2, ffn_w)) if timed else None))
 
     # the main path: bench.py's batch, 15 s rows (250 frames), every other 12 s
-    run(64, 256, 128, [250, 200] * 32, [110, 90] * 32, timed=True)
+    run(B, 256, 128, [250, 200] * (B // 2), [110, 90] * (B // 2), timed=True)
     # the aishell recipes' fused FFN, 256 -> 2048 -> 256: the Transformer
     # encoder's B=32 x 383 frames, the RWKV decoder's B=8 x beam 10 x 97 tokens
     g5 = torch.Generator(device="cuda").manual_seed(5)
     r = lambda *shape, sc: torch.randn(shape, generator=g5, device="cuda") * sc  # noqa: E731
     ffn256 = FF.quantize_ffn(r(H, 256, sc=256 ** -0.5), r(H, sc=0.1), r(256, H, sc=H ** -0.5),
                              r(256, sc=0.1))
-    for M in (12256, 7760, 1):
+    for M in (12256, 7760, 1) if aishell_ffn else ():
         x2 = torch.randn((M, 256), generator=gen, device="cuda").to(torch.bfloat16)
         timed = M > 1
         got, want = FF.fused_ffn_int8(x2, ffn256), FF.ffn_int8_ref(x2, ffn256)
@@ -1086,7 +1105,7 @@ RQ_CASES = (
 RQ_TIMED = 1  # the served row
 
 
-def check_int8_rq(torch, G, RQ, FM):
+def check_int8_rq(torch, G, RQ, FM, rq_cases=RQ_CASES):
     """The int8 GEMM's row-quantizing entry against its twin
     (``int8_gemm_rq_ref``: ``rowquant_ref`` "mul", ``fsmn_ref``, then
     ``int8_gemm_ref``), bit-equal, at every row of ``RQ_CASES``; the served
@@ -1098,7 +1117,7 @@ def check_int8_rq(torch, G, RQ, FM):
     gen = torch.Generator(device="cuda").manual_seed(12)
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     cases = []
-    for i, (M, K, N, res_dt, has_bias, (B, T, lens), where) in enumerate(RQ_CASES):
+    for i, (M, K, N, res_dt, has_bias, (B, T, lens), where) in enumerate(rq_cases):
         x = torch.randn((M, K), generator=gen, device="cuda") * 2
         x[min(3, M - 1)] = 0  # an all-zero row
         w = torch.randn((N, K), generator=gen, device="cuda") * K ** -0.5
@@ -1264,20 +1283,20 @@ def check_rowquant_fsmn(torch, RQ, FM):
     return out
 
 
-def exact_scratch_edge(torch, A, name, gen):
+def exact_scratch_edge(torch, A, name, gen, D=512):
     """Past EXACT_ONCHIP_MAX_T keys the int8 layers' attention keeps its
     scores in a device scratch: at T=1000 (60 s of LFR frames, ragged
     lengths) one launch, launches one batch row at a time (the scratch cap
-    made small) and the twin are bit-equal."""
+    made small) and the twin are bit-equal (width D, 4 heads)."""
     from funasr_torch.ops.masks import key_bias
 
-    D, NH, U, T = 512, 4, 40, 1000
+    NH, U, T = 4, 40, 1000
     check(T > A.EXACT_ONCHIP_MAX_T, "the long-T edge is past the on-chip limit")
     fn, ref = getattr(A, name), getattr(A, name + "_ref")
     q = torch.randn((3, U, D), generator=gen, device="cuda")
     kv = torch.randn((3, T, 2 * D), generator=gen, device="cuda")
     lens3 = torch.tensor([T, 33, 0], device="cuda", dtype=torch.int32)
-    args = (q, kv[..., :D], kv[..., D:], key_bias(lens3, T), NH, 128 ** -0.5, lens3)
+    args = (q, kv[..., :D], kv[..., D:], key_bias(lens3, T), NH, (D // NH) ** -0.5, lens3)
     whole = fn(*args)
     saved = A.F32CTX_SCRATCH_BYTES
     A.F32CTX_SCRATCH_BYTES = 4 * NH * U * A.exact_scores_ld(T)  # one row a launch
@@ -1291,7 +1310,7 @@ def exact_scratch_edge(torch, A, name, gen):
           "twin equal")
 
 
-def check_f32ctx(torch, A):
+def check_f32ctx(torch, A, D=512, B=64, seed=9):
     """The float32-context attention of the int8 layers alone, bit-equal to
     its twin: the SANM shape (q, k, v column slices of one float32 (B, T, 3D)
     projection, v zero past the lengths) and the decoder's cross-attention
@@ -1300,20 +1319,22 @@ def check_f32ctx(torch, A):
     the same bf16-rounded q, k, v (the yardstick: bf16 products with float32
     sums, not the exact sums); edges: T=70 with a length-1 row, T=1, T=1000
     with the scores in the scratch, also row-chunked
-    (``exact_scratch_edge``).  Returns {"sanm_layer": [case],
-    "decoder_layer": [case]}."""
+    (``exact_scratch_edge``); width D with 4 heads, the main shapes at
+    batch B.  Returns {"sanm_layer": [case], "decoder_layer": [case]}."""
     import torch.nn.functional as F
 
     from funasr_torch.ops.masks import key_bias
 
-    gen = torch.Generator(device="cuda").manual_seed(9)
-    D, NH, d = 512, 4, 128
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    NH = 4
+    d = D // NH
     cases = {"sanm_layer": [], "decoder_layer": []}
+    B0 = B
     for B, U, T, lens, kv_cols, vlen, entry, what in (
-            (64, 256, 256, [250, 200] * 32, 3 * D, True, "sanm_layer",
-             "SANM layer attention alone, B=64 x 15 s, lengths 250/200"),
-            (64, 128, 256, [250, 200] * 32, 2 * D, False, "decoder_layer",
-             "decoder cross-attention alone, B=64, U=128, memory lengths 250/200"),
+            (B0, 256, 256, [250, 200] * (B0 // 2), 3 * D, True, "sanm_layer",
+             f"SANM layer attention alone, B={B0} x 15 s, lengths 250/200"),
+            (B0, 128, 256, [250, 200] * (B0 // 2), 2 * D, False, "decoder_layer",
+             f"decoder cross-attention alone, B={B0}, U=128, memory lengths 250/200"),
             (3, 70, 70, [70, 1, 33], 3 * D, True, None, "edge: T=70, a length-1 row"),
             (2, 1, 1, [1, 1], 3 * D, True, None, "edge: T=1"),
             (2, 1000, 1000, [1000, 613], 3 * D, True, None,
@@ -1355,24 +1376,24 @@ def check_f32ctx(torch, A):
                         f64_tensor_core_floor_ms=4.0 * D * pairs / PEAK_OPS["float64"] * 1e3)
             cases[entry].append(case)
         log(f"float32-context attention {case}")
-    exact_scratch_edge(torch, A, "attention_f32ctx", gen)
+    exact_scratch_edge(torch, A, "attention_f32ctx", gen, D)
     return cases
 
 
-def check_i8qk(torch, A):
+def check_i8qk(torch, A, D=512, B=64, seed=7):
     """The int8-score attention against its twin, bit-equal: the SANM shape
     (q, k, v column slices of one float32 (B, T, 3D) projection, as in the
     layer), T not a multiple of the 64-key tile with a length-1 row, T=1,
     and T=1000 with the scores in the scratch (``exact_scratch_edge``).  At
     the main shape, the float32-context attention on the same inputs beside
-    it."""
+    it.  Width D with 4 heads, the main shape at batch B."""
     from funasr_torch.ops.masks import key_bias
 
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    D, NH = 512, 4
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    NH = 4
     cases = []
-    for B, T, lens, what in ((64, 256, [250, 200] * 32, "SANM layer attention, B=64 x 15 s, "
-                              "lengths 250/200"),
+    for B, T, lens, what in ((B, 256, [250, 200] * (B // 2), f"SANM layer attention, B={B} x "
+                              "15 s, lengths 250/200"),
                              (3, 70, [70, 1, 33], "edge: T=70, a length-1 row"),
                              (2, 1, [1, 1], "edge: T=1"),
                              (2, 1000, [1000, 613], "edge: T=1000 (60 s), scores in the "
@@ -1402,7 +1423,7 @@ def check_i8qk(torch, A):
                         library_ms=None, bound_ms=bnd, bound_by=by)
         log(f"int8-score attention {case}")
         cases.append(case)
-    exact_scratch_edge(torch, A, "attention_i8qk", gen)
+    exact_scratch_edge(torch, A, "attention_i8qk", gen, D)
     return cases
 
 
@@ -1785,13 +1806,18 @@ def end_to_end_int8(torch, FK, A, profile_dir, card, shared):
     return launches, e2e
 
 
+def padded_frames(n_samples: int) -> int:
+    """Fbank frames of a batch padded to ``n_samples``: the bucket, padded to
+    a multiple of 128 (no LFR)."""
+    from funasr_torch.auto.engines import quantize
+
+    return -(-((quantize(n_samples) - 400) // 160 + 1) // 128) * 128
+
+
 def encoder_frames(n_samples: int) -> int:
     """Encoder frames of a batch padded to ``n_samples``: the bucket, fbank
     frames padded to a multiple of 128, then two stride-2 3x3 convs."""
-    from funasr_torch.auto.engines import quantize
-
-    nf = (quantize(n_samples) - 400) // 160 + 1
-    t = -(-nf // 128) * 128
+    t = padded_frames(n_samples)
     return ((t - 3) // 2 + 1 - 3) // 2 + 1
 
 
@@ -4203,16 +4229,20 @@ def hybrid_counters(FK, A, CP):
                 "fbank": FK.fused_fbank, "int8_gemm": G.int8_gemm, "rowquant": RQ.rowquant,
                 "attention": A.fused_attention, "sanm_layer": SL.fused_sanm_layer,
                 "decoder_layer": DL.fused_decoder_layer, "ffn": FF.fused_ffn_int8,
-                "int8_gemm_rq": G.int8_gemm_rq, "fsmn": FM.fsmn, "fsmn_ln": FM.fsmn_ln}
+                "int8_gemm_rq": G.int8_gemm_rq, "fsmn": FM.fsmn, "fsmn_ln": FM.fsmn_ln,
+                "attention_f32ctx": A.attention_f32ctx}
 
     def zero():
         for fn in counters.values():
             fn.launches = 0
         A.fused_attention.launches_by_head = dict.fromkeys(A.HEAD_SIZES, 0)
+        A.attention_f32ctx.launches_by_head = dict.fromkeys(A.EXACT_HEAD_SIZES, 0)
 
     def read():
         out = {k: fn.launches for k, fn in counters.items()}
         out["attention_d32"] = A.fused_attention.launches_by_head[32]
+        out["attention_d64"] = A.fused_attention.launches_by_head[64]
+        out["attention_f32ctx_d64"] = A.attention_f32ctx.launches_by_head[64]
         return out
 
     return zero, read
@@ -4240,6 +4270,11 @@ HYBRID_INT8 = {
     # the Conformer's 24 w_1; a decoder call: 6 position-wise FFNs and the
     # output layer (N = 4234)
     "conformer_rwkv": dict(enc_ffn=0, enc_dense=(2048,) * 24, dec_ffn=6, dec_dense=(4234,)),
+    # the SANM encoder (phase (g3)): encoders0 off the fused path (its
+    # attention the d = 64 kernel, its FFN fused int8, its projections of N
+    # 768 and 256 under the gate), then 11 fused int8 SANM layers; 4 heads
+    "sanm": dict(enc_ffn=1, enc_dense=(), dec_ffn=0, dec_dense=(), enc_sanm=11,
+                 enc_attention=1),
 }
 INT8_MIN_ROWS = INT8_MIN_N = 1024  # the JAX package's int8 gate (ops/quant.py:69-70)
 
@@ -4259,7 +4294,17 @@ def hybrid_batch_launches(layout, B, n_samples, beam, maxlen, dec_calls):
     f = lay["enc_ffn"] + dec_calls * lay["dec_ffn"]
     q = (gated(B * encoder_frames(n_samples), lay["enc_dense"])
          + dec_calls * gated(B * beam * (maxlen + 1), lay["dec_dense"]))
-    return dict(ffn=f, int8_gemm=2 * f + q, rowquant=2 * f + q)
+    s = lay.get("enc_sanm", 0)  # a fused SANM layer: three pairs, wout, attention
+    out = dict(ffn=f, int8_gemm=2 * f + q + 3 * s, rowquant=2 * f + q + 3 * s)
+    if s:
+        from funasr_torch.ops import attention as A
+
+        T = padded_frames(n_samples)  # no subsampling
+        n_att = s * exact_attention_launches(A, B, T, T)
+        out.update(sanm_layer=s, int8_gemm_rq=s, attention_f32ctx=n_att,
+                   attention_f32ctx_d64=n_att, attention=lay["enc_attention"],
+                   attention_d64=lay["enc_attention"])
+    return out
 
 
 def hybrid_generate(torch, CP, am, zero, read, wav, plan, name, layout, twins=False):
@@ -4554,6 +4599,133 @@ def aishell_model(name, path, **kw):
                      quantize=True, seed=seed, **kw)
 
 
+def hybrid_recipe_batch(torch, A, CP, card, am, name, B, zero, read, tag):
+    """One aishell-width hybrid (``am`` its ``AutoModel``, ``name`` its layout
+    in ``HYBRID_INT8``) on B x 15 s through ``HybridEngine(**BEAM_SERVING)
+    .transcribe(nbest=3, with_timestamp=True)``: counters exact, no host sync
+    in the batch's dispatch but the beam's one a step and the read back, the
+    twins' hypotheses equal (``compare_nbest``); a full-prefix decoder also
+    timed and profiled one call.  Returns (launches, record)."""
+    import numpy as np
+
+    from funasr_torch.auto.engines import HybridEngine
+    from funasr_torch.models.transformer import model as TM
+    from funasr_torch.ops import beam_search as TB
+
+    N, K = 15 * FS, 3
+
+    def lifted(f):
+        """``f`` with the sync debug mode off: the beam's allowed syncs."""
+        def call(*a, **k):
+            torch.cuda.set_sync_debug_mode("default")
+            try:
+                return f(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+        return call
+
+    eng = am.engine
+    module = eng.module
+    encoder = module.encoder
+    check(isinstance(eng, HybridEngine) and (eng.beam, eng.maxlen) == (10, 96)
+          and len(getattr(encoder, "encoders0", ())) + len(encoder.encoders) == 12
+          and len(module.decoder.decoders) == 6
+          and encoder.output_size() == 256 and module.vocab_size == 4234,
+          f"{tag} {name}: the recipe's widths and decoding")
+    full_prefix = type(module.decoder).__name__ == "TransformerRWKVDecoder"
+    served = HybridEngine(module, eng.frontend, eng.tokenizer, **BEAM_SERVING)
+    log(f"e2e {tag} {name}: {type(module).__name__} + {type(module.encoder).__name__} + "
+        f"{type(module.decoder).__name__}")
+    rng = np.random.default_rng(3)
+    wavs = [waveform(rng, N, 150.0 + 7 * i) for i in range(B)]
+    # warm-up (the full-prefix beam on an 8-step engine: its 96 steps take
+    # seconds whatever the batch)
+    HybridEngine(module, eng.frontend, eng.tokenizer,
+                 **dict(BEAM_SERVING, maxlen=8 if full_prefix else 96)).transcribe(
+        wavs[:2], nbest=K, with_timestamp=True)
+    torch.cuda.synchronize()
+    aligns, dec_calls = [], [0]
+    real = dict(all_finished=TB.all_finished, fetched=TM.fetched, viterbi=TM.viterbi,
+                forward=module.decoder.forward)
+
+    def kept_vit(*a, **k):
+        out = real["viterbi"](*a, **k)
+        aligns.append(out)
+        return out
+
+    def counted_forward(*a, **k):
+        dec_calls[0] += 1
+        return real["forward"](*a, **k)
+
+    def transcribe():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = served.transcribe(wavs, nbest=K, with_timestamp=True)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    TM.viterbi, module.decoder.forward = kept_vit, counted_forward
+    try:
+        # the main path: counters from 0, a host sync in the dispatch raises
+        TB.all_finished, TM.fetched = lifted(real["all_finished"]), lifted(real["fetched"])
+        served.run = sync_guarded(torch, served.run)
+        zero()
+        steps0 = served.steps
+        try:
+            res_k, wall = transcribe()
+        finally:
+            TB.all_finished, TM.fetched = real["all_finished"], real["fetched"]
+            del served.run
+        launches = read()
+        steps, n_dec = served.steps - steps0, dec_calls[0]
+        walls = [wall]
+        if not full_prefix:  # a second reading
+            walls.append(transcribe()[1])
+        with beam_twins(CP):
+            res_t = served.transcribe(wavs, nbest=K, with_timestamp=True)
+    finally:
+        TM.viterbi = real["viterbi"]
+        del module.decoder.forward
+    want = dict.fromkeys(launches, 0)
+    want.update(ctc_prefix_step=steps, fbank=1,
+                **hybrid_batch_launches(name, B, N, served.beam, served.maxlen, n_dec))
+    log(f"e2e {tag} {name}: B={B} x 15 s, nbest={K} with timestamps, {steps} decode "
+        f"steps, {n_dec} full-prefix decoder calls; kernel launches {launches}")
+    check(steps > 0 and launches == want, f"{tag} {name} launches {launches}, want {want}")
+    check((n_dec >= steps) if full_prefix else n_dec == 0,
+          f"{tag} {name}: the {'full-prefix' if full_prefix else 'cached'} scorer")
+    rows, d_score = compare_nbest(res_k, res_t, aligns[0], aligns[-1], K,
+                                  f"e2e {tag} {name}", served.tokenizer)
+    rec = dict(B=B, transcribe_ts_wall_s=walls, steps=steps, decoder_calls=n_dec,
+               launches=launches, twins_hypotheses_equal=rows,
+               twins_max_abs_dscore=d_score,
+               audio_s_per_s=[B * N / FS / w for w in walls])
+    if full_prefix:
+        # one decode step's decoder call at the served shape: time and launches
+        M = B * served.beam
+        with torch.inference_mode():
+            enc, enc_lens = module.encode(*eng.frontend.device_features(
+                *served._pack(wavs)))
+            enc_rep = enc.repeat_interleave(served.beam, dim=0)
+            lens_rep = enc_lens.repeat_interleave(served.beam, dim=0)
+            ys = torch.randint(3, module.vocab_size, (M, served.maxlen + 1),
+                               device=enc.device)
+            lens = torch.full((M,), served.maxlen + 1, device=enc.device)
+            call = lambda: module.decoder(enc_rep, lens_rep, ys, lens)  # noqa: E731
+            ms = cuda_ms(call, iters=3, warmup=1)
+            prof = profile(torch, call, None, ms, "profile_rwkv_decoder.txt")
+        rec.update(decoder_call_ms=ms, decoder_call_launches=prof["kernel launches"],
+                   decoder_call_profile=prof)
+        log(f"e2e {tag} {name} on {card}: one full-prefix decoder call ({M} x "
+            f"{served.maxlen + 1} tokens) {ms:.2f} ms, {prof['kernel launches']} kernel "
+            f"launches")
+        del enc, enc_rep
+    log(f"e2e {tag} {name} on {card}: transcribe with timestamps "
+        f"{[round(w, 3) for w in walls]} s wall, {steps} decode steps "
+        f"({1e3 * walls[0] / steps:.1f} ms a step)")
+    return launches, rec
+
+
 def end_to_end_aishell(torch, FK, A, CP, card):
     """Phase (f): the four aishell recipes at full width (12-block encoders
     of D = 256, 6-block decoders, vocab 4234), each from its YAML through
@@ -4573,126 +4745,13 @@ def end_to_end_aishell(torch, FK, A, CP, card):
     profile).  (f3) the E-Branchformer behind FSMN-VAD and CT-Transformer:
     ``generate`` of the 600 s recording on pipeline (b)'s plan, as (e2).
     Returns (launches, e2e record)."""
-    import numpy as np
-
-    from funasr_torch.auto.engines import HybridEngine
-    from funasr_torch.models.transformer import model as TM
-    from funasr_torch.ops import beam_search as TB
-
     zero, read = hybrid_counters(FK, A, CP)
     e2e, total = {}, dict.fromkeys(read(), 0)
-    N, K = 15 * FS, 3
-
-    def lifted(f):
-        """``f`` with the sync debug mode off: the beam's allowed syncs."""
-        def call(*a, **k):
-            torch.cuda.set_sync_debug_mode("default")
-            try:
-                return f(*a, **k)
-            finally:
-                torch.cuda.set_sync_debug_mode("error")
-        return call
-
     for name, path, B in AISHELL_RECIPES:
         t0 = time.time()
         am = aishell_model(name, path)
-        eng = am.engine
-        module = eng.module
-        check(isinstance(eng, HybridEngine) and (eng.beam, eng.maxlen) == (10, 96)
-              and len(module.encoder.encoders) == 12 and len(module.decoder.decoders) == 6
-              and module.encoder.output_size() == 256 and module.vocab_size == 4234,
-              f"(f) {name}: the recipe's widths and decoding")
-        full_prefix = type(module.decoder).__name__ == "TransformerRWKVDecoder"
-        served = HybridEngine(module, eng.frontend, eng.tokenizer, **BEAM_SERVING)
-        log(f"e2e aishell {name}: {type(module).__name__} + {type(module.encoder).__name__} + "
-            f"{type(module.decoder).__name__} built in {time.time() - t0:.1f} s")
-        rng = np.random.default_rng(3)
-        wavs = [waveform(rng, N, 150.0 + 7 * i) for i in range(B)]
-        # warm-up (the full-prefix beam on an 8-step engine: its 96 steps take
-        # seconds whatever the batch)
-        HybridEngine(module, eng.frontend, eng.tokenizer,
-                     **dict(BEAM_SERVING, maxlen=8 if full_prefix else 96)).transcribe(
-            wavs[:2], nbest=K, with_timestamp=True)
-        torch.cuda.synchronize()
-        aligns, dec_calls = [], [0]
-        real = dict(all_finished=TB.all_finished, fetched=TM.fetched, viterbi=TM.viterbi,
-                    forward=module.decoder.forward)
-
-        def kept_vit(*a, **k):
-            out = real["viterbi"](*a, **k)
-            aligns.append(out)
-            return out
-
-        def counted_forward(*a, **k):
-            dec_calls[0] += 1
-            return real["forward"](*a, **k)
-
-        def transcribe():
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = served.transcribe(wavs, nbest=K, with_timestamp=True)
-            torch.cuda.synchronize()
-            return out, time.perf_counter() - t
-
-        TM.viterbi, module.decoder.forward = kept_vit, counted_forward
-        try:
-            # the main path: counters from 0, a host sync in the dispatch raises
-            TB.all_finished, TM.fetched = lifted(real["all_finished"]), lifted(real["fetched"])
-            served.run = sync_guarded(torch, served.run)
-            zero()
-            steps0 = served.steps
-            try:
-                res_k, wall = transcribe()
-            finally:
-                TB.all_finished, TM.fetched = real["all_finished"], real["fetched"]
-                del served.run
-            launches = read()
-            steps, n_dec = served.steps - steps0, dec_calls[0]
-            walls = [wall]
-            if not full_prefix:  # a second reading
-                walls.append(transcribe()[1])
-            with beam_twins(CP):
-                res_t = served.transcribe(wavs, nbest=K, with_timestamp=True)
-        finally:
-            TM.viterbi = real["viterbi"]
-            del module.decoder.forward
-        want = dict.fromkeys(launches, 0)
-        want.update(ctc_prefix_step=steps, fbank=1,
-                    **hybrid_batch_launches(name, B, N, served.beam, served.maxlen, n_dec))
-        log(f"e2e aishell {name}: B={B} x 15 s, nbest={K} with timestamps, {steps} decode "
-            f"steps, {n_dec} full-prefix decoder calls; kernel launches {launches}")
-        check(steps > 0 and launches == want, f"(f) {name} launches {launches}, want {want}")
-        check((n_dec >= steps) if full_prefix else n_dec == 0,
-              f"(f) {name}: the {'full-prefix' if full_prefix else 'cached'} scorer")
-        rows, d_score = compare_nbest(res_k, res_t, aligns[0], aligns[-1], K,
-                                      f"e2e aishell {name}", served.tokenizer)
-        rec = dict(B=B, transcribe_ts_wall_s=walls, steps=steps, decoder_calls=n_dec,
-                   launches=launches, twins_hypotheses_equal=rows,
-                   twins_max_abs_dscore=d_score,
-                   audio_s_per_s=[B * N / FS / w for w in walls])
-        if full_prefix:
-            # one decode step's decoder call at the served shape: time and launches
-            M = B * served.beam
-            with torch.inference_mode():
-                enc, enc_lens = module.encode(*eng.frontend.device_features(
-                    *served._pack(wavs)))
-                enc_rep = enc.repeat_interleave(served.beam, dim=0)
-                lens_rep = enc_lens.repeat_interleave(served.beam, dim=0)
-                ys = torch.randint(3, module.vocab_size, (M, served.maxlen + 1),
-                                   device=enc.device)
-                lens = torch.full((M,), served.maxlen + 1, device=enc.device)
-                call = lambda: module.decoder(enc_rep, lens_rep, ys, lens)  # noqa: E731
-                ms = cuda_ms(call, iters=3, warmup=1)
-                prof = profile(torch, call, None, ms, "profile_rwkv_decoder.txt")
-            rec.update(decoder_call_ms=ms, decoder_call_launches=prof["kernel launches"],
-                       decoder_call_profile=prof)
-            log(f"e2e aishell {name} on {card}: one full-prefix decoder call ({M} x "
-                f"{served.maxlen + 1} tokens) {ms:.2f} ms, {prof['kernel launches']} kernel "
-                f"launches")
-            del enc, enc_rep
-        log(f"e2e aishell {name} on {card}: transcribe with timestamps "
-            f"{[round(w, 3) for w in walls]} s wall, {steps} decode steps "
-            f"({1e3 * walls[0] / steps:.1f} ms a step)")
+        log(f"e2e aishell {name}: built in {time.time() - t0:.1f} s")
+        launches, rec = hybrid_recipe_batch(torch, A, CP, card, am, name, B, zero, read, "(f)")
         e2e[f"aishell_{name}"] = rec
         for k in total:
             total[k] += launches[k]
@@ -4704,8 +4763,328 @@ def end_to_end_aishell(torch, FK, A, CP, card):
             e2e.update(rec3)
             for k in total:
                 total[k] += launches_f3[k]
-        del am, eng, module, served
+        del am
         torch.cuda.empty_cache()
+    return total, e2e
+
+
+# phase (g): the 256-wide SANM family and the aishell Paraformer-Conformer
+EPARAFORMER_YAML = "examples/aishell/e_paraformer/conf/e_paraformer_conformer_12e_6d_2048_256.yaml"
+PARAFORMER_CONFORMER_YAML = ("examples/aishell/paraformer/conf/"
+                             "paraformer_conformer_12e_6d_2048_256.yaml")
+# the SANM hybrid: the aishell Transformer recipe with the SANM encoder and
+# E-Paraformer's encoder_conf (the repo has no SANM recipe)
+SANM_HYBRID_CONF = dict(model="SANM", encoder="SANMEncoder",
+                        encoder_conf=dict(output_size=256, attention_heads=4, linear_units=2048,
+                                          num_blocks=12, kernel_size=11, dropout_rate=0.1))
+# D = 256 at B = 32 x 15 s: the SANM wout with the FSMN (11 taps) in its epilogue
+RQ_CASES_D256 = ((32 * 250, 256, 256, "bf16", True, (32, 250, [250, 200] * 16),
+                  "SANM ctx -> wout + FSMN, D = 256"),)
+# The int8 launches of the two Paraformers a served (B, T, U), stated from
+# the JAX package's layout at the recipes' widths (D = 256, 4 heads, FFN
+# 2048, 12 encoder and 6 decoder blocks, vocab 4234): ``sanm`` fused SANM
+# layers (encoder blocks 1-11), ``attention`` bf16 attention calls
+# (E-Paraformer's encoders0; the SAN decoder's self- and cross-attention,
+# key masks both), ``ffn`` fused int8 position-wise FFNs
+# (encoders0's, the SAN decoder's), and the output widths N of the QDense
+# layers with N >= 1024 over the encoder's or the decoder's rows (the
+# Conformer's 24 macaron w_1; the output layer).
+PARAFORMER256_INT8 = {
+    "e_paraformer": dict(sanm=11, attention=1 + 12, ffn=1 + 6, enc_dense=(),
+                         dec_dense=(4234,)),
+    "paraformer_conformer": dict(sanm=0, attention=12, ffn=6, enc_dense=(2048,) * 24,
+                                 dec_dense=(4234,)),
+}
+
+
+def recipe_model(path, seed, quantize=True, conf=None, **kw):
+    """``AutoModel(model=<a repo YAML>)`` on seeded random weights with
+    ``aishell_model``'s 4234-entry token list; ``conf`` overrides the YAML."""
+    from funasr_torch.auto.auto_model import AutoModel
+
+    V = 4234
+    tokens = ["<blank>", "<s>", "</s>"] + [chr(0x4E00 + i) for i in range(V - 4)] + ["<unk>"]
+    here = os.path.dirname(os.path.abspath(__file__))
+    return AutoModel(model=os.path.join(here, path),
+                     model_conf=dict(conf or {}, tokenizer_conf=dict(token_list=tokens)),
+                     quantize=quantize, seed=seed, **kw)
+
+
+def paraformer256_launches(A, layout, shapes, fbank, rounds=0, n_blocks=4):
+    """The exact launches of a 256-wide Paraformer's int8 path by the stated
+    layout ``PARAFORMER256_INT8[layout]``: ``fbank`` launches and, per served
+    (B, T, U), the fused SANM layers (three rowquant + int8 GEMM pairs, the
+    row-quantizing wout, the exact-sum attention at d = 64), the fused FFNs
+    (two pairs each), the gated QDense pairs, the d = 64 attention calls;
+    punctuation's d = 32 attention ``n_blocks`` a window round."""
+    lay = PARAFORMER256_INT8[layout]
+    want = dict(fbank=fbank, attention=rounds * n_blocks, attention_d32=rounds * n_blocks,
+                attention_d64=0, sanm_layer=0, int8_gemm_rq=0, attention_f32ctx=0,
+                attention_f32ctx_d64=0, ffn=0, rowquant=0, int8_gemm=0)
+
+    def gated(rows, widths):
+        return sum(rows >= INT8_MIN_ROWS and n >= INT8_MIN_N for n in widths)
+
+    for B, T, U in shapes:
+        s, f = lay["sanm"], lay["ffn"]
+        q = gated(B * T, lay["enc_dense"]) + gated(B * U, lay["dec_dense"])
+        n_att = s * exact_attention_launches(A, B, T, T)
+        for k, n in (("attention", lay["attention"]), ("attention_d64", lay["attention"]),
+                     ("sanm_layer", s), ("int8_gemm_rq", s), ("attention_f32ctx", n_att),
+                     ("attention_f32ctx_d64", n_att), ("ffn", f),
+                     ("rowquant", 3 * s + 2 * f + q), ("int8_gemm", 3 * s + 2 * f + q)):
+            want[k] += n
+    return want
+
+
+def check_head64_kernels(torch, A, G, RQ, FM, SL, DL, FF):
+    """The head-size-64 instances and the int8 layers at D = 256 at the
+    256-wide models' served shapes (B = 32 x 15 s: T = 256 LFR frames, keys
+    250/200; the SAN decoder's U = 128): ``attention_forward<64>`` bf16 and
+    float32 against its twin (``ATTN_TOL``), timed beside the twin and SDPA;
+    the exact-sum entries at d = 64 bit-equal to their twins (and their
+    edges: a length-1 row, T = 1, T = 1000 with the scores in the scratch);
+    ``int8_gemm_rq`` at (8000, 256, 256) with the FSMN's 11 taps bit-equal;
+    the SANM layer (both routes), the decoder layer (``fsmn_ln`` at D = 256)
+    and the FFN against their twins, the SANM layer bit-equal."""
+    cases = dict(attention=check_attention(torch, A, B=32, D=256, seed=20))
+    cases["f32ctx"] = check_f32ctx(torch, A, D=256, B=32, seed=19)
+    cases["i8qk"] = check_i8qk(torch, A, D=256, B=32, seed=17)
+    cases["rq"] = check_int8_rq(torch, G, RQ, FM, RQ_CASES_D256)
+    cases["layers"] = check_int8_layers(torch, SL, DL, FF, D=256, B=32, seed=21,
+                                        aishell_ffn=False)
+    main = cases["layers"]["sanm_layer"][0]
+    check(main["elements_differing"] == 0 and cases["layers"]["sanm_layer_i8"][0][
+        "elements_differing"] == 0, "the SANM layer at D = 256 bit-equal to its twin")
+    return cases
+
+
+def paraformer256_batch(torch, A, eng, wavs, zero, read, tag, layout=None):
+    """One B x 15 s batch through ``ParaformerEngine.transcribe_async`` with
+    no host sync in its dispatch; counters exact (``layout`` None: the
+    float32 path, fbank and the 24 d = 64 attention calls); the wall of the
+    call and a second reading.  Returns (records, launches, walls)."""
+    zero()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = sync_guarded(torch, eng.transcribe_async)(wavs)()
+    torch.cuda.synchronize()
+    walls = [time.perf_counter() - t]
+    launches = read()
+    shape = served_shape(eng, wavs)
+    if layout is None:
+        want = dict.fromkeys(launches, 0)
+        want.update(fbank=1, attention=24, attention_d64=24)
+    else:
+        want = dict.fromkeys(launches, 0)
+        want.update(paraformer256_launches(A, layout, [shape], 1))
+    log(f"e2e {tag}: B={len(wavs)} x 15 s, (B, T, U) {shape}; kernel launches {launches}")
+    check(launches == want, f"{tag} launches {launches}, want {want}")
+    check(all(isinstance(r["text"], str) for r in res) and any(r["text"] for r in res),
+          f"{tag}: texts")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    eng.transcribe(wavs)
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter() - t)
+    return res, launches, walls
+
+
+def end_to_end_sanm_family(torch, FK, A, CP, card, B=32):
+    """Phase (g): the 256-wide SANM family and the aishell
+    Paraformer-Conformer at full width (12 encoder and 6 decoder blocks, D =
+    256, 4 heads: head size 64, vocab 4234) from their YAMLs through
+    ``AutoModel`` on seeded random weights.  (g1) E-Paraformer (SANM
+    encoder, PIF predictor, SAN decoder) on B = 32 x 15 s through
+    ``ParaformerEngine``: int8 (``quantize=True``) and float32, counters
+    exact by ``paraformer256_launches`` (float32: fbank 1, attention 24 at d
+    = 64), no host sync in the dispatch; int8 on the int8 twins (bit-equal
+    blocks) gives the same records, float32 on the plain twins log-probs
+    within ``E2E_F32_LOGP_TOL``, tokens >= ``E2E_F32_MIN_AGREE``, token
+    lengths equal.  (g2) the Paraformer-Conformer (linear input layer, CIF,
+    SAN decoder), int8, the same batch, as (g1).  (g3) the SANM hybrid (the
+    Transformer recipe with ``model: SANM``, ``encoder: SANMEncoder`` and
+    E-Paraformer's encoder conf) through ``hybrid_recipe_batch``: beam 10,
+    maxlen 96, nbest 3 with timestamps on the beam cell's batch.  (g4)
+    E-Paraformer behind FSMN-VAD and CT-Transformer: ``generate`` of the
+    600 s recording on pipeline (b)'s plan, counters exact, no host sync in
+    a dispatch, the record on the int8 twins equal.  Returns (launches,
+    e2e record)."""
+    import numpy as np
+
+    from funasr_torch.auto.engines import ParaformerEngine
+    from funasr_torch.models.e_paraformer.model import EParaformer
+    from funasr_torch.models.paraformer.decoder import ParaformerSANDecoder
+    from funasr_torch.utils.vad_utils import merge_vad, slice_audio_by_segments
+
+    zero, read = hybrid_counters(FK, A, CP)
+    e2e, paths = {}, {}
+    N = 15 * FS
+    rng = np.random.default_rng(6)
+    wavs = [waveform(rng, N, 150.0 + 7 * i) for i in range(B)]
+    _, vad_cfg, punc_cfg = pipeline_configs()
+
+    # ---- (g1) E-Paraformer, int8 (with the VAD and punctuation of (g4)) and float32
+    t0 = time.time()
+    am = recipe_model(EPARAFORMER_YAML, 2050, vad_model=vad_cfg, punc_model=punc_cfg)
+    eng = am.engine
+    module = eng.module
+    check(isinstance(eng, ParaformerEngine) and type(module) is EParaformer
+          and type(module.decoder) is ParaformerSANDecoder
+          and len(module.encoder.encoders) == 11 and len(module.decoder.decoders) == 6
+          and module.encoder.output_size() == 256 and module.vocab_size == 4234
+          and module.encoder.encoders[0].n_head == 4, "(g1) E-Paraformer at the recipe's widths")
+    log(f"e2e (g1) E-Paraformer: AutoModel (int8, FSMN-VAD, CT-Transformer) built in "
+        f"{time.time() - t0:.1f} s")
+    eng.transcribe(wavs[:2])  # warm-up
+    res_k, launches, walls = paraformer256_batch(torch, A, eng, wavs, zero, read,
+                                                 "(g1) E-Paraformer int8", "e_paraformer")
+    with int8_twins():
+        res_t = eng.transcribe(wavs)
+    check(res_t == res_k, "(g1) E-Paraformer int8: the records on the int8 twins equal")
+    paths["g1_int8"] = launches
+    e2e["sanm_g1_int8"] = dict(B=B, transcribe_wall_s=walls, launches=launches,
+                               audio_s_per_s=[B * N / FS / w for w in walls],
+                               twins_records_equal=True)
+    log(f"e2e (g1) E-Paraformer int8 on {card}: {[round(w, 4) for w in walls]} s wall; "
+        f"records equal on the twins")
+
+    am32 = recipe_model(EPARAFORMER_YAML, 2050, quantize=False)
+    eng32 = am32.engine
+    check(eng32.module.dtype == torch.float32, "(g1) the float32 E-Paraformer")
+    eng32.transcribe(wavs[:2])
+    res32, launches32, walls32 = paraformer256_batch(torch, A, eng32, wavs, zero, read,
+                                                     "(g1) E-Paraformer float32")
+    paths["g1_f32"] = launches32
+    wav_d, lens_d = eng32._pack(wavs)
+    max_tokens = eng32._max_tokens(wav_d.shape[1])
+
+    def logits():
+        with torch.inference_mode():
+            feats, flens = eng32.frontend.device_features(wav_d, lens_d)
+            return eng32.module.inference_logits(feats, flens, max_tokens=max_tokens)[:2]
+
+    lp_k, tl_k = logits()
+    with plain_twins(FK, A):
+        lp_r, tl_r = logits()
+    valid = torch.arange(max_tokens, device=tl_k.device)[None] < tl_k[:, None]
+    logp_err = float((lp_k - lp_r).abs()[valid].max())
+    agree = float((lp_k.argmax(-1) == lp_r.argmax(-1))[valid].float().mean())
+    log(f"e2e (g1) E-Paraformer float32 on {card}: {[round(w, 4) for w in walls32]} s wall; "
+        f"kernels vs twins max |dlogp| {logp_err:.3e} (tol {E2E_F32_LOGP_TOL}), token "
+        f"agreement {agree:.5f}, token lengths equal {bool(torch.equal(tl_k, tl_r))}")
+    check(bool(torch.isfinite(lp_k[valid]).all()) and torch.equal(tl_k, tl_r)
+          and logp_err <= E2E_F32_LOGP_TOL and agree >= E2E_F32_MIN_AGREE,
+          "(g1) E-Paraformer float32: kernels against twins")
+    e2e["sanm_g1_f32"] = dict(B=B, transcribe_wall_s=walls32, launches=launches32,
+                              logp_max_abs_diff=logp_err, token_agreement=agree)
+    del am32, eng32, lp_k, lp_r
+    torch.cuda.empty_cache()
+
+    # ---- (g2) the aishell Paraformer-Conformer, int8, the same batch
+    amc = recipe_model(PARAFORMER_CONFORMER_YAML, 2051)
+    engc = amc.engine
+    check(type(engc.module.encoder).__name__ == "ConformerEncoder"
+          and engc.module.encoder.input_layer == "linear"
+          and type(engc.module.decoder) is ParaformerSANDecoder
+          and len(engc.module.encoder.encoders) == 12, "(g2) the Paraformer-Conformer")
+    engc.transcribe(wavs[:2])
+    res_c, launches_c, walls_c = paraformer256_batch(torch, A, engc, wavs, zero, read,
+                                                     "(g2) Paraformer-Conformer int8",
+                                                     "paraformer_conformer")
+    with int8_twins():
+        check(engc.transcribe(wavs) == res_c,
+              "(g2) Paraformer-Conformer int8: the records on the int8 twins equal")
+    paths["g2"] = launches_c
+    e2e["sanm_g2"] = dict(B=B, transcribe_wall_s=walls_c, launches=launches_c,
+                          audio_s_per_s=[B * N / FS / w for w in walls_c],
+                          twins_records_equal=True)
+    log(f"e2e (g2) Paraformer-Conformer int8 on {card}: {[round(w, 4) for w in walls_c]} s "
+        f"wall; records equal on the twins")
+    del amc, engc
+    torch.cuda.empty_cache()
+
+    # ---- (g3) the SANM hybrid: beam 10, maxlen 96, nbest 3 with timestamps
+    t0 = time.time()
+    amh = recipe_model(AISHELL_RECIPES[0][1], 2052, conf=SANM_HYBRID_CONF)
+    log(f"e2e (g3) SANM hybrid: built in {time.time() - t0:.1f} s")
+    paths["g3"], e2e["sanm_g3"] = hybrid_recipe_batch(torch, A, CP, card, amh, "sanm", B,
+                                                      zero, read, "(g3)")
+    del amh
+    torch.cuda.empty_cache()
+
+    # ---- (g4) E-Paraformer behind FSMN-VAD and CT-Transformer, 600 s
+    ve, pm = am.vad_engine, am.punc_engine.model
+    wav, bursts = pipeline_recording(np.random.default_rng(12))
+    plan = merge_vad(bursts, 15000)
+    clips = slice_audio_by_segments(wav, plan, FS)
+    pshapes = [served_shape(eng, [clips[i] for i in batch])
+               for batch in am.batches(plan, FS, 300)]
+
+    def generate(twins=False):
+        clock = StageClock(torch)
+        rounds = [0]
+        real_argmax = pm._argmax
+
+        def counted_argmax(text, lens):
+            rounds[0] += 1
+            return real_argmax(text, lens)
+
+        pm._argmax = counted_argmax
+        eng.transcribe_async = sync_guarded(torch, eng.transcribe_async)
+        ve.model.segments_from_posteriors = (
+            lambda post, db, f=ve.model.segments_from_posteriors: (f(post, db), plan)[1])
+        clock.wrap(ve, "front", "vad_device", events=True)
+        clock.wrap(ve.model, "segments_from_posteriors", "vad_host")
+        clock.wrap(eng, "transcribe_async", "asr_dispatch")
+        clock.wrap(eng, "run", "asr_device", events=True)
+        clock.wrap(eng, "_host_results", "asr_host")
+        clock.wrap(pm, "inference_batch", "punc")
+        zero()
+        try:
+            with int8_twins() if twins else contextlib.nullcontext():
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                res = am.generate(wav, key=["g4"])[0]
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+        finally:
+            clock.restore()
+            for obj, attr in ((pm, "_argmax"), (eng, "transcribe_async"),
+                              (ve.model, "segments_from_posteriors")):
+                delattr(obj, attr)
+        times = dict(generate_wall_s=wall, audio_s_per_s=PIPELINE_AUDIO_S / wall,
+                     vad_device_ms=clock.device_ms("vad_device"),
+                     vad_host_wall_s=clock.wall.get("vad_host", 0.0),
+                     asr_dispatch_wall_s=clock.wall.get("asr_dispatch", 0.0),
+                     asr_device_span_ms=clock.device_ms("asr_device", span=True),
+                     asr_host_wall_s=clock.wall.get("asr_host", 0.0),
+                     punc_wall_s=clock.wall.get("punc", 0.0), punc_rounds=rounds[0])
+        return res, read(), rounds[0], times
+
+    first = generate()[-1]  # the first call at these shapes
+    res, launches4, rounds, times = generate()
+    want = dict.fromkeys(launches4, 0)
+    want.update(paraformer256_launches(A, "e_paraformer", pshapes, 1 + len(pshapes), rounds))
+    log(f"e2e (g4) E-Paraformer 600 s: {len(plan)} segments in ASR batches (B, T, U) "
+        f"{pshapes}, {rounds} punctuation rounds; kernel launches {launches4}")
+    check(launches4 == want, f"(g4) launches {launches4}, want {want}")
+    ts = res.get("timestamp") or []
+    check(isinstance(res.get("text"), str) and res["text"] and res.get("sentence_info"),
+          "(g4): the record")
+    check(all(0 <= b <= e <= PIPELINE_AUDIO_S * 1000 for b, e in ts),
+          "(g4): timestamps within the recording")
+    res_t, _, _, times_t = generate(twins=True)
+    check(res_t == res, "(g4): the record on the int8 twins equals it")
+    log(f"e2e (g4) on {card}: {json.dumps(times)}; the first call {json.dumps(first)}; "
+        f"text {res['text'][:24]}... {len(ts)} stamps, {len(res['sentence_info'])} "
+        f"sentences; equal on the twins (their run {times_t['generate_wall_s']:.3f} s)")
+    paths["g4"] = launches4
+    e2e["sanm_g4"] = dict(times, first_call=first, segments=len(plan), batches=pshapes,
+                          launches=launches4, twins_record_equal=True)
+    del am, eng, module
+    torch.cuda.empty_cache()
+    total = {k: sum(d.get(k, 0) for d in paths.values()) for k in read()}
     return total, e2e
 
 
@@ -4850,6 +5229,7 @@ def main(argv=None) -> int:
     rq_cases = check_int8_rq(torch, G, RQ, FM)
     fsmn_ln_cases = check_fsmn_ln(torch, FM, RQ)
     block_cases = check_rowquant_fsmn(torch, RQ, FM)
+    d64 = check_head64_kernels(torch, A, G, RQ, FM, SL, DL, FF)
     log(f"kernel checks done in {time.time() - t0:.1f} s")
 
     t0 = time.time()
@@ -4882,6 +5262,10 @@ def main(argv=None) -> int:
     e2e.update(e2e_hyb)
     launches_ais, e2e_ais = end_to_end_aishell(torch, FK, A, CP, smi)
     e2e.update(e2e_ais)
+    t1 = time.time()
+    launches_g, e2e_g = end_to_end_sanm_family(torch, FK, A, CP, smi)
+    e2e.update(e2e_g)
+    log(f"phase (g) done in {time.time() - t1:.1f} s")
     log(f"end to end done in {time.time() - t0:.1f} s")
     log(f"e2e summary {json.dumps(e2e, sort_keys=True)}")
 
@@ -4898,7 +5282,8 @@ def main(argv=None) -> int:
                    "sensevoice": launches_sv.get(name, 0),
                    "contextual": launches_ctx.get(name, 0),
                    "hybrid_align": launches_hyb.get(name, 0),
-                   "aishell": launches_ais.get(name, 0)}
+                   "aishell": launches_ais.get(name, 0),
+                   "sanm_family": launches_g.get(name, 0)}
         return dict(name=name, route="cuda", source=sources[0], sources=sources,
                     replaces=replaces, launches=sum(by_path.values()),
                     launches_by_path=by_path, shape=main_case["case"],
@@ -4918,15 +5303,24 @@ def main(argv=None) -> int:
         # the same kernel's head-size-32 instance: punctuation's attention
         entry("attention_d32", ["funasr_torch/csrc/attention.cu"],
               "funasr_tpu/ops/attention_pallas.py:37", d32_cases[0], d32_cases),
+        # its head-size-64 instance: the 256-wide models (4 heads)
+        entry("attention_d64", ["funasr_torch/csrc/attention.cu"],
+              "funasr_tpu/ops/attention_pallas.py:37", d64["attention"][0], d64["attention"]),
+        # the int8 layers' exact-sum attention at head size 64 (the
+        # float32-context entry on the main path; the int8-score one beside)
+        entry("attention_f32ctx_d64", ["funasr_torch/csrc/attention.cu"],
+              "funasr_tpu/ops/sanm_layer_pallas.py:118", d64["f32ctx"]["sanm_layer"][0],
+              d64["f32ctx"]["sanm_layer"] + d64["f32ctx"]["decoder_layer"] + d64["i8qk"]),
         entry("sanm_layer", gemm_src + attn_src, "funasr_tpu/ops/sanm_layer_pallas.py:189",
               layer_cases["sanm_layer"][0],
-              layer_cases["sanm_layer"] + f32ctx_cases["sanm_layer"] + sv_cases["sanm_layer"]),
+              layer_cases["sanm_layer"] + f32ctx_cases["sanm_layer"] + sv_cases["sanm_layer"]
+              + d64["layers"]["sanm_layer"] + d64["layers"]["sanm_layer_i8"]),
         entry("decoder_layer", dec_src, "funasr_tpu/ops/decoder_layer_pallas.py:165",
               layer_cases["decoder_layer"][0],
               layer_cases["decoder_layer"] + f32ctx_cases["decoder_layer"] + seaco_cases
-              + ctx_cases["decoder_layer"]),
+              + ctx_cases["decoder_layer"] + d64["layers"]["decoder_layer"]),
         entry("ffn", gemm_src, "funasr_tpu/ops/ffn_pallas.py:113",
-              layer_cases["ffn"][0], layer_cases["ffn"]),
+              layer_cases["ffn"][0], layer_cases["ffn"] + d64["layers"]["ffn"]),
         # the building block of rows sanm_layer, decoder_layer and ffn (and
         # QDense): the int8 contraction inside each of those TPU kernels
         entry("int8_gemm", ["funasr_torch/csrc/int8_gemm.cu",
@@ -4958,7 +5352,7 @@ def main(argv=None) -> int:
         # contraction: the row quantize in the GEMM's A producer, the FSMN in
         # its epilogue
         entry("int8_gemm_rq", gemm_src, "funasr_tpu/ops/sanm_layer_pallas.py:133",
-              rq_cases[0], rq_cases,
+              rq_cases[0], rq_cases + d64["rq"],
               also_replaces=["funasr_tpu/ops/sanm_layer_pallas.py:93"]),
         entry("fsmn_ln", ["funasr_torch/csrc/fsmn.cu"],
               "funasr_tpu/ops/decoder_layer_pallas.py:74", fsmn_ln_cases[0], fsmn_ln_cases),

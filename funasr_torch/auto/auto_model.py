@@ -24,14 +24,17 @@ embeddings on the host (``ClusterBackend``; ``preset_spk_num`` fixes the
 speaker count) into ``spk_info`` and gives each sentence of
 ``sentence_info`` its speaker (``distribute_spk``).
 
-Main models: Paraformer, BiCifParaformer, SeacoParaformer,
-ContextualParaformer, SenseVoiceSmall and the CTC/attention hybrids
-Conformer, Transformer, Branchformer and EBranchformer, whose config's
-``encoder`` (Conformer and Transformer), ``decoder`` (``TransformerDecoder``
-or ``TransformerRWKVDecoder``) and ``decoding_conf`` are honoured as in the
-JAX package (``ParaformerEngine``, ``BiCifEngine``, ``HotwordEngine``
-(``seaco=False`` for ContextualParaformer), ``SenseVoiceEngine``,
-``HybridEngine``; the ``SANM`` hybrid and the ``CTC`` class raise
+Main models: Paraformer and EParaformer (their config's ``encoder`` and
+``decoder`` by registry name, as in the JAX package: the aishell
+Paraformer-Conformer and E-Paraformer recipes), BiCifParaformer,
+SeacoParaformer, ContextualParaformer, SenseVoiceSmall and the CTC/attention
+hybrids Conformer, Transformer, SANM, Branchformer and EBranchformer, whose
+config's ``encoder`` (Conformer, Transformer and SANM), ``decoder``
+(``TransformerDecoder`` or ``TransformerRWKVDecoder``) and
+``decoding_conf`` are honoured as in the JAX package (``ParaformerEngine``
+(EParaformer too, sos/eos filtered by id), ``BiCifEngine``,
+``HotwordEngine`` (``seaco=False`` for ContextualParaformer),
+``SenseVoiceEngine``, ``HybridEngine``; the ``CTC`` class raises
 ``NotImplementedError``); a
 FsmnVADStreaming or CTTransformer config as the main model serves VAD or
 punctuation alone.  ``generate(hotword=...)`` decodes a SeacoParaformer or
@@ -213,12 +216,12 @@ class AutoModel:
             return self._build_punc(cfg)
         if name == "FsmnVADStreaming":  # standalone VAD: segment lists out
             return self._build_vad(cfg)
-        if name not in ("Paraformer", "BiCifParaformer", "SeacoParaformer",
+        if name not in ("Paraformer", "EParaformer", "BiCifParaformer", "SeacoParaformer",
                         "ContextualParaformer", "SenseVoiceSmall") + _HYBRIDS:
             raise NotImplementedError(f"AutoModel: no engine for model class {name!r} in "
-                                      "the port (Paraformer, BiCifParaformer, "
+                                      "the port (Paraformer, EParaformer, BiCifParaformer, "
                                       "SeacoParaformer, ContextualParaformer, "
-                                      "SenseVoiceSmall, Conformer, Transformer, "
+                                      "SenseVoiceSmall, Conformer, Transformer, SANM, "
                                       "Branchformer, EBranchformer)")
         tokenizer = _build_tokenizer(cfg)
         frontend = _build_frontend(cfg)
@@ -236,18 +239,23 @@ class AutoModel:
         cls = tables.get("model_classes", name)
         if name in _HYBRIDS:
             # the JAX AutoModel passes the config's encoder to these three only
-            # (auto_model.py:324-350); SANM raises, not ported
+            # (auto_model.py:324-350)
             kw = ({"encoder_name": cfg["encoder"]}
                   if name in ("Conformer", "Transformer", "SANM") and cfg.get("encoder") else {})
             module = cls(decoder=cfg.get("decoder", "TransformerDecoder"), **common, **kw)
         else:
-            dec = ("ContextualParaformerDecoder" if name == "ContextualParaformer"
-                   else "ParaformerSANMDecoder")
-            for key, want in (("encoder", "SANMEncoder"), ("decoder", dec)):
-                if cfg.get(key, want) != want:
-                    raise NotImplementedError(f"AutoModel: {key} {cfg[key]!r} ({want} only)")
+            kw = {}
+            if name in ("Paraformer", "EParaformer"):  # by name (auto_model.py:281-310)
+                kw = dict(encoder_name=cfg.get("encoder"), decoder_name=cfg.get("decoder"))
+            else:
+                dec = ("ContextualParaformerDecoder" if name == "ContextualParaformer"
+                       else "ParaformerSANMDecoder")
+                for key, want in (("encoder", "SANMEncoder"), ("decoder", dec)):
+                    if cfg.get(key, want) != want:
+                        raise NotImplementedError(f"AutoModel: {key} {cfg[key]!r} "
+                                                  f"({want} only)")
             module = cls(**common, predictor_conf=cfg.get("predictor_conf"),
-                         qmm=self._qmm, int8_attn=self._int8_attn)
+                         qmm=self._qmm, int8_attn=self._int8_attn, **kw)
         _weights(module, _load_state(cfg), self.seed, self.device)
         if self._quantize:
             module.quantize_weights()

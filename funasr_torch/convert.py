@@ -110,32 +110,73 @@ def _encoder(sd, prefix: str, enc: Mapping):
 
 
 def paraformer_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """``{'params': tree}`` (or the bare tree) of funasr_tpu's Paraformer
-    -> the port's float32 ``state_dict``."""
+    """``{'params': tree}`` (with ``'batch_stats'`` for a Conformer
+    encoder), or the bare tree, of funasr_tpu's Paraformer -> the port's
+    float32 ``state_dict``.  The encoder is read from its parameters (SANM,
+    or a hybrid's encoder: the aishell Paraformer-Conformer's), the decoder
+    too (SANM, or the SAN decoder's Transformer layers), the predictor
+    (CIF, or E-Paraformer's PIF with its ``sigma`` and ``bias``); a
+    ``ctc_lo`` in the tree goes to ``ctc.ctc_lo``."""
     tree = params.get("params", params)
     sd: Dict[str, torch.Tensor] = {}
 
-    _encoder(sd, "encoder", tree["encoder"])
+    enc = tree["encoder"]
+    if "encoders0" in enc:
+        _encoder(sd, "encoder", enc)
+    else:
+        _hybrid_encoder(sd, enc, params.get("batch_stats", {}).get("encoder", {}))
 
-    pred = tree["predictor"]
-    sd["predictor.cif_conv1d.weight"] = _t(
-        np.transpose(np.asarray(pred["cif_conv1d"]), (2, 1, 0)))
-    sd["predictor.cif_conv1d.bias"] = _t(pred["cif_conv1d_bias"])
-    _dense(sd, "predictor.cif_output", pred["cif_output"])
+    _predictor(sd, "predictor", tree["predictor"])
 
     dec = tree["decoder"]
     _decoder(sd, "decoder", dec, np.asarray(dec["output_layer"]["kernel"]).shape[1])
+    if "ctc_lo" in tree:
+        _dense(sd, "ctc.ctc_lo", tree["ctc_lo"])
+    return sd
+
+
+def _predictor(sd, p: str, pred: Mapping):
+    """A CIF predictor tree, or E-Paraformer's PIF (a depthwise alpha conv
+    (K, 1, D), ``sigma`` and ``bias``) -> ``{p}.*``."""
+    if "sigma" in pred:
+        _fsmn(sd, f"{p}.cif_conv1d.weight", pred["cif_conv1d"])
+        sd[f"{p}.sigma"] = _t(pred["sigma"])
+        sd[f"{p}.bias"] = _t(pred["bias"])
+    else:
+        sd[f"{p}.cif_conv1d.weight"] = _t(
+            np.transpose(np.asarray(pred["cif_conv1d"]), (2, 1, 0)))
+    sd[f"{p}.cif_conv1d.bias"] = _t(pred["cif_conv1d_bias"])
+    _dense(sd, f"{p}.cif_output", pred["cif_output"])
+
+
+def e_paraformer_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """funasr_tpu's EParaformer (PIF predictor, SAN decoder) -> the port's
+    float32 ``state_dict``, as :func:`paraformer_from_jax`; its CTC head is
+    always built (``ctc_weight`` 0.5), so a tree without one (an inference
+    init never runs it) gives zeros for ``ctc.ctc_lo``."""
+    sd = paraformer_from_jax(params)
+    if "ctc.ctc_lo.weight" not in sd:
+        vocab, d = sd["decoder.output_layer.weight"].shape
+        sd["ctc.ctc_lo.weight"] = torch.zeros((vocab, d))
+        sd["ctc.ctc_lo.bias"] = torch.zeros(vocab)
     return sd
 
 
 def _decoder(sd, prefix: str, dec: Mapping, vocab: int):
-    """A ``ParaformerSANMDecoder`` tree -> ``{prefix}.*``; an absent
-    embedding (an inference tree) becomes zeros of (vocab, D)."""
+    """A ``ParaformerSANMDecoder`` or ``ParaformerSANDecoder`` tree ->
+    ``{prefix}.*``; an absent embedding (an inference tree) becomes zeros
+    of (vocab, D)."""
+    if "decoders3" not in dec:  # the SAN decoder: Transformer layers
+        for i in range(_num_layers(dec["decoders"])):
+            _transformer_decoder_layer(sd, f"{prefix}.decoders.{i}",
+                                       _unstack(dec["decoders"], i))
+        dec = dict(dec, decoders={})
     for stack in ("decoders", "decoders2"):
-        if stack in dec:
+        if dec.get(stack):
             for i in range(_num_layers(dec[stack])):
                 _dec_layer(sd, f"{prefix}.{stack}.{i}", _unstack(dec[stack], i))
-    _dec_layer(sd, f"{prefix}.decoders3.0", dec["decoders3"])
+    if "decoders3" in dec:
+        _dec_layer(sd, f"{prefix}.decoders3.0", dec["decoders3"])
     _norm(sd, f"{prefix}.after_norm", dec["after_norm"])
     if "output_layer" in dec:
         _dense(sd, f"{prefix}.output_layer", dec["output_layer"])
@@ -394,11 +435,28 @@ def _subsampling(sd, enc: Mapping):
     sd["encoder.embed.out.0.bias"] = _t(emb["out"]["bias"])
 
 
+def _hybrid_encoder(sd, enc: Mapping, enc_stats: Mapping):
+    """A Conformer, Transformer, Branchformer or E-Branchformer encoder tree
+    (its ``batch_stats`` subtree beside it) -> ``encoder.*``."""
+    if "conv0" in enc["embed"]:
+        _subsampling(sd, enc)
+    else:
+        _dense(sd, "encoder.embed.0", enc["embed"])
+        if "embed_norm" in enc:
+            _norm(sd, "encoder.embed.1", enc["embed_norm"])
+    layer = _encoder_layer_fn(enc["encoders"])
+    layer_stats = enc_stats.get("encoders", {})
+    for i in range(_num_layers(enc["encoders"])):
+        layer(sd, f"encoder.encoders.{i}", _unstack(enc["encoders"], i),
+              _unstack(layer_stats, i) if layer_stats else {})
+    _norm(sd, "encoder.after_norm", enc["after_norm"])
+
+
 def hybrid_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """``{'params': ...}`` (with ``'batch_stats'`` for a Conformer) of one of
     funasr_tpu's CTC/attention hybrids -> the port's float32 ``state_dict``.
 
-    The encoder is read from its parameters: Conformer, Transformer,
+    The encoder is read from its parameters: SANM, Conformer, Transformer,
     Branchformer or E-Branchformer, with the conv2d subsampling or the
     linear input layer (``embed.0``, and the Transformer's ``embed.1`` layer
     norm); the decoder: Transformer, or RWKV when its self-attention holds a
@@ -407,18 +465,10 @@ def hybrid_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = {}
 
     enc = tree["encoder"]
-    if "conv0" in enc["embed"]:
-        _subsampling(sd, enc)
+    if "encoders0" in enc:  # the SANM hybrid
+        _encoder(sd, "encoder", enc)
     else:
-        _dense(sd, "encoder.embed.0", enc["embed"])
-        if "embed_norm" in enc:
-            _norm(sd, "encoder.embed.1", enc["embed_norm"])
-    layer = _encoder_layer_fn(enc["encoders"])
-    enc_stats = stats.get("encoder", {}).get("encoders", {})
-    for i in range(_num_layers(enc["encoders"])):
-        layer(sd, f"encoder.encoders.{i}", _unstack(enc["encoders"], i),
-              _unstack(enc_stats, i) if enc_stats else {})
-    _norm(sd, "encoder.after_norm", enc["after_norm"])
+        _hybrid_encoder(sd, enc, stats.get("encoder", {}))
 
     dec = tree["decoder"]
     dec_layer = (_rwkv_decoder_layer if "time_decay" in dec["decoders"]["self_attn"]

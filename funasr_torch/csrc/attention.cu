@@ -12,10 +12,12 @@
 //    tensor, so k and v may be column slices of one fused projection),
 //    key_bias (B, T) float32, 0 for valid keys and -1e30 for padding.  A row
 //    whose keys are all masked gets uniform weights, as the TPU kernel does.
-//    The head size d is a template parameter, instantiated at 128 (the ASR
-//    models) and 32 (CT-Transformer punctuation: D = 256, H = 8); the TPU
-//    kernel takes any d, and the JAX package sends d = 32 to XLA only for
-//    its TPU alignment gate.
+//    The head size d is a template parameter, instantiated at 128 (the
+//    Paraformer-large family), 64 (the 256-wide models with 4 heads: the
+//    aishell SANM and Conformer encoders, the SAN decoder) and 32
+//    (CT-Transformer punctuation: D = 256, H = 8); the TPU kernel takes any
+//    d, and the JAX package sends d = 32 and 64 to XLA only for its TPU
+//    alignment gate.
 //
 //    Bound on the H100 SXM, encoder self-attention (B=64, T=256, H=4, d=128,
 //    bf16, keys 250/200): q, out and the valid rows of k, v are 63 MB ->
@@ -36,7 +38,8 @@
 //    and leaves through shared memory in 16-byte rows.  At d = 32 the same
 //    loops run 2 k-steps of m16n8k16 for S (8 at d = 128) and 4 n-tiles of
 //    O, the tile rows are 80 bytes (still free of ldmatrix bank conflicts)
-//    and a 64-key stage of K and V is 10 KB.  float32 inputs keep a
+//    and a 64-key stage of K and V is 10 KB; d = 64 runs 4 k-steps and 8
+//    n-tiles over rows of 144 bytes.  float32 inputs keep a
 //    CUDA-core body (float32 FMA, 4 x 4 score tile a thread; at d = 32 each
 //    of a row's 16 lanes owns 2 output columns, 8 at d = 128): TF32 would
 //    not hold the float32 bar.
@@ -84,7 +87,11 @@
 //    before any is stored, since the compiler cannot tell the rows apart and
 //    a store between would serialize the exp chains; (3) out += p v on the
 //    float64 tensor cores, stopping at vlen (the keys past it meet zero rows
-//    of v: exact zeros).
+//    of v: exact zeros).  The head size is a template parameter, instantiated
+//    at 128 and 64: the tile rows (HD + 4 doubles, conflict-free at both),
+//    the region that holds q, the k tiles or the int8 tiles (33.8 KB at
+//    128, 17.4 KB at 64) and the staging loops follow from it; the on-chip
+//    key limit stays EXACT_ONCHIP_MAX_T at both.
 //
 // 3. `attention_forward_i8qk`: the SANM layer's attention with int8 scores,
 //    the `int8_attn` branch of sanm_layer_pallas.py `_sanm_layer_kernel`
@@ -113,7 +120,6 @@
 
 namespace {
 
-constexpr int HD = 128;  // head size
 constexpr int SMEM_MAX = 232448;  // an H100 block's shared memory
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
@@ -128,11 +134,11 @@ __device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_g
 // 1a. bf16 attention on the tensor cores
 // ======================================================================
 
-// Instantiated at head sizes D = 128 and 32 (`attention_forward` picks one).
+// Instantiated at head sizes D = 128, 64 and 32 (`attention_forward` picks one).
 constexpr int MB_NT = 128;          // 4 warps, 16 queries each
 constexpr int MB_BQ = 64;           // queries per block
 constexpr int MB_BK = 64;           // keys per tile
-template <int D>  // bf16 per shared row (272 bytes at d = 128, 80 at 32)
+template <int D>  // bf16 per shared row (272 bytes at d = 128, 144 at 64, 80 at 32)
 __host__ __device__ constexpr int mb_ld() { return D + 8; }
 template <int D>  // bf16 per tile
 __host__ __device__ constexpr int mb_tile() { return MB_BK * mb_ld<D>(); }
@@ -523,15 +529,25 @@ attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // 2, 3. the int8 layers' attention: exact sums on the float64 tensor cores
 // ======================================================================
 
-constexpr int X_NT = 128;            // 4 warps, 16 query rows each
-constexpr int X_BQ = 64;             // query rows per block
-constexpr int X_KT = 16;             // keys per float64 tile (two tiles in flight)
-constexpr int X_LD = HD + 4;         // doubles (or q floats) per tile row
-constexpr int X_TILE = X_KT * X_LD;  // doubles per float64 tile
-constexpr size_t X_REGION = 2 * X_TILE * sizeof(double);  // 33,792: q, k8 or the two tiles
-constexpr int X_LQ8 = HD + 16;       // bytes per int8 row (36 words: conflict-free)
-constexpr int I8_KT = 64;            // keys per int8 score tile
-constexpr int I8_TILE = I8_KT * X_LQ8 + I8_KT * 4;  // int8 rows, then their scales
+constexpr int X_NT = 128;  // 4 warps, 16 query rows each
+constexpr int X_BQ = 64;   // query rows per block
+constexpr int X_KT = 16;   // keys per float64 tile (two tiles in flight)
+constexpr int I8_KT = 64;  // keys per int8 score tile
+
+// The exact kernels' shapes at head size HD (128 or 64)
+template <int HD>
+struct XS {
+  static constexpr int LD = HD + 4;       // doubles (or q floats) per tile row
+  static constexpr int TILE = X_KT * LD;  // doubles per float64 tile
+  // q, the int8 tiles or the two float64 tiles: 33,792 bytes at 128, 17,408 at 64
+  static constexpr size_t REGION = 2 * TILE * sizeof(double);
+  static constexpr int LQ8 = HD + 16;  // bytes per int8 row (36 / 20 words: conflict-free)
+  static constexpr int I8_TILE = I8_KT * LQ8 + I8_KT * 4;  // int8 rows, then their scales
+  static constexpr int CPR = HD / 4;      // float4 chunks a row
+  static constexpr int RPP = X_NT / CPR;  // rows a pass of the block (4 / 8)
+  static_assert(2 * I8_TILE <= (int)REGION, "two int8 tiles fit the region");
+  static_assert(X_BQ * LD * (int)sizeof(float) <= (int)REGION, "q fits the region");
+};
 // Scores of up to this many keys stay in shared memory: 64 rows x ld(T)
 // float32, the bias row and the tile region fit the 227 KB of one block
 // (T = 736 would just fit).  ops/attention.py EXACT_ONCHIP_MAX_T holds the
@@ -564,25 +580,29 @@ __device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], uint32_t b
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// A 16-row x 128 float32 tile of a head slice, fetched into registers (4
-// float4 a thread, a warp per row) a tile ahead of its use; rows past
-// `nrows` are zero
-__device__ __forceinline__ void x_fetch(float4 f[4], const float* src, int64_t rs, int r0,
-                                        int nrows) {
-  const int w = threadIdx.x >> 5, col = (threadIdx.x & 31) * 4;
+// A 16-row x HD float32 tile of a head slice, fetched into registers (HD /
+// 32 float4 a thread: a warp per row at 128, half a warp at 64) a tile
+// ahead of its use; rows past `nrows` are zero
+template <int HD>
+__device__ __forceinline__ void x_fetch(float4 f[HD / 32], const float* src, int64_t rs,
+                                        int r0, int nrows) {
+  using X = XS<HD>;
+  const int r = threadIdx.x / X::CPR, col = (threadIdx.x % X::CPR) * 4;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = r0 + w + 4 * i;
+  for (int i = 0; i < HD / 32; ++i) {
+    const int row = r0 + r + X::RPP * i;
     f[i] = row < nrows ? *reinterpret_cast<const float4*>(src + (int64_t)row * rs + col)
                        : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 // ... rounded to bf16 and widened to float64 into a shared tile
-__device__ __forceinline__ void x_stage(double* dst, const float4 f[4]) {
-  const int w = threadIdx.x >> 5, col = (threadIdx.x & 31) * 4;
+template <int HD>
+__device__ __forceinline__ void x_stage(double* dst, const float4 f[HD / 32]) {
+  using X = XS<HD>;
+  const int r = threadIdx.x / X::CPR, col = (threadIdx.x % X::CPR) * 4;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    double2* d = reinterpret_cast<double2*>(dst + (w + 4 * i) * X_LD + col);
+  for (int i = 0; i < HD / 32; ++i) {
+    double2* d = reinterpret_cast<double2*>(dst + (r + X::RPP * i) * X::LD + col);
     d[0] = make_double2(bf16_round(f[i].x), bf16_round(f[i].y));
     d[1] = make_double2(bf16_round(f[i].z), bf16_round(f[i].w));
   }
@@ -610,13 +630,15 @@ struct ScoreRows {
 // bf16(e / l) in place (a warp per eight rows at a time), then out = p v on
 // the float64 tensor cores, v rounded to bf16 at staging and zero past
 // v_rows.  `region` holds the two float64 tiles.
+template <int HD>
 __device__ __forceinline__ void exact_softmax_pv(ScoreRows& rs, double* region, const float* vh,
                                                  int64_t v_rs, int v_rows, int Tk, float* oh,
                                                  int64_t o_rs, int u0, int U) {
+  using X = XS<HD>;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const float m0 = quad_max(rs.m0), m1 = quad_max(rs.m1);
-  float4 f[4];
-  x_fetch(f, vh, v_rs, 0, v_rows);  // v's first tile, in flight during pass 2
+  float4 f[HD / 32];
+  x_fetch<HD>(f, vh, v_rs, 0, v_rows);  // v's first tile, in flight during pass 2
   __syncwarp();
 
   // ---- pass 2, eight of the warp's rows at a time, a lane per key (eight
@@ -677,15 +699,15 @@ __device__ __forceinline__ void exact_softmax_pv(ScoreRows& rs, double* region, 
 #pragma unroll
     for (int c = 0; c < 4; ++c) o[j][c] = 0.0;
   const int nkt = (v_rows + X_KT - 1) / X_KT;
-  x_stage(region, f);
-  if (nkt > 1) x_fetch(f, vh, v_rs, X_KT, v_rows);
+  x_stage<HD>(region, f);
+  if (nkt > 1) x_fetch<HD>(f, vh, v_rs, X_KT, v_rows);
   __syncthreads();
   for (int kt = 0; kt < nkt; ++kt) {
     if (kt + 1 < nkt) {
-      x_stage(region + ((kt + 1) & 1) * X_TILE, f);
-      if (kt + 2 < nkt) x_fetch(f, vh, v_rs, (kt + 2) * X_KT, v_rows);
+      x_stage<HD>(region + ((kt + 1) & 1) * X::TILE, f);
+      if (kt + 2 < nkt) x_fetch<HD>(f, vh, v_rs, (kt + 2) * X_KT, v_rows);
     }
-    const double* sV = region + (kt & 1) * X_TILE;
+    const double* sV = region + (kt & 1) * X::TILE;
 #pragma unroll
     for (int kk = 0; kk < X_KT / 8; ++kk) {
       const int ka = kt * X_KT + 8 * kk + t, kb = ka + 4;
@@ -694,9 +716,9 @@ __device__ __forceinline__ void exact_softmax_pv(ScoreRows& rs, double* region, 
       a[1] = rs.ok1 && ka < Tk ? (double)p1[ka] : 0.0;
       a[2] = rs.ok0 && kb < Tk ? (double)p0[kb] : 0.0;
       a[3] = rs.ok1 && kb < Tk ? (double)p1[kb] : 0.0;
-      const double* v0 = sV + (8 * kk + t) * X_LD + g;
+      const double* v0 = sV + (8 * kk + t) * X::LD + g;
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j) mma_f64(o[j], a, v0[8 * j], v0[4 * X_LD + 8 * j]);
+      for (int j = 0; j < HD / 8; ++j) mma_f64(o[j], a, v0[8 * j], v0[4 * X::LD + 8 * j]);
     }
     __syncthreads();  // tile kt + 1 staged; this tile's buffer is free
   }
@@ -714,23 +736,23 @@ __device__ __forceinline__ void exact_softmax_pv(ScoreRows& rs, double* region, 
 
 // The block's score rows: shared memory after the tile region, or its rows
 // of the device scratch (batch row blockIdx.z of this launch)
-template <bool ONCHIP>
+template <int HD, bool ONCHIP>
 __device__ __forceinline__ float* score_base(char* smem, float* scratch, int U, int u0, int ld) {
-  if (ONCHIP) return reinterpret_cast<float*>(smem + X_REGION);
+  if (ONCHIP) return reinterpret_cast<float*>(smem + XS<HD>::REGION);
   return scratch + (((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * U + u0) * ld;
 }
 
 // The key bias row of batch row b, staged in shared memory after the region
 // and the on-chip scores (visible after the caller's next barrier)
-template <bool ONCHIP>
+template <int HD, bool ONCHIP>
 __device__ __forceinline__ const float* stage_bias(char* smem, const float* bias, int b, int Tk,
                                                    int ld) {
-  float* sB = reinterpret_cast<float*>(smem + X_REGION) + (ONCHIP ? X_BQ * ld : 0);
+  float* sB = reinterpret_cast<float*>(smem + XS<HD>::REGION) + (ONCHIP ? X_BQ * ld : 0);
   for (int i = threadIdx.x; i < Tk; i += X_NT) sB[i] = bias[(int64_t)b * Tk + i];
   return sB;
 }
 
-template <bool ONCHIP>
+template <int HD, bool ONCHIP>
 __global__ void __launch_bounds__(X_NT, 2)
 attention_f32ctx_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ bias,
@@ -738,6 +760,7 @@ attention_f32ctx_kernel(const float* __restrict__ q, const float* __restrict__ k
                         float* __restrict__ out, int U, int Tk, float q_scale, int64_t q_bs,
                         int64_t q_rs, int64_t k_bs, int64_t k_rs, int64_t v_bs, int64_t v_rs,
                         int64_t o_bs, int64_t o_rs) {
+  using X = XS<HD>;
   extern __shared__ __align__(16) char xbuf[];
   double* region = reinterpret_cast<double*>(xbuf);  // q floats, then the two k tiles
   const int u0 = blockIdx.x * X_BQ, h = blockIdx.y, b = blockIdx.z;
@@ -745,33 +768,33 @@ attention_f32ctx_kernel(const float* __restrict__ q, const float* __restrict__ k
   const float* qh = q + b * q_bs + (int64_t)h * HD;
   const float* kh = k + b * k_bs + (int64_t)h * HD;
   const int ld = scores_ld(Tk);
-  const float* bb = stage_bias<ONCHIP>(xbuf, bias, b, Tk, ld);
-  ScoreRows rs{score_base<ONCHIP>(xbuf, scratch, U, u0, ld), ld, warp * 16 + g,
+  const float* bb = stage_bias<HD, ONCHIP>(xbuf, bias, b, Tk, ld);
+  ScoreRows rs{score_base<HD, ONCHIP>(xbuf, scratch, U, u0, ld), ld, warp * 16 + g,
                u0 + warp * 16 + g < U, u0 + warp * 16 + g + 8 < U, -INFINITY, -INFINITY};
 
-  // q * q_scale rounded to bf16 (float32, rows of X_LD) in the region, then
+  // q * q_scale rounded to bf16 (float32, rows of X::LD) in the region, then
   // widened once into the warp's float64 A fragments
   float* sQ = reinterpret_cast<float*>(xbuf);
   for (int i = threadIdx.x; i < X_BQ * HD / 4; i += X_NT) {
-    const int r = i >> 5, c = (i & 31) * 4;
+    const int r = i / X::CPR, c = (i % X::CPR) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (u0 + r < U) x = *reinterpret_cast<const float4*>(qh + (int64_t)(u0 + r) * q_rs + c);
-    *reinterpret_cast<float4*>(sQ + r * X_LD + c) =
+    *reinterpret_cast<float4*>(sQ + r * X::LD + c) =
         make_float4(bf16_round(__fmul_rn(x.x, q_scale)), bf16_round(__fmul_rn(x.y, q_scale)),
                     bf16_round(__fmul_rn(x.z, q_scale)), bf16_round(__fmul_rn(x.w, q_scale)));
   }
-  float4 f[4];
-  x_fetch(f, kh, k_rs, 0, Tk);
+  float4 f[HD / 32];
+  x_fetch<HD>(f, kh, k_rs, 0, Tk);
   __syncthreads();
   double qa[HD / 8][4];
   {
-    const float* q0 = sQ + rs.row0 * X_LD + t;
+    const float* q0 = sQ + rs.row0 * X::LD + t;
 #pragma unroll
     for (int ks = 0; ks < HD / 8; ++ks) {
       qa[ks][0] = q0[8 * ks];
-      qa[ks][1] = q0[8 * X_LD + 8 * ks];
+      qa[ks][1] = q0[8 * X::LD + 8 * ks];
       qa[ks][2] = q0[8 * ks + 4];
-      qa[ks][3] = q0[8 * X_LD + 8 * ks + 4];
+      qa[ks][3] = q0[8 * X::LD + 8 * ks + 4];
     }
   }
   __syncthreads();
@@ -781,15 +804,15 @@ attention_f32ctx_kernel(const float* __restrict__ q, const float* __restrict__ k
   // independent chains a warp; their float64 sum is exact), the bias, the
   // row max
   const int nkt = (Tk + X_KT - 1) / X_KT;
-  x_stage(region, f);
-  if (nkt > 1) x_fetch(f, kh, k_rs, X_KT, Tk);
+  x_stage<HD>(region, f);
+  if (nkt > 1) x_fetch<HD>(f, kh, k_rs, X_KT, Tk);
   __syncthreads();
   for (int kt = 0; kt < nkt; ++kt) {
     if (kt + 1 < nkt) {
-      x_stage(region + ((kt + 1) & 1) * X_TILE, f);
-      if (kt + 2 < nkt) x_fetch(f, kh, k_rs, (kt + 2) * X_KT, Tk);
+      x_stage<HD>(region + ((kt + 1) & 1) * X::TILE, f);
+      if (kt + 2 < nkt) x_fetch<HD>(f, kh, k_rs, (kt + 2) * X_KT, Tk);
     }
-    const double* sK = region + (kt & 1) * X_TILE;
+    const double* sK = region + (kt & 1) * X::TILE;
     double acc[X_KT / 8][2][4];
 #pragma unroll
     for (int j = 0; j < X_KT / 8; ++j)
@@ -799,7 +822,7 @@ attention_f32ctx_kernel(const float* __restrict__ q, const float* __restrict__ k
     for (int ks = 0; ks < HD / 8; ++ks)
 #pragma unroll
       for (int j = 0; j < X_KT / 8; ++j) {
-        const double* kr = sK + (8 * j + g) * X_LD + 8 * ks + t;
+        const double* kr = sK + (8 * j + g) * X::LD + 8 * ks + t;
         mma_f64(acc[j][ks & 1], qa[ks], kr[0], kr[4]);
       }
     float bv[X_KT / 8][2];  // loaded before the score stores
@@ -822,8 +845,8 @@ attention_f32ctx_kernel(const float* __restrict__ q, const float* __restrict__ k
   }
 
   const int v_rows = vlen ? min(Tk, vlen[b]) : Tk;
-  exact_softmax_pv(rs, region, v + b * v_bs + (int64_t)h * HD, v_rs, v_rows, Tk,
-                   out + b * o_bs + (int64_t)h * HD, o_rs, u0, U);
+  exact_softmax_pv<HD>(rs, region, v + b * v_bs + (int64_t)h * HD, v_rs, v_rows, Tk,
+                       out + b * o_bs + (int64_t)h * HD, o_rs, u0, U);
 }
 
 // ---- the SANM layer's attention with int8 scores (int8_attn)
@@ -833,41 +856,56 @@ __device__ __forceinline__ uint32_t pack4(const int q[4]) {
          ((uint32_t)(q[2] & 0xff) << 16) | ((uint32_t)(q[3] & 0xff) << 24);
 }
 
-// The warp's 16 rows (r0 + warp + 4 i) of a 64-row float32 tile of a head
-// slice (d = 128), four values a lane, fetched into registers a tile ahead
-// of their use; rows past `nrows` are 0
-__device__ __forceinline__ void q8_fetch(float4 x[16], const float* src, int64_t rs, int r0,
-                                         int nrows) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+// The warp's 16 rows (r0 + warp + 4 j, j < 16) of a 64-row float32 tile of
+// a head slice, four values a lane, fetched into registers a tile ahead of
+// their use; rows past `nrows` are 0.  A row is LPR = HD / 4 lanes (the
+// warp at 128; at 64 each half-warp takes every other row: j = 2 i + half)
+template <int HD>
+struct Q8 {
+  static constexpr int LPR = HD / 4;     // lanes a row
+  static constexpr int RPW = 32 / LPR;   // rows a warp-wide load
+  static constexpr int NX = 16 / RPW;    // float4 a lane
+  static __device__ __forceinline__ int row(int i) {  // the tile row of x[i]
+    return (threadIdx.x >> 5) + 4 * (RPW * i + (threadIdx.x & 31) / LPR);
+  }
+};
+
+template <int HD>
+__device__ __forceinline__ void q8_fetch(float4 x[Q8<HD>::NX], const float* src, int64_t rs,
+                                         int r0, int nrows) {
+  const int col = 4 * ((threadIdx.x & 31) % Q8<HD>::LPR);
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const int row = r0 + warp + 4 * i;
-    x[i] = row < nrows ? *reinterpret_cast<const float4*>(src + (int64_t)row * rs + 4 * lane)
+  for (int i = 0; i < Q8<HD>::NX; ++i) {
+    const int row = r0 + Q8<HD>::row(i);
+    x[i] = row < nrows ? *reinterpret_cast<const float4*>(src + (int64_t)row * rs + col)
                        : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 
 // ... each value times `mult`, quantized per row as quant.py
 // `rowquant_kernel` does (scale = max(absmax, 1e-8) * f32(1/127), q =
-// clip(rint(y / scale))) into an int8 tile: 64 rows of X_LQ8 bytes, then
-// their 64 scales; rows past `nrows` are zero, scale 0.  A warp per row.
-__device__ __forceinline__ void quantize_rows(int8_t* dst, const float4 x[16], int r0, int nrows,
-                                              float mult) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* scale = reinterpret_cast<float*>(dst + I8_KT * X_LQ8);
-  float amax[16];  // the 16 rows' reductions interleaved
+// clip(rint(y / scale))) into an int8 tile: 64 rows of LQ8 bytes, then
+// their 64 scales; rows past `nrows` are zero, scale 0.  The row's lanes
+// (a warp at 128, a half-warp at 64) reduce its absmax.
+template <int HD>
+__device__ __forceinline__ void quantize_rows(int8_t* dst, const float4 x[Q8<HD>::NX], int r0,
+                                              int nrows, float mult) {
+  using Q = Q8<HD>;
+  const int lane = threadIdx.x & 31, rl = lane % Q::LPR;
+  float* scale = reinterpret_cast<float*>(dst + I8_KT * XS<HD>::LQ8);
+  float amax[Q::NX];  // the rows' reductions interleaved
 #pragma unroll
-  for (int i = 0; i < 16; ++i)
+  for (int i = 0; i < Q::NX; ++i)
     amax[i] = fmaxf(fmaxf(fabsf(__fmul_rn(x[i].x, mult)), fabsf(__fmul_rn(x[i].y, mult))),
                     fmaxf(fabsf(__fmul_rn(x[i].z, mult)), fabsf(__fmul_rn(x[i].w, mult))));
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
+  for (int off = Q::LPR / 2; off > 0; off >>= 1)
 #pragma unroll
-    for (int i = 0; i < 16; ++i)
+    for (int i = 0; i < Q::NX; ++i)
       amax[i] = fmaxf(amax[i], __shfl_xor_sync(0xffffffffu, amax[i], off));
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const int r = warp + 4 * i;
+  for (int i = 0; i < Q::NX; ++i) {
+    const int r = Q::row(i);
     uint32_t word = 0;
     float sc = 0.f;
     if (r0 + r < nrows) {
@@ -880,12 +918,12 @@ __device__ __forceinline__ void quantize_rows(int8_t* dst, const float4 x[16], i
         qv[c] = (int)fminf(fmaxf(rintf(__fdiv_rn(y[c], sc)), -127.f), 127.f);
       word = pack4(qv);
     }
-    reinterpret_cast<uint32_t*>(dst + r * X_LQ8)[lane] = word;
-    if (lane == 0) scale[r] = sc;
+    reinterpret_cast<uint32_t*>(dst + r * XS<HD>::LQ8)[rl] = word;
+    if (rl == 0) scale[r] = sc;
   }
 }
 
-template <bool ONCHIP>
+template <int HD, bool ONCHIP>
 __global__ void __launch_bounds__(X_NT, 2)
 attention_i8qk_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const float* __restrict__ bias,
@@ -896,48 +934,49 @@ attention_i8qk_kernel(const float* __restrict__ q, const float* __restrict__ k,
   extern __shared__ __align__(16) char xbuf[];
   // two int8 tiles in pass 1 (q8 in the second at first), the float64 v
   // tiles in pass 3
+  using X = XS<HD>;
   int8_t* s8 = reinterpret_cast<int8_t*>(xbuf);
   const int u0 = blockIdx.x * X_BQ, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const float* kh = k + b * k_bs + (int64_t)h * HD;
   const int ld = scores_ld(Tk);
-  const float* bb = stage_bias<ONCHIP>(xbuf, bias, b, Tk, ld);
-  ScoreRows rs{score_base<ONCHIP>(xbuf, scratch, U, u0, ld), ld, warp * 16 + g,
+  const float* bb = stage_bias<HD, ONCHIP>(xbuf, bias, b, Tk, ld);
+  ScoreRows rs{score_base<HD, ONCHIP>(xbuf, scratch, U, u0, ld), ld, warp * 16 + g,
                u0 + warp * 16 + g < U, u0 + warp * 16 + g + 8 < U, -INFINITY, -INFINITY};
 
   // q * d^-0.5 row-quantized into the second int8 tile, then the warp's
   // int8 A fragments and row scales into registers
-  float4 x[16];
-  q8_fetch(x, q + b * q_bs + (int64_t)h * HD, q_rs, u0, U);
-  quantize_rows(s8 + I8_TILE, x, u0, U, q_scale);
-  q8_fetch(x, kh, k_rs, 0, Tk);
+  float4 x[Q8<HD>::NX];
+  q8_fetch<HD>(x, q + b * q_bs + (int64_t)h * HD, q_rs, u0, U);
+  quantize_rows<HD>(s8 + X::I8_TILE, x, u0, U, q_scale);
+  q8_fetch<HD>(x, kh, k_rs, 0, Tk);
   __syncthreads();
   uint32_t qa[HD / 32][4];
-  const float* qscale = reinterpret_cast<const float*>(s8 + I8_TILE + I8_KT * X_LQ8);
+  const float* qscale = reinterpret_cast<const float*>(s8 + X::I8_TILE + I8_KT * X::LQ8);
   const float qs0 = qscale[rs.row0], qs1 = qscale[rs.row0 + 8];
 #pragma unroll
   for (int kk = 0; kk < HD / 32; ++kk) {
-    const int8_t* p = s8 + I8_TILE + rs.row0 * X_LQ8 + 32 * kk + 4 * t;
+    const int8_t* p = s8 + X::I8_TILE + rs.row0 * X::LQ8 + 32 * kk + 4 * t;
     qa[kk][0] = *reinterpret_cast<const uint32_t*>(p);
-    qa[kk][1] = *reinterpret_cast<const uint32_t*>(p + 8 * X_LQ8);
+    qa[kk][1] = *reinterpret_cast<const uint32_t*>(p + 8 * X::LQ8);
     qa[kk][2] = *reinterpret_cast<const uint32_t*>(p + 16);
-    qa[kk][3] = *reinterpret_cast<const uint32_t*>(p + 8 * X_LQ8 + 16);
+    qa[kk][3] = *reinterpret_cast<const uint32_t*>(p + 8 * X::LQ8 + 16);
   }
 
   // ---- pass 1: 64-key tiles of k (not masked) quantized into the two int8
   // buffers (tile kt + 1 while tile kt is multiplied, one barrier a tile),
   // the int8 scores exact in int32, the float32 steps, the row max
   const int nkt = (Tk + I8_KT - 1) / I8_KT;
-  quantize_rows(s8, x, 0, Tk, 1.f);
-  if (nkt > 1) q8_fetch(x, kh, k_rs, I8_KT, Tk);
+  quantize_rows<HD>(s8, x, 0, Tk, 1.f);
+  if (nkt > 1) q8_fetch<HD>(x, kh, k_rs, I8_KT, Tk);
   __syncthreads();  // tile 0 quantized; every warp holds its q fragments
   for (int kt = 0; kt < nkt; ++kt) {
     if (kt + 1 < nkt) {
-      quantize_rows(s8 + ((kt + 1) & 1) * I8_TILE, x, (kt + 1) * I8_KT, Tk, 1.f);
-      if (kt + 2 < nkt) q8_fetch(x, kh, k_rs, (kt + 2) * I8_KT, Tk);
+      quantize_rows<HD>(s8 + ((kt + 1) & 1) * X::I8_TILE, x, (kt + 1) * I8_KT, Tk, 1.f);
+      if (kt + 2 < nkt) q8_fetch<HD>(x, kh, k_rs, (kt + 2) * I8_KT, Tk);
     }
-    const int8_t* sK = s8 + (kt & 1) * I8_TILE;
-    const float* kscale = reinterpret_cast<const float*>(sK + I8_KT * X_LQ8);
+    const int8_t* sK = s8 + (kt & 1) * X::I8_TILE;
+    const float* kscale = reinterpret_cast<const float*>(sK + I8_KT * X::LQ8);
     int acc[I8_KT / 8][4];
 #pragma unroll
     for (int j = 0; j < I8_KT / 8; ++j)
@@ -947,7 +986,7 @@ attention_i8qk_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int kk = 0; kk < HD / 32; ++kk)
 #pragma unroll
       for (int j = 0; j < I8_KT / 8; ++j) {
-        const int8_t* p = sK + (8 * j + g) * X_LQ8 + 32 * kk + 4 * t;
+        const int8_t* p = sK + (8 * j + g) * X::LQ8 + 32 * kk + 4 * t;
         mma_s8(acc[j], qa[kk], *reinterpret_cast<const uint32_t*>(p),
                *reinterpret_cast<const uint32_t*>(p + 16));
       }
@@ -976,21 +1015,22 @@ attention_i8qk_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   const int v_rows = vlen ? min(Tk, vlen[b]) : Tk;
-  exact_softmax_pv(rs, reinterpret_cast<double*>(xbuf), v + b * v_bs + (int64_t)h * HD, v_rs,
-                   v_rows, Tk, out + b * o_bs + (int64_t)h * HD, o_rs, u0, U);
+  exact_softmax_pv<HD>(rs, reinterpret_cast<double*>(xbuf), v + b * v_bs + (int64_t)h * HD,
+                       v_rs, v_rows, Tk, out + b * o_bs + (int64_t)h * HD, o_rs, u0, U);
 }
 
 using ExactKernel = void (*)(const float*, const float*, const float*, const float*, const int*,
                              float*, float*, int, int, float, int64_t, int64_t, int64_t, int64_t,
                              int64_t, int64_t, int64_t, int64_t);
 
+template <int HD>
 int launch_exact(ExactKernel onchip, ExactKernel spill, const float* q,
                  const float* k, const float* v, const float* bias, const int* vlen,
                  float* scratch, float* out, int B, int U, int Tk, int H, float q_scale,
                  const long long* st, cudaStream_t stream) {
   if (!scratch && Tk > EXACT_ONCHIP_MAX_T) return (int)cudaErrorInvalidValue;
   const int ld = scores_ld(Tk);  // the scores (on chip) and the bias row
-  const size_t smem = X_REGION + (scratch ? 1 : X_BQ + 1) * (size_t)ld * sizeof(float);
+  const size_t smem = XS<HD>::REGION + (scratch ? 1 : X_BQ + 1) * (size_t)ld * sizeof(float);
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   const void* kern = scratch ? (const void*)spill : (const void*)onchip;
   cudaError_t err =
@@ -1040,7 +1080,7 @@ int launch_forward(const void* q, const void* k, const void* v, const float* bia
 
 // Plain C entry point, called through ctypes.  `strides` holds the batch and
 // row strides (in elements) of q, k, v and out, in that order.  dtype: 0 =
-// float32, 1 = bfloat16; the head size d is 128 or 32 (one instance each),
+// float32, 1 = bfloat16; the head size d is 128, 64 or 32 (one instance each),
 // and bf16 q, k, v 16-byte aligned with strides that are multiples of 8 (the
 // wrapper checks).  Returns cudaGetLastError() (0 on success); 1
 // (cudaErrorInvalidValue) for another head size or dtype.
@@ -1052,6 +1092,7 @@ extern "C" int attention_forward(const void* q, const void* k, const void* v,
   if (Tk <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (d == 128) return launch_forward<128>(q, k, v, bias, out, B, U, Tk, H, dtype, st, s);
+  if (d == 64) return launch_forward<64>(q, k, v, bias, out, B, U, Tk, H, dtype, st, s);
   if (d == 32) return launch_forward<32>(q, k, v, bias, out, B, U, Tk, H, dtype, st, s);
   return (int)cudaErrorInvalidValue;
 }
@@ -1061,18 +1102,24 @@ extern "C" int attention_forward(const void* q, const void* k, const void* v,
 // not null), float32 output.  `scratch` is null when the scores stay in
 // shared memory (Tk <= EXACT_ONCHIP_MAX_T), else float32 (B, H, U,
 // scores_ld(Tk)).  q, k, v 16-byte aligned with strides that are multiples
-// of 4 (the wrapper checks).  Same strides, head size and return codes as
-// attention_forward.
+// of 4 (the wrapper checks).  The head size d is 128 or 64; same strides
+// and return codes as attention_forward.
 extern "C" int attention_forward_f32ctx(const float* q, const float* k, const float* v,
                                         const float* bias, const int* vlen, float* scratch,
                                         float* out, int B, int U, int Tk, int H, int d,
                                         float q_scale, const long long* strides,
                                         void* stream) {
   if (B <= 0 || U <= 0 || H <= 0) return (int)cudaSuccess;
-  if (Tk <= 0 || d != HD) return (int)cudaErrorInvalidValue;
-  return launch_exact(attention_f32ctx_kernel<true>, attention_f32ctx_kernel<false>, q, k, v,
-                      bias, vlen, scratch, out, B, U, Tk, H, q_scale, strides,
-                      (cudaStream_t)stream);
+  if (Tk <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (d == 128)
+    return launch_exact<128>(attention_f32ctx_kernel<128, true>,
+                             attention_f32ctx_kernel<128, false>, q, k, v, bias, vlen, scratch,
+                             out, B, U, Tk, H, q_scale, strides, s);
+  if (d == 64)
+    return launch_exact<64>(attention_f32ctx_kernel<64, true>, attention_f32ctx_kernel<64, false>,
+                            q, k, v, bias, vlen, scratch, out, B, U, Tk, H, q_scale, strides, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The SANM layer's attention with int8 scores (third kernel above): float32
@@ -1086,7 +1133,13 @@ extern "C" int attention_forward_i8qk(const float* q, const float* k, const floa
                                       float q_scale, const long long* strides,
                                       void* stream) {
   if (B <= 0 || U <= 0 || H <= 0) return (int)cudaSuccess;
-  if (Tk <= 0 || d != HD) return (int)cudaErrorInvalidValue;
-  return launch_exact(attention_i8qk_kernel<true>, attention_i8qk_kernel<false>, q, k, v, bias,
-                      vlen, scratch, out, B, U, Tk, H, q_scale, strides, (cudaStream_t)stream);
+  if (Tk <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (d == 128)
+    return launch_exact<128>(attention_i8qk_kernel<128, true>, attention_i8qk_kernel<128, false>,
+                             q, k, v, bias, vlen, scratch, out, B, U, Tk, H, q_scale, strides, s);
+  if (d == 64)
+    return launch_exact<64>(attention_i8qk_kernel<64, true>, attention_i8qk_kernel<64, false>, q,
+                            k, v, bias, vlen, scratch, out, B, U, Tk, H, q_scale, strides, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -2,4 +2,5 @@
 
 from funasr_torch.models import (  # noqa: F401
     bicif_paraformer, branchformer, campplus, conformer, contextual_paraformer, ct_transformer,
-    fsmn_vad, paraformer, paraformer_streaming, seaco_paraformer, sense_voice, transformer)
+    e_paraformer, fsmn_vad, paraformer, paraformer_streaming, seaco_paraformer, sense_voice,
+    transformer)

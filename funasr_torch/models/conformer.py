@@ -4,7 +4,10 @@ reference funasr/models/conformer/encoder.py:287).
 Layer: 0.5x macaron FFN -> rel-pos MHA (Transformer-XL style, pos_bias_u/v +
 rel_shift) -> conv module (pointwise-GLU -> depthwise -> BatchNorm -> swish
 -> pointwise) -> 0.5x FFN -> final LN, all pre-norm with residuals.
-Subsampling: Conv2dSubsampling x4 (two stride-2 3x3 Conv2d + linear).
+Input layer: Conv2dSubsampling x4 (two stride-2 3x3 Conv2d + linear), or
+``input_layer="linear"`` (the aishell Paraformer-Conformer): one dense
+layer ``embed.0``, no subsampling, as the JAX package has it (no layer norm
+after it; funasr_tpu/models/conformer.py:256-264).
 
 Computation in the module ``dtype`` (bfloat16 in serving), layer norms,
 softmax and BatchNorm in float32, as in the JAX package.  Parameter names
@@ -195,8 +198,9 @@ class Conv2dSubsampling(nn.Module):
 
 @tables.register("encoder_classes", "ConformerEncoder")
 class ConformerEncoder(nn.Module):
-    """Conv2dSubsampling -> x * sqrt(D) -> ``num_blocks`` Conformer layers
-    with relative position encodings -> after_norm."""
+    """Conv2dSubsampling (or a dense ``linear`` input layer) -> x * sqrt(D)
+    -> ``num_blocks`` Conformer layers with relative position encodings ->
+    after_norm."""
 
     def __init__(self, input_size: int, output_size: int = 256,
                  attention_heads: int = 4, linear_units: int = 2048,
@@ -208,11 +212,15 @@ class ConformerEncoder(nn.Module):
         ignores.  ``param_dtype``: storage of the weights (default
         ``dtype``; float32 for int8 serving)."""
         super().__init__()
-        if input_layer != "conv2d":
-            raise NotImplementedError(f"input_layer={input_layer!r} (only 'conv2d')")
+        if input_layer not in ("conv2d", "linear"):
+            raise NotImplementedError(f"input_layer={input_layer!r} ('conv2d' or 'linear')")
         self._output_size = output_size
         self.dtype = dtype
-        self.embed = Conv2dSubsampling(input_size, output_size, dtype, param_dtype)
+        self.input_layer = input_layer
+        self.embed = (Conv2dSubsampling(input_size, output_size, dtype, param_dtype)
+                      if input_layer == "conv2d" else
+                      nn.Sequential(Dense(input_size, output_size, dtype=dtype,
+                                          param_dtype=param_dtype)))
         self.encoders = nn.ModuleList([
             ConformerEncoderLayer(output_size, attention_heads, linear_units,
                                   cnn_module_kernel, dtype, param_dtype)
@@ -224,7 +232,10 @@ class ConformerEncoder(nn.Module):
 
     def forward(self, xs: torch.Tensor, lengths: torch.Tensor):
         """xs (B, T, input_size); lengths (B,) -> (out (B, T', D), lengths')."""
-        x, lengths = self.embed(xs, lengths)
+        if self.input_layer == "conv2d":
+            x, lengths = self.embed(xs, lengths)
+        else:
+            x = self.embed(xs)
         x = x * (self._output_size ** 0.5)
         T = x.shape[1]
         pos_emb = rel_positional_encoding(T, self._output_size, device=x.device)

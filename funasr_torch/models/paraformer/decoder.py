@@ -1,5 +1,6 @@
-"""Paraformer SANM decoder (port of funasr_tpu/models/paraformer/decoder.py;
-reference funasr/models/paraformer/decoder.py:225).
+"""Paraformer SANM and SAN decoders (port of
+funasr_tpu/models/paraformer/decoder.py; reference
+funasr/models/paraformer/decoder.py:225 and :982).
 
 Bidirectional decoder over the CIF acoustic-embedding grid: each layer is
 FFN -> FSMN memory ("self-attention", attention.py:471) -> cross-attention
@@ -22,6 +23,18 @@ whose Dense layers follow the QDense rule (``models/sanm.py`` ``Dense``).
 ``return_hidden=True`` returns them from a model that has one, and
 :meth:`ParaformerSANMDecoder.project` applies it (decoder.py:318-396 of the
 JAX package).
+
+:class:`ParaformerSANDecoder` (decoder.py:405-478 of the JAX package, the
+aishell Paraformer-Conformer's and E-Paraformer's decoder) is the same call
+contract over Transformer decoder layers (``models/transformer/decoder.py``
+``TransformerDecoderLayer``): bidirectional, its self-attention masked by
+the token lengths alone (no subsequent mask), its cross-attention by the
+memory lengths, both key masks, so both run through the fused attention
+kernel (``ops/attention.py``; head size 64 at the aishell widths); its FFN
+is the SANM position-wise FFN (fused int8 after ``quantize_weights()``),
+then ``after_norm`` and the QDense-rule ``output_layer``.  The JAX package
+computes that attention and FFN in XLA (its kernels gate on TPU shapes);
+the port keeps its kernels at every shape.
 """
 
 from __future__ import annotations
@@ -37,7 +50,9 @@ from funasr_torch.models.sanm import (
     fsmn_memory,
     fsmn_padding,
     int8_buffers,
+    quantize_dense_layers,
 )
+from funasr_torch.models.transformer.decoder import TransformerDecoderLayer
 from funasr_torch.ops import attention as A
 from funasr_torch.ops import decoder_layer as DL
 from funasr_torch.ops.masks import key_bias, sequence_mask
@@ -251,3 +266,48 @@ class ParaformerSANMDecoder(nn.Module):
     def project(self, hidden: torch.Tensor) -> torch.Tensor:
         """The output projection of :meth:`forward`'s hiddens."""
         return self.output_layer(hidden)
+
+
+@tables.register("decoder_classes", "ParaformerSANDecoder")
+class ParaformerSANDecoder(nn.Module):
+    """Transformer decoder layers over the CIF embeddings, bidirectional
+    (paraformer/decoder.py:982 ``ParaformerSANDecoder``; decoder.py:405 of
+    the JAX package): the ``ParaformerSANMDecoder`` call contract, FunASR's
+    parameter names (``decoders.{i}.self_attn.linear_q``, ``src_attn``,
+    ``feed_forward.w_1``, ``norm1..3``, ``after_norm``, ``output_layer``,
+    the training sampler's ``embed.0``)."""
+
+    def __init__(self, vocab_size: int, encoder_output_size: int,
+                 attention_heads: int = 4, linear_units: int = 2048,
+                 num_blocks: int = 6, dtype: torch.dtype = torch.float32,
+                 dropout_rate: float = 0.0, self_attention_dropout_rate: float = 0.0,
+                 src_attention_dropout_rate: float = 0.0,
+                 param_dtype: Optional[torch.dtype] = None):
+        """The dropout rates are training-only settings that inference
+        ignores."""
+        super().__init__()
+        d = encoder_output_size
+        self.dtype = dtype
+        self.embed = nn.Sequential(nn.Embedding(vocab_size, d))
+        self.decoders = nn.ModuleList([
+            TransformerDecoderLayer(d, attention_heads, linear_units, dtype, param_dtype,
+                                    fused_ffn=True)
+            for _ in range(num_blocks)])
+        self.after_norm = LayerNormF32(d, dtype)
+        self.output_layer = Dense(d, vocab_size, dtype=dtype, param_dtype=param_dtype)
+
+    def quantize_weights(self) -> None:
+        """The fused int8 FFNs and the QDense projections, once."""
+        quantize_dense_layers(self)
+
+    def forward(self, memory: torch.Tensor, memory_lengths: torch.Tensor,
+                semantic_embeds: torch.Tensor, token_lengths: torch.Tensor) -> torch.Tensor:
+        """-> logits (B, U, vocab) in the compute dtype."""
+        U, T = semantic_embeds.shape[1], memory.shape[1]
+        tgt_bias = key_bias(token_lengths, U)
+        mem_bias = key_bias(memory_lengths, T)
+        memory = memory.to(self.dtype)
+        x = semantic_embeds.to(self.dtype)
+        for layer in self.decoders:
+            x = layer(x, None, memory, None, tgt_bias, mem_bias)
+        return self.output_layer(self.after_norm(x))

@@ -6,6 +6,17 @@ encoder -> CIF predictor (one acoustic embedding per token) -> one
 bidirectional decoder pass -> argmax.  The token grid is padded to
 ``max_tokens``; real counts travel as lengths.  No training forward.
 
+The encoder and decoder are picked by registry name as the JAX
+``Paraformer.setup`` picks them (model.py:75-127 of the JAX package):
+``encoder_name`` None or ``SANMEncoder`` (its reference template keys
+mapped), else the named class with the conf filtered to its arguments (the
+aishell Paraformer-Conformer's ``ConformerEncoder`` drops ``kernel_size``
+and ``pos_enc_layer_type``); ``decoder_name`` None is
+``ParaformerSANMDecoder``, else the named class (``ParaformerSANDecoder``),
+its conf filtered the same way.  ``ctc_weight > 0`` builds the CTC head
+``ctc.ctc_lo`` (a plain dense layer, FunASR's names): inference never runs
+it, but a checkpoint carries it.
+
 int8 serving, the JAX package's ``AutoModel(quantize=True)`` path: build
 with ``quantize=True`` (the parameters are then stored in float32 whatever
 the compute ``dtype``), load the float32 weights, then call
@@ -19,6 +30,7 @@ state dict again requires another ``quantize_weights()`` before inference.
 
 from __future__ import annotations
 
+import inspect
 import math
 from typing import Any, Dict, Optional
 
@@ -28,15 +40,23 @@ from torch import nn
 from funasr_torch.device import resolve_device
 from funasr_torch.models.paraformer.decoder import ParaformerSANMDecoder
 from funasr_torch.models.paraformer.predictor import CifPredictorV2
-from funasr_torch.models.sanm import Dense, LayerNormF32, SANMEncoder
+from funasr_torch.models.sanm import (Dense, LayerNormF32, PlainDense, SANMEncoder,
+                                      quantize_dense_layers)
 from funasr_torch.ops.masks import sequence_mask
 from funasr_torch.registry import tables
 
 
-# training-only fields of funasr_tpu's Paraformer (and the reference template)
-_TRAINING_FIELDS = {"ctc_weight", "lsm_weight", "length_normalized_loss",
-                    "predictor_weight", "predictor_bias", "sampling_ratio",
-                    "ignore_id"}
+# training-only fields of funasr_tpu's Paraformer (and the reference template,
+# E-Paraformer's first-pass decoder loss included)
+_TRAINING_FIELDS = {"lsm_weight", "length_normalized_loss", "predictor_weight",
+                    "predictor_bias", "sampling_ratio", "ignore_id", "use_1st_decoder_loss"}
+
+
+def accepted_args(cls, conf: Dict[str, Any]) -> Dict[str, Any]:
+    """``conf`` filtered to the keyword arguments of ``cls``'s constructor,
+    as the JAX package filters a config to a module's dataclass fields."""
+    names = inspect.signature(cls.__init__).parameters
+    return {k: v for k, v in conf.items() if k in names}
 
 
 @tables.register("model_classes", "Paraformer")
@@ -44,7 +64,8 @@ class Paraformer(nn.Module):
     """Config fields mirror the reference template.yaml.  Builds on
     ``device`` (default: the GPU, raising without one; ``"cpu"`` only when
     asked).  ``dtype`` is the compute dtype (bfloat16 in serving);
-    ``quantize`` selects int8 serving (see the module docstring)."""
+    ``quantize`` selects int8 serving (see the module docstring);
+    ``encoder_name`` / ``decoder_name`` pick the encoder and decoder."""
 
     def __init__(self, vocab_size: int, input_size: int = 560,
                  encoder_conf: Optional[Dict[str, Any]] = None,
@@ -53,7 +74,8 @@ class Paraformer(nn.Module):
                  blank_id: int = 0, sos: int = 1, eos: int = 2,
                  dtype: torch.dtype = torch.float32, device=None,
                  quantize: bool = False, qmm: bool = False, int8_attn: bool = False,
-                 **training_conf):
+                 encoder_name: Optional[str] = None, decoder_name: Optional[str] = None,
+                 ctc_weight: float = 0.0, **training_conf):
         """``training_conf`` takes the template's training-only settings
         (``lsm_weight``, ``sampling_ratio``, ``predictor_bias``...), which
         the inference path ignores."""
@@ -70,15 +92,21 @@ class Paraformer(nn.Module):
         self.eos = eos
         self.dtype = dtype
         self.quantize = quantize
+        self.ctc_weight = ctc_weight
+        self.decoder_name = decoder_name
         self._int8_ready = False
         param_dtype = torch.float32 if quantize else None
         dev = resolve_device(device)
 
         enc_conf = dict(encoder_conf or {})
-        for key in ("pos_enc_class", "selfattention_layer_type",
-                    "positional_dropout_rate"):
-            enc_conf.pop(key, None)
-        enc_conf["sanm_shift"] = enc_conf.pop("sanm_shfit", enc_conf.get("sanm_shift", 0))
+        sanm = encoder_name in (None, "SANMEncoder")
+        if sanm:
+            for key in ("pos_enc_class", "selfattention_layer_type",
+                        "positional_dropout_rate"):
+                enc_conf.pop(key, None)
+            enc_conf["sanm_shift"] = enc_conf.pop("sanm_shfit", enc_conf.get("sanm_shift", 0))
+        elif int8_attn:
+            raise ValueError("Paraformer: int8_attn is a SANMEncoder route")
         dec_conf = dict(decoder_conf or {})
         dec_conf.pop("positional_dropout_rate", None)
         if "sanm_shfit" in dec_conf:  # reference template spelling
@@ -86,16 +114,25 @@ class Paraformer(nn.Module):
         pred_conf = dict(predictor_conf or {})
 
         with torch.device(dev):
-            self.encoder = SANMEncoder(input_size=input_size, dtype=dtype,
-                                       param_dtype=param_dtype, int8_attn=int8_attn,
-                                       **enc_conf)
+            if sanm:
+                self.encoder = SANMEncoder(input_size=input_size, dtype=dtype,
+                                           param_dtype=param_dtype, int8_attn=int8_attn,
+                                           **enc_conf)
+            else:
+                cls = tables.get("encoder_classes", encoder_name)
+                self.encoder = cls(input_size=input_size, dtype=dtype,
+                                   param_dtype=param_dtype, **accepted_args(cls, enc_conf))
             d_model = self.encoder.output_size()
             self.decoder = self.make_decoder(vocab_size, d_model, dtype, param_dtype,
                                              dec_conf)
             pred_conf.setdefault("idim", d_model)
             self.predictor = self.make_predictor(dtype, pred_conf)
+            if ctc_weight > 0.0:
+                self.ctc = nn.Module()
+                self.ctc.ctc_lo = PlainDense(d_model, vocab_size, dtype=dtype,
+                                             param_dtype=param_dtype)
         if qmm:  # the QDense layers off the fused kernels (sanm.py Dense)
-            for part in (self.encoder.encoders0, self.decoder):
+            for part in (self.encoder.encoders0 if sanm else self.encoder, self.decoder):
                 for mod in part.modules():
                     if isinstance(mod, Dense):
                         mod.qmm = True
@@ -104,8 +141,10 @@ class Paraformer(nn.Module):
 
     def make_decoder(self, vocab_size: int, d_model: int, dtype: torch.dtype,
                      param_dtype: Optional[torch.dtype], dec_conf: Dict[str, Any]) -> nn.Module:
-        return ParaformerSANMDecoder(vocab_size=vocab_size, encoder_output_size=d_model,
-                                     dtype=dtype, param_dtype=param_dtype, **dec_conf)
+        cls = (ParaformerSANMDecoder if self.decoder_name is None
+               else tables.get("decoder_classes", self.decoder_name))
+        return cls(vocab_size=vocab_size, encoder_output_size=d_model, dtype=dtype,
+                   param_dtype=param_dtype, **accepted_args(cls, dec_conf))
 
     def make_predictor(self, dtype: torch.dtype, pred_conf: Dict[str, Any]) -> nn.Module:
         return CifPredictorV2(dtype=dtype, **pred_conf)
@@ -120,8 +159,7 @@ class Paraformer(nn.Module):
         parameters, once per model load (a ``quantize=True`` model only)."""
         if not self.quantize:
             raise RuntimeError("quantize_weights() needs Paraformer(quantize=True)")
-        self.encoder.quantize_weights()
-        self.decoder.quantize_weights()
+        quantize_dense_layers(self)
         self._int8_ready = True
         return self
 

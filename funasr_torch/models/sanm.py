@@ -51,6 +51,7 @@ from funasr_torch.ops import ffn as FF
 from funasr_torch.ops import qmm as QM
 from funasr_torch.ops import quant as Q
 from funasr_torch.ops import sanm_layer as SL
+from funasr_torch.ops.dwconv import depthwise_conv1d
 from funasr_torch.ops.masks import key_bias, sequence_mask
 from funasr_torch.ops.posenc import sinusoidal_encoding
 from funasr_torch.registry import tables
@@ -121,8 +122,15 @@ class Dense(nn.Linear):
         if self.w8 is not None and Q.gate(x.numel() // x.shape[-1], self.out_features):
             linear = QM.quant_matmul if self.qmm else Q.int8_linear
             return linear(x, self.w8, self.sw, self.bias_q)
-        bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x, self.matrix().to(dt), bias)
+        w = self.matrix().to(dt)
+        if x.device.type == "cpu" and dt != torch.float32:
+            # torch's CPU bf16 GEMM blocks its sums by the thread count: the
+            # dot in float32, rounded once
+            y = F.linear(x.to(torch.float32), w.to(torch.float32)).to(dt)
+        else:
+            y = F.linear(x, w)
+        # flax's Dense rounds its dot to dtype, then adds the bias in dtype
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 class PlainDense(Dense):
@@ -135,16 +143,15 @@ class PlainDense(Dense):
 
 
 def quantize_dense_layers(root: nn.Module) -> None:
-    """``quantize_weights()`` of every :class:`PositionwiseFeedForward` and
-    every :class:`Dense` under ``root``, a feed-forward's own two layers left
-    to it (it runs on its fused int8 weights)."""
-    ffn = [name for name, mod in root.named_modules()
-           if isinstance(mod, PositionwiseFeedForward)]
-    for name, mod in root.named_modules():
-        if isinstance(mod, PositionwiseFeedForward):
-            mod.quantize_weights()
-        elif isinstance(mod, Dense) and not any(name.startswith(f + ".") for f in ffn):
-            mod.quantize_weights()
+    """``quantize_weights()`` of every topmost module under ``root`` that has
+    one: a :class:`Dense`, a :class:`PositionwiseFeedForward` (its fused int8
+    weights) or a stack that owns fused int8 layers (:class:`SANMEncoder`, the
+    Paraformer decoders), each left to quantize its own submodules."""
+    for child in root.children():
+        if hasattr(child, "quantize_weights"):
+            child.quantize_weights()
+        else:
+            quantize_dense_layers(child)
 
 
 class PointwiseConv(Dense):
@@ -176,18 +183,14 @@ def fsmn_memory(v: torch.Tensor, weight: torch.Tensor,
                 mask: Optional[torch.Tensor], left: int,
                 right: int) -> torch.Tensor:
     """Depthwise FSMN block (attention.py:207 ``forward_fsmn``):
-    mask -> depthwise conv1d (no bias) -> + residual -> mask.
+    mask -> depthwise conv1d (no bias, ``ops/dwconv.py``) -> + residual -> mask.
 
     v (B, T, D); weight (D, 1, K) depthwise filters; mask (B, T, 1) or None.
-    A float32 conv on the card goes through cuDNN, which uses TF32 unless
-    ``torch.backends.cudnn.allow_tf32`` is False: float32 references set it.
     """
     if mask is not None:
         mask = mask.to(v.dtype)
         v = v * mask
-    x = F.pad(v.transpose(1, 2), (left, right))
-    out = F.conv1d(x, weight.to(v.dtype), groups=v.shape[-1]).transpose(1, 2)
-    out = out + v
+    out = depthwise_conv1d(v, weight, padding=(left, right)) + v
     if mask is not None:
         out = out * mask
     return out

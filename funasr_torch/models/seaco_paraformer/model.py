@@ -30,7 +30,7 @@ from torch import nn
 from funasr_torch.device import cudnn_float32
 from funasr_torch.models.bicif_paraformer.model import BiCifParaformer
 from funasr_torch.models.paraformer.decoder import ParaformerSANMDecoder
-from funasr_torch.models.sanm import Dense
+from funasr_torch.models.sanm import Dense, PlainDense
 from funasr_torch.ops.masks import sequence_mask
 from funasr_torch.registry import tables
 
@@ -61,21 +61,13 @@ class SeacoParaformer(BiCifParaformer):
                 vocab_size=self.vocab_size, encoder_output_size=inner_dim,
                 dtype=self.dtype, param_dtype=param_dtype, use_output_layer=False,
                 **conf)
-            self.hotword_output_layer = Dense(inner_dim, self.vocab_size,
-                                              dtype=self.dtype, param_dtype=param_dtype)
+            self.hotword_output_layer = PlainDense(inner_dim, self.vocab_size,
+                                                   dtype=self.dtype, param_dtype=param_dtype)
         if kwargs.get("qmm"):
             for mod in self.seaco_decoder.modules():
                 if isinstance(mod, Dense):
                     mod.qmm = True
         self.eval()
-
-    @torch.no_grad()
-    def quantize_weights(self) -> "SeacoParaformer":
-        """The Paraformer's int8 weights and the SeACo decoder's; the LSTM
-        and ``hotword_output_layer`` stay as they are (JAX ``nn.Dense``)."""
-        super().quantize_weights()
-        self.seaco_decoder.quantize_weights()
-        return self
 
     # ------------------------------------------------------------- hotwords
     def hotword_representation(self, hotword_pad: torch.Tensor,

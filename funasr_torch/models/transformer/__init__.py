@@ -1,4 +1,4 @@
-"""The CTC/attention hybrid models (Transformer, Conformer) with their
+"""The CTC/attention hybrid models (Transformer, Conformer, SANM) with their
 Transformer encoder and Transformer / RWKV decoders."""
 
-from funasr_torch.models.transformer.model import Conformer, Transformer  # noqa: F401
+from funasr_torch.models.transformer.model import SANM, Conformer, Transformer  # noqa: F401

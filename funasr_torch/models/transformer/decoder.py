@@ -34,6 +34,7 @@ from torch import nn
 from funasr_torch.models.rwkv import TimeMix
 from funasr_torch.models.sanm import (Dense, LayerNormF32, PositionwiseFeedForward,
                                       masked_softmax)
+from funasr_torch.ops import attention as A
 from funasr_torch.ops.masks import key_mask, sequence_mask
 from funasr_torch.ops.posenc import transformer_encoding
 from funasr_torch.registry import not_ported, tables
@@ -42,7 +43,10 @@ from funasr_torch.registry import not_ported, tables
 class MultiHeadAttention(nn.Module):
     """Scaled dot-product attention: q scaled by d_k^-0.5 before the score
     product in the compute dtype, float32 masked softmax, probabilities cast
-    to v's dtype before the PV product."""
+    to v's dtype before the PV product.  Given a (B, Tk) float32
+    ``key_bias`` in place of a mask (a key mask alone, as the Paraformer SAN
+    decoder's), the attention runs through ``ops/attention.py``
+    ``fused_attention``: float32 scores, the normalised p cast to v's dtype."""
 
     def __init__(self, n_head: int, n_feat: int, dtype: torch.dtype = torch.float32,
                  param_dtype: Optional[torch.dtype] = None):
@@ -56,11 +60,16 @@ class MultiHeadAttention(nn.Module):
         self.linear_out = Dense(n_feat, n_feat, **kw)
 
     def forward(self, q_in: torch.Tensor, kv_in: torch.Tensor,
-                mask: torch.Tensor) -> torch.Tensor:
+                mask: Optional[torch.Tensor], key_bias: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
         B, Tq, _ = q_in.shape
         Tk = kv_in.shape[1]
         H = self.n_head
         d_k = self.n_feat // H
+        if key_bias is not None:
+            ctx = A.fused_attention(self.linear_q(q_in) * (d_k ** -0.5), self.linear_k(kv_in),
+                                    self.linear_v(kv_in), key_bias, H)
+            return self.linear_out(ctx)
         q = self.linear_q(q_in).reshape(B, Tq, H, d_k).transpose(1, 2) * (d_k ** -0.5)
         k = self.linear_k(kv_in).reshape(B, Tk, H, d_k).transpose(1, 2)
         v = self.linear_v(kv_in).reshape(B, Tk, H, d_k).transpose(1, 2)
@@ -83,22 +92,31 @@ class FeedForward(nn.Module):
 
 
 class TransformerDecoderLayer(nn.Module):
+    """Pre-norm self-attention, cross-attention and FFN, each with its
+    residual.  ``fused_ffn``: the FFN is the SANM
+    :class:`~funasr_torch.models.sanm.PositionwiseFeedForward` (fused int8
+    after ``quantize_weights()``), as the Paraformer SAN decoder serves it;
+    else two QDense-rule projections (the cached beam scorer reads them).
+    ``tgt_bias`` / ``mem_bias``: (B, U) / (B, T) key biases in place of the
+    masks, through the fused attention kernel."""
+
     def __init__(self, size: int, n_head: int, linear_units: int,
                  dtype: torch.dtype = torch.float32,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None, fused_ffn: bool = False):
         super().__init__()
         kw = dict(dtype=dtype, param_dtype=param_dtype)
         self.self_attn = MultiHeadAttention(n_head, size, **kw)
         self.src_attn = MultiHeadAttention(n_head, size, **kw)
-        self.feed_forward = FeedForward(size, linear_units, **kw)
+        self.feed_forward = (PositionwiseFeedForward if fused_ffn else FeedForward)(
+            size, linear_units, **kw)
         self.norm1 = LayerNormF32(size, dtype)
         self.norm2 = LayerNormF32(size, dtype)
         self.norm3 = LayerNormF32(size, dtype)
 
-    def forward(self, x, tgt_mask, memory, memory_mask):
+    def forward(self, x, tgt_mask, memory, memory_mask, tgt_bias=None, mem_bias=None):
         h = self.norm1(x)
-        x = x + self.self_attn(h, h, tgt_mask)
-        x = x + self.src_attn(self.norm2(x), memory, memory_mask)
+        x = x + self.self_attn(h, h, tgt_mask, tgt_bias)
+        x = x + self.src_attn(self.norm2(x), memory, memory_mask, mem_bias)
         return x + self.feed_forward(self.norm3(x))
 
 

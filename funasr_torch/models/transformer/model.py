@@ -6,9 +6,9 @@ encoder -> ``ctc.ctc_lo`` log-probs and an autoregressive decoder, combined
 by the joint CTC/attention beam search (``ops/beam_search.py``).  The
 encoder is picked by registry name as the JAX ``make_encoder`` picks it:
 the config's ``encoder`` (``encoder_name``), else the family's default
-(``Transformer``: TransformerEncoder, ``Conformer``: ConformerEncoder;
-Branchformer and E-Branchformer, ``models/branchformer.py``, always take
-their own).  The decoder is ``decoder`` from ``decoder_classes``:
+(``Transformer``: TransformerEncoder, ``Conformer``: ConformerEncoder,
+``SANM``: SANMEncoder, which keeps its ``"pe"`` input layer; Branchformer
+and E-Branchformer, ``models/branchformer.py``, always take their own).  The decoder is ``decoder`` from ``decoder_classes``:
 ``TransformerDecoder`` or ``TransformerRWKVDecoder``
 (``models/transformer/decoder.py``).  As in the JAX package the beam
 scores steps through the KV-cached scorer only when the decoder is exactly
@@ -18,9 +18,8 @@ hypothesis to the encoder frames (``ops/ctc_align.py``: the emissions
 gathered on the device, the Viterbi on the host), the frame spans of its
 timestamps.  No training forward.
 
-Not ported, raising ``NotImplementedError`` that names them: the SANM
-hybrid (model class ``SANM``, or an ``SANMEncoder`` in a hybrid) and the
-``CTC`` model class (ROADMAP.md Queue 1).
+Not ported, raising ``NotImplementedError`` that names it: the ``CTC``
+model class (ROADMAP.md Queue 1).
 
 int8 serving, the JAX package's ``AutoModel(quantize=True)`` path: build
 with ``quantize=True`` (parameters then stored in float32 whatever the
@@ -30,7 +29,10 @@ QDense-rule :class:`~funasr_torch.models.sanm.Dense` layers: int8 where the
 ``ops/quant.py`` gate passes (at the aishell widths the Conformer's and
 E-Branchformer's FFN ``w_1``, and the full-prefix decoder's output layer),
 the compute dtype elsewhere; the position-wise FFNs of the Transformer
-encoder and the RWKV decoder run fused in int8; the JAX package's plain
+encoder and the RWKV decoder run fused in int8, and the SANM hybrid's
+encoder layers 1.. run the fused int8 SANM layer (``ops/sanm_layer.py``,
+head size 64 at the aishell widths; the JAX package takes its XLA int8
+path there: its Pallas layer gates on head sizes of 128); the JAX package's plain
 ``nn.Dense`` layers (``ctc.ctc_lo``, the cgMLP, the RWKV time mix) never
 take int8.  The int8 self-attention KV cache is the separate ``int8_kv``
 argument of :meth:`decode_beam`.
@@ -131,15 +133,11 @@ class _HybridModel(nn.Module):
         family default, with the reference keys the JAX package drops
         removed and ``input_layer`` defaulting to conv2d."""
         name = self.encoder_name or self.default_encoder()
-        if name == "SANMEncoder":
-            raise NotImplementedError(
-                "the SANM hybrid (SANMEncoder in a CTC/attention model) is not ported to "
-                "funasr_torch: its head size 64 needs attention kernel instances the port "
-                "lacks (ROADMAP.md Queue 1)")
         conf = dict(encoder_conf or {})
         for key in _ENCODER_IGNORED:
             conf.pop(key, None)
-        conf.setdefault("input_layer", "conv2d")
+        if name != "SANMEncoder":  # SANM takes "pe" / None, not conv2d
+            conf.setdefault("input_layer", "conv2d")
         return tables.get("encoder_classes", name)(input_size=input_size, dtype=dtype,
                                                     param_dtype=param_dtype, **conf)
 
@@ -281,8 +279,14 @@ class Conformer(_HybridModel):
         return "ConformerEncoder"
 
 
-tables.register("model_classes", "SANM")(not_ported(
-    "model class", "SANM", "the SAN-M CTC/attention hybrid: its head size 64 needs "
-    "attention kernel instances the port lacks"))
+@tables.register("model_classes", "SANM")
+class SANM(_HybridModel):
+    """The Transformer contract with the SANM encoder (reference
+    funasr/models/sanm/model.py:14 ``SANM(Transformer)``)."""
+
+    def default_encoder(self) -> str:
+        return "SANMEncoder"
+
+
 tables.register("model_classes", "CTC")(not_ported("model class", "CTC", "encoder + CTC head"))
 

@@ -12,7 +12,8 @@ funasr_tpu/ops/attention_pallas.py ``_attn_kernel``.  Contract
 
 - q (B, U, H*d), k/v (B, T, H*d), bf16 or float32, in their natural
   layout; the ``d**-0.5`` scale is already applied to q in its dtype; the
-  kernel has instances at head sizes d = 128 (the ASR models) and d = 32
+  kernel has instances at head sizes d = 128 (Paraformer-large), d = 64
+  (the 256-wide aishell encoders and the SAN decoder, 4 heads) and d = 32
   (CT-Transformer punctuation, D = 256 with 8 heads), ``HEAD_SIZES``;
 - key_bias (B, T) float32 additive row: 0 for valid keys, -1e30 padding;
 - scores and softmax in float32; ``p`` is normalised, THEN cast to v's
@@ -38,16 +39,18 @@ projection's output) rounded to bf16 as they are used -- q after the
 zeroed -- bf16 p, and a float32 context.  Its scores, softmax sum and p v
 are summed in float64 and its exp is taken in float64, each rounded once to
 float32, so the result does not depend on the order of the sums and kernel
-and twin agree bit for bit.  (The TPU kernel takes bf16 operands with
+and twin agree bit for bit, at each head size of ``EXACT_HEAD_SIZES`` (128,
+and 64 for the 256-wide SANM layers).  (The TPU kernel takes bf16 operands with
 float32 accumulation; the float64 sums are the port's choice, so that the
 card's int8 model can be held to its twins.)  A product of two bf16 values
 is exact in float64, so the kernel takes the sums to the float64 tensor
 cores (mma.sync m16n8k8 .f64), each value widened once.  The block's
-scores stay in shared memory up to ``EXACT_ONCHIP_MAX_T`` keys; past it
-they go to a float32 (rows, H, U, ld) scratch in device memory, launched on
-as many batch rows at a time as keep it within ``F32CTX_SCRATCH_BYTES``
-(one row at least): :func:`exact_attention_plan` holds that rule.  Its
-launches count in ``attention_f32ctx.launches``.
+scores stay in shared memory up to ``EXACT_ONCHIP_MAX_T`` keys (at both
+head sizes); past it they go to a float32 (rows, H, U, ld) scratch in device
+memory, launched on as many batch rows at a time as keep it within
+``F32CTX_SCRATCH_BYTES`` (one row at least): :func:`exact_attention_plan`
+holds that rule.  Its launches count in ``attention_f32ctx.launches``, and
+by head size in ``attention_f32ctx.launches_by_head``.
 
 The SANM layer's attention with int8 scores (sanm_layer_pallas.py:112-117,
 ``int8_attn``) is :func:`attention_i8qk` with its twin
@@ -57,7 +60,8 @@ inside the kernel, and the scores are ``(float32(q8 k8^T) * qs) * ks^T +
 key_bias``, the int8 dot exact (mma.sync m16n8k32 .s8); the softmax and p v
 are those of :func:`attention_f32ctx` (float64 exp and sums, bf16 p, bf16 v
 zero past ``v_lengths``), so kernel and twin agree bit for bit.  It shares
-the scores rule; its launches count in ``attention_i8qk.launches``.
+the scores rule; its launches count in ``attention_i8qk.launches`` (by
+head size in ``attention_i8qk.launches_by_head``).
 """
 
 from __future__ import annotations
@@ -71,8 +75,8 @@ from funasr_torch.ops import cuda_build
 from funasr_torch.ops import rowquant as RQ
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_SIZE = 128  # the head size of the int8 layers' attention (their only callers)
-HEAD_SIZES = (32, 128)  # fused_attention's instances (attention.cu launch_forward<D>)
+HEAD_SIZES = (32, 64, 128)  # fused_attention's instances (attention.cu launch_forward<D>)
+EXACT_HEAD_SIZES = (64, 128)  # the int8 layers' attention (attention.cu launch_exact<HD>)
 # The int8 layers' attention keeps a block's 64 rows of float32 scores in
 # shared memory for up to this many keys (attention.cu EXACT_ONCHIP_MAX_T);
 # past it they go to a device scratch capped at F32CTX_SCRATCH_BYTES a launch.
@@ -163,7 +167,7 @@ _ARGTYPES_F32CTX = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                     + [ctypes.c_float] + [ctypes.c_void_p] * 2)
 
 
-def _check_qkv(fn: str, q, k, v, key_bias, n_head, head_sizes=(HEAD_SIZE,)):
+def _check_qkv(fn: str, q, k, v, key_bias, n_head, head_sizes):
     B, U, D = q.shape
     T = k.shape[1]
     if D % n_head or D // n_head not in head_sizes:
@@ -198,7 +202,7 @@ def _launch_exact(fn_name: str, symbol: str, q, k, v, key_bias, n_head, q_scale,
     count."""
     if any(t.dtype != torch.float32 for t in (q, k, v)):
         raise ValueError(f"{fn_name}: q/k/v must be float32")
-    B, U, T, D = _check_qkv(fn_name, q, k, v, key_bias, n_head)
+    B, U, T, D = _check_qkv(fn_name, q, k, v, key_bias, n_head, EXACT_HEAD_SIZES)
     _check_aligned(fn_name, q, k, v)
     bias = key_bias.to(torch.float32).contiguous()
     vlen = None
@@ -219,7 +223,7 @@ def _launch_exact(fn_name: str, symbol: str, q, k, v, key_bias, n_head, q_scale,
         status = fn(q[b0].data_ptr(), k[b0].data_ptr(), v[b0].data_ptr(),
                     bias[b0].data_ptr(), None if vlen is None else vlen[b0:].data_ptr(),
                     None if scratch is None else scratch.data_ptr(), out[b0].data_ptr(),
-                    b1 - b0, U, T, n_head, HEAD_SIZE, q_scale, strides,
+                    b1 - b0, U, T, n_head, D // n_head, q_scale, strides,
                     torch.cuda.current_stream(q.device).cuda_stream)
         cuda_build.check(status, f"{fn_name} kernel launch")
     return out, launches
@@ -238,10 +242,12 @@ def attention_f32ctx(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out, n = _launch_exact("attention_f32ctx", "attention_forward_f32ctx", q, k, v,
                            key_bias, n_head, q_scale, v_lengths)
     attention_f32ctx.launches += n
+    attention_f32ctx.launches_by_head[q.shape[-1] // n_head] += n
     return out
 
 
 attention_f32ctx.launches = 0
+attention_f32ctx.launches_by_head = dict.fromkeys(EXACT_HEAD_SIZES, 0)
 
 
 def attention_i8qk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -256,10 +262,12 @@ def attention_i8qk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out, n = _launch_exact("attention_i8qk", "attention_forward_i8qk", q, k, v,
                            key_bias, n_head, q_scale, v_lengths)
     attention_i8qk.launches += n
+    attention_i8qk.launches_by_head[q.shape[-1] // n_head] += n
     return out
 
 
 attention_i8qk.launches = 0
+attention_i8qk.launches_by_head = dict.fromkeys(EXACT_HEAD_SIZES, 0)
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

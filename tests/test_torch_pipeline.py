@@ -17,15 +17,30 @@ through ``init_param``: flax trees for the JAX package, the port's
   does (``_jax_fires``).
 - The port's shared-grid path and its waveform path give the same result.
 - int8 (``quantize=True``, bf16 activations, the opt-in routes off; the JAX
-  package's fused layers forced on in interpret mode): segments equal, and
-  each ASR batch's token lengths equal and upsampled fires equal in number,
-  as ``test_torch_bicif.py``'s int8 bars hold them.  Its third bar, each
-  fire within one frame, does not hold here: with the routes off the two
-  packages' int8 attention differ (float64 sums against the TPU kernel's
-  float32 accumulation), the upsampled alphas differ by up to 0.03 at
-  random weights, and over a 7 s segment their running sum drifts by up to
-  0.2, which moves a fire by two 20 ms frames (measured on this
-  recording).  The fires are held within 2 frames.
+  package's fused layers forced on in interpret mode), against JAX's device
+  program run op by op (``jax.disable_jit()``) and the rest of the JAX
+  pipeline as it is.  Jitted on the CPU, that program is not its own
+  op-by-op function in bf16: XLA fuses the bf16 steps and rounds them its
+  own way (on a random input the first layer norm's output already
+  differs in a fifth of its elements by one bf16 ulp), every int8 rounding
+  tie it moves moves more, and at the encoder output the jitted program is up to 1.23 away
+  from the op-by-op one (|x| <= 4.4; 96 % of the elements differ), where
+  the port is 0.047 away (measured on this recording).  Against the jitted
+  program the fires drift by two frames and a fifth of the tokens differ
+  (the port's record gave 40 stamps to its 41, 38 before the port's bf16
+  ``Dense`` stopped depending on torch's thread count).  The test pins
+  that finding: the jitted encoder is more than ``JIT_GAP`` times as far
+  from the op-by-op one as the port's is.  Against the op-by-op program:
+  segments equal; each ASR batch's token lengths equal and upsampled fires
+  equal in number and within one frame, ``test_torch_bicif.py``'s int8
+  bars; greedy tokens agree on >= 0.99 of the positions where JAX's top-2
+  margin exceeds 0.3 and on >= 0.9 of all, the bars of
+  ``test_torch_paraformer_int8.py`` (measured: 39 of 39, 83 of 87); the
+  record's stamp count is JAX's within the number of token differences at
+  a JAX margin under 0.3 (measured: 40 to 39, 4 such differences).  The
+  port's result is the same at every torch thread count (its CPU bf16
+  ``Dense`` takes the dot in float32 and rounds it before adding the bias,
+  as flax's does; torch's bf16 GEMM blocks its sums by the thread count).
 - Edges: an input shorter than a frame gives ``{"key", "text": ""}``; what
   the port lacks raises ``NotImplementedError``; ``hotword=`` on a main
   model without a bias head is ignored, as the JAX engines ignore it; a
@@ -74,16 +89,18 @@ from funasr_tpu.auto.auto_model import AutoModel as JaxAutoModel
 from funasr_torch import convert as C
 from funasr_torch.auto.auto_model import AutoModel
 from tests.test_torch_bicif import TOKENS, _conf, _init, _jax_fires
+from tests.test_torch_paraformer_int8 import LOGP_ATOL, MIN_AGREE, MIN_AGREE_ALL
 from tests.test_torch_sensevoice import CONF as SV_CONF, TOKENS as SV_TOKENS
 from tests.test_torch_vad import (CONF as VAD_CONF, calibrated_params, init_params,
                                   recording, tone)
-from tests.torch_threads import default_torch_threads, one_torch_thread  # noqa: F401
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 VAD_CFG = dict(model="FsmnVADStreaming", encoder="FSMN", encoder_conf=VAD_CONF,
                frontend_conf=dict(n_mels=80, lfr_m=5, lfr_n=1),
                model_conf=dict(max_end_silence_time=500))
-FIRE_FRAMES = 2  # int8: port and JAX upsampled fires, in 20 ms frames
+FIRE_FRAMES = 1  # int8: port and JAX upsampled fires, in 20 ms frames
 BAR_ULPS = 8  # past 15 s: port's fused int8 encoder against JAX's XLA int8 path
+JIT_GAP = 8  # int8 encoder: JAX jitted against op by op, over the port against op by op
 PUNC_CFG = dict(model="CTTransformer", vocab_size=len(TOKENS),
                 tokenizer_conf={"token_list": TOKENS}, embed_unit=64, att_unit=64,
                 encoder_conf=dict(output_size=64, attention_heads=2, linear_units=96,
@@ -242,12 +259,11 @@ def test_generate_paraformer_matches_jax(tmp_path):
     assert joint == jam.generate(wav, key=["p"], punc_mode="joint")
 
 
-def test_generate_int8_matches_jax(monkeypatch, tmp_path, default_torch_threads):
-    # torch's own thread count: the port's bf16 CPU rounding moves with it,
-    # and at one or two threads the record has 38 stamps to JAX's 41
-    # (ROADMAP.md Queue 3)
+def test_generate_int8_matches_jax(monkeypatch, tmp_path):
+    from funasr_tpu.models.bicif_paraformer import model as JBM
     from funasr_tpu.ops import decoder_layer_pallas as JDL
     from funasr_tpu.ops import ffn_pallas as JFP
+    from funasr_tpu.ops import quant as JQ
     from funasr_tpu.ops import sanm_layer_pallas as JSL
     from funasr_torch.auto import engines as TE
 
@@ -264,13 +280,29 @@ def test_generate_int8_matches_jax(monkeypatch, tmp_path, default_torch_threads)
     monkeypatch.setattr(JSL, "_call", sanm_spy)
     jam, port = _pair(tmp_path, asr_cfg(conf=_conf(256, 2, 256, 3, 2)), quantize=True,
                       jax_dtype="bfloat16")
+
+    def timestamps(self, speech, speech_lengths, max_tokens=128):
+        """JAX's ``timestamps`` and its log-probs and input features."""
+        log_probs, token_lengths, pred = self.inference_logits(speech, speech_lengths,
+                                                               max_tokens)
+        return (jnp.argmax(log_probs, axis=-1), token_lengths, pred.us_alphas, pred.us_peaks,
+                log_probs, speech, speech_lengths)
+
+    monkeypatch.setattr(JBM.BiCifParaformer, "timestamps", timestamps)
     outs = {"jax": [], "port": []}
     real_fb = JE.BiCifEngine._fb_runner
 
     def fb_runner(self):
+        """JAX's device program op by op; its first four outputs go on to the
+        JAX pipeline."""
         run = real_fb(self)
-        return lambda *a: (outs["jax"].append([np.asarray(x) for x in run(*a)]),
-                           outs["jax"][-1])[1]
+
+        def op_by_op(*a):
+            with jax.disable_jit():
+                out = run(*a)
+            outs["jax"].append([np.asarray(x) for x in out])
+            return out[:4]
+        return op_by_op
 
     monkeypatch.setattr(JE.BiCifEngine, "_fb_runner", fb_runner)
     real_run = TE.BiCifEngine.run_ts_fbank
@@ -286,17 +318,44 @@ def test_generate_int8_matches_jax(monkeypatch, tmp_path, default_torch_threads)
     assert not am.engine.module.encoder.encoders[0].int8_attn
     wav = long_recording()
     assert am.vad_engine.segments_shared(wav)[0] == jam.vad_engine.segments_shared(wav)[0]
+    got = am.generate(wav, key=["q"])[0]
     with pltpu.force_tpu_interpret_mode():
         want = jam.generate(wav, key=["q"])[0]
-    got = am.generate(wav, key=["q"])[0]
     assert calls["sanm"] and len(outs["jax"]) == len(outs["port"]) >= 1
-    for (gt, gl, _, gp), (wt, wl, wa, wp) in zip(outs["port"], outs["jax"]):
+    same = clear = clear_same = n = low_diff = 0
+    for (gt, gl, _, gp), (wt, wl, wa, wp, lp, _, _) in zip(outs["port"], outs["jax"]):
         np.testing.assert_array_equal(gl, wl)
         for g, w in zip(gp, _jax_fires(wp, wa)):
             g, w = np.nonzero(g)[0], np.nonzero(w)[0]
             assert len(g) == len(w) > 0 and np.abs(g - w).max() <= FIRE_FRAMES, (g, w)
-    assert len(got["timestamp"]) == len(want["timestamp"]) and got["text"]
-    assert [len(s["timestamp"]) for s in got["sentence_info"]] or not want["sentence_info"]
+        top2 = np.sort(lp.astype(np.float32), axis=-1)[..., -2:]
+        for b, u in enumerate(wl.tolist()):
+            eq = gt[b, :u] == wt[b, :u]
+            sure = top2[b, :u, 1] - top2[b, :u, 0] > 2 * LOGP_ATOL
+            same, n = same + eq.sum(), n + u
+            clear, clear_same = clear + sure.sum(), clear_same + (eq & sure).sum()
+            low_diff += (~eq & ~sure).sum()
+    assert clear >= 8 and clear_same >= MIN_AGREE * clear, (clear_same, clear)
+    assert same >= MIN_AGREE_ALL * n, (same, n)
+    assert got["text"] and want["text"] and got["timestamp"]
+    assert abs(len(got["timestamp"]) - len(want["timestamp"])) <= low_diff, (
+        len(got["timestamp"]), len(want["timestamp"]), low_diff)
+    assert len(got["timestamp"]) == sum(len(s["timestamp"]) for s in got["sentence_info"])
+
+    # the pinned JAX finding: its jitted program is not its op-by-op function
+    speech, lens = (jnp.asarray(x) for x in outs["jax"][0][5:7])
+    module, params = jam.engine.module, jam.engine.params
+    encode = lambda p, x, l: module.apply(p, x, l, True, method=module.encode)[0]
+    with JQ.quantized(True), pltpu.force_tpu_interpret_mode():
+        op_enc = encode(params, speech, lens)
+        jit_enc = jax.jit(encode)(params, speech, lens)
+    with torch.inference_mode():
+        port_enc = am.engine.module.encode(torch.from_numpy(np.asarray(speech, np.float32)),
+                                           torch.from_numpy(np.asarray(lens)))[0]
+    f32 = lambda x: np.asarray(x, np.float32)[0, :int(lens[0])]
+    port_gap = np.abs(f32(port_enc.float()) - f32(op_enc.astype(jnp.float32))).max()
+    jit_gap = np.abs(f32(jit_enc.astype(jnp.float32)) - f32(op_enc.astype(jnp.float32))).max()
+    assert jit_gap > JIT_GAP * port_gap, (jit_gap, port_gap)
 
 
 def test_edges_and_not_ported(monkeypatch, bicif_pair, tmp_path):

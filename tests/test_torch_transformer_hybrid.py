@@ -316,7 +316,7 @@ def test_recipe_behind_vad_and_punctuation():
 
 
 @pytest.mark.parametrize("what", [
-    "model SANM", "encoder SANMEncoder", "model CTC",
+    "model CTC",
     "LightweightConvolutionTransformerDecoder", "LightweightConvolution2DTransformerDecoder",
     "DynamicConvolutionTransformerDecoder", "DynamicConvolution2DTransformerDecoder"])
 def test_not_ported_raises_naming_itself(what):
@@ -324,8 +324,6 @@ def test_not_ported_raises_naming_itself(what):
                 frontend_conf=dict(n_mels=80, lfr_m=1, lfr_n=1))
     if what.startswith("model "):
         conf["model"], name = what.split()[1], what.split()[1]
-    elif what.startswith("encoder "):
-        conf["encoder"], name = what.split()[1], "SANM"
     else:
         conf["decoder"], name = what, what
     with pytest.raises(NotImplementedError, match=name):

@@ -6,14 +6,10 @@ every worker process starts such a pool, so six workers on eight cores
 oversubscribe the cores several times over.  Each ``tests/test_torch_*.py``
 module imports :func:`one_torch_thread` (autouse, module scope): its tests
 run torch on one thread, and the module's teardown gives the count back.
-A test whose comparison was set at torch's own thread count asks for
-:func:`default_torch_threads`.
 """
 
 import pytest
 import torch
-
-DEFAULT_THREADS = torch.get_num_threads()
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -22,11 +18,3 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(before)
-
-
-@pytest.fixture
-def default_torch_threads():
-    """torch's thread count as the process started with it, for one test."""
-    torch.set_num_threads(DEFAULT_THREADS)
-    yield
-    torch.set_num_threads(1)
