@@ -230,6 +230,28 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    (``check_head64_kernels``): ``attention_forward<64>`` bf16 and float32
    against its twin beside SDPA, the exact-sum entries, ``int8_gemm_rq`` at
    (8000, 256, 256) with the FSMN and the SANM layer at D = 256 bit-equal;
+   then (h) Whisper large-v3 at full width (``end_to_end_whisper``; D =
+   1280, 32 + 32 blocks, 20 heads of 64, 128 mels, vocab 51866, seeded
+   random weights) through ``AutoModel(model={"model": "Whisper", "size":
+   "large-v3"}, vad_model=FSMN-VAD, punc_model=CT-Transformer)``, bf16: (h0)
+   ``attention_forward<64>`` at its three shapes (the encoder's (8, 1500,
+   1280), one query over the 1500 encoder states, one over the 65-key
+   cache) in bf16 and float32 against its twin, timed by events and CUDA
+   graph beside SDPA; (h1) ``WhisperEngine.transcribe`` of B = 8 windows of
+   30-2 s audio, 64 tokens, the d = 64 kernel launched exactly 32 + 64 x 32
+   x 2 times and nothing else, no host sync in the frontend's or the
+   decode's dispatch, the kernels' tokens against the twins' (fed the
+   kernels' prefix, >= 0.9 equal, every difference at a twin top-2 margin
+   within 2^-4: a bf16 tie), >= 16 distinct tokens, the batch's
+   wall, encoder and decode spans and a profile (launches a step, idle
+   share); float32 on two rows (log-probs within 1e-2, predictions equal
+   but at ties within 1e-3); (h2)
+   ``WhisperLID`` over the 100 language tokens (probabilities within 1e-2
+   of the twins', ``transcribe_with_lid`` counters exact, tokens at the
+   (h1) rule); (h3) ``generate`` of the 600 s recording on pipeline (b)'s
+   plan, each segment one 30 s window, counters exact, no host sync in a
+   dispatch, each batch's tokens at the (h1) rule; punctuation gets no
+   text (the repository has no Whisper tokenizer);
 4. print one ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -242,9 +264,10 @@ BiCif batch with the routes on and off to ``DIR/profile_e2e.txt``,
 times and segments in ``DIR/pipeline.json``), for one streaming window
 step, ``DIR/profile_streaming.txt`` and, for one SenseVoice README call,
 ``DIR/profile_sensevoice.txt`` and, for one contextual ``generate`` with
-hotwords, ``DIR/profile_contextual.txt`` (those three are profiled in every
-run).  Device time by kernel group, and the share of
-each batch's span spent in kernels, is printed for every batch profiled;
+hotwords, ``DIR/profile_contextual.txt`` and, for one Whisper batch,
+``DIR/profile_whisper.txt`` (those four are profiled in every run).  Device
+time by kernel group, and the share of each batch's span spent in kernels,
+is printed for every batch profiled;
 the beam batch is always profiled (its device time beside its host time).
 Without CUDA, or without the rest of the repository beside it, the script
 exits non-zero before printing any result.
@@ -5088,6 +5111,399 @@ def end_to_end_sanm_family(torch, FK, A, CP, card, B=32):
     return total, e2e
 
 
+# ------------------------------------------------------------------ phase (h)
+WHISPER_CFG = dict(model="Whisper", size="large-v3", max_tokens=64)  # the JAX AutoModel's route
+WHISPER_SEED = 2060
+WHISPER_AUDIO_S = (30, 27, 22, 18, 12, 9, 5, 2)  # (h1)'s batch: one 30 s window a row
+WHISPER_LANGS = tuple(range(50259, 50359))  # large-v3's language tokens
+WHISPER_F32_ROWS = 2  # (h1)'s float32 run: its first rows
+# bf16, kernels against twins, both fed the kernels' tokens (so one tie does
+# not carry into the rest of its row): every logit within WHISPER_LOGIT_TOL
+# of the twin's (measured 0.0503-0.0547).  At a vocabulary of 51866 random bf16 logits under 4 in
+# magnitude (spaced 2^-6) tie or nearly tie on a few steps a row, so the
+# predictions may differ, but only where the twins' top-2 margin is within
+# WHISPER_TIE_MARGIN (measured 0 to 2^-5), and they agree on at least
+# WHISPER_MIN_AGREE of the steps (measured 0.960-0.971)
+WHISPER_LOGIT_TOL = 0.1
+WHISPER_TIE_MARGIN = 2.0 ** -5
+WHISPER_MIN_AGREE = 0.95
+WHISPER_MIN_DISTINCT = 16  # distinct tokens in (h1)'s batch: no fixed point
+WHISPER_LID_TOL = 1e-2  # detect_language probabilities, kernels against twins, abs
+# float32 log-probs on the same prefix, kernels against twins (measured
+# 2.9e-6); a prediction may differ only where the twins' top-2 margin is
+# within twice that bar
+WHISPER_F32_LOGP_TOL = 3e-5
+
+
+def whisper_launches(config, steps, calls=1):
+    """``fused_attention`` launches of ``calls`` greedy decodes of ``steps``
+    steps: the encoder's self-attention once a layer, then each step the
+    decoder's self- and cross-attention once a layer."""
+    return calls * (config.encoder_layers + 2 * config.decoder_layers * steps)
+
+
+def check_whisper_kernels(torch, A):
+    """(h0) ``fused_attention`` at head size 64 at Whisper large-v3's shapes
+    (B = 8, 20 heads of 64, one 30 s window: T = 1500 keys): the encoder's
+    self-attention (8, 1500, 1280) with no key masked, the cross-attention of
+    one query over the encoder states (edge: only the keys of the last,
+    ragged 64-key tile, 1472-1499) and the cached self-attention of one query
+    over the (8, 65, 1280) cache with keys <= 32 (edges: <= 0, one key, and
+    <= 64, every key), bf16 and float32 against the twin, timed by events and
+    CUDA graph beside the twin and SDPA.  The bar is ``ATTN_TOL`` of the
+    output's scale: x min(1, max |twin|), since at 1500 keys an output
+    averages many values and is a few hundredths in size."""
+    import torch.nn.functional as F
+
+    B, T, D, H, L = 8, 1500, 1280, 20, 65
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    d = D // H
+    ragged = T - T % 64
+    cases = []
+    # (name, queries, keys, the timed case's key range, the edges' key ranges)
+    for name, U, Tk, keys, edges in (
+            ("encoder self-attention", T, T, (0, T), ()),
+            ("cross-attention", 1, T, (0, T), ((ragged, T),)),
+            ("cache self-attention", 1, L, (0, 33), ((0, 1), (0, L)))):
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = "bfloat16" if dtype == torch.bfloat16 else "float32"
+
+            def rand(*shape):
+                return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+            def key_bias(lo, hi):
+                bias = torch.full((B, Tk), -1e30, device="cuda")
+                bias[:, lo:hi] = 0.0
+                return bias
+
+            q, k, v = rand(B, U, D) / d ** 0.5, rand(B, Tk, D), rand(B, Tk, D)
+            errs, bars = [], []
+            for lo, hi in (keys,) + edges:
+                bias = key_bias(lo, hi)
+                got = A.fused_attention(q, k, v, bias, H)
+                want = A.attention_ref(q, k, v, bias, H)
+                check(bool(torch.isfinite(got).all()), f"(h0) attention {name} finite")
+                errs.append(float((got.float() - want.float()).abs().max()))
+                bars.append(ATTN_TOL[dn] * min(1.0, float(want.float().abs().max())))
+                check(errs[-1] <= bars[-1], f"(h0) attention {name} {dn} at keys {lo}-{hi - 1}:"
+                      f" max err {errs[-1]} > {bars[-1]}")
+            n_keys = keys[1] - keys[0]
+            bias = key_bias(*keys)
+            run = lambda: A.fused_attention(q, k, v, bias, H)  # noqa: E731
+            q4, k4, v4 = (x.unflatten(-1, (H, d)).transpose(1, 2) for x in (q, k, v))
+            mask = None if n_keys == Tk else bias[:, None, None, :].to(dtype)
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q4, k4, v4, attn_mask=mask, scale=1.0)
+            el = q.element_size()
+            nbytes = el * (2 * B * U * D + 2 * B * n_keys * D) + 4 * B * Tk
+            bnd, by = bound_ms(nbytes, {dn: 4.0 * B * U * n_keys * D})
+            case = dict(case=f"{name} q({B},{U},{D}) kv({B},{Tk},{D}) {dn}, H={H}, "
+                             f"{n_keys} keys", max_abs_err=errs[0], tolerance=bars[0],
+                        ms=cuda_ms(run, iters=20, warmup=5),
+                        graph_ms=graph_ms(run), plain_ms=cuda_ms(
+                            lambda: A.attention_ref(q, k, v, bias, H), iters=3, warmup=1),
+                        library_ms=cuda_ms(sdpa, iters=20, warmup=5),
+                        library_graph_ms=graph_ms(sdpa), bound_ms=bnd, bound_by=by)
+            if edges:
+                case["edges"] = [dict(keys=f"{lo}-{hi - 1}", max_abs_err=e, tolerance=t)
+                                 for (lo, hi), e, t in zip(edges, errs[1:], bars[1:])]
+            log(f"attention (h0) {case}")
+            cases.append(case)
+    return cases
+
+
+def whisper_forced(torch, FK, A, wrap, feats, tokens, forced=()):
+    """``wrap.greedy_decode`` fed ``tokens`` after the start token and
+    ``forced``, on the kernels and on their twins: (kernels' predictions,
+    kernels' logits, twins' predictions, twins' logits), logits float32."""
+    pred_k, logits_k = wrap.greedy_decode(feats, forced_tokens=forced, tokens=tokens,
+                                          return_logits=True)
+    with plain_twins(FK, A):
+        pred_t, logits_t = wrap.greedy_decode(feats, forced_tokens=forced, tokens=tokens,
+                                              return_logits=True)
+    return pred_k, logits_k.float(), pred_t, logits_t.float()
+
+
+def whisper_agreement(torch, FK, A, wrap, feats, tokens, tag, forced=()):
+    """The served bf16 decode's ``tokens`` fed back on the kernels and on
+    the twins: the kernels predict ``tokens`` again, every logit within
+    ``WHISPER_LOGIT_TOL`` of the twins', the twins' predictions equal on at
+    least ``WHISPER_MIN_AGREE`` of the steps and, where they differ, the
+    twins' top-2 margin within ``WHISPER_TIE_MARGIN`` (a bf16 tie)."""
+    pred_k, logits_k, pred, logits_t = whisper_forced(torch, FK, A, wrap, feats, tokens, forced)
+    dlogit = float((logits_k - logits_t).abs().max())
+    top2 = logits_t.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    del logits_k, logits_t
+    differ = pred != tokens
+    agree = 1.0 - float(differ.float().mean())
+    worst = float(margin[differ].max()) if bool(differ.any()) else 0.0
+    firsts = []
+    for b in range(tokens.shape[0]):
+        bad = differ[b].nonzero()
+        if len(bad):
+            t = int(bad[0])
+            firsts.append(dict(row=b, step=t, twin_margin=float(margin[b, t])))
+    log(f"e2e (h) {tag}: kernels vs twins, tokens fed the kernels' prefix: max |dlogit| "
+        f"{dlogit} (bar {WHISPER_LOGIT_TOL}); agreement {agree:.5f} (bar {WHISPER_MIN_AGREE}); "
+        f"largest twin margin where they differ {worst} (bar {WHISPER_TIE_MARGIN}); first "
+        f"differing steps {firsts}")
+    check(torch.equal(pred_k, tokens), f"(h) {tag}: the kernels fed their own tokens predict "
+          "other ones")
+    check(dlogit <= WHISPER_LOGIT_TOL and agree >= WHISPER_MIN_AGREE
+          and worst <= WHISPER_TIE_MARGIN, f"(h) {tag}: max |dlogit| {dlogit}, token "
+          f"agreement {agree}, twin margin {worst} where they differ")
+    return dict(agreement=agree, logit_max_abs_diff=dlogit, first_differences=firsts)
+
+
+def end_to_end_whisper(torch, FK, A, CP, profile_dir, card):
+    """Phase (h): Whisper large-v3 at full width (D = 1280, 32 + 32 layers,
+    20 heads of 64, 128 mels, vocab 51866) on seeded random weights
+    (``init_weights_``), served through ``AutoModel(model={"model":
+    "Whisper", "size": "large-v3"}, vad_model=FSMN-VAD,
+    punc_model=CT-Transformer)``, bf16.  (h1) ``WhisperEngine.transcribe``
+    of B = 8 windows (30, 27, 22, 18, 12, 9, 5 and 2 s of audio), 64
+    tokens: ``fused_attention`` at d = 64 launched exactly 32 + 64 x 32 x 2
+    times and nothing else, no host sync in the frontend's or the decode's
+    dispatch, the kernels against the twins fed the kernels' tokens
+    (:func:`whisper_agreement`: logits within ``WHISPER_LOGIT_TOL``, >=
+    ``WHISPER_MIN_AGREE`` equal, each difference a bf16 tie of the twins'
+    logits, ``WHISPER_TIE_MARGIN``), >= ``WHISPER_MIN_DISTINCT`` distinct
+    tokens; the batch's wall, the encoder's and the decode's spans and, in a
+    profile, launches a step and the idle share; float32 on
+    ``WHISPER_F32_ROWS`` rows: log-probs on the twins' tokens within
+    ``WHISPER_F32_LOGP_TOL``, the predictions equal but at ties within twice
+    that.  (h2) ``WhisperLID`` over large-v3's 100 language tokens:
+    ``detect_language`` within ``WHISPER_LID_TOL`` of the twins',
+    ``transcribe_with_lid`` counters exact and its tokens at the (h1) rule.
+    (h3) ``generate`` of the 600 s recording on pipeline (b)'s plan: each
+    segment one 30 s window, counters exact (fbank once for the VAD, d = 64
+    attention per batch), no host sync in a dispatch, each batch's tokens at
+    the (h1) rule; punctuation gets no text (no Whisper tokenizer in the
+    repository).  Returns (launches, e2e record)."""
+    import numpy as np
+
+    from funasr_torch.auto.auto_model import AutoModel
+    from funasr_torch.auto.engines import WhisperEngine
+    from funasr_torch.models.whisper.model import WhisperLID, WhisperWrap
+    from funasr_torch.utils.vad_utils import merge_vad, slice_audio_by_segments
+
+    zero, read = hybrid_counters(FK, A, CP)
+    e2e, paths = {}, {}
+    _, vad_cfg, punc_cfg = pipeline_configs()
+    t0 = time.time()
+    am = AutoModel(model=WHISPER_CFG, vad_model=vad_cfg, punc_model=punc_cfg, seed=WHISPER_SEED)
+    eng = am.engine
+    wrap, config = eng.model, eng.model.config
+    blocks = (len(wrap.model.encoder.blocks), len(wrap.model.decoder.blocks))
+    n_params = sum(p.numel() for p in wrap.model.parameters())
+    check(isinstance(eng, WhisperEngine) and wrap.dtype == torch.bfloat16
+          and blocks == (32, 32) and config.d_model == 1280
+          and config.encoder_attention_heads == 20 and config.num_mel_bins == 128
+          and config.vocab_size == 51866 and config.max_source_positions == 1500,
+          "(h) Whisper large-v3 at full width built through AutoModel, bf16")
+    log(f"e2e (h) Whisper {WHISPER_CFG['size']}: AutoModel (bf16, FSMN-VAD, CT-Transformer) "
+        f"built in {time.time() - t0:.1f} s; {n_params / 1e9:.3f} B parameters, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    steps = eng.max_tokens
+    per_batch = whisper_launches(config, steps)
+    rng = np.random.default_rng(7)
+    wavs = [waveform(rng, int(s * FS), 110.0 + 13 * i) for i, s in enumerate(WHISPER_AUDIO_S)]
+    B = len(wavs)
+
+    # ---- (h1) WhisperEngine.transcribe, bf16, B = 8
+    eng.transcribe(wavs[:2])  # warm-up: the frontend's tables, cuBLAS
+    eng.frontend.batch = sync_guarded(torch, eng.frontend.batch)
+    guarded = sync_guarded(torch, wrap.greedy_decode)
+    walls, spans, outs = [], [], []
+
+    def decode(f, **kw):  # the guarded decode, its tokens kept
+        outs.append(guarded(f, **kw))
+        return outs[-1]
+
+    wrap.greedy_decode = decode
+    try:
+        for _ in range(2):
+            clock = StageClock(torch)
+            clock.wrap(wrap, "encode", "encoder", events=True)
+            clock.wrap(wrap, "greedy_decode", "decode", events=True)
+            zero()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = eng.transcribe(wavs)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            clock.restore()
+            spans.append((clock.device_ms("encoder"), clock.device_ms("decode")))
+            launches = read()
+            want = dict.fromkeys(launches, 0)
+            want.update(attention=per_batch, attention_d64=per_batch)
+            check(launches == want, f"(h1) launches {launches}, want {want}")
+    finally:
+        for obj, attr in ((eng.frontend, "batch"), (wrap, "greedy_decode")):
+            delattr(obj, attr)
+    paths["h1"] = launches
+    feats, toks = eng.frontend.batch(wavs), outs[-1]
+    eos = config.eos_token_id
+    for r, row in zip(res, toks.tolist()):
+        check(r["text"] == "" and r["raw_tokens"] == (row[: row.index(eos)] if eos in row
+                                                      else row), "(h1) records")
+    distinct = len(set(toks.flatten().tolist()))
+    check(distinct >= WHISPER_MIN_DISTINCT, f"(h1) {distinct} distinct tokens in the batch "
+          f"(< {WHISPER_MIN_DISTINCT}): a fixed point")
+    agreement = whisper_agreement(torch, FK, A, wrap, feats, toks, "(h1) bf16")
+    enc_ms = [e for e, _ in spans]
+    step_ms = [(dd - e) / steps for e, dd in spans]
+    log(f"e2e (h1) Whisper on {card}: B={B} windows of {list(WHISPER_AUDIO_S)} s audio, "
+        f"{steps} tokens: wall {[round(w, 4) for w in walls]} s, encoder span "
+        f"{[round(x, 3) for x in enc_ms]} ms, decode {[round(x, 3) for x in step_ms]} ms a "
+        f"step; launches {launches}; {distinct} distinct tokens")
+    e2e["whisper_h1"] = dict(B=B, audio_s=list(WHISPER_AUDIO_S), max_tokens=steps,
+                             transcribe_wall_s=walls, encoder_span_ms=enc_ms,
+                             decode_ms_per_step=step_ms, launches=launches,
+                             distinct_tokens=distinct, twins=agreement, parameters=n_params)
+    batch_ms = 1e3 * min(walls)
+    prof = profile(torch, lambda: eng.transcribe(wavs), profile_dir, batch_ms,
+                   "profile_whisper.txt")
+    prof["kernel launches a decode step"] = prof["kernel launches"] / steps
+    prof["idle share"] = 1.0 - prof["kernel share of batch_ms"]
+    e2e["whisper_h1"]["profile"] = prof
+
+    # float32 on WHISPER_F32_ROWS rows: the same seeded draws, unrounded
+    w32 = WhisperWrap(size=WHISPER_CFG["size"], dtype=torch.float32, seed=WHISPER_SEED)
+    f2 = feats[:WHISPER_F32_ROWS]
+    zero()
+    toks32 = w32.greedy_decode(f2, max_tokens=steps)
+    launches32 = read()
+    check(launches32["attention_d64"] == launches32["attention"] == per_batch,
+          f"(h1) float32 launches {launches32}")
+    paths["h1_f32"] = launches32
+    with plain_twins(FK, A):  # the twins' own greedy decode
+        toks32_t = w32.greedy_decode(f2, max_tokens=steps)
+    pred_k, logits_k, pred_t, logits_t = whisper_forced(torch, FK, A, w32, f2, toks32_t)
+    dlogp = float((logits_k.log_softmax(-1) - logits_t.log_softmax(-1)).abs().max())
+    top2 = logits_t.topk(2, dim=-1).values
+    differ = pred_k != toks32_t
+    worst = float((top2[..., 0] - top2[..., 1])[differ].max()) if bool(differ.any()) else 0.0
+    free = bool(torch.equal(toks32, toks32_t))
+    check(torch.equal(pred_t, toks32_t) and bool(torch.isfinite(logits_k).all())
+          and dlogp <= WHISPER_F32_LOGP_TOL and worst <= 2 * WHISPER_F32_LOGP_TOL,
+          f"(h1) float32: kernels against twins (|dlogp| {dlogp}, predictions differ at "
+          f"{int(differ.sum())} steps, twin margin up to {worst} there)")
+    log(f"e2e (h1) float32 B={WHISPER_F32_ROWS}: on the twins' tokens max |dlogp| {dlogp:.3e} "
+        f"(tol {WHISPER_F32_LOGP_TOL}), predictions differ at {int(differ.sum())} steps (twin "
+        f"margin up to {worst}, bar {2 * WHISPER_F32_LOGP_TOL}); greedy tokens equal {free}")
+    e2e["whisper_h1_f32"] = dict(B=WHISPER_F32_ROWS, logp_max_abs_diff=dlogp,
+                                 predictions_differing=int(differ.sum()),
+                                 greedy_tokens_equal=free)
+    del w32, logits_k, logits_t
+    torch.cuda.empty_cache()
+
+    # ---- (h2) WhisperLID over large-v3's language tokens
+    lid = WhisperLID(size=WHISPER_CFG["size"], seed=WHISPER_SEED,
+                     language_token_ids=WHISPER_LANGS)
+    zero()
+    probs = sync_guarded(torch, lid.detect_language)(feats, WHISPER_LANGS)
+    check(read()["attention_d64"] == whisper_launches(config, 1), "(h2) detect_language launches")
+    with plain_twins(FK, A):
+        probs_t = lid.detect_language(feats, WHISPER_LANGS)
+    perr = float((probs - probs_t).abs().max())
+    check(perr <= WHISPER_LID_TOL, f"(h2) detect_language |dprob| {perr} > {WHISPER_LID_TOL}")
+    zero()
+    toks_l, probs_l = lid.transcribe_with_lid(feats, max_tokens=steps)
+    launches_l = read()
+    best = probs_l.argmax(-1).cpu()
+    groups = sorted(set(best.tolist()))
+    want_l = whisper_launches(config, 1) + whisper_launches(config, steps + 1, len(groups))
+    check(launches_l["attention_d64"] == launches_l["attention"] == want_l,
+          f"(h2) transcribe_with_lid launches {launches_l}, want {want_l}")
+    paths["h2"] = launches_l
+    lid_agree = []
+    for g in groups:
+        rows = (best == g).nonzero()[:, 0].to(feats.device)
+        lid_agree.append(whisper_agreement(torch, FK, A, lid, feats[rows], toks_l[rows],
+                                           f"(h2) language {WHISPER_LANGS[g]}",
+                                           forced=[WHISPER_LANGS[g]]))
+    log(f"e2e (h2) WhisperLID: detect_language max |dprob| {perr:.3e} (tol "
+        f"{WHISPER_LID_TOL}); languages {[WHISPER_LANGS[g] for g in best.tolist()]}; "
+        f"launches {launches_l}")
+    e2e["whisper_h2"] = dict(prob_max_abs_diff=perr, groups=len(groups),
+                             twins=lid_agree, launches=launches_l)
+    del lid
+    torch.cuda.empty_cache()
+
+    # ---- (h3) behind FSMN-VAD and CT-Transformer, 600 s on (b)'s plan
+    ve, pm = am.vad_engine, am.punc_engine.model
+    wav, bursts = pipeline_recording(np.random.default_rng(12))
+    plan = merge_vad(bursts, 15000)
+    clips = slice_audio_by_segments(wav, plan, FS)
+    shapes = [len(batch) for batch in am.batches(plan, FS, 300)]
+
+    def generate():
+        clock, captured = StageClock(torch), []
+        real = wrap.greedy_decode
+
+        def decode(f, **kw):
+            out = real(f, **kw)
+            captured.append((f, out))
+            return out
+
+        wrap.greedy_decode = sync_guarded(torch, decode)
+        eng.frontend.batch = sync_guarded(torch, eng.frontend.batch)
+        ve.model.segments_from_posteriors = (
+            lambda post, db, f=ve.model.segments_from_posteriors: (f(post, db), plan)[1])
+        clock.wrap(ve, "front", "vad_device", events=True)
+        clock.wrap(ve.model, "segments_from_posteriors", "vad_host")
+        clock.wrap(eng, "transcribe", "asr")
+        clock.wrap(wrap, "encode", "encoder", events=True)
+        clock.wrap(wrap, "greedy_decode", "asr_device", events=True)
+        clock.wrap(pm, "inference_batch", "punc")
+        zero()
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = am.generate(wav, key=["h3"])[0]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        finally:
+            clock.restore()
+            for obj, attr in ((wrap, "greedy_decode"), (eng.frontend, "batch"),
+                              (ve.model, "segments_from_posteriors")):
+                delattr(obj, attr)
+        times = dict(generate_wall_s=wall, audio_s_per_s=PIPELINE_AUDIO_S / wall,
+                     vad_device_ms=clock.device_ms("vad_device"),
+                     vad_host_wall_s=clock.wall.get("vad_host", 0.0),
+                     asr_wall_s=clock.wall.get("asr", 0.0),
+                     asr_device_span_ms=clock.device_ms("asr_device", span=True),
+                     encoder_ms=clock.device_ms("encoder"),
+                     punc_wall_s=clock.wall.get("punc", 0.0))
+        return res, read(), times, captured
+
+    first = generate()[2]  # the first call at these shapes
+    res, launches3, times, captured = generate()
+    want = dict.fromkeys(launches3, 0)
+    want.update(fbank=1, attention=len(shapes) * per_batch, attention_d64=len(shapes) * per_batch)
+    log(f"e2e (h3) Whisper 600 s: {len(plan)} segments in batches of {shapes} windows; "
+        f"kernel launches {launches3}")
+    check(launches3 == want, f"(h3) launches {launches3}, want {want}")
+    check(res == {"key": "h3", "text": "", "timestamp": []} and times["punc_wall_s"] == 0.0,
+          f"(h3) the record {res}: no text, so no punctuation")
+    check([f.shape[0] for f, _ in captured] == shapes and sum(shapes) == len(clips),
+          "(h3) every segment decoded")
+    agree3 = [whisper_agreement(torch, FK, A, wrap, f, tk, f"(h3) batch {i} of {len(shapes)}")
+              for i, (f, tk) in enumerate(captured)]
+    log(f"e2e (h3) on {card}: {json.dumps(times)}; the first call {json.dumps(first)}; "
+        "punctuation got no text: the repository has no Whisper tokenizer, so every "
+        "record's text is empty")
+    paths["h3"] = launches3
+    e2e["whisper_h3"] = dict(times, first_call=first, segments=len(plan), batches=shapes,
+                             launches=launches3, twins=agree3)
+    del am, eng, wrap
+    torch.cuda.empty_cache()
+    total = {k: sum(d.get(k, 0) for d in paths.values()) for k in read()}
+    return total, e2e
+
+
 def profile(torch, run, out_dir, batch_ms, fname):
     """Device kernel time by group for one batch (``run()``), and the share
     of the batch's span (``batch_ms``, CUDA events) spent in kernels.  The
@@ -5266,6 +5682,11 @@ def main(argv=None) -> int:
     launches_g, e2e_g = end_to_end_sanm_family(torch, FK, A, CP, smi)
     e2e.update(e2e_g)
     log(f"phase (g) done in {time.time() - t1:.1f} s")
+    t1 = time.time()
+    whisper_cases = check_whisper_kernels(torch, A)
+    launches_h, e2e_h = end_to_end_whisper(torch, FK, A, CP, args.profile, smi)
+    e2e.update(e2e_h)
+    log(f"phase (h) done in {time.time() - t1:.1f} s")
     log(f"end to end done in {time.time() - t0:.1f} s")
     log(f"e2e summary {json.dumps(e2e, sort_keys=True)}")
 
@@ -5283,7 +5704,8 @@ def main(argv=None) -> int:
                    "contextual": launches_ctx.get(name, 0),
                    "hybrid_align": launches_hyb.get(name, 0),
                    "aishell": launches_ais.get(name, 0),
-                   "sanm_family": launches_g.get(name, 0)}
+                   "sanm_family": launches_g.get(name, 0),
+                   "whisper": launches_h.get(name, 0)}
         return dict(name=name, route="cuda", source=sources[0], sources=sources,
                     replaces=replaces, launches=sum(by_path.values()),
                     launches_by_path=by_path, shape=main_case["case"],
@@ -5303,9 +5725,11 @@ def main(argv=None) -> int:
         # the same kernel's head-size-32 instance: punctuation's attention
         entry("attention_d32", ["funasr_torch/csrc/attention.cu"],
               "funasr_tpu/ops/attention_pallas.py:37", d32_cases[0], d32_cases),
-        # its head-size-64 instance: the 256-wide models (4 heads)
+        # its head-size-64 instance: the 256-wide models (4 heads) and Whisper
+        # (20 heads at large-v3)
         entry("attention_d64", ["funasr_torch/csrc/attention.cu"],
-              "funasr_tpu/ops/attention_pallas.py:37", d64["attention"][0], d64["attention"]),
+              "funasr_tpu/ops/attention_pallas.py:37", d64["attention"][0],
+              d64["attention"] + whisper_cases),
         # the int8 layers' exact-sum attention at head size 64 (the
         # float32-context entry on the main path; the int8-score one beside)
         entry("attention_f32ctx_d64", ["funasr_torch/csrc/attention.cu"],

@@ -13,6 +13,8 @@ Entry points (``auto.auto_model.AutoModel``, the long-audio pipeline;
 ``models.transformer.model.Conformer`` and ``Transformer``,
 ``models.branchformer.Branchformer`` and ``EBranchformer``,
 ``models.fsmn_vad.model.FsmnVADStreaming``,
+``models.whisper.model.WhisperWrap`` and ``WhisperLID`` with
+``auto.engines.WhisperEngine``,
 ``models.ct_transformer.model.CTTransformerModel``; streaming:
 ``models.paraformer_streaming.model.ParaformerStreaming`` with
 ``frontends.streaming.StreamingFrontend``, and

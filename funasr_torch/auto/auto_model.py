@@ -35,7 +35,12 @@ config's ``encoder`` (Conformer, Transformer and SANM), ``decoder``
 (EParaformer too, sos/eos filtered by id), ``BiCifEngine``,
 ``HotwordEngine`` (``seaco=False`` for ContextualParaformer),
 ``SenseVoiceEngine``, ``HybridEngine``; the ``CTC`` class raises
-``NotImplementedError``); a
+``NotImplementedError``); Whisper, WhisperWrap and WhisperLID as the JAX
+AutoModel routes them (``size``, ``model_path_hf`` an openai ``.pt``,
+``config_overrides``, ``max_tokens``; bf16 whatever ``dtype``/``quantize``
+say; ``WhisperEngine``, which behind a VAD runs each batch when it is
+finalized, as the JAX pipeline does for an engine without an async entry;
+a tokenizer raises ``NotImplementedError``); a
 FsmnVADStreaming or CTTransformer config as the main model serves VAD or
 punctuation alone.  ``generate(hotword=...)`` decodes a SeacoParaformer or
 a ContextualParaformer with its bias; as in the JAX package a call with a
@@ -98,6 +103,7 @@ from funasr_torch.auto.engines import (
     SenseVoiceEngine,
     SpkEngine,
     VadEngine,
+    WhisperEngine,
 )
 from funasr_torch.config import deep_update, load_config
 from funasr_torch.device import resolve_device
@@ -115,6 +121,8 @@ _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
            "float32": torch.float32, "fp32": torch.float32}
 # the CTC/attention hybrids the JAX AutoModel serves through HybridEngine
 _HYBRIDS = ("Conformer", "Transformer", "SANM", "Branchformer", "EBranchformer")
+# the Whisper classes the JAX AutoModel routes to WhisperEngine (auto_model.py:392)
+_WHISPERS = ("Whisper", "WhisperWrap", "WhisperLID")
 
 
 def _resolve_cfg(model: Union[str, Dict, None], conf: Optional[Dict]) -> Dict:
@@ -216,13 +224,16 @@ class AutoModel:
             return self._build_punc(cfg)
         if name == "FsmnVADStreaming":  # standalone VAD: segment lists out
             return self._build_vad(cfg)
+        if name in _WHISPERS:
+            return self._build_whisper(cfg)
         if name not in ("Paraformer", "EParaformer", "BiCifParaformer", "SeacoParaformer",
                         "ContextualParaformer", "SenseVoiceSmall") + _HYBRIDS:
             raise NotImplementedError(f"AutoModel: no engine for model class {name!r} in "
                                       "the port (Paraformer, EParaformer, BiCifParaformer, "
                                       "SeacoParaformer, ContextualParaformer, "
                                       "SenseVoiceSmall, Conformer, Transformer, SANM, "
-                                      "Branchformer, EBranchformer)")
+                                      "Branchformer, EBranchformer, Whisper, WhisperWrap, "
+                                      "WhisperLID)")
         tokenizer = _build_tokenizer(cfg)
         frontend = _build_frontend(cfg)
         dtype = cfg.get("dtype") or ("bfloat16" if self._quantize else "float32")
@@ -270,6 +281,22 @@ class AutoModel:
                                  device=self.device, seaco=name == "SeacoParaformer")
         eng = BiCifEngine if name == "BiCifParaformer" else ParaformerEngine
         return eng(module, frontend, tokenizer, blank_id=module.blank_id, device=self.device)
+
+    def _build_whisper(self, cfg: Dict) -> WhisperEngine:
+        """The JAX route (auto_model.py:392-402): ``size``, ``model_path_hf``
+        (an openai ``.pt``), ``config_overrides``, ``max_tokens``; bf16 whatever
+        ``dtype``/``quantize`` say; seeded random weights without a path."""
+        if cfg.get("tokenizer") or cfg.get("tokenizer_conf"):
+            raise NotImplementedError("AutoModel: a Whisper tokenizer is not ported (the JAX "
+                                      "package's WhisperTokenizer needs HF tokenizer files)")
+        if cfg.get("init_param"):
+            raise NotImplementedError("AutoModel: Whisper weights load from model_path_hf "
+                                      "(an openai-whisper .pt), not init_param")
+        module = tables.get("model_classes", cfg["model"])(
+            size=cfg.get("size", "tiny"), model_path=cfg.get("model_path_hf"),
+            config_overrides=cfg.get("config_overrides", {}), device=self.device,
+            seed=self.seed)
+        return WhisperEngine(module, None, max_tokens=cfg.get("max_tokens", 64))
 
     def _build_sense_voice(self, cfg: Dict, tokenizer, frontend: FrontendConfig,
                            dtype: torch.dtype) -> SenseVoiceEngine:
@@ -475,10 +502,10 @@ class AutoModel:
             if shared:
                 fin = self.engine.transcribe_from_fbank_async(
                     raw_fbank, [segments[i] for i in batch], offsets, total_frames)
-            elif isinstance(self.engine, HybridEngine):
-                # the beam reads a host flag every step: each batch runs
-                # when it is finalized (the JAX pipeline's fallback for an
-                # engine without an async entry)
+            elif not hasattr(self.engine, "transcribe_async"):
+                # the hybrid beam (a host flag every step) and Whisper: each
+                # batch runs when it is finalized (the JAX pipeline's fallback
+                # for an engine without an async entry)
                 fin = (lambda c=[clips[i] for i in batch], o=offsets: self.engine.transcribe(
                     c, with_timestamp=with_timestamp, vad_offsets=o))
             else:

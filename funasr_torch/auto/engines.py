@@ -1,5 +1,5 @@
 """Serving engines (port of the Paraformer, BiCif, hotword, SenseVoice, Hybrid,
-VAD, speaker and punctuation parts of funasr_tpu/auto/engines.py).
+Whisper, VAD, speaker and punctuation parts of funasr_tpu/auto/engines.py).
 
 The engine owns the model, the frontend and the tokenizer and exposes a
 batched ``transcribe``: pack waveforms into a bucketed (B, N) batch, run
@@ -40,8 +40,10 @@ speaker chunks through the fbank kernel and CAM++, one batch per chunk
 length.  ``SenseVoiceEngine`` serves SenseVoiceSmall: prompts for the
 language and text norm, greedy CTC, rich tags decoded on the host and,
 with timestamps, a CTC forced alignment whose emissions are gathered on
-the device and whose Viterbi runs on the host.  Meshes and sequence
-parallelism are later slices.
+the device and whose Viterbi runs on the host.  ``WhisperEngine`` serves
+Whisper and WhisperLID: a 30 s log-mel window a waveform and the greedy
+decode over the KV cache, every attention through the head-size-64 kernel.
+Meshes and sequence parallelism are later slices.
 """
 
 from __future__ import annotations
@@ -638,6 +640,41 @@ class HybridEngine(BatchedAsrEngine):
             if nbest > 1:
                 res_i["nbest"] = [hyp_result(i, k) for k in range(nbest)]
             results.append(res_i)
+        return results
+
+
+class WhisperEngine:
+    """Whisper-family models from raw audio (``engines.py:825`` of the JAX
+    package): one 30 s log-mel window a waveform (``WhisperFrontend``, one
+    upload and one frontend pass a batch), the model's greedy decode on the
+    device, one read back, tokens cut at eos on the host.  ``text`` is ""
+    without a tokenizer; ``transcribe`` ignores the pipeline's
+    ``with_timestamp``/``vad_offsets``.  ``model`` is a ``WhisperWrap`` or
+    ``WhisperLID``."""
+
+    def __init__(self, model, tokenizer=None, max_tokens: int = 64, forced_tokens=None):
+        from funasr_torch.frontends.whisper_frontend import WhisperFrontend
+
+        self.model = model
+        self.tokenizer = tokenizer
+        self.max_tokens = max_tokens
+        self.forced_tokens = list(forced_tokens or [])
+        self.frontend = WhisperFrontend(n_mels=model.config.num_mel_bins, device=model.device)
+
+    def transcribe(self, wavs: Sequence[np.ndarray], **kw) -> List[Dict[str, Any]]:
+        if not len(wavs):
+            return []
+        toks = self.model.greedy_decode(self.frontend.batch(wavs), max_tokens=self.max_tokens,
+                                        forced_tokens=self.forced_tokens)
+        toks = fetched(*fetch_async([toks]))[0].numpy()
+        eos = self.model.config.eos_token_id
+        results = []
+        for row in toks:
+            ids = row.tolist()
+            if eos in ids:
+                ids = ids[: ids.index(eos)]
+            text = self.tokenizer.decode(ids) if self.tokenizer is not None else ""
+            results.append({"text": text, "raw_tokens": ids})
         return results
 
 

@@ -4,7 +4,7 @@ The inverses of funasr_tpu/convert.py ``paraformer_from_torch`` (:205),
 ``bicif_paraformer_from_torch`` (:228),
 ``contextual_paraformer_from_torch`` (:238), ``seaco_paraformer_from_torch``
 (:292), ``conformer_from_torch`` (:398) with ``_std_transformer_decoder_tree``
-(:1383), ``fsmn_vad_from_torch`` (:332),
+(:1383), ``fsmn_vad_from_torch`` (:332), ``whisper_from_openai_pt`` (:1133),
 ``ct_transformer_from_torch`` (:385), ``sense_voice_from_torch`` (:481) and
 ``campplus_from_torch`` (:517), written for the port (no import of the JAX
 package): each takes the flax tree with numpy leaves and returns the state
@@ -550,4 +550,52 @@ def campplus_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     sd["xvector.dense.linear.weight"] = _t(
         np.asarray(params["dense_linear"]["kernel"]).T[..., None])
     bn("xvector.dense.nonlinear.batchnorm", "dense_bn")
+    return sd
+
+
+_WHISPER_ATTN = (("self_attn", "attn"), ("encoder_attn", "cross_attn"))
+_WHISPER_PROJ = (("q_proj", "query"), ("k_proj", "key"), ("v_proj", "value"),
+                 ("out_proj", "out"))
+_WHISPER_NORMS = (("self_attn_layer_norm", "attn_ln"), ("encoder_attn_layer_norm", "cross_attn_ln"),
+                  ("final_layer_norm", "mlp_ln"))
+
+
+def whisper_from_jax(params: Mapping, config) -> Dict[str, torch.Tensor]:
+    """HF flax Whisper params (``{"model": {"encoder", "decoder"}}``, numpy
+    leaves; what funasr_tpu's ``WhisperWrap`` holds) -> the port's
+    openai-whisper ``state_dict`` (``encoder.blocks.{i}.attn.query`` ...,
+    ``decoder.token_embedding``), float32.  Flax Dense ``(in, out)`` ->
+    ``(out, in)``, Conv ``(K, in, out)`` -> ``(out, in, K)``, LayerNorm
+    ``scale`` -> ``weight``, embeddings ``embedding`` -> the table.
+    ``config`` (HF's or the port's) gives the layer counts.  The inverse is
+    funasr_tpu/convert.py ``whisper_from_openai_pt``."""
+    tree = params.get("params", params)["model"]
+    sd: Dict[str, torch.Tensor] = {}
+
+    def conv(t, node):
+        sd[f"{t}.weight"] = _t(np.transpose(np.asarray(node["kernel"]), (2, 1, 0)))
+        sd[f"{t}.bias"] = _t(node["bias"])
+
+    def block(t, node, attns):
+        for jn, tn in attns:
+            for jp, tp in _WHISPER_PROJ:
+                _dense(sd, f"{t}.{tn}.{tp}", node[jn][jp])
+        for jn, tn in _WHISPER_NORMS:
+            if jn in node:
+                _norm(sd, f"{t}.{tn}", node[jn])
+        _dense(sd, f"{t}.mlp.0", node["fc1"])
+        _dense(sd, f"{t}.mlp.2", node["fc2"])
+
+    enc, dec = tree["encoder"], tree["decoder"]
+    conv("encoder.conv1", enc["conv1"])
+    conv("encoder.conv2", enc["conv2"])
+    sd["encoder.positional_embedding"] = _t(enc["embed_positions"]["embedding"])
+    for i in range(config.encoder_layers):
+        block(f"encoder.blocks.{i}", enc["layers"][str(i)], _WHISPER_ATTN[:1])
+    _norm(sd, "encoder.ln_post", enc["layer_norm"])
+    sd["decoder.token_embedding.weight"] = _t(dec["embed_tokens"]["embedding"])
+    sd["decoder.positional_embedding"] = _t(dec["embed_positions"]["embedding"])
+    for i in range(config.decoder_layers):
+        block(f"decoder.blocks.{i}", dec["layers"][str(i)], _WHISPER_ATTN)
+    _norm(sd, "decoder.ln", dec["layer_norm"])
     return sd

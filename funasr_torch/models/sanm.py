@@ -80,6 +80,20 @@ class LayerNormF32(nn.Module):
         return ln_f32(x, self.weight, self.bias, self.eps).to(self.dtype)
 
 
+def rounded_once(op, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``op(x, w)`` (a dot or a convolution) in x's dtype.  On the CPU an op
+    in another dtype than float32 runs in float32 and rounds once (torch's
+    CPU bf16 GEMM blocks its sums by the thread count)."""
+    if x.device.type == "cpu" and x.dtype != torch.float32:
+        return op(x.to(torch.float32), w.to(torch.float32)).to(x.dtype)
+    return op(x, w)
+
+
+def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w.T`` in x's dtype (:func:`rounded_once`)."""
+    return rounded_once(F.linear, x, w)
+
+
 class Dense(nn.Linear):
     """``nn.Linear`` computing in ``dtype`` (flax ``nn.Dense(dtype=...)``):
     the input, weight and bias are cast to it.  The weights are stored in
@@ -122,13 +136,7 @@ class Dense(nn.Linear):
         if self.w8 is not None and Q.gate(x.numel() // x.shape[-1], self.out_features):
             linear = QM.quant_matmul if self.qmm else Q.int8_linear
             return linear(x, self.w8, self.sw, self.bias_q)
-        w = self.matrix().to(dt)
-        if x.device.type == "cpu" and dt != torch.float32:
-            # torch's CPU bf16 GEMM blocks its sums by the thread count: the
-            # dot in float32, rounded once
-            y = F.linear(x.to(torch.float32), w.to(torch.float32)).to(dt)
-        else:
-            y = F.linear(x, w)
+        y = dot(x, self.matrix().to(dt))
         # flax's Dense rounds its dot to dtype, then adds the bias in dtype
         return y if self.bias is None else y + self.bias.to(dt)
 
