@@ -248,10 +248,37 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    but at ties within 1e-3); (h2)
    ``WhisperLID`` over the 100 language tokens (probabilities within 1e-2
    of the twins', ``transcribe_with_lid`` counters exact, tokens at the
-   (h1) rule); (h3) ``generate`` of the 600 s recording on pipeline (b)'s
-   plan, each segment one 30 s window, counters exact, no host sync in a
+   (h1) rule); (h3) ``generate`` of the 600 s recording's first 150 s on
+   pipeline (b)'s plan (one batch), each segment one 30 s window, counters exact, no host sync in a
    dispatch, each batch's tokens at the (h1) rule; punctuation gets no
-   text (the repository has no Whisper tokenizer);
+   text (the repository has no Whisper tokenizer); then (i) the transducer
+   family and emotion2vec: (i0) the WKV kernel bit-equal to its twin at
+   RWKV-BAT's (8, 1536, 256), the RWKV decoder's (80, 97, 256) and edges,
+   timed beside its chain floor (``wkv_chain_floor``), and the float32
+   d = 64 attention with ALiBi at emotion2vec base's (8, 759, 768), 12
+   heads, 10 extra tokens, ragged keys, within 1e-4 of its twin (at zero
+   slopes bit-equal to the kernel without ALiBi) beside SDPA with the same
+   float bias; (i1) the Transducer over the aishell Conformer encoder
+   (``TRANSDUCER_YAML``: 12 x 256, conv2d; the JAX prediction network and
+   joint at 256; vocab 4234) through ``AutoModel``,
+   ``TransducerEngine.transcribe`` of the beam cell's B = 32 x 15 s batch
+   in int8 and float32 under a stated weight rule (``weight_rule``:
+   random joints emit at every attempt), counters exact (fbank 1, int8: 24
+   gated FFN ``w_1``), no host sync in the dispatch, int8 tokens and
+   records equal on the int8 twins, float32 decisions fed the kernels'
+   decisions equal on >= 0.99 on the fbank twin, >= 16 distinct tokens,
+   at most half the rows at 128 tokens; (i2) RWKV-BAT (the JAX
+   ``RWKVEncoder`` defaults: 256 wide, 6 blocks) on B = 8 x 15 s, float32,
+   WKV 6 launches a batch, tokens equal on the WKV twin; (i3) the int8
+   Transducer behind FSMN-VAD and CT-Transformer on pipeline (b)'s plan,
+   counters exact, the record equal on the int8 twins; (i4) emotion2vec base
+   (768 wide, 4 + 8 blocks, 12 heads of 64, 9 labels) through
+   ``AutoModel(model={"model": "Emotion2vec"})`` on B = 8 utterances of
+   15-2 s, float32: the ALiBi kernel launched 12 times a batch, no host
+   sync in the dispatch, scores within 1e-4 of the twins', labels equal
+   where the twins' top-2 margin exceeds it, feats within 1e-4 x max
+   |twin|.  Phase (f2)'s counters include the RWKV decoder's 6 WKV
+   launches a decoder call;
 4. print one ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -264,8 +291,10 @@ BiCif batch with the routes on and off to ``DIR/profile_e2e.txt``,
 times and segments in ``DIR/pipeline.json``), for one streaming window
 step, ``DIR/profile_streaming.txt`` and, for one SenseVoice README call,
 ``DIR/profile_sensevoice.txt`` and, for one contextual ``generate`` with
-hotwords, ``DIR/profile_contextual.txt`` and, for one Whisper batch,
-``DIR/profile_whisper.txt`` (those four are profiled in every run).  Device
+hotwords, ``DIR/profile_contextual.txt``, for one Whisper batch,
+``DIR/profile_whisper.txt``, for one int8 Transducer batch,
+``DIR/profile_transducer.txt`` and, for one emotion2vec batch,
+``DIR/profile_emotion2vec.txt`` (those six are profiled in every run).  Device
 time by kernel group, and the share of each batch's span spent in kernels,
 is printed for every batch profiled;
 the beam batch is always profiled (its device time beside its host time).
@@ -4232,9 +4261,13 @@ def hybrid_configs():
 
 
 def beam_twins(CP):
-    """The beam path's twins: the CTC prefix step and the int8 blocks."""
+    """The beam path's twins: the CTC prefix step, the WKV recurrence (the
+    RWKV decoder) and the int8 blocks."""
+    from funasr_torch.ops import wkv as W
+
     stack = contextlib.ExitStack()
-    stack.enter_context(swapped([(CP, "ctc_prefix_step", CP.ctc_prefix_step_ref)]))
+    stack.enter_context(swapped([(CP, "ctc_prefix_step", CP.ctc_prefix_step_ref),
+                                 (W, "wkv", W.wkv_ref)]))
     stack.enter_context(int8_twins())
     return stack
 
@@ -4248,23 +4281,27 @@ def hybrid_counters(FK, A, CP):
     from funasr_torch.ops import rowquant as RQ
     from funasr_torch.ops import sanm_layer as SL
 
+    from funasr_torch.ops import wkv as W
+
     counters = {"ctc_prefix_step": CP.ctc_prefix_step, "ctc_prefix": CP.ctc_recurrence,
                 "fbank": FK.fused_fbank, "int8_gemm": G.int8_gemm, "rowquant": RQ.rowquant,
                 "attention": A.fused_attention, "sanm_layer": SL.fused_sanm_layer,
                 "decoder_layer": DL.fused_decoder_layer, "ffn": FF.fused_ffn_int8,
                 "int8_gemm_rq": G.int8_gemm_rq, "fsmn": FM.fsmn, "fsmn_ln": FM.fsmn_ln,
-                "attention_f32ctx": A.attention_f32ctx}
+                "attention_f32ctx": A.attention_f32ctx, "wkv": W.wkv}
 
     def zero():
         for fn in counters.values():
             fn.launches = 0
         A.fused_attention.launches_by_head = dict.fromkeys(A.HEAD_SIZES, 0)
+        A.fused_attention.launches_alibi = 0
         A.attention_f32ctx.launches_by_head = dict.fromkeys(A.EXACT_HEAD_SIZES, 0)
 
     def read():
         out = {k: fn.launches for k, fn in counters.items()}
         out["attention_d32"] = A.fused_attention.launches_by_head[32]
         out["attention_d64"] = A.fused_attention.launches_by_head[64]
+        out["attention_alibi64"] = A.fused_attention.launches_alibi
         out["attention_f32ctx_d64"] = A.attention_f32ctx.launches_by_head[64]
         return out
 
@@ -4290,9 +4327,10 @@ HYBRID_INT8 = {
     "branchformer": dict(enc_ffn=0, enc_dense=(), dec_ffn=0, dec_dense=()),
     # 12 blocks x 2 macaron FFN w_1 (linear_units 1024; w_2 has N = 256)
     "ebranchformer": dict(enc_ffn=0, enc_dense=(1024,) * 24, dec_ffn=0, dec_dense=()),
-    # the Conformer's 24 w_1; a decoder call: 6 position-wise FFNs and the
-    # output layer (N = 4234)
-    "conformer_rwkv": dict(enc_ffn=0, enc_dense=(2048,) * 24, dec_ffn=6, dec_dense=(4234,)),
+    # the Conformer's 24 w_1; a decoder call: 6 position-wise FFNs, the
+    # output layer (N = 4234) and (not int8) 6 WKV launches, one a time mix
+    "conformer_rwkv": dict(enc_ffn=0, enc_dense=(2048,) * 24, dec_ffn=6, dec_dense=(4234,),
+                           dec_wkv=6),
     # the SANM encoder (phase (g3)): encoders0 off the fused path (its
     # attention the d = 64 kernel, its FFN fused int8, its projections of N
     # 768 and 256 under the gate), then 11 fused int8 SANM layers; 4 heads
@@ -4303,7 +4341,7 @@ INT8_MIN_ROWS = INT8_MIN_N = 1024  # the JAX package's int8 gate (ops/quant.py:6
 
 
 def hybrid_batch_launches(layout, B, n_samples, beam, maxlen, dec_calls):
-    """The int8 launches of one hybrid batch of B x ``n_samples`` by the
+    """The int8 (and WKV) launches of one hybrid batch of B x ``n_samples`` by the
     stated layout ``HYBRID_INT8[layout]``: a fused int8 FFN is one ``ffn``
     launch of two rowquant and two int8 GEMM launches; a QDense of N
     outputs whose rows M pass the gate (M, N >= 1024) is one rowquant and
@@ -4318,7 +4356,8 @@ def hybrid_batch_launches(layout, B, n_samples, beam, maxlen, dec_calls):
     q = (gated(B * encoder_frames(n_samples), lay["enc_dense"])
          + dec_calls * gated(B * beam * (maxlen + 1), lay["dec_dense"]))
     s = lay.get("enc_sanm", 0)  # a fused SANM layer: three pairs, wout, attention
-    out = dict(ffn=f, int8_gemm=2 * f + q + 3 * s, rowquant=2 * f + q + 3 * s)
+    out = dict(ffn=f, int8_gemm=2 * f + q + 3 * s, rowquant=2 * f + q + 3 * s,
+               wkv=dec_calls * lay.get("dec_wkv", 0))
     if s:
         from funasr_torch.ops import attention as A
 
@@ -4741,7 +4780,7 @@ def hybrid_recipe_batch(torch, A, CP, card, am, name, B, zero, read, tag):
                    decoder_call_profile=prof)
         log(f"e2e {tag} {name} on {card}: one full-prefix decoder call ({M} x "
             f"{served.maxlen + 1} tokens) {ms:.2f} ms, {prof['kernel launches']} kernel "
-            f"launches")
+            f"launches (13820 when the WKV recurrence was a Python loop)")
         del enc, enc_rep
     log(f"e2e {tag} {name} on {card}: transcribe with timestamps "
         f"{[round(w, 3) for w in walls]} s wall, {steps} decode steps "
@@ -5128,6 +5167,9 @@ WHISPER_LOGIT_TOL = 0.1
 WHISPER_TIE_MARGIN = 2.0 ** -5
 WHISPER_MIN_AGREE = 0.95
 WHISPER_MIN_DISTINCT = 16  # distinct tokens in (h1)'s batch: no fixed point
+# (h3) decodes the 600 s recording's first 150 s (one batch; all of it took 3
+# batches and put the script past 700 s once phase (i) came)
+WHISPER_H3_S = 150
 WHISPER_LID_TOL = 1e-2  # detect_language probabilities, kernels against twins, abs
 # float32 log-probs on the same prefix, kernels against twins (measured
 # 2.9e-6); a prediction may differ only where the twins' top-2 margin is
@@ -5276,8 +5318,8 @@ def end_to_end_whisper(torch, FK, A, CP, profile_dir, card):
     that.  (h2) ``WhisperLID`` over large-v3's 100 language tokens:
     ``detect_language`` within ``WHISPER_LID_TOL`` of the twins',
     ``transcribe_with_lid`` counters exact and its tokens at the (h1) rule.
-    (h3) ``generate`` of the 600 s recording on pipeline (b)'s plan: each
-    segment one 30 s window, counters exact (fbank once for the VAD, d = 64
+    (h3) ``generate`` of the 600 s recording's first ``WHISPER_H3_S`` s on
+    pipeline (b)'s plan (one batch): each segment one 30 s window, counters exact (fbank once for the VAD, d = 64
     attention per batch), no host sync in a dispatch, each batch's tokens at
     the (h1) rule; punctuation gets no text (no Whisper tokenizer in the
     repository).  Returns (launches, e2e record)."""
@@ -5432,10 +5474,12 @@ def end_to_end_whisper(torch, FK, A, CP, profile_dir, card):
     del lid
     torch.cuda.empty_cache()
 
-    # ---- (h3) behind FSMN-VAD and CT-Transformer, 600 s on (b)'s plan
+    # ---- (h3) behind FSMN-VAD and CT-Transformer: the 600 s recording's first
+    # WHISPER_H3_S s on (b)'s plan (one batch: the script's time)
     ve, pm = am.vad_engine, am.punc_engine.model
     wav, bursts = pipeline_recording(np.random.default_rng(12))
-    plan = merge_vad(bursts, 15000)
+    wav = wav[: WHISPER_H3_S * FS]
+    plan = [s for s in merge_vad(bursts, 15000) if s[1] <= WHISPER_H3_S * 1000]
     clips = slice_audio_by_segments(wav, plan, FS)
     shapes = [len(batch) for batch in am.batches(plan, FS, 300)]
 
@@ -5470,7 +5514,7 @@ def end_to_end_whisper(torch, FK, A, CP, profile_dir, card):
             for obj, attr in ((wrap, "greedy_decode"), (eng.frontend, "batch"),
                               (ve.model, "segments_from_posteriors")):
                 delattr(obj, attr)
-        times = dict(generate_wall_s=wall, audio_s_per_s=PIPELINE_AUDIO_S / wall,
+        times = dict(generate_wall_s=wall, audio_s_per_s=WHISPER_H3_S / wall,
                      vad_device_ms=clock.device_ms("vad_device"),
                      vad_host_wall_s=clock.wall.get("vad_host", 0.0),
                      asr_wall_s=clock.wall.get("asr", 0.0),
@@ -5483,7 +5527,7 @@ def end_to_end_whisper(torch, FK, A, CP, profile_dir, card):
     res, launches3, times, captured = generate()
     want = dict.fromkeys(launches3, 0)
     want.update(fbank=1, attention=len(shapes) * per_batch, attention_d64=len(shapes) * per_batch)
-    log(f"e2e (h3) Whisper 600 s: {len(plan)} segments in batches of {shapes} windows; "
+    log(f"e2e (h3) Whisper {WHISPER_H3_S} s: {len(plan)} segments in batches of {shapes} windows; "
         f"kernel launches {launches3}")
     check(launches3 == want, f"(h3) launches {launches3}, want {want}")
     check(res == {"key": "h3", "text": "", "timestamp": []} and times["punc_wall_s"] == 0.0,
@@ -5502,6 +5546,587 @@ def end_to_end_whisper(torch, FK, A, CP, profile_dir, card):
     torch.cuda.empty_cache()
     total = {k: sum(d.get(k, 0) for d in paths.values()) for k in read()}
     return total, e2e
+
+
+# ---------------------------------------------- phase (i): transducers and emotion2vec
+TRANSDUCER_YAML = "examples/aishell/conformer/conf/conformer_12e_6d_2048_256.yaml"
+TRANSDUCER_SEED, BAT_SEED, E2V_SEED = 2070, 2071, 2072
+TRANSDUCER_V = 4234  # the aishell vocabulary, a single-CJK-char token list
+TRANSDUCER_B, BAT_B = 32, 8  # rows of 15 s: the beam cell's batch; BAT's
+# The weight rule of (i1)-(i3), fixed before any comparison: with random
+# joint weights a non-blank token wins almost every emit attempt, so every
+# row would stop at max_tokens (and a blank bias from the first attempt's
+# margins alone stops the decode after a token: the synthetic frames barely
+# vary; a random encoder's output barely varies over time either: its spread
+# over frames is a few hundredths of its size).  So ``weight_rule``
+# recentres the joint's ``lin_enc`` on a probe batch's mean encoder frame
+# (8 rows of 15 s, pitches across the batch's range: the random Conformer's
+# mean frame depends on the length),
+# scaled to unit spread, and raises the blank logit's bias
+# by the shift that makes the probe emit TR_TOKENS_PER_S tokens a second,
+# by bisection over TR_RULE_STEPS greedy decodes: once on the int8
+# Transducer (the float32 one and (i3) take its tensors: the same seeded
+# weights) and once on RWKV-BAT (the probe's first 5 s).
+TR_TOKENS_PER_S = 2.0
+TR_RULE_STEPS = 8
+TR_PROBE_SEED = 99
+TR_MIN_DISTINCT = 16  # distinct tokens a batch: no fixed point
+TR_F32_MIN_AGREE = 0.99  # float32 decisions, twins fed the kernels' decisions
+E2V_AUDIO_S = (15, 13, 11, 9, 7, 5, 3, 2)  # (i4)'s batch
+E2V_TOL = 1e-4  # scores abs; feats x max |twin|; the ALiBi kernel's float32 bar
+
+
+def check_wkv(torch):
+    """(i0) the WKV kernel against its twin, bit for bit, at BAT's served
+    shape (8 x 15 s: 1536 frames, C = 256), the RWKV decoder's (B K = 80
+    hypotheses, maxlen + 1 = 97) and edges (T = 1, C = 33, one row, keys far
+    above and below the running max, -1e30 keys); the served shape timed by
+    events and CUDA graph beside the twin and the chain floor
+    (``wkv_chain_floor``).  Bound: the larger of the bytes (k and v read
+    once, out written once) and the chain floor (T dependent steps), which
+    the chain reaches first."""
+    import ctypes
+
+    from funasr_torch.ops import cuda_build
+    from funasr_torch.ops import wkv as W
+
+    floor_fn = cuda_build.function("wkv", "wkv_chain_floor",
+                                   [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    cases = []
+    for B, T, C, scale, what in ((BAT_B, 1536, 256, 1.0, "BAT encoder, 8 x 15 s"),
+                                 (80, 97, 256, 1.0, "RWKV decoder call, B K = 80"),
+                                 (2, 1, 64, 1.0, "edge: T = 1"),
+                                 (3, 40, 33, 3.0, "edge: C = 33"),
+                                 (1, 77, 256, 1.0, "edge: one row"),
+                                 (2, 50, 64, 60.0, "edge: keys x 60, some at -1e30")):
+        k = scale * torch.randn((B, T, C), generator=gen, device="cuda")
+        if scale > 10:
+            k[:, ::7] = -1e30
+        v = torch.randn((B, T, C), generator=gen, device="cuda")
+        w = torch.exp(torch.randn(C, generator=gen, device="cuda"))
+        u = torch.randn(C, generator=gen, device="cuda")
+        got, want = W.wkv(k, v, w, u), W.wkv_ref(k, v, w, u)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"wkv {what} finite")
+        check(torch.equal(got, want), f"wkv {what}: not bit-equal to its twin (max err "
+              f"{float((got - want).abs().max())})")
+        case = dict(case=f"{what}: k, v ({B}, {T}, {C}) f32", max_abs_err=0.0, tolerance=0.0,
+                    bit_equal=True)
+        if not cases:
+            out = torch.empty(32, device="cuda")
+            floor = lambda: cuda_build.check(floor_fn(  # noqa: E731
+                T, out.data_ptr(), torch.cuda.current_stream().cuda_stream), "wkv chain floor")
+            chain = graph_ms(floor)
+            t_bytes, _ = bound_ms(12.0 * B * T * C + 8.0 * C, {})
+            case.update(ms=cuda_ms(lambda: W.wkv(k, v, w, u), iters=20),
+                        graph_ms=graph_ms(lambda: W.wkv(k, v, w, u)),
+                        plain_ms=cuda_ms(lambda: W.wkv_ref(k, v, w, u), iters=1, warmup=1),
+                        chain_floor_ms=chain, bytes_bound_ms=t_bytes,
+                        bound_ms=max(t_bytes, chain),
+                        bound_by="operations" if chain >= t_bytes else "bytes",
+                        library_ms=None)
+        log(f"wkv {case}")
+        cases.append(case)
+    return cases
+
+
+def check_alibi_attention(torch, A):
+    """(i0) the float32 d = 64 attention with ALiBi at emotion2vec base's
+    shape (B = 8, T = 759: 749 frames of 15 s and 10 extra tokens, 12 heads
+    of 64, ragged key masks), within ``ATTN_TOL`` of the twin; edges: no
+    extra tokens, all slopes 0 (bit-equal to the kernel without ALiBi) and
+    one valid key; the served shape timed by events and CUDA graph beside
+    the twin and SDPA with the same (B, H, T, T) float bias."""
+    import torch.nn.functional as F
+
+    from funasr_torch.models.emotion2vec.model import alibi_slopes
+
+    B, T, H, d, ex = 8, 759, 12, 64, 10
+    D = H * d
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    q = torch.randn((B, T, D), generator=gen, device="cuda") / d ** 0.5
+    k = torch.randn((B, T, D), generator=gen, device="cuda")
+    v = torch.randn((B, T, D), generator=gen, device="cuda")
+    scale = torch.rand(H, generator=gen, device="cuda") * 2 - 0.3
+    slopes = torch.as_tensor(alibi_slopes(H), dtype=torch.float32, device="cuda") * scale.clamp(
+        min=0)
+    lens = torch.tensor([T, 700, 640, 555, 460, 300, 160, 110], device="cuda")
+
+    def bias_of(n):
+        return torch.where(torch.arange(T, device="cuda")[None] < n[:, None], 0.0, -1e30)
+
+    cases = []
+    for what, kb, sl, extra in (
+            ("emotion2vec base, ragged keys", bias_of(lens), slopes, ex),
+            ("edge: no extra tokens", bias_of(lens), slopes, 0),
+            ("edge: all slopes 0", bias_of(lens), torch.zeros_like(slopes), ex),
+            ("edge: one valid key", bias_of(torch.ones_like(lens)), slopes, ex)):
+        got = A.fused_attention(q, k, v, kb, H, alibi_slopes=sl, extra=extra)
+        want = A.attention_ref(q, k, v, kb, H, alibi_slopes=sl, extra=extra)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(bool(torch.isfinite(got).all()) and err <= ATTN_TOL["float32"],
+              f"attention ALiBi {what}: max err {err} > {ATTN_TOL['float32']}")
+        case = dict(case=f"{what}: q/k/v ({B}, {T}, {D}) f32, H={H}, extra {extra}",
+                    max_abs_err=err, tolerance=ATTN_TOL["float32"])
+        if "slopes 0" in what:
+            plain = A.fused_attention(q, k, v, kb, H)
+            check(torch.equal(got, plain), "attention ALiBi at zero slopes: not bit-equal to "
+                  "the kernel without ALiBi")
+            case["bit_equal_to_plain"] = True
+        if not cases:
+            run = lambda: A.fused_attention(q, k, v, kb, H, alibi_slopes=sl,  # noqa: E731
+                                            extra=extra)
+            full = (kb[:, None, None, :] + A.alibi_bias(sl, T, T, extra)[None]).contiguous()
+            q4, k4, v4 = (x.unflatten(-1, (H, d)).transpose(1, 2) for x in (q, k, v))
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q4, k4, v4, attn_mask=full, scale=1.0)
+            n_keys = float(lens.sum())
+            nbytes = 4.0 * (2 * B * T * D + 2 * n_keys * D) + 4 * B * T + 4 * H
+            bnd, by = bound_ms(nbytes, {"float32": 4.0 * T * n_keys * D})
+            case.update(ms=cuda_ms(run, iters=10, warmup=3), graph_ms=graph_ms(run, iters=10),
+                        plain_ms=cuda_ms(lambda: A.attention_ref(
+                            q, k, v, kb, H, alibi_slopes=sl, extra=extra), iters=3, warmup=1),
+                        library_ms=cuda_ms(sdpa, iters=10, warmup=3),
+                        library_graph_ms=graph_ms(sdpa, iters=10), bound_ms=bnd, bound_by=by)
+            del full
+        log(f"attention ALiBi (i0) {case}")
+        cases.append(case)
+    return cases
+
+
+def transducer_configs():
+    """Phase (i)'s configs as dicts: the Transducer over the aishell
+    Conformer encoder of ``TRANSDUCER_YAML`` (12 x 256, 4 heads, 2048,
+    kernel 15, conv2d; 80 fbank bins, no LFR) with the JAX package's
+    prediction-network and joint defaults (256), and RWKV-BAT with the JAX
+    ``RWKVEncoder`` defaults (256 wide, 6 blocks, 1024 hidden) on the same
+    frontend; vocab 4234, a single-CJK-char token list."""
+    from funasr_torch.config import load_config
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    recipe = load_config(os.path.join(here, TRANSDUCER_YAML))
+    V = TRANSDUCER_V
+    tokens = ["<blank>", "<s>", "</s>"] + [chr(0x4E00 + i) for i in range(V - 4)] + ["<unk>"]
+    common = dict(vocab_size=V, input_size=80, frontend_conf=recipe["frontend_conf"],
+                  tokenizer_conf=dict(token_list=tokens))
+    return (dict(common, model="Transducer", encoder_conf=recipe["encoder_conf"]),
+            dict(common, model="RWKVBAT", encoder_conf={}))
+
+
+def syllables(rng, n: int, f0: float):
+    """A speech-like test signal for the transducers: a tone whose pitch
+    glides by +-25 % at 1.3 Hz, under a 4 Hz syllable envelope with pauses,
+    over noise.  A steady tone gives frames that barely vary, and a greedy
+    RNN-T decode over them either stops after a few tokens or repeats one
+    to ``max_tokens``, whatever its blank bias."""
+    import numpy as np
+
+    t = np.arange(n) / FS
+    f = f0 * (1.0 + 0.25 * np.sin(2 * np.pi * 1.3 * t + rng.uniform(0, 2 * np.pi)))
+    phase = 2 * np.pi * np.cumsum(f) / FS
+    env = np.clip(np.sin(2 * np.pi * 4.0 * t + rng.uniform(0, 2 * np.pi)), 0, None) ** 2
+    return (0.1 * env * (np.sin(phase) + 0.4 * np.sin(2.7 * phase))
+            + 0.02 * rng.standard_normal(n)).astype(np.float32)
+
+
+def set_joint(torch, module, rule) -> None:
+    """Load a weight rule's joint tensors (``weight_rule``) into ``module``."""
+    jn = module.joint_network
+    with torch.no_grad():
+        for name, value in rule.items():
+            jn.get_parameter(name).copy_(value)
+
+
+def weight_rule(torch, eng, probe):
+    """The weight rule (``TR_TOKENS_PER_S``) on ``eng.module``'s joint, from
+    the ``probe`` waveforms: ``lin_enc`` recentred on the probe's mean
+    encoder frame and scaled so its output spreads by 1 over the probe's
+    valid frames, then the blank bias shift that makes the probe's greedy
+    decode emit ``TR_TOKENS_PER_S`` tokens a second on average, by bisection
+    (``TR_RULE_STEPS`` decodes) between the shifts where the first attempt
+    at the post-blank state emits on every valid frame and on none.
+    Applies it; returns the joint's new tensors, by name."""
+    module = eng.module
+    jn = module.joint_network
+    target = TR_TOKENS_PER_S * sum(len(w) for w in probe) / FS / len(probe)
+    with torch.inference_mode():
+        feats, flens = eng.frontend.device_features(*eng._pack(probe))
+        enc, enc_lens = module.encode(feats, flens)
+        B, T = enc.shape[:2]
+        frames = enc[torch.arange(T, device=enc.device)[None] < enc_lens[:, None]].float()
+        mu = frames.mean(dim=0)
+        w = jn.lin_enc.weight.detach().float()
+        k = 1.0 / float(((frames - mu) @ w.T).std())
+        rule = {"lin_enc.weight": k * w, "lin_enc.bias": -k * (w @ mu)}
+        set_joint(torch, module, rule)
+        dec = module.decoder
+        _, g = dec.step(dec.init_state(B, enc.device),
+                        torch.full((B,), module.blank_id, dtype=torch.int64, device=enc.device))
+        lg = jn(enc, g[:, None, :]).float()[
+            torch.arange(T, device=enc.device)[None] < enc_lens[:, None]]
+        blank = lg[:, module.blank_id].clone()
+        lg[:, module.blank_id] = -float("inf")
+        margin = lg.max(dim=-1).values - blank
+        lo, hi = float(margin.min()) - 1.0, float(margin.max()) + 1.0
+        bias = jn.lin_out.bias.detach().clone()
+        for _ in range(TR_RULE_STEPS):
+            mid = 0.5 * (lo + hi)
+            set_joint(torch, module, {"lin_out.bias": bias + mid * (
+                torch.arange(len(bias), device=bias.device) == module.blank_id)})
+            emitted = float(module.greedy_decode(feats, flens, eng.max_tokens)[1].float().mean())
+            lo, hi = (mid, hi) if emitted > target else (lo, mid)
+        rule["lin_out.bias"] = bias + hi * (torch.arange(len(bias), device=bias.device)
+                                            == module.blank_id)
+        set_joint(torch, module, rule)
+    return rule
+
+
+def transducer_batch(torch, FK, A, CP, eng, wavs, zero, read, tag, twins, want_extra):
+    """One ``TransducerEngine.transcribe`` of ``wavs``: the dispatch (``run``)
+    under ``torch.cuda.set_sync_debug_mode("error")``, the counters from 0
+    and held to fbank 1 plus ``want_extra``; the tokens' non-degeneracy
+    (>= ``TR_MIN_DISTINCT`` distinct, at most half the rows at
+    ``max_tokens``); then ``twins`` (a context) and the batch again: the
+    tokens and records equal.  Returns (record, launches, tokens, counts)."""
+    outs = []
+    real = eng.run
+
+    def kept(*a, **k):
+        outs.append(real(*a, **k))
+        return outs[-1]
+
+    eng.transcribe([w[: 2 * FS] for w in wavs[:2]])  # warm-up: handles, the CMVN upload
+    eng.run = sync_guarded(torch, kept)
+    try:
+        zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.transcribe(wavs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read()
+    finally:
+        del eng.run
+    want = dict.fromkeys(launches, 0)
+    want.update(fbank=1, **want_extra)
+    check(launches == want, f"{tag} launches {launches}, want {want}")
+    toks, counts = outs[-1]
+    toks, counts = toks.cpu(), counts.cpu()
+    emitted = [t for b in range(len(wavs)) for t in toks[b, : int(counts[b])].tolist()]
+    distinct, capped = len(set(emitted)), int((counts == eng.max_tokens).sum())
+    check(distinct >= TR_MIN_DISTINCT and 2 * capped <= len(wavs) and 0 not in emitted,
+          f"{tag}: {distinct} distinct tokens, {capped} of {len(wavs)} rows at max_tokens")
+    rec = dict(B=len(wavs), transcribe_wall_s=wall, launches=launches,
+               tokens_per_row=counts.tolist(), distinct_tokens=distinct, rows_capped=capped,
+               audio_s_per_s=sum(len(w) for w in wavs) / FS / wall)
+    if twins is not None:
+        eng.run = kept
+        try:
+            with twins:
+                res_t = eng.transcribe(wavs)
+        finally:
+            del eng.run
+        toks_t, counts_t = (x.cpu() for x in outs[-1])
+        same = torch.equal(toks_t, toks) and torch.equal(counts_t, counts) and res_t == res
+        check(same, f"{tag}: tokens or records differ on the twins")
+        rec["twins_equal"] = True
+    log(f"e2e {tag}: B={len(wavs)}, wall {wall:.3f} s, tokens a row {counts.tolist()}, "
+        f"{distinct} distinct; launches {launches}")
+    return rec, launches, res
+
+
+def transducer_generate(torch, am, zero, read, wav, plan, tag, twins=None, guard=True):
+    """One ``generate`` of ``wav`` by a transducer ``AutoModel`` behind its VAD
+    and punctuation, the VAD's segments replaced by ``plan``, every batch's
+    dispatch under sync debug mode "error" (``guard``; the engine's first
+    call uploads its CMVN): counters exact (fbank once for
+    the VAD and once a batch, the Conformer's gated int8 FFN ``w_1`` a batch,
+    punctuation's d = 32 attention once a layer a window round; ``twins``
+    launches none of the swapped kernels).  Returns (record, launches, stage
+    times, batch shapes)."""
+    from funasr_torch.utils.vad_utils import slice_audio_by_segments
+
+    eng, ve, pm = am.engine, am.vad_engine, am.punc_engine.model
+    clock, rounds = StageClock(torch), [0]
+    real_argmax = pm._argmax
+
+    def counted_argmax(text, lens):
+        rounds[0] += 1
+        return real_argmax(text, lens)
+
+    pm._argmax = counted_argmax
+    ve.model.segments_from_posteriors = (
+        lambda post, db, f=ve.model.segments_from_posteriors: (f(post, db), plan)[1])
+    eng.run = sync_guarded(torch, eng.run) if guard else eng.run
+    clock.wrap(ve, "front", "vad_device", events=True)
+    clock.wrap(ve.model, "segments_from_posteriors", "vad_host")
+    clock.wrap(eng, "run", "asr_dispatch", events=True)
+    clock.wrap(pm, "inference_batch", "punc")
+    zero()
+    try:
+        with twins if twins is not None else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = am.generate(wav, key=[tag])[0]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        clock.restore()
+        for obj, attr in ((pm, "_argmax"), (ve.model, "segments_from_posteriors"),
+                          (eng, "run")):
+            delattr(obj, attr)
+    clips = slice_audio_by_segments(wav, plan, FS)
+    shapes = [(len(batch), max(len(clips[i]) for i in batch))
+              for batch in am.batches(plan, FS, 300)]
+    launches = read()
+    want = dict.fromkeys(launches, 0)
+    want.update(fbank=1 + len(shapes), attention=4 * rounds[0], attention_d32=4 * rounds[0])
+    if twins is None:
+        for B, N in shapes:
+            for k, v in hybrid_batch_launches("conformer", B, N, 0, 0, 0).items():
+                want[k] += v
+    times = dict(generate_wall_s=wall, audio_s_per_s=len(wav) / FS / wall,
+                 vad_device_ms=clock.device_ms("vad_device"),
+                 vad_host_wall_s=clock.wall.get("vad_host", 0.0),
+                 asr_dispatch_wall_s=clock.wall.get("asr_dispatch", 0.0),
+                 asr_device_span_ms=clock.device_ms("asr_dispatch", span=True),
+                 punc_wall_s=clock.wall.get("punc", 0.0), punc_rounds=rounds[0])
+    log(f"e2e {tag}: {len(plan)} segments in batches (B, samples) {shapes}; kernel launches "
+        f"{launches}")
+    check(launches == want, f"{tag} launches {launches}, want {want}")
+    check(isinstance(res.get("text"), str) and res["text"] and res.get("timestamp") == []
+          and "sentence_info" in res, f"{tag}: text, no stamps, sentence_info")
+    return res, launches, times, shapes
+
+
+def end_to_end_transducer(torch, FK, A, CP, profile_dir, card):
+    """Phase (i1)-(i3): the transducer family at full width on seeded random
+    weights under the weight rule (``weight_rule``, ``TR_TOKENS_PER_S``).  (i1) the Transducer
+    (``transducer_configs``) through ``AutoModel``, ``TransducerEngine
+    .transcribe`` of the beam cell's B = 32 x 15 s batch, int8
+    (``quantize=True``: the Conformer's 24 gated FFN ``w_1`` on the int8
+    GEMM) and float32, counters exact (fbank 1; int8: 24 rowquant + int8
+    GEMM pairs), no host sync in the dispatch, the int8 tokens and records
+    equal on the int8 twins, the float32 decisions on the fbank twin fed
+    the kernels' decisions equal on >= ``TR_F32_MIN_AGREE`` of them; the
+    wall and kernel launches a frame (a profile).  (i2) RWKV-BAT (float32,
+    the JAX defaults) on B = 8 x 15 s: WKV launched 6 times a batch, tokens
+    equal on the WKV twin, the encoder timed alone.  (i3) the int8
+    Transducer behind FSMN-VAD and CT-Transformer: ``generate`` of the
+    600 s recording on pipeline (b)'s plan, counters exact, no host sync in
+    a dispatch, the record equal on the int8 twins.  Returns (launches,
+    e2e record)."""
+    import numpy as np
+
+    from funasr_torch.auto.auto_model import AutoModel
+    from funasr_torch.auto.engines import TransducerEngine
+    from funasr_torch.models.rwkv import RWKVBAT, RWKVEncoder
+    from funasr_torch.models.transducer.model import Transducer
+    from funasr_torch.ops import wkv as W
+    from funasr_torch.utils.vad_utils import merge_vad
+
+    zero, read = hybrid_counters(FK, A, CP)
+    tr_cfg, bat_cfg = transducer_configs()
+    N = 15 * FS
+    rng = np.random.default_rng(3)
+    wavs = [syllables(rng, N, 150.0 + 7 * i) for i in range(TRANSDUCER_B)]
+    rng = np.random.default_rng(TR_PROBE_SEED)
+    probe = [syllables(rng, N, 146.0 + 31 * i) for i in range(8)]
+    e2e, paths, rule = {}, {}, None
+
+    # ---- (i1) the Transducer, int8 then float32
+    for tag, quantize in (("int8", True), ("float32", False)):
+        t0 = time.time()
+        am = AutoModel(model=tr_cfg, quantize=quantize, seed=TRANSDUCER_SEED)
+        eng, module = am.engine, am.engine.module
+        enc, dec, jn = module.encoder, module.decoder, module.joint_network
+        check(isinstance(eng, TransducerEngine) and type(module) is Transducer
+              and len(enc.encoders) == 12 and enc.output_size() == 256
+              and enc.encoders[0].self_attn.n_head == 4
+              and enc.encoders[0].conv_module.depthwise_conv.kernel_size == (15,)
+              and dec.hidden_size == 256 and jn.lin_out.out_features == TRANSDUCER_V
+              and eng.max_tokens == 128,
+              f"(i1) {tag}: the recipe's Conformer, the JAX heads' widths, vocab 4234")
+        if rule is None:
+            rule = weight_rule(torch, eng, probe)
+        else:
+            set_joint(torch, module, rule)
+        shift = float(rule["lin_out.bias"][module.blank_id])
+        log(f"e2e (i1) Transducer {tag}: built in {time.time() - t0:.1f} s; the weight rule: "
+            f"blank bias {shift:+.4f}, lin_enc x {float(rule['lin_enc.weight'].norm()):.3f}")
+        int8 = (hybrid_batch_launches("conformer", TRANSDUCER_B, N, 0, 0, 0) if quantize
+                else {})
+        twins = int8_twins() if quantize else None
+        rec, launches, res = transducer_batch(torch, FK, A, CP, eng, wavs, zero, read,
+                                              f"(i1) Transducer {tag}", twins, int8)
+        rec["blank_shift"] = shift
+        T_enc = encoder_frames(N)
+        steps = T_enc * module.max_symbols_per_frame
+        if quantize:  # a profile: launches a frame
+            prof = profile(torch, lambda: eng.transcribe(wavs), profile_dir,
+                           1e3 * rec["transcribe_wall_s"], "profile_transducer.txt")
+            prof["kernel launches a frame"] = prof["kernel launches"] / T_enc
+            prof["kernel launches an emit step"] = prof["kernel launches"] / steps
+            prof["idle share"] = 1.0 - prof["kernel share of batch_ms"]
+            rec["profile"] = prof
+        else:  # the fbank twin, the decisions teacher-forced
+            with torch.inference_mode():
+                wav_d, lens_d = eng._pack(wavs)
+                feats, flens = eng.frontend.device_features(wav_d, lens_d)
+                with plain_twins(FK, A):
+                    feats_t, flens_t = eng.frontend.device_features(wav_d, lens_d)
+            toks, counts, picks, live = module.greedy_decode(feats, flens, 128,
+                                                             return_decisions=True)
+            served = eng.run(wav_d, lens_d)
+            check(torch.equal(toks, served[0]) and torch.equal(counts, served[1]),
+                  "(i1) float32: the decode with its decisions is the served decode")
+            picks_t = module.greedy_decode(feats_t, flens_t, 128, forced=picks,
+                                           return_decisions=True)[2]
+            agree = float((picks_t == picks)[live].float().mean())
+            n_live = int(live.sum())
+            check(agree >= TR_F32_MIN_AGREE, f"(i1) float32: decisions on the fbank twin "
+                  f"agree {agree} < {TR_F32_MIN_AGREE}")
+            rec.update(twins_decision_agreement=agree, decisions=n_live,
+                       fbank_feature_max_abs_diff=float((feats - feats_t).abs().max()))
+            log(f"e2e (i1) float32: {n_live} decisions, {agree:.6f} equal on the fbank twin fed "
+                "the kernels' decisions")
+        rec.update(encoder_frames=T_enc, emit_steps=steps)
+        log(f"e2e (i1) Transducer {tag} on {card}: {json.dumps(rec)}")
+        e2e[f"transducer_i1_{tag}"] = rec
+        paths[f"i1_{tag}"] = launches
+        del am, eng, module
+        torch.cuda.empty_cache()
+
+    # ---- (i2) RWKV-BAT, float32, B = 8
+    t0 = time.time()
+    am = AutoModel(model=bat_cfg, seed=BAT_SEED)
+    eng, module = am.engine, am.engine.module
+    enc = module.encoder
+    check(type(module) is RWKVBAT and type(enc) is RWKVEncoder and len(enc.blocks) == 6
+          and enc.output_size() == 256 and enc.blocks[0].ffn.key.out_features == 1024
+          and module.decoder.hidden_size == 256, "(i2) RWKV-BAT at the JAX defaults")
+    # the causal RWKV encoder's mean frame does not depend on the length: 5 s rows
+    bat_shift = float(weight_rule(torch, eng, [w[: 5 * FS] for w in probe])[
+        "lin_out.bias"][module.blank_id])
+    bat_wavs = wavs[:BAT_B]
+    rec, launches, _ = transducer_batch(torch, FK, A, CP, eng, bat_wavs, zero, read,
+                                        "(i2) RWKV-BAT float32",
+                                        swapped([(W, "wkv", W.wkv_ref)]),
+                                        {"wkv": len(enc.blocks)})
+    with torch.inference_mode():
+        feats, flens = eng.frontend.device_features(*eng._pack(bat_wavs))
+        enc_ms = cuda_ms(lambda: module.encoder(feats, flens), iters=5, warmup=2)
+    rec.update(blank_shift=bat_shift, encoder_ms=enc_ms, frames=int(feats.shape[1]),
+               built_s=time.time() - t0)
+    log(f"e2e (i2) RWKV-BAT on {card}: {json.dumps(rec)}")
+    e2e["bat_i2"] = rec
+    paths["i2"] = launches
+    del am, eng, module, feats
+    torch.cuda.empty_cache()
+
+    # ---- (i3) the int8 Transducer behind FSMN-VAD and CT-Transformer
+    _, vad_cfg, punc_cfg = pipeline_configs()
+    am = AutoModel(model=tr_cfg, vad_model=vad_cfg, punc_model=punc_cfg, quantize=True,
+                   seed=TRANSDUCER_SEED)
+    set_joint(torch, am.engine.module, rule)
+    wav, bursts = pipeline_recording(np.random.default_rng(12))
+    plan = merge_vad(bursts, 15000)
+    first = transducer_generate(torch, am, zero, read, wav, plan, "(i3) first", guard=False)[2]
+    res, launches3, times, shapes = transducer_generate(torch, am, zero, read, wav, plan,
+                                                        "(i3) 600 s")
+    res_t, launches_t, _, _ = transducer_generate(torch, am, zero, read, wav, plan,
+                                                  "(i3) on the int8 twins", int8_twins())
+    check(res_t == dict(res, key=res_t["key"]), "(i3) the record differs on the int8 twins")
+    log(f"e2e (i3) on {card}: {json.dumps(times)}; first call {json.dumps(first)}; text "
+        f"{res['text'][:24]}..., {len(res['sentence_info'])} sentences; record equal on the "
+        "int8 twins")
+    e2e["transducer_i3"] = dict(times, first_call=first, segments=len(plan), batches=shapes,
+                                launches=launches3, twins_record_equal=True)
+    paths["i3"] = launches3
+    paths["i3_twins"] = launches_t
+    del am
+    torch.cuda.empty_cache()
+    total = {k: sum(d.get(k, 0) for d in paths.values()) for k in read()}
+    return total, e2e
+
+
+def end_to_end_emotion2vec(torch, FK, A, CP, profile_dir, card):
+    """Phase (i4): emotion2vec base at the JAX defaults (768 wide, 4 + 8
+    blocks, 12 heads of 64, MLP 3072, 9 labels; float32) on seeded random
+    weights (``init_weights_``) through ``AutoModel(model={"model":
+    "Emotion2vec"})``: ``generate`` of B = 8 utterances of 15-2 s with
+    ``extract_embedding=True``, the ALiBi attention launched exactly 12
+    times a batch and nothing else counted, no host sync in the dispatch
+    (``Emotion2vec.run``); on the twins (fbank is not on this path: the
+    attention's) scores within ``E2V_TOL``, labels equal wherever the
+    twins' top-2 margin exceeds it, feats within ``E2V_TOL`` x max |twin|;
+    the wall and a profile (``DIR/profile_emotion2vec.txt``).  Returns
+    (launches, e2e record)."""
+    import numpy as np
+
+    from funasr_torch.auto.auto_model import AutoModel
+    from funasr_torch.auto.engines import SerEngine
+
+    zero, read = hybrid_counters(FK, A, CP)
+    t0 = time.time()
+    am = AutoModel(model={"model": "Emotion2vec"}, seed=E2V_SEED)
+    eng, model = am.engine, am.engine.model
+    enc = model.modality_encoders["AUDIO"]
+    blocks = (len(enc.context_encoder.blocks), len(model.blocks))
+    check(isinstance(eng, SerEngine) and blocks == (4, 8) and model.n_head == 12
+          and model.proj.in_features == 768 and model.blocks[0].mlp.fc1.out_features == 3072
+          and len(model.labels) == 9 and enc.extra_tokens.shape[1] == 10,
+          "(i4) emotion2vec base at the JAX defaults")
+    rng = np.random.default_rng(8)
+    wavs = [waveform(rng, s * FS, 120.0 + 17 * i) for i, s in enumerate(E2V_AUDIO_S)]
+    eng.transcribe(wavs[:2])  # warm-up: cuDNN's convolution plans
+    real = model.run
+    model.run = sync_guarded(torch, real)
+    walls = []
+    try:
+        for _ in range(2):
+            zero()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = eng.transcribe(wavs, extract_embedding=True)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            launches = read()
+            want = dict.fromkeys(launches, 0)
+            want.update(attention_alibi64=sum(blocks))
+            check(launches == want, f"(i4) launches {launches}, want {want}")
+    finally:
+        del model.run
+    with plain_twins(FK, A):
+        res_t = eng.transcribe(wavs, extract_embedding=True)
+    scores = np.array([r["scores"] for r in res])
+    scores_t = np.array([r["scores"] for r in res_t])
+    feats = np.stack([r["feats"] for r in res])
+    feats_t = np.stack([r["feats"] for r in res_t])
+    d_score = float(np.abs(scores - scores_t).max())
+    d_feat = float(np.abs(feats - feats_t).max())
+    top2 = np.sort(scores_t, -1)[:, -2:]
+    sure = top2[:, 1] - top2[:, 0] > E2V_TOL
+    labels_equal = [r["text"] == rt["text"] for r, rt in zip(res, res_t)]
+    check(np.isfinite(scores).all() and np.allclose(scores.sum(-1), 1.0, atol=1e-5)
+          and d_score <= E2V_TOL and d_feat <= E2V_TOL * float(np.abs(feats_t).max())
+          and all(eq for eq, s in zip(labels_equal, sure) if s),
+          f"(i4) kernels against twins: |dscore| {d_score}, |dfeat| {d_feat}, labels "
+          f"{labels_equal} where sure {sure.tolist()}")
+    prof = profile(torch, lambda: eng.transcribe(wavs), profile_dir, 1e3 * min(walls),
+                   "profile_emotion2vec.txt")
+    prof["idle share"] = 1.0 - prof["kernel share of batch_ms"]
+    rec = dict(B=len(wavs), audio_s=list(E2V_AUDIO_S), generate_wall_s=walls,
+               launches=launches, score_max_abs_diff=d_score, feats_max_abs_diff=d_feat,
+               labels=[r["text"] for r in res], labels_equal=labels_equal,
+               built_s=time.time() - t0, profile=prof,
+               audio_s_per_s=[sum(E2V_AUDIO_S) / w for w in walls])
+    log(f"e2e (i4) emotion2vec on {card}: {json.dumps(rec)}")
+    del am, eng, model
+    torch.cuda.empty_cache()
+    return launches, {"emotion2vec_i4": rec}
 
 
 def profile(torch, run, out_dir, batch_ms, fname):
@@ -5530,6 +6155,10 @@ def profile(torch, run, out_dir, batch_ms, fname):
             n_kernels += ev.count
         if "ctc_prefix_kernel" in name:
             g = "ctc prefix kernel"
+        elif "wkv_kernel" in name:
+            g = "wkv kernel"
+        elif "attention_kernel" in name and "true" in name:
+            g = "attention kernel, ALiBi"
         elif "attention_i8qk_kernel" in name:
             g = "attention (int8 scores) kernel"
         elif "qmm_kernel" in name:
@@ -5687,6 +6316,14 @@ def main(argv=None) -> int:
     launches_h, e2e_h = end_to_end_whisper(torch, FK, A, CP, args.profile, smi)
     e2e.update(e2e_h)
     log(f"phase (h) done in {time.time() - t1:.1f} s")
+    t1 = time.time()
+    wkv_cases = check_wkv(torch)
+    alibi_cases = check_alibi_attention(torch, A)
+    launches_tr, e2e_tr = end_to_end_transducer(torch, FK, A, CP, args.profile, smi)
+    e2e.update(e2e_tr)
+    launches_e2v, e2e_e2v = end_to_end_emotion2vec(torch, FK, A, CP, args.profile, smi)
+    e2e.update(e2e_e2v)
+    log(f"phase (i) done in {time.time() - t1:.1f} s")
     log(f"end to end done in {time.time() - t0:.1f} s")
     log(f"e2e summary {json.dumps(e2e, sort_keys=True)}")
 
@@ -5705,7 +6342,9 @@ def main(argv=None) -> int:
                    "hybrid_align": launches_hyb.get(name, 0),
                    "aishell": launches_ais.get(name, 0),
                    "sanm_family": launches_g.get(name, 0),
-                   "whisper": launches_h.get(name, 0)}
+                   "whisper": launches_h.get(name, 0),
+                   "transducer": launches_tr.get(name, 0),
+                   "emotion2vec": launches_e2v.get(name, 0)}
         return dict(name=name, route="cuda", source=sources[0], sources=sources,
                     replaces=replaces, launches=sum(by_path.values()),
                     launches_by_path=by_path, shape=main_case["case"],
@@ -5784,6 +6423,13 @@ def main(argv=None) -> int:
               block_cases["rowquant"][0], block_cases["rowquant"]),
         entry("fsmn", ["funasr_torch/csrc/fsmn.cu"], "funasr_tpu/ops/sanm_layer_pallas.py:93",
               block_cases["fsmn"][0], block_cases["fsmn"]),
+        # port-only kernels: what they replace is XLA code, not a TPU kernel
+        entry("wkv", ["funasr_torch/csrc/wkv.cu"], "funasr_tpu/models/rwkv.py:32",
+              wkv_cases[0], wkv_cases, replaces_kind="lax.scan (XLA), not a TPU kernel"),
+        # the float32 d = 64 attention instance with emotion2vec's ALiBi
+        entry("attention_alibi64", ["funasr_torch/csrc/attention.cu"],
+              "funasr_tpu/models/emotion2vec/model.py:136", alibi_cases[0], alibi_cases,
+              replaces_kind="AltAttention's XLA attention, not a TPU kernel"),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -34,8 +34,12 @@ config's ``encoder`` (Conformer, Transformer and SANM), ``decoder``
 ``decoding_conf`` are honoured as in the JAX package (``ParaformerEngine``
 (EParaformer too, sos/eos filtered by id), ``BiCifEngine``,
 ``HotwordEngine`` (``seaco=False`` for ContextualParaformer),
-``SenseVoiceEngine``, ``HybridEngine``; the ``CTC`` class raises
-``NotImplementedError``); Whisper, WhisperWrap and WhisperLID as the JAX
+``SenseVoiceEngine``, ``HybridEngine``); the RNN-T models Transducer, BAT and
+RWKVBAT (``TransducerEngine``: ``decoder_conf``, ``joint_conf``; behind a VAD
+the segment texts joined, no timestamps, as the JAX pipeline gives them);
+Emotion2vec (``SerEngine``: ``model_conf`` to the model, float32 always;
+``text`` the best label, ``extract_embedding=True`` adds ``feats``);
+Whisper, WhisperWrap and WhisperLID as the JAX
 AutoModel routes them (``size``, ``model_path_hf`` an openai ``.pt``,
 ``config_overrides``, ``max_tokens``; bf16 whatever ``dtype``/``quantize``
 say; ``WhisperEngine``, which behind a VAD runs each batch when it is
@@ -78,9 +82,10 @@ text is normalized (``use_itn`` of the call or of the constructor), or each
 segment's text before "segment" punctuation.  ``merge_vad`` is accepted and
 ignored.
 
-Not ported, and raising ``NotImplementedError`` rather than skipped:
-``output_dir``, URL inputs; the JAX package's meshes and parallel serving options are not
-arguments here.
+Not ported, and raising ``NotImplementedError`` rather than skipped: the
+``CTC``, ``SCAMA`` and ``CTTransformerStreaming`` model classes, the
+convolution Transformer decoders, ``output_dir``, URL inputs; the JAX
+package's meshes and parallel serving options are not arguments here.
 """
 
 from __future__ import annotations
@@ -101,7 +106,9 @@ from funasr_torch.auto.engines import (
     ParaformerEngine,
     PuncEngine,
     SenseVoiceEngine,
+    SerEngine,
     SpkEngine,
+    TransducerEngine,
     VadEngine,
     WhisperEngine,
 )
@@ -123,6 +130,11 @@ _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
 _HYBRIDS = ("Conformer", "Transformer", "SANM", "Branchformer", "EBranchformer")
 # the Whisper classes the JAX AutoModel routes to WhisperEngine (auto_model.py:392)
 _WHISPERS = ("Whisper", "WhisperWrap", "WhisperLID")
+# the RNN-T classes the JAX AutoModel serves through TransducerEngine (auto_model.py:353)
+_TRANSDUCERS = ("Transducer", "BAT", "RWKVBAT")
+_PORTED = ("Paraformer", "EParaformer", "BiCifParaformer", "SeacoParaformer",
+           "ContextualParaformer", "SenseVoiceSmall") + _HYBRIDS + _TRANSDUCERS + (
+               "Emotion2vec",) + _WHISPERS
 
 
 def _resolve_cfg(model: Union[str, Dict, None], conf: Optional[Dict]) -> Dict:
@@ -158,9 +170,11 @@ def _load_state(cfg: Dict) -> Optional[Dict[str, torch.Tensor]]:
 def _weights(module: torch.nn.Module, state: Optional[Dict], seed: int, device,
              prefix: str = "") -> None:
     """Load ``state`` (keys under ``prefix`` taken, the prefix dropped, when
-    they carry it) or give ``module`` seeded random weights."""
+    they carry it) or give ``module`` seeded random weights (its own
+    ``init_weights_`` rule where it has one)."""
     if state is None:
-        init_random_(module, torch.Generator(device=device).manual_seed(seed))
+        gen = torch.Generator(device=device).manual_seed(seed)
+        getattr(module, "init_weights_", lambda g: init_random_(module, g))(gen)
         return
     if prefix and any(k.startswith(prefix) for k in state):
         state = {k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)}
@@ -226,14 +240,13 @@ class AutoModel:
             return self._build_vad(cfg)
         if name in _WHISPERS:
             return self._build_whisper(cfg)
-        if name not in ("Paraformer", "EParaformer", "BiCifParaformer", "SeacoParaformer",
-                        "ContextualParaformer", "SenseVoiceSmall") + _HYBRIDS:
-            raise NotImplementedError(f"AutoModel: no engine for model class {name!r} in "
-                                      "the port (Paraformer, EParaformer, BiCifParaformer, "
-                                      "SeacoParaformer, ContextualParaformer, "
-                                      "SenseVoiceSmall, Conformer, Transformer, SANM, "
-                                      "Branchformer, EBranchformer, Whisper, WhisperWrap, "
-                                      "WhisperLID)")
+        if name == "Emotion2vec":
+            return self._build_emotion2vec(cfg)
+        if name not in _PORTED:
+            raise NotImplementedError(
+                f"AutoModel: no engine for model class {name!r} in the port (ported: "
+                f"{', '.join(_PORTED)}; not yet: CTC, SCAMA, CTTransformerStreaming and "
+                "the convolution Transformer decoders, ROADMAP.md Queue 1)")
         tokenizer = _build_tokenizer(cfg)
         frontend = _build_frontend(cfg)
         dtype = cfg.get("dtype") or ("bfloat16" if self._quantize else "float32")
@@ -241,6 +254,8 @@ class AutoModel:
             raise ValueError(f"unsupported dtype {dtype!r}")
         if name == "SenseVoiceSmall":
             return self._build_sense_voice(cfg, tokenizer, frontend, _DTYPES[dtype])
+        if name in _TRANSDUCERS:
+            return self._build_transducer(cfg, tokenizer, frontend, _DTYPES[dtype])
         common = dict(vocab_size=cfg.get("vocab_size") or tokenizer.get_vocab_size(),
                       input_size=cfg.get("input_size", frontend.n_mels * frontend.lfr_m),
                       encoder_conf=cfg.get("encoder_conf"),
@@ -297,6 +312,30 @@ class AutoModel:
             config_overrides=cfg.get("config_overrides", {}), device=self.device,
             seed=self.seed)
         return WhisperEngine(module, None, max_tokens=cfg.get("max_tokens", 64))
+
+    def _build_transducer(self, cfg: Dict, tokenizer, frontend: FrontendConfig,
+                          dtype: torch.dtype) -> TransducerEngine:
+        """The JAX route (auto_model.py:353-369): ``decoder_conf``,
+        ``joint_conf``, ``encoder_conf`` and ``model_conf``; the engine's
+        defaults (128 tokens, blank 0)."""
+        module = tables.get("model_classes", cfg["model"])(
+            vocab_size=cfg.get("vocab_size") or tokenizer.get_vocab_size(),
+            input_size=cfg.get("input_size", frontend.n_mels * frontend.lfr_m),
+            encoder_conf=cfg.get("encoder_conf"), decoder_conf=cfg.get("decoder_conf"),
+            joint_conf=cfg.get("joint_conf"), dtype=dtype, device=self.device,
+            quantize=self._quantize, **(cfg.get("model_conf") or {}))
+        _weights(module, _load_state(cfg), self.seed, self.device)
+        if self._quantize:
+            module.quantize_weights()
+        return TransducerEngine(module, frontend, tokenizer, device=self.device)
+
+    def _build_emotion2vec(self, cfg: Dict) -> SerEngine:
+        """The JAX route (auto_model.py:370-391): ``model_conf`` to the model,
+        float32 whatever ``dtype``/``quantize`` say, as there."""
+        model = tables.get("model_classes", "Emotion2vec")(
+            **(cfg.get("model_conf") or {}), device=self.device)
+        _weights(model, _load_state(cfg), self.seed, self.device)
+        return SerEngine(model)
 
     def _build_sense_voice(self, cfg: Dict, tokenizer, frontend: FrontendConfig,
                            dtype: torch.dtype) -> SenseVoiceEngine:

@@ -1,5 +1,6 @@
 """Serving engines (port of the Paraformer, BiCif, hotword, SenseVoice, Hybrid,
-Whisper, VAD, speaker and punctuation parts of funasr_tpu/auto/engines.py).
+Transducer, Whisper, VAD, speaker and punctuation parts of
+funasr_tpu/auto/engines.py, and of the JAX AutoModel's emotion2vec engine).
 
 The engine owns the model, the frontend and the tokenizer and exposes a
 batched ``transcribe``: pack waveforms into a bucketed (B, N) batch, run
@@ -43,6 +44,10 @@ with timestamps, a CTC forced alignment whose emissions are gathered on
 the device and whose Viterbi runs on the host.  ``WhisperEngine`` serves
 Whisper and WhisperLID: a 30 s log-mel window a waveform and the greedy
 decode over the KV cache, every attention through the head-size-64 kernel.
+``TransducerEngine`` serves the Transducer and RWKV-BAT by their greedy RNN-T
+decode (BAT's WKV recurrence through ``ops/wkv.py``), ``SerEngine``
+emotion2vec (its attention through the ALiBi instance of the float32
+attention kernel).
 Meshes and sequence parallelism are later slices.
 """
 
@@ -641,6 +646,68 @@ class HybridEngine(BatchedAsrEngine):
                 res_i["nbest"] = [hyp_result(i, k) for k in range(nbest)]
             results.append(res_i)
         return results
+
+
+class TransducerEngine(BatchedAsrEngine):
+    """RNN-T / BAT greedy decode (``engines.py:782`` of the JAX package) on
+    ``device`` (default the GPU; raises without one unless
+    ``device="cpu"``): fbank -> LFR -> CMVN -> ``greedy_decode`` on the
+    device, one read back; blank filtered and ``sentence_postprocess`` on the
+    host -> ``{"text", "raw_tokens"}``."""
+
+    def __init__(self, module, frontend: FrontendConfig, tokenizer, max_tokens: int = 128,
+                 blank_id: int = 0, device=None):
+        super().__init__(frontend, tokenizer, device)
+        self.module = module.to(self.device).eval()
+        self.max_tokens = max_tokens
+        self.blank_id = blank_id
+
+    @torch.inference_mode()
+    def run(self, wav: torch.Tensor, lens: torch.Tensor):
+        """The device program: (B, N) waveform batch -> tokens (B,
+        max_tokens), counts (B,)."""
+        feats, flens = self.frontend.device_features(wav, lens)
+        return self.module.greedy_decode(feats, flens, max_tokens=self.max_tokens)
+
+    def transcribe(self, wavs: Sequence[np.ndarray], **kw) -> List[Dict[str, Any]]:
+        """Waveforms (float in [-1, 1], 16 kHz) -> one ``{"text",
+        "raw_tokens"}`` dict each; other keywords (the pipeline's
+        ``with_timestamp``, ``vad_offsets``) are accepted and ignored, as the
+        JAX engine does."""
+        return self.transcribe_async(wavs)()
+
+    def transcribe_async(self, wavs: Sequence[np.ndarray], **kw):
+        """Queue :meth:`transcribe`'s device work and the copy of its outputs
+        now; returns ``finalize()`` -> the results."""
+        if not len(wavs):
+            return lambda: []
+        out = fetch_async(self.run(*self._pack(wavs)))
+        return lambda: self._host_results(len(wavs), *fetched(*out))
+
+    def _host_results(self, n: int, toks, tok_lens) -> List[Dict[str, Any]]:
+        toks, tok_lens = toks.numpy(), tok_lens.numpy()
+        results = []
+        for i in range(n):
+            ids = [t for t in toks[i, : int(tok_lens[i])].tolist() if t != self.blank_id]
+            text, raw = sentence_postprocess(self.tokenizer.ids2tokens(ids))
+            results.append({"text": text, "raw_tokens": raw})
+        return results
+
+
+class SerEngine:
+    """emotion2vec serving (the JAX AutoModel's ``SerEngine``,
+    ``auto_model.py:377-389``): ``Emotion2vec.generate`` records with
+    ``text`` the best label; ``extract_embedding`` adds ``feats``, any other
+    keyword is ignored."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def transcribe(self, wavs: Sequence[np.ndarray], **kw) -> List[Dict[str, Any]]:
+        res = self.model.generate(wavs, extract_embedding=kw.get("extract_embedding", False))
+        for r in res:
+            r["text"] = r["labels"][int(np.argmax(r["scores"]))]
+        return res
 
 
 class WhisperEngine:

@@ -5,8 +5,9 @@ The inverses of funasr_tpu/convert.py ``paraformer_from_torch`` (:205),
 ``contextual_paraformer_from_torch`` (:238), ``seaco_paraformer_from_torch``
 (:292), ``conformer_from_torch`` (:398) with ``_std_transformer_decoder_tree``
 (:1383), ``fsmn_vad_from_torch`` (:332), ``whisper_from_openai_pt`` (:1133),
-``ct_transformer_from_torch`` (:385), ``sense_voice_from_torch`` (:481) and
-``campplus_from_torch`` (:517), written for the port (no import of the JAX
+``ct_transformer_from_torch`` (:385), ``sense_voice_from_torch`` (:481),
+``campplus_from_torch`` (:517), ``transducer_from_torch`` (:717) and
+``emotion2vec_from_torch`` (:849), written for the port (no import of the JAX
 package): each takes the flax tree with numpy leaves and returns the state
 dict that the port's model (and a reference FunASR ``model.pt``) uses:
 
@@ -598,4 +599,105 @@ def whisper_from_jax(params: Mapping, config) -> Dict[str, torch.Tensor]:
     for i in range(config.decoder_layers):
         block(f"decoder.blocks.{i}", dec["layers"][str(i)], _WHISPER_ATTN)
     _norm(sd, "decoder.ln", dec["layer_norm"])
+    return sd
+
+
+def _transducer_heads(sd, tree: Mapping):
+    """The RNN-T prediction network (``decoder.embed``, one single-layer
+    ``nn.LSTM`` ``decoder.rnn.{i}`` a flax ``lstm{i}``) and the joint
+    network (``lin_dec`` without a bias)."""
+    dec = tree["decoder"]
+    sd["decoder.embed.weight"] = _t(dec["embed"]["embedding"])
+    i = 0
+    while f"lstm{i}" in dec:
+        _lstm_cell(sd, f"decoder.rnn.{i}", "_l0", dec[f"lstm{i}"]["cell"])
+        i += 1
+    joint = tree["joint_network"]
+    _dense(sd, "joint_network.lin_enc", joint["lin_enc"])
+    _dense(sd, "joint_network.lin_dec", joint["lin_dec"], bias=False)
+    _dense(sd, "joint_network.lin_out", joint["lin_out"])
+
+
+def transducer_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """``{'params', 'batch_stats'}`` of funasr_tpu's ``Transducer`` (the
+    Conformer encoder) -> the port's float32 ``state_dict``: the inverse of
+    funasr_tpu/convert.py ``transducer_from_torch`` (:717)."""
+    tree = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    _hybrid_encoder(sd, tree["encoder"], variables.get("batch_stats", {}).get("encoder", {}))
+    _transducer_heads(sd, tree)
+    return sd
+
+
+def rwkv_bat_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """``{'params'}`` of funasr_tpu's ``RWKVBAT`` -> the port's float32
+    ``state_dict`` (RWKV-4 names: ``encoder.blocks.{i}.{ln1,att,ln2,ffn}``;
+    the JAX package has no torch converter for this encoder)."""
+    tree = variables["params"]
+    enc = tree["encoder"]
+    sd: Dict[str, torch.Tensor] = {}
+    _dense(sd, "encoder.embed", enc["embed"])
+    _norm(sd, "encoder.ln_in", enc["ln_in"])
+    for i in range(_num_layers(enc["blocks"])):
+        node, p = _unstack(enc["blocks"], i), f"encoder.blocks.{i}"
+        _norm(sd, f"{p}.ln1", node["ln1"])
+        _norm(sd, f"{p}.ln2", node["ln2"])
+        att, ffn = node["att"], node["ffn"]
+        for mu in ("k", "v", "r"):
+            sd[f"{p}.att.time_mix_{mu}"] = _t(att[f"mu_{mu}"])
+        sd[f"{p}.att.time_decay"] = _t(att["time_decay"])
+        sd[f"{p}.att.time_first"] = _t(att["time_first"])
+        for jax_name, name in (("key", "key"), ("value", "value"), ("recept", "receptance"),
+                               ("output", "output")):
+            _dense(sd, f"{p}.att.{name}", att[jax_name], bias=False)
+        for mu in ("k", "r"):
+            sd[f"{p}.ffn.time_mix_{mu}"] = _t(ffn[f"mu_{mu}"])
+        for jax_name, name in (("key", "key"), ("recept", "receptance"), ("value", "value")):
+            _dense(sd, f"{p}.ffn.{name}", ffn[jax_name], bias=False)
+    _norm(sd, "encoder.ln_out", enc["ln_out"])
+    _transducer_heads(sd, tree)
+    return sd
+
+
+def _alt_block(sd, p: str, node: Mapping):
+    _norm(sd, f"{p}.norm1", node["norm1"])
+    _norm(sd, f"{p}.norm2", node["norm2"])
+    _dense(sd, f"{p}.attn.qkv", node["attn"]["qkv"])
+    _dense(sd, f"{p}.attn.proj", node["attn"]["proj"])
+    _dense(sd, f"{p}.mlp.fc1", node["fc1"])
+    _dense(sd, f"{p}.mlp.fc2", node["fc2"])
+
+
+def emotion2vec_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """``{'params'}`` of funasr_tpu's ``Emotion2vecModule`` -> the port's
+    ``Emotion2vec`` ``state_dict``: the inverse of funasr_tpu/convert.py
+    ``emotion2vec_from_torch`` (:849); flax Conv ``(k, in, out)`` ->
+    ``(out, in, k)``."""
+    tree = params["params"]
+    A = "modality_encoders.AUDIO"
+    conv = lambda k: _t(np.transpose(np.asarray(k), (2, 1, 0)))  # noqa: E731
+    sd: Dict[str, torch.Tensor] = {}
+    le = tree["local_encoder"]
+    i = 0
+    while f"conv{i}" in le:
+        sd[f"{A}.local_encoder.conv_layers.{i}.0.weight"] = conv(le[f"conv{i}"]["kernel"])
+        _norm(sd, f"{A}.local_encoder.conv_layers.{i}.2.1", le[f"ln{i}"])
+        i += 1
+    _norm(sd, f"{A}.project_features.1", tree["project_ln"])
+    _dense(sd, f"{A}.project_features.2", tree["project_proj"])
+    i = 0
+    while f"pos_conv{i}" in tree:
+        sd[f"{A}.relative_positional_encoder.{i + 1}.0.weight"] = conv(
+            tree[f"pos_conv{i}"]["kernel"])
+        sd[f"{A}.relative_positional_encoder.{i + 1}.0.bias"] = _t(tree[f"pos_conv{i}"]["bias"])
+        i += 1
+    sd[f"{A}.extra_tokens"] = _t(tree["extra_tokens"])
+    sd[f"{A}.alibi_scale"] = _t(tree["alibi_scale"])
+    for stack, prefix in (("prenet_blocks", f"{A}.context_encoder.blocks"),
+                          ("blocks", "blocks")):
+        blocks = tree[stack]["block"]
+        for i in range(_num_layers(blocks)):
+            _alt_block(sd, f"{prefix}.{i}", _unstack(blocks, i))
+    _norm(sd, f"{A}.context_encoder.norm", tree["context_norm"])
+    _dense(sd, "proj", tree["proj"])
     return sd

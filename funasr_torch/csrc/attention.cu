@@ -44,6 +44,21 @@
 //    of a row's 16 lanes owns 2 output columns, 8 at d = 128): TF32 would
 //    not hold the float32 bar.
 //
+//    `attention_forward_alibi` is the float32 body at d = 64 with
+//    emotion2vec's symmetric ALiBi (funasr_tpu/models/emotion2vec/model.py:136
+//    `AltAttention`, an XLA attention there, not a TPU kernel):
+//
+//      s = q_h k_h^T + key_bias[b] + (u >= extra && j >= extra ? -slope[h] |u - j| : 0)
+//
+//    slope (H,) float32 is the head's ALiBi slope times max(scale, 0), made
+//    on the device by the caller; the first `extra` rows and columns (the
+//    extra tokens) get no term.  The term is computed in the block from
+//    (h, u, j), so no (B, H, T, T) bias reaches device memory; with all
+//    slopes 0 it adds -0.0 and gives the plain kernel's bits.  Bound at
+//    emotion2vec base (B = 8, T = 759, H = 12, d = 64): q, k, v and out,
+//    75 MB -> 22 us at 3.35 TB/s, below the 14.2 GFLOP of the two products
+//    (0.21 ms at 67 TFLOP/s float32): operations.
+//
 // 2. `attention_forward_f32ctx`: the attention inside the int8 layers
 //    (sanm_layer_pallas.py:118-129, decoder_layer_pallas.py:101-115).  q, k,
 //    v arrive in float32 (column slices of an int8 projection's output) and
@@ -411,10 +426,21 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-template <int D>
+// The symmetric ALiBi term of query u and key j (emotion2vec's AltAttention):
+// -(slope * |u - j|), zero on the first `extra` rows and columns (the extra
+// tokens).  The product is rounded on its own, never contracted into the add.
+__device__ __forceinline__ float alibi_term(float slope, int u, int j, int extra) {
+  if (u < extra || j < extra) return 0.f;
+  return -__fmul_rn(slope, (float)(u > j ? u - j : j - u));
+}
+
+// ALIBI = false is the plain kernel (slopes and extra unused); ALIBI = true
+// adds alibi_term(slopes[h], u, j, extra) to every score after the key bias.
+template <int D, bool ALIBI>
 __global__ void __launch_bounds__(NT, 2)
 attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ bias,
+                 const float* __restrict__ slopes, int extra,
                  float* __restrict__ out, int U, int Tk, int64_t q_bs, int64_t q_rs,
                  int64_t k_bs, int64_t k_rs, int64_t v_bs, int64_t v_rs, int64_t o_bs,
                  int64_t o_rs) {
@@ -435,6 +461,7 @@ attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kh = k + b * k_bs + (int64_t)h * D;
   const float* vh = v + b * v_bs + (int64_t)h * D;
   const float* bb = bias + (int64_t)b * Tk;
+  const float slope = ALIBI ? slopes[h] : 0.f;
 
   load_tile<D>(sQ, qh, q_rs, u0, U);
 
@@ -458,6 +485,8 @@ attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         s[i][j] += sB[tx + 16 * j];
+        if constexpr (ALIBI)
+          s[i][j] = __fadd_rn(s[i][j], alibi_term(slope, u0 + 4 * ty + i, k0 + tx + 16 * j, extra));
         mx = fmaxf(mx, s[i][j]);
       }
       const float m_new = fmaxf(m_i[i], row_max(mx));
@@ -484,8 +513,15 @@ attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        sP[(4 * ty + i) * LP + tx + 16 * j] = expf(s[i][j] + sB[tx + 16 * j] - m_i[i]) / l_i[i];
+      for (int j = 0; j < 4; ++j) {
+        if constexpr (ALIBI) {
+          const float sa = __fadd_rn(s[i][j] + sB[tx + 16 * j],
+                                     alibi_term(slope, u0 + 4 * ty + i, k0 + tx + 16 * j, extra));
+          sP[(4 * ty + i) * LP + tx + 16 * j] = expf(sa - m_i[i]) / l_i[i];
+        } else {
+          sP[(4 * ty + i) * LP + tx + 16 * j] = expf(s[i][j] + sB[tx + 16 * j] - m_i[i]) / l_i[i];
+        }
+      }
     __syncthreads();
     load_tile<D>(sKV, vh, v_rs, k0, Tk);
     __syncthreads();
@@ -1046,6 +1082,22 @@ int launch_exact(ExactKernel onchip, ExactKernel spill, const float* q,
   return (int)cudaGetLastError();
 }
 
+template <int D, bool ALIBI>
+int launch_forward_f32(const float* q, const float* k, const float* v, const float* bias,
+                       const float* slopes, int extra, float* out, int B, int U, int Tk, int H,
+                       const long long* st, cudaStream_t s) {
+  constexpr int LD = D + 4;
+  const size_t smem = sizeof(float) * (BQ * LD + BK * LD + BQ * LP + BK);
+  auto kern = attention_kernel<D, ALIBI>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((U + BQ - 1) / BQ, H, B);
+  kern<<<grid, NT, smem, s>>>(q, k, v, bias, slopes, extra, out, U, Tk, st[0], st[1], st[2],
+                              st[3], st[4], st[5], st[6], st[7]);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int launch_forward(const void* q, const void* k, const void* v, const float* bias, void* out,
                    int B, int U, int Tk, int H, int dtype, const long long* st,
@@ -1063,17 +1115,9 @@ int launch_forward(const void* q, const void* k, const void* v, const float* bia
     return (int)cudaGetLastError();
   }
   if (dtype != 0) return (int)cudaErrorInvalidValue;
-  constexpr int LD = D + 4;
-  const size_t smem = sizeof(float) * (BQ * LD + BK * LD + BQ * LP + BK);
-  auto kern = attention_kernel<D>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((U + BQ - 1) / BQ, H, B);
-  kern<<<grid, NT, smem, s>>>(static_cast<const float*>(q), static_cast<const float*>(k),
-                              static_cast<const float*>(v), bias, static_cast<float*>(out), U,
-                              Tk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7]);
-  return (int)cudaGetLastError();
+  return launch_forward_f32<D, false>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                      static_cast<const float*>(v), bias, nullptr, 0,
+                                      static_cast<float*>(out), B, U, Tk, H, st, s);
 }
 
 }  // namespace
@@ -1095,6 +1139,21 @@ extern "C" int attention_forward(const void* q, const void* k, const void* v,
   if (d == 64) return launch_forward<64>(q, k, v, bias, out, B, U, Tk, H, dtype, st, s);
   if (d == 32) return launch_forward<32>(q, k, v, bias, out, B, U, Tk, H, dtype, st, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The float32 kernel with emotion2vec's symmetric ALiBi (its d = 64 instance
+// only): `attention_forward`'s arguments at dtype 0, plus slopes (H,) float32
+// (slope x max(scale, 0) a head) and `extra`, the leading rows and columns
+// that get no ALiBi term.  Returns cudaGetLastError(); 1
+// (cudaErrorInvalidValue) for another head size or a negative `extra`.
+extern "C" int attention_forward_alibi(const float* q, const float* k, const float* v,
+                                       const float* bias, const float* slopes, int extra,
+                                       float* out, int B, int U, int Tk, int H, int d,
+                                       const long long* st, void* stream) {
+  if (B <= 0 || U <= 0 || H <= 0) return (int)cudaSuccess;
+  if (Tk <= 0 || d != 64 || extra < 0) return (int)cudaErrorInvalidValue;
+  return launch_forward_f32<64, true>(q, k, v, bias, slopes, extra, out, B, U, Tk, H, st,
+                                      (cudaStream_t)stream);
 }
 
 // The int8 layers' attention (second kernel above): float32 q, k, v rounded

@@ -28,7 +28,7 @@ from torch import nn
 
 from funasr_torch.device import resolve_device, upload
 from funasr_torch.models.sanm import Dense, SANMEncoder
-from funasr_torch.registry import tables
+from funasr_torch.registry import not_ported, tables
 
 #  one CJK char | a run of non-CJK non-space chars (single-char class from
 #  U+3001: U+3000 is whitespace)
@@ -256,3 +256,7 @@ class CTTransformerModel:
                     p = {"，": ",", "。": ".", "？": "?"}.get(p, p)
                 parts.append(p)
         return "".join(parts)
+
+
+tables.register("model_classes", "CTTransformerStreaming")(not_ported(
+    "model class", "CTTransformerStreaming", "streaming punctuation"))

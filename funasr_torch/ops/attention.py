@@ -20,6 +20,15 @@ funasr_tpu/ops/attention_pallas.py ``_attn_kernel``.  Contract
   dtype before the ``p v`` product (float32 accumulation), and the result
   is cast to q's dtype.
 
+With ``alibi_slopes`` (H,) and ``extra`` the float32 instance at d = 64
+adds emotion2vec's symmetric ALiBi term to the scores after the key bias,
+``-(slope[h] * |u - j|)`` with u, j the query and key positions, zero on
+the first ``extra`` rows and columns (funasr_tpu/models/emotion2vec/model.py
+:136 ``AltAttention`` with ``symmetric_alibi`` :62 padded for the extra
+tokens; XLA there, not a TPU kernel).  The kernel computes the term from
+(h, u, j); the twin adds :func:`alibi_bias`.  Its launches count in
+``fused_attention.launches_alibi`` alone.
+
 A row whose keys are all masked gets uniform weights in the kernel (the
 XLA path of the JAX package gives zeros there).  The serving path never
 builds such a row: every packed utterance has at least 400 samples.  On
@@ -103,8 +112,19 @@ def exact_attention_plan(B: int, H: int, U: int, T: int):
     return rows, -(-B // rows), (rows, H, U, ld)
 
 
+def alibi_bias(slopes: torch.Tensor, U: int, T: int, extra: int = 0) -> torch.Tensor:
+    """The (H, U, T) float32 symmetric ALiBi term of the kernel:
+    ``-(slopes[h] * |u - j|)``, zero where ``u < extra`` or ``j < extra``."""
+    u = torch.arange(U, device=slopes.device)[:, None]
+    j = torch.arange(T, device=slopes.device)[None, :]
+    dist = (u - j).abs().to(torch.float32)
+    term = -(slopes.to(torch.float32)[:, None, None] * dist)
+    return torch.where((u >= extra) & (j >= extra), term, torch.zeros_like(term))
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  key_bias: torch.Tensor, n_head: int) -> torch.Tensor:
+                  key_bias: torch.Tensor, n_head: int,
+                  alibi_slopes: Optional[torch.Tensor] = None, extra: int = 0) -> torch.Tensor:
     """Plain twin: same inputs and output as :func:`fused_attention`."""
     B, U, D = q.shape
     T = k.shape[1]
@@ -112,6 +132,8 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qf = q.reshape(B, U, n_head, d).transpose(1, 2).to(torch.float32)
     kf = k.reshape(B, T, n_head, d).transpose(1, 2).to(torch.float32)
     s = qf @ kf.transpose(-1, -2) + key_bias[:, None, None, :].to(torch.float32)
+    if alibi_slopes is not None:
+        s = s + alibi_bias(alibi_slopes, U, T, extra)
     p = torch.softmax(s, dim=-1).to(v.dtype).to(torch.float32)
     vf = v.reshape(B, T, n_head, d).transpose(1, 2).to(torch.float32)
     out = (p @ vf).transpose(1, 2).reshape(B, U, D)
@@ -163,6 +185,8 @@ def attention_i8qk_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+_ARGTYPES_ALIBI = ([ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p]
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
 _ARGTYPES_F32CTX = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                     + [ctypes.c_float] + [ctypes.c_void_p] * 2)
 
@@ -270,13 +294,30 @@ attention_i8qk.launches = 0
 attention_i8qk.launches_by_head = dict.fromkeys(EXACT_HEAD_SIZES, 0)
 
 
+def _check_alibi(q, n_head, alibi_slopes, extra) -> None:
+    if q.dtype != torch.float32 or q.shape[-1] != 64 * n_head:
+        raise ValueError(f"fused_attention: ALiBi runs in float32 at head size 64 only, "
+                         f"got {q.dtype} at d = {q.shape[-1] / n_head:g}")
+    if alibi_slopes.shape != (n_head,) or alibi_slopes.dtype != torch.float32:
+        raise ValueError(f"fused_attention: alibi_slopes must be ({n_head},) float32, got "
+                         f"{tuple(alibi_slopes.shape)} {alibi_slopes.dtype}")
+    if alibi_slopes.device != q.device or extra < 0:
+        raise ValueError("fused_attention: alibi_slopes on q's device and extra >= 0")
+
+
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    key_bias: torch.Tensor, n_head: int) -> torch.Tensor:
+                    key_bias: torch.Tensor, n_head: int,
+                    alibi_slopes: Optional[torch.Tensor] = None, extra: int = 0) -> torch.Tensor:
     """q (B, U, H*d), k/v (B, T, H*d), key_bias (B, T) float32 -> (B, U, H*d)
     in q's dtype.  k and v may be column slices of one tensor (any row
-    stride, unit column stride)."""
+    stride, unit column stride).  ``alibi_slopes`` (H,) float32 adds the
+    symmetric ALiBi term ``-(slope[h] |u - j|)`` to every score but those of
+    the first ``extra`` rows and columns (emotion2vec's AltAttention; float32
+    at head size 64 only, ``ValueError`` otherwise, on every device)."""
+    if alibi_slopes is not None:
+        _check_alibi(q, n_head, alibi_slopes, extra)
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, key_bias, n_head)
+        return attention_ref(q, k, v, key_bias, n_head, alibi_slopes, extra)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: unsupported device {q.device}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -290,10 +331,19 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides = (ctypes.c_longlong * 8)(q.stride(0), q.stride(1), k.stride(0),
                                       k.stride(1), v.stride(0), v.stride(1),
                                       out.stride(0), out.stride(1))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if alibi_slopes is not None:
+        fn = cuda_build.function("attention", "attention_forward_alibi", _ARGTYPES_ALIBI)
+        status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                    alibi_slopes.contiguous().data_ptr(), int(extra), out.data_ptr(), B, U, T,
+                    n_head, D // n_head, strides, stream)
+        cuda_build.check(status, "attention (ALiBi) kernel launch")
+        fused_attention.launches_alibi += 1
+        return out
     fn = cuda_build.function("attention", "attention_forward", _ARGTYPES)
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                 out.data_ptr(), B, U, T, n_head, D // n_head, _DTYPES[q.dtype], strides,
-                torch.cuda.current_stream(q.device).cuda_stream)
+                stream)
     cuda_build.check(status, "attention kernel launch")
     fused_attention.launches += 1
     fused_attention.launches_by_head[D // n_head] += 1
@@ -302,3 +352,4 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 fused_attention.launches = 0
 fused_attention.launches_by_head = dict.fromkeys(HEAD_SIZES, 0)  # the same launches by d
+fused_attention.launches_alibi = 0  # the ALiBi instance's launches (not in the two above)

@@ -28,7 +28,7 @@ from typing import Dict, Iterable, Tuple
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("fbank", "attention", "int8_gemm", "rowquant", "fsmn", "ctc_prefix", "qmm",
-           "ffn")
+           "ffn", "wkv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
