@@ -278,7 +278,27 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    sync in the dispatch, scores within 1e-4 of the twins', labels equal
    where the twins' top-2 margin exceeds it, feats within 1e-4 x max
    |twin|.  Phase (f2)'s counters include the RWKV decoder's 6 WKV
-   launches a decoder call;
+   launches a decoder call; then (j) SCAMA and the streaming
+   punctuation: the SCAMA path's int8 kernels at its B = 32 x 15 s shapes
+   (QDense's rowquant and int8 GEMM at encoders0's and a layer's QKV and
+   the decoder's cross K/V, bit-equal; the fused int8 FFN); (j1) SCAMA at
+   Paraformer-large's widths (``scama_configs``: 50 SANM layers under the
+   chunk mask, the 16-layer causal ``FsmnDecoderSCAMAOpt``, beam 5,
+   maxlen 96) through ``AutoModel.generate``, int8 on three batches of
+   mixed 2-15 s requests, counters exact (fbank one a batch, the 50 fused
+   int8 FFNs and the gated QDense pairs of ``scama_batch_launches``), no
+   host sync in a dispatch but the beam's one a step, the records equal on
+   the int8 twins; float32 tokens on the twins equal on >= 0.99; the
+   B = 32 x 15 s batch timed and profiled (ms and launches a decode step,
+   the idle share); (j2) the int8 SCAMA behind FSMN-VAD and CT-Transformer
+   on pipeline (b)'s plan with ``with_timestamp=False``, counters exact,
+   the record equal on the int8 twins, and with timestamps the error that
+   names the cause; (j3) the streaming CT-Transformer at
+   ``configs/ct_transformer_punc.yaml``'s widths in bf16, 60 calls of 5-25
+   words and the flush, each masked forward under the guard, no kernel
+   launched, labels equal to float32's on >= 0.99, the ms a call.  Every
+   phase's first call dispatches under the sync guard as its timed calls
+   do;
 4. print one ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -2474,7 +2494,8 @@ def end_to_end_pipeline(torch, FK, A, profile_dir, card):
         f"{time.time() - t0:.1f} s")
     wav, bursts = pipeline_recording(np.random.default_rng(12))
     plan = merge_vad(bursts, 15000)
-    am.warmup(seconds=(2,))
+    with guarded_entries(torch, (am.engine, "transcribe_async"), (am.vad_engine, "front")):
+        am.warmup(seconds=(2,))  # the first calls, dispatched under the guard
     torch.cuda.synchronize()
 
     counters = {"fbank": FK.fused_fbank, "attention": A.fused_attention,
@@ -2852,8 +2873,10 @@ def end_to_end_pipeline_c(torch, FK, A, card):
     shift = float((others - dha[..., nb])[valid].median())
     with torch.no_grad():
         model.hotword_output_layer.bias[nb] += shift
-    am.warmup(seconds=(2,))
-    eng.transcribe(probe[:1], hotword=grid)  # the hotword path's first call
+    with guarded_entries(torch, (eng, "transcribe_async"), (am.vad_engine, "front"),
+                         (am.spk_engine, "embed_async")):
+        am.warmup(seconds=(2,))  # the first calls, dispatched under the guard
+        eng.transcribe(probe[:1], hotword=grid)  # the hotword path's first call
     torch.cuda.synchronize()
     log(f"e2e pipeline (c): hotwords {words}; no-bias logit raised by {shift:.3f}")
 
@@ -3266,7 +3289,7 @@ def end_to_end_streaming(torch, FK, A, am, profile_dir, card):
             w["n_tok"], w["tokens"] = int(row[0]), row[1:]
         return cache.tokens, windows, wall
 
-    stream(False)  # warm-up: the libraries' handles, the pinned pool
+    stream(True)  # the first stream (the pinned pool), its steps under the guard
     for fn in (FK.fused_fbank, A.fused_attention):
         fn.launches = 0
     toks, win_k, wall = stream(True)
@@ -3675,7 +3698,8 @@ def end_to_end_sensevoice(torch, FK, A, profile_dir, card):
     e2e = {}
     runs, path_launches = {}, {}
     for name, eng in (("f32", eng32), ("int8", eng8)):
-        eng.transcribe(batches[0][:2], with_timestamp=True)  # warm-up
+        with guarded_entries(torch, (eng, "transcribe_async")):
+            eng.transcribe(batches[0][:2], with_timestamp=True)  # the first call
         torch.cuda.synchronize()
         outs = []
         real_run = eng.run
@@ -3923,6 +3947,25 @@ def sync_guarded(torch, f):
     return call
 
 
+@contextlib.contextmanager
+def guarded_entries(torch, *entries):
+    """Inside the block each ``(object, method name)`` of ``entries`` runs
+    under ``sync_guarded``: a phase's first call (its warm-up) dispatches
+    under the guard as its timed calls do, so a host sync on a first call
+    (an upload made lazily) fails the run."""
+    saved = [(obj, name, name in vars(obj), getattr(obj, name)) for obj, name in entries]
+    for obj, name, _, f in saved:
+        setattr(obj, name, sync_guarded(torch, f))
+    try:
+        yield
+    finally:
+        for obj, name, own, f in reversed(saved):
+            if own:
+                setattr(obj, name, f)
+            else:
+                delattr(obj, name)
+
+
 def contextual_configs():
     """Phase (d)'s configs: ``pipeline_configs()``'s Paraformer-large dict as
     ContextualParaformer (``_flagship``'s widths, its CIF predictor,
@@ -4077,7 +4120,8 @@ def end_to_end_contextual(torch, FK, A, profile_dir, card):
     for size in (8, 16, 5):
         n = rng.integers(2 * FS, 15 * FS + 1, size)
         batches.append([waveform(rng, int(m), float(rng.uniform(100, 400))) for m in n])
-    eng.transcribe(batches[0][:2], hotword=grid)  # warm-up
+    with guarded_entries(torch, (eng, "transcribe_async")):
+        eng.transcribe(batches[0][:2], hotword=grid)  # the first call, under the guard
     torch.cuda.synchronize()
     dec_calls = []
 
@@ -4700,15 +4744,21 @@ def hybrid_recipe_batch(torch, A, CP, card, am, name, B, zero, read, tag):
         f"{type(module.decoder).__name__}")
     rng = np.random.default_rng(3)
     wavs = [waveform(rng, N, 150.0 + 7 * i) for i in range(B)]
-    # warm-up (the full-prefix beam on an 8-step engine: its 96 steps take
-    # seconds whatever the batch)
-    HybridEngine(module, eng.frontend, eng.tokenizer,
-                 **dict(BEAM_SERVING, maxlen=8 if full_prefix else 96)).transcribe(
-        wavs[:2], nbest=K, with_timestamp=True)
-    torch.cuda.synchronize()
-    aligns, dec_calls = [], [0]
     real = dict(all_finished=TB.all_finished, fetched=TM.fetched, viterbi=TM.viterbi,
                 forward=module.decoder.forward)
+    # the first call, its dispatch under the guard but for the beam's syncs
+    # (the full-prefix beam on an 8-step engine: its 96 steps take seconds
+    # whatever the batch)
+    first = HybridEngine(module, eng.frontend, eng.tokenizer,
+                         **dict(BEAM_SERVING, maxlen=8 if full_prefix else 96))
+    TB.all_finished, TM.fetched = lifted(real["all_finished"]), lifted(real["fetched"])
+    try:
+        with guarded_entries(torch, (first, "run")):
+            first.transcribe(wavs[:2], nbest=K, with_timestamp=True)
+    finally:
+        TB.all_finished, TM.fetched = real["all_finished"], real["fetched"]
+    torch.cuda.synchronize()
+    aligns, dec_calls = [], [0]
 
     def kept_vit(*a, **k):
         out = real["viterbi"](*a, **k)
@@ -4998,7 +5048,8 @@ def end_to_end_sanm_family(torch, FK, A, CP, card, B=32):
           and module.encoder.encoders[0].n_head == 4, "(g1) E-Paraformer at the recipe's widths")
     log(f"e2e (g1) E-Paraformer: AutoModel (int8, FSMN-VAD, CT-Transformer) built in "
         f"{time.time() - t0:.1f} s")
-    eng.transcribe(wavs[:2])  # warm-up
+    with guarded_entries(torch, (eng, "transcribe_async")):
+        eng.transcribe(wavs[:2])  # the first call, under the guard
     res_k, launches, walls = paraformer256_batch(torch, A, eng, wavs, zero, read,
                                                  "(g1) E-Paraformer int8", "e_paraformer")
     with int8_twins():
@@ -5354,7 +5405,8 @@ def end_to_end_whisper(torch, FK, A, CP, profile_dir, card):
     B = len(wavs)
 
     # ---- (h1) WhisperEngine.transcribe, bf16, B = 8
-    eng.transcribe(wavs[:2])  # warm-up: the frontend's tables, cuBLAS
+    with guarded_entries(torch, (eng.frontend, "batch"), (wrap, "greedy_decode")):
+        eng.transcribe(wavs[:2])  # the first call (the frontend's tables), under the guard
     eng.frontend.batch = sync_guarded(torch, eng.frontend.batch)
     guarded = sync_guarded(torch, wrap.greedy_decode)
     walls, spans, outs = [], [], []
@@ -5797,7 +5849,8 @@ def transducer_batch(torch, FK, A, CP, eng, wavs, zero, read, tag, twins, want_e
         outs.append(real(*a, **k))
         return outs[-1]
 
-    eng.transcribe([w[: 2 * FS] for w in wavs[:2]])  # warm-up: handles, the CMVN upload
+    with guarded_entries(torch, (eng, "run")):
+        eng.transcribe([w[: 2 * FS] for w in wavs[:2]])  # the first call, under the guard
     eng.run = sync_guarded(torch, kept)
     try:
         zero()
@@ -5837,11 +5890,10 @@ def transducer_batch(torch, FK, A, CP, eng, wavs, zero, read, tag, twins, want_e
     return rec, launches, res
 
 
-def transducer_generate(torch, am, zero, read, wav, plan, tag, twins=None, guard=True):
+def transducer_generate(torch, am, zero, read, wav, plan, tag, twins=None):
     """One ``generate`` of ``wav`` by a transducer ``AutoModel`` behind its VAD
     and punctuation, the VAD's segments replaced by ``plan``, every batch's
-    dispatch under sync debug mode "error" (``guard``; the engine's first
-    call uploads its CMVN): counters exact (fbank once for
+    dispatch under sync debug mode "error": counters exact (fbank once for
     the VAD and once a batch, the Conformer's gated int8 FFN ``w_1`` a batch,
     punctuation's d = 32 attention once a layer a window round; ``twins``
     launches none of the swapped kernels).  Returns (record, launches, stage
@@ -5859,7 +5911,7 @@ def transducer_generate(torch, am, zero, read, wav, plan, tag, twins=None, guard
     pm._argmax = counted_argmax
     ve.model.segments_from_posteriors = (
         lambda post, db, f=ve.model.segments_from_posteriors: (f(post, db), plan)[1])
-    eng.run = sync_guarded(torch, eng.run) if guard else eng.run
+    eng.run = sync_guarded(torch, eng.run)
     clock.wrap(ve, "front", "vad_device", events=True)
     clock.wrap(ve.model, "segments_from_posteriors", "vad_host")
     clock.wrap(eng, "run", "asr_dispatch", events=True)
@@ -6033,7 +6085,7 @@ def end_to_end_transducer(torch, FK, A, CP, profile_dir, card):
     set_joint(torch, am.engine.module, rule)
     wav, bursts = pipeline_recording(np.random.default_rng(12))
     plan = merge_vad(bursts, 15000)
-    first = transducer_generate(torch, am, zero, read, wav, plan, "(i3) first", guard=False)[2]
+    first = transducer_generate(torch, am, zero, read, wav, plan, "(i3) first")[2]
     res, launches3, times, shapes = transducer_generate(torch, am, zero, read, wav, plan,
                                                         "(i3) 600 s")
     res_t, launches_t, _, _ = transducer_generate(torch, am, zero, read, wav, plan,
@@ -6081,7 +6133,8 @@ def end_to_end_emotion2vec(torch, FK, A, CP, profile_dir, card):
           "(i4) emotion2vec base at the JAX defaults")
     rng = np.random.default_rng(8)
     wavs = [waveform(rng, s * FS, 120.0 + 17 * i) for i, s in enumerate(E2V_AUDIO_S)]
-    eng.transcribe(wavs[:2])  # warm-up: cuDNN's convolution plans
+    with guarded_entries(torch, (model, "run")):
+        eng.transcribe(wavs[:2])  # the first call (cuDNN's plans), under the guard
     real = model.run
     model.run = sync_guarded(torch, real)
     walls = []
@@ -6127,6 +6180,452 @@ def end_to_end_emotion2vec(torch, FK, A, CP, profile_dir, card):
     del am, eng, model
     torch.cuda.empty_cache()
     return launches, {"emotion2vec_i4": rec}
+
+
+# phase (j): SCAMA and the streaming punctuation
+SCAMA_SEED = 2070
+SCAMA_B = 32  # (j1)'s timed batch: the beam cell's B x 15 s
+SCAMA_LAYERS = 50  # encoder layers (encoders0 + 49): a fused int8 FFN and a QDense QKV each
+SCAMA_CROSS = 16  # the decoder's cross K/V projections (QDense), once a batch
+SCAMA_F32_MIN_AGREE = 0.99  # float32 top-hypothesis tokens, kernels against the twins
+SCAMA_MIN_DISTINCT = 16  # distinct tokens a set of batches: no fixed point
+PUNC_STREAM_CALLS = 60  # (j3): calls of 5-25 words, then the final flush
+PUNC_STREAM_SEED = 2072
+
+
+def scama_configs():
+    """Phase (j)'s configs as dicts.  SCAMA: the repository holds no SCAMA
+    YAML, so the widths are Paraformer-large's (``FLAGSHIP``,
+    ``__graft_entry__.py:13``): vocab 8404, 560 inputs, 50 SANM encoder
+    layers of 512 (4 heads, 2048 units, kernel 11), the CIF predictor; the
+    decoder ``FsmnDecoderSCAMAOpt`` with 16 full layers and no FSMN-only
+    one, kernel 11, its causal FSMN (the flagship decoder's ``sanm_shfit``
+    0 left out); chunks of 10 frames, no look-back limit; decoding beam 5,
+    maxlen 96, CTC weight 0 (the JAX AutoModel's defaults); the pipeline's
+    frontend and single-CJK-char token list.  With it the pipeline's
+    FSMN-VAD and CT-Transformer."""
+    asr, vad, punc = pipeline_configs()
+    dec = {k: v for k, v in FLAGSHIP["decoder_conf"].items() if k != "sanm_shfit"}
+    scama = dict(model="SCAMA", vocab_size=asr["vocab_size"], input_size=asr["input_size"],
+                 encoder_conf=asr["encoder_conf"], decoder_conf=dec,
+                 predictor_conf=asr["predictor_conf"], model_conf=asr["model_conf"],
+                 frontend_conf=asr["frontend_conf"], tokenizer_conf=asr["tokenizer_conf"],
+                 decoding_conf=dict(beam_size=5, maxlenratio_tokens=96,
+                                    decoding_ctc_weight=0.0))
+    return scama, vad, punc
+
+
+def lfr_frames(n_samples: int) -> int:
+    """Encoder frames of a batch padded to ``n_samples``: the bucket's fbank
+    frames, LFR by 6, padded to a multiple of 128."""
+    from funasr_torch.auto.engines import quantize
+
+    lfr = -(-((quantize(n_samples) - 400) // 160 + 1) // 6)
+    return -(-lfr // 128) * 128
+
+
+def scama_batch_launches(B, n_samples):
+    """The int8 launches of one SCAMA batch of B x ``n_samples`` under
+    ``quantize=True``, stated from the JAX layout: every encoder layer on the
+    module path under the chunk mask (sanm.py:510-516), its FFN one fused
+    int8 FFN (two rowquant and two int8 GEMM launches) and its QKV (N =
+    1536) a QDense pair when the B x T rows pass the int8 gate; the
+    decoder's 16 cross K/V projections (N = 1024) pairs on the same rows,
+    once a batch; the decode steps' B x beam rows pass no gate; no attention
+    kernel (every attention has a per-query mask)."""
+    gated = B * lfr_frames(n_samples) >= INT8_MIN_ROWS
+    pairs = 2 * SCAMA_LAYERS + (SCAMA_LAYERS + SCAMA_CROSS) * gated
+    return dict(ffn=SCAMA_LAYERS, rowquant=pairs, int8_gemm=pairs)
+
+
+def sync_lifted(torch, f):
+    """``f`` with the sync debug mode off: a documented host sync inside a
+    guarded dispatch (the beam's ``all_finished``, one a step)."""
+    def call(*a, **k):
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return f(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+    return call
+
+
+def check_scama_kernels(torch, G, RQ, FF, Q):
+    """The SCAMA path's int8 kernels at its B = 32 x 15 s shapes (M = 32 x 256
+    LFR frames): QDense's row quantize ("div") and the int8 GEMM with the
+    QDense epilogue at encoders0's QKV (K = 560), a layer's QKV (512 ->
+    1536) and the decoder's cross K/V (512 -> 1024), each bit-equal to its
+    twin; the fused int8 FFN (512 -> 2048 -> 512) against its twin within
+    ``INT8_LAYER_TOL``.  -> {"int8_gemm", "rowquant", "ffn"} case lists."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    M = SCAMA_B * lfr_frames(15 * FS)
+    out = {"int8_gemm": [], "rowquant": [], "ffn": []}
+    for K, N, what in ((560, 1536, "SCAMA encoders0 QKV"), (512, 1536, "SCAMA layer QKV"),
+                       (512, 1024, "SCAMA decoder cross K/V")):
+        x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+        w8, sw = Q.quantize_weight(torch.randn((N, K), generator=gen, device="cuda")
+                                   * K ** -0.5)
+        bias = (0.1 * torch.randn(N, generator=gen, device="cuda")).to(torch.bfloat16).float()
+        qd = dict(bias=bias, round_bf16=True, out_dtype=torch.bfloat16)
+        q, sx = RQ.rowquant(x, form="div")
+        q_r, sx_r = RQ.rowquant_ref(x, form="div")
+        y, y_r = G.int8_gemm(q, sx, w8, sw, **qd), G.int8_gemm_ref(q_r, sx_r, w8, sw, **qd)
+        torch.cuda.synchronize()
+        rq_equal = torch.equal(q, q_r) and torch.equal(sx, sx_r)
+        check(rq_equal and torch.equal(y, y_r), f"{what}: rowquant and int8 GEMM bit-equal "
+              f"to their twins (rowquant {rq_equal})")
+        bnd, by = bound_ms(M * K + N * K + 4 * (M + 2 * N) + 2 * M * N,
+                           {"int8": 2.0 * M * N * K})
+        case = dict(case=f"{what}: ({M}, {K}) x ({N}, {K}) int8 -> bf16 (QDense)",
+                    max_abs_err=0.0, tolerance=0.0,
+                    ms=cuda_ms(lambda: G.int8_gemm(q, sx, w8, sw, **qd)),
+                    plain_ms=cuda_ms(lambda: G.int8_gemm_ref(q, sx, w8, sw, **qd), iters=3),
+                    library_ms=cuda_ms(lambda: torch._int_mm(q, w8.t())),
+                    bound_ms=bnd, bound_by=by)
+        log(f"int8 gemm {case}")
+        out["int8_gemm"].append(case)
+        bnd, by = bound_ms(3 * M * K + 4 * M, {})
+        case = dict(case=f"{what}: ({M}, {K}) bf16, form div", max_abs_err=0.0,
+                    tolerance=0.0, bit_equal=rq_equal,
+                    ms=graph_ms(lambda: RQ.rowquant(x, form="div")),
+                    plain_ms=cuda_ms(lambda: RQ.rowquant_ref(x, form="div"), iters=3),
+                    library_ms=None, bound_ms=bnd, bound_by=by)
+        log(f"rowquant {case}")
+        out["rowquant"].append(case)
+    D, H = 512, 2048
+    r = lambda *shape, sc: torch.randn(shape, generator=gen, device="cuda") * sc  # noqa: E731
+    w = FF.quantize_ffn(r(H, D, sc=D ** -0.5), r(H, sc=0.1), r(D, H, sc=H ** -0.5), r(D, sc=0.1))
+    x = torch.randn((M, D), generator=gen, device="cuda").to(torch.bfloat16)
+    got, want = FF.fused_ffn_int8(x, w), FF.ffn_int8_ref(x, w)
+    out["ffn"].append(_layer_case(
+        torch, f"SCAMA encoder FFN M={M} {D} -> {H} -> {D}", got, want,
+        torch.ones_like(got, dtype=torch.float32), cuda_ms(lambda: FF.fused_ffn_int8(x, w)),
+        cuda_ms(lambda: FF.ffn_int8_ref(x, w), iters=3),
+        2 * 2 * M * D + 2 * D * H + 4 * (2 * H + 2 * D), {"int8": 2.0 * M * 2 * D * H},
+        lambda: FF.fused_ffn_int8(x, w)))
+    log(f"int8 layer {out['ffn'][-1]}")
+    return out
+
+
+def scama_serve(torch, am, zero, read, batches, tag, want_fn, twins=None):
+    """``am.generate`` of each batch in ``batches`` (one batch a call), the
+    engine's dispatch (``run``) under the sync guard but for the beam's one
+    sync a step, the counters from 0 and held to ``want_fn(B, n_samples)``
+    summed over the batches; ``twins`` (a context) swaps kernels.
+    -> (records, top-hypothesis tokens and lengths a batch, launches, wall
+    s, decode steps)."""
+    from funasr_torch.ops import beam_search as TB
+
+    eng = am.engine
+    outs, real_all = [], TB.all_finished
+    real_run = eng.run
+
+    def kept(*a, **k):
+        outs.append(real_run(*a, **k))
+        return outs[-1]
+
+    eng.run = sync_guarded(torch, kept)
+    TB.all_finished = sync_lifted(torch, real_all)
+    zero()
+    steps0 = eng.steps
+    try:
+        with twins if twins is not None else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = [am.generate(b, key=[f"r{i}" for i in range(len(b))], batch_size=len(b))
+                   for b in batches]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        TB.all_finished = real_all
+        del eng.run
+    launches = read()
+    want = dict.fromkeys(launches, 0)
+    for b in batches:
+        for k, v in want_fn(len(b), max(len(w) for w in b)).items():
+            want[k] += v
+    check(launches == want, f"{tag} launches {launches}, want {want}")
+    toks = [(o.tokens[:, 0].cpu(), o.lengths[:, 0].cpu()) for o in outs]
+    return res, toks, launches, wall, eng.steps - steps0
+
+
+def scama_generate(torch, am, zero, read, wav, plan, tag, twins=None):
+    """One ``generate(with_timestamp=False)`` of ``wav`` by the SCAMA
+    ``AutoModel`` behind its VAD and punctuation, the VAD's segments replaced
+    by ``plan``, every batch's dispatch under the sync guard but for the
+    beam's one sync a step: counters exact (fbank once for the VAD and once
+    a batch, each batch's int8 launches by ``scama_batch_launches``,
+    punctuation's d = 32 attention once a layer a window round; ``twins``
+    launches none of the swapped kernels).  Returns (record, launches, stage
+    times, batch shapes)."""
+    from funasr_torch.ops import beam_search as TB
+    from funasr_torch.utils.vad_utils import slice_audio_by_segments
+
+    eng, ve, pm = am.engine, am.vad_engine, am.punc_engine.model
+    clock, rounds = StageClock(torch), [0]
+    real_argmax, real_all = pm._argmax, TB.all_finished
+
+    def counted_argmax(text, lens):
+        rounds[0] += 1
+        return real_argmax(text, lens)
+
+    pm._argmax = counted_argmax
+    ve.model.segments_from_posteriors = (
+        lambda post, db, f=ve.model.segments_from_posteriors: (f(post, db), plan)[1])
+    eng.run = sync_guarded(torch, eng.run)
+    TB.all_finished = sync_lifted(torch, real_all)
+    clock.wrap(ve, "front", "vad_device", events=True)
+    clock.wrap(ve.model, "segments_from_posteriors", "vad_host")
+    clock.wrap(eng, "run", "asr_beam", events=True)
+    clock.wrap(pm, "inference_batch", "punc")
+    zero()
+    steps0 = eng.steps
+    try:
+        with twins if twins is not None else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = am.generate(wav, key=[tag], with_timestamp=False)[0]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        clock.restore()
+        TB.all_finished = real_all
+        for obj, attr in ((pm, "_argmax"), (ve.model, "segments_from_posteriors"),
+                          (eng, "run")):
+            delattr(obj, attr)
+    clips = slice_audio_by_segments(wav, plan, FS)
+    shapes = [(len(batch), max(len(clips[i]) for i in batch))
+              for batch in am.batches(plan, FS, 300)]
+    launches = read()
+    want = dict.fromkeys(launches, 0)
+    want.update(fbank=1 + len(shapes), attention=4 * rounds[0], attention_d32=4 * rounds[0])
+    if twins is None:
+        for B, N in shapes:
+            for k, v in scama_batch_launches(B, N).items():
+                want[k] += v
+    times = dict(generate_wall_s=wall, audio_s_per_s=len(wav) / FS / wall,
+                 vad_device_ms=clock.device_ms("vad_device"),
+                 vad_host_wall_s=clock.wall.get("vad_host", 0.0),
+                 asr_beam_wall_s=clock.wall.get("asr_beam", 0.0),
+                 asr_beam_span_ms=clock.device_ms("asr_beam", span=True),
+                 punc_wall_s=clock.wall.get("punc", 0.0), punc_rounds=rounds[0],
+                 decode_steps=eng.steps - steps0)
+    log(f"e2e {tag}: {len(plan)} segments in batches (B, samples) {shapes}; kernel launches "
+        f"{launches}")
+    check(launches == want, f"{tag} launches {launches}, want {want}")
+    check(isinstance(res.get("text"), str) and res["text"] and "timestamp" not in res,
+          f"{tag}: a text, no stamps")
+    return res, launches, times, shapes
+
+
+def end_to_end_scama(torch, FK, A, CP, profile_dir, card):
+    """Phase (j1)-(j2): SCAMA at Paraformer-large's widths (``scama_configs``)
+    on seeded random weights through ``AutoModel``.  (j1) int8
+    (``quantize=True``) ``generate`` of three batches of mixed 2-15 s
+    requests, the counters exact (fbank one a batch, the fused int8 FFN and
+    the QDense pairs of ``scama_batch_launches``), no host sync in a
+    dispatch but the beam's ``all_finished``, the records equal on the int8
+    twins, >= ``SCAMA_MIN_DISTINCT`` distinct tokens; float32 the same
+    batches on the kernels (fbank one a batch, nothing else) and on the
+    twins, top-hypothesis tokens equal on >= ``SCAMA_F32_MIN_AGREE``; the
+    B = 32 x 15 s batch timed (wall, decode steps, ms a step) and profiled
+    (launches a step, the idle share).  (j2) the int8 SCAMA behind FSMN-VAD
+    and CT-Transformer: ``generate(with_timestamp=False)`` of the 600 s
+    recording on pipeline (b)'s plan, counters exact, the record equal on
+    the int8 twins; with timestamps (the pipeline's default) it raises, as
+    the JAX package fails there.  Returns (launches, e2e record)."""
+    import numpy as np
+
+    from funasr_torch.auto.auto_model import AutoModel
+    from funasr_torch.auto.engines import HybridEngine
+    from funasr_torch.models.scama.decoder import FsmnDecoderSCAMAOpt
+    from funasr_torch.models.scama.model import SCAMA
+    from funasr_torch.utils.vad_utils import merge_vad
+
+    zero, read = hybrid_counters(FK, A, CP)
+    scama_cfg, vad_cfg, punc_cfg = scama_configs()
+    rng = np.random.default_rng(40)
+    batches = []
+    for size in (8, 16, 5):
+        n = rng.integers(2 * FS, 15 * FS + 1, size)
+        batches.append([waveform(rng, int(m), float(rng.uniform(100, 400))) for m in n])
+    e2e, paths = {}, {}
+    served = lambda B, n: dict(fbank=1, **scama_batch_launches(B, n))  # noqa: E731
+    fbank_only = lambda B, n: {"fbank": 1}  # noqa: E731
+
+    # ---- (j1) int8, then float32
+    for tag, quantize in (("int8", True), ("float32", False)):
+        t0 = time.time()
+        am = AutoModel(model=scama_cfg, quantize=quantize, seed=SCAMA_SEED)
+        eng, module = am.engine, am.engine.module
+        enc, dec = module.encoder, module.decoder
+        check(isinstance(eng, HybridEngine) and type(module) is SCAMA
+              and (eng.beam, eng.maxlen, eng.decoding_ctc_weight) == (5, 96, 0.0)
+              and len(enc.encoders0) + len(enc.encoders) == SCAMA_LAYERS
+              and enc.output_size() == 512 and enc.encoders[0].self_attn.n_head == 4
+              and type(dec) is FsmnDecoderSCAMAOpt and len(dec.decoders) == SCAMA_CROSS
+              and dec.decoders2 is None and dec.kernel_size == 11
+              and dec.decoders[0].self_attn.left == 10 and module.vocab_size == 8404
+              and (module.chunk_size, module.left_chunks) == (10, -1),
+              f"(j1) {tag}: SCAMA at Paraformer-large's widths, the causal FSMN decoder")
+        log(f"e2e (j1) SCAMA {tag}: built in {time.time() - t0:.1f} s")
+        res, toks, launches, wall, steps = scama_serve(
+            torch, am, zero, read, batches, f"(j1) {tag}", served if quantize else fbank_only)
+        emitted = [t for tk, ln in toks for b in range(len(ln))
+                   for t in tk[b, : int(ln[b])].tolist()]
+        distinct = len(set(emitted))
+        check(distinct >= SCAMA_MIN_DISTINCT and all(r["text"] for rs in res for r in rs),
+              f"(j1) {tag}: {distinct} distinct tokens, every record a text")
+        rec = dict(requests=sum(map(len, batches)), generate_wall_s=wall, decode_steps=steps,
+                   launches=launches, distinct_tokens=distinct,
+                   tokens_per_row=[ln.tolist() for _, ln in toks])
+        if quantize:
+            res_t, toks_t, _, _, _ = scama_serve(torch, am, zero, read, batches,
+                                                 f"(j1) {tag} twins", fbank_only, int8_twins())
+            same = res_t == res and all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                                        for a, b in zip(toks, toks_t))
+            check(same, "(j1) int8: tokens or records differ on the int8 twins")
+            rec["twins_equal"] = True
+            # the timed B = 32 x 15 s batch, its dispatch under the guard
+            wavs = [waveform(np.random.default_rng(41 + i), 15 * FS, 150.0 + 7 * i)
+                    for i in range(SCAMA_B)]
+            _, _, launches32, wall32, steps32 = scama_serve(
+                torch, am, zero, read, [wavs], "(j1) B=32", served)
+            prof = profile(torch, lambda: eng.transcribe(wavs), profile_dir, 1e3 * wall32,
+                           "profile_scama.txt")
+            rec["b32"] = dict(wall_s=wall32, decode_steps=steps32,
+                              ms_a_step=1e3 * wall32 / max(steps32, 1), launches=launches32,
+                              kernel_launches_a_step=prof["kernel launches"] / max(steps32, 1),
+                              idle_share=1.0 - prof["kernel share of batch_ms"],
+                              profile=prof, audio_s_per_s=SCAMA_B * 15 / wall32)
+            log(f"e2e (j1) SCAMA B=32 x 15 s on {card}: wall {wall32:.3f} s, {steps32} decode "
+                f"steps, {rec['b32']['ms_a_step']:.2f} ms and "
+                f"{rec['b32']['kernel_launches_a_step']:.0f} kernel launches a step, idle "
+                f"share {rec['b32']['idle_share']:.3f}")
+            paths["j1_b32"] = launches32
+        else:
+            res_t, toks_t, _, _, _ = scama_serve(torch, am, zero, read, batches,
+                                                 f"(j1) {tag} twins", lambda B, n: {},
+                                                 plain_twins(FK, A))
+            same = total = 0
+            for (tk, ln), (tt, lt) in zip(toks, toks_t):
+                for b in range(len(ln)):
+                    n = max(int(ln[b]), int(lt[b]), 1)
+                    same += int((tk[b, :n] == tt[b, :n]).sum())
+                    total += n
+            agree = same / total
+            check(agree >= SCAMA_F32_MIN_AGREE, f"(j1) float32: tokens on the twins agree "
+                  f"{agree} < {SCAMA_F32_MIN_AGREE}")
+            rec.update(twins_token_agreement=agree, twins_records_equal=res_t == res)
+        log(f"e2e (j1) SCAMA {tag} on {card}: {json.dumps(rec)}")
+        e2e[f"scama_j1_{tag}"] = rec
+        paths[f"j1_{tag}"] = launches
+        del am, eng, module
+        torch.cuda.empty_cache()
+
+    # ---- (j2) behind FSMN-VAD and CT-Transformer, no timestamps
+    am = AutoModel(model=scama_cfg, vad_model=vad_cfg, punc_model=punc_cfg, quantize=True,
+                   seed=SCAMA_SEED)
+    wav, bursts = pipeline_recording(np.random.default_rng(12))
+    plan = merge_vad(bursts, 15000)
+    first = scama_generate(torch, am, zero, read, wav, plan, "(j2) first")[2]
+    res, launches2, times, shapes = scama_generate(torch, am, zero, read, wav, plan,
+                                                   "(j2) 600 s")
+    res_t, launches_t, _, _ = scama_generate(torch, am, zero, read, wav, plan,
+                                             "(j2) on the int8 twins", int8_twins())
+    check(res_t == dict(res, key=res_t["key"]), "(j2) the record differs on the int8 twins")
+    # with timestamps (the pipeline's default) the call raises, naming the cause
+    ve, raised = am.vad_engine, None
+    ve.model.segments_from_posteriors = (
+        lambda post, db, f=ve.model.segments_from_posteriors: (f(post, db), plan[:2])[1])
+    try:
+        am.generate(wav[: 60 * FS], key=["ts"])
+    except NotImplementedError as err:
+        raised = str(err)
+    finally:
+        del ve.model.segments_from_posteriors
+    check(raised is not None and "SCAMA has no timestamps" in raised,
+          f"(j2) with timestamps SCAMA raises, naming the cause: {raised}")
+    log(f"e2e (j2) on {card}: {json.dumps(times)}; first call {json.dumps(first)}; text "
+        f"{res['text'][:24]}...; record equal on the int8 twins")
+    e2e["scama_j2"] = dict(times, first_call=first, segments=len(plan), batches=shapes,
+                           launches=launches2, twins_record_equal=True)
+    paths["j2"] = launches2
+    paths["j2_twins"] = launches_t
+    del am
+    torch.cuda.empty_cache()
+    total = {k: sum(d.get(k, 0) for d in paths.values()) for k in read()}
+    return total, e2e
+
+
+def end_to_end_stream_punc(torch, FK, A, CP, card):
+    """Phase (j3): the streaming CT-Transformer at
+    ``configs/ct_transformer_punc.yaml``'s widths (vocab 272727, 256, 8
+    heads, 4 blocks) through ``AutoModel(model=CTTransformerStreaming,
+    quantize=True)`` (bf16) on seeded random weights, and the same weights
+    in float32: ``punctuate_streaming`` of ``PUNC_STREAM_CALLS`` calls of
+    5-25 words, then the final flush, each masked forward dispatched under
+    the sync guard; the path launches none of the port's kernels (the
+    masked attention is the JAX package's XLA path); every word committed
+    once, the bf16 labels equal to the float32 ones on >=
+    ``PUNC_MIN_AGREE``; the ms a call.  Returns (launches, e2e record)."""
+    import numpy as np
+
+    from funasr_torch.auto.auto_model import AutoModel
+    from funasr_torch.models.ct_transformer.streaming import CTTransformerStreamingModel
+
+    zero, read = hybrid_counters(FK, A, CP)
+    _, _, punc = pipeline_configs()
+    cfg = dict(punc, model="CTTransformerStreaming")
+    am = AutoModel(model=cfg, quantize=True, seed=PUNC_STREAM_SEED)
+    am32 = AutoModel(model=cfg, seed=PUNC_STREAM_SEED)
+    m, m32 = am.engine.model, am32.engine.model
+    enc = m.module.encoder
+    check(type(m) is CTTransformerStreamingModel and m.module.dtype == torch.bfloat16
+          and m32.module.dtype == torch.float32
+          and m.module.embed.num_embeddings == 272727 and enc.output_size() == 256
+          and len(enc.encoders0) + len(enc.encoders) == 4
+          and enc.encoders[0].self_attn.n_head == 8,
+          "(j3) the streaming punctuation at ct_transformer_punc.yaml's widths, bf16")
+    m32.module.load_state_dict(m.module.state_dict())  # the bf16 weights, exactly
+    tokens = cfg["tokenizer_conf"]["token_list"]
+    rng = np.random.default_rng(PUNC_STREAM_SEED)
+    texts = ["".join(tokens[int(i)] for i in rng.integers(3, len(tokens), int(n)))
+             for n in rng.integers(5, 26, PUNC_STREAM_CALLS)]
+
+    def stream(model):
+        cache, labels, ms = {}, [], []
+        real = model.module.forward
+        model.module.forward = sync_guarded(torch, real)
+        try:
+            for i, text in enumerate(texts + [""]):
+                t = time.perf_counter()
+                out = model.punctuate_streaming(text, cache, is_final=i == len(texts))
+                ms.append(1e3 * (time.perf_counter() - t))
+                labels.append(out["punc_array"])
+        finally:
+            del model.module.forward
+        return np.concatenate(labels), ms
+
+    zero()
+    labels, ms = stream(m)
+    launches = read()
+    labels32, ms32 = stream(m32)
+    n_words = sum(len(t) for t in texts)
+    check(len(labels) == len(labels32) == n_words,
+          f"(j3) every word committed once: {len(labels)}, {len(labels32)} of {n_words}")
+    check(not any(launches.values()), f"(j3) no kernel on this path: launches {launches}")
+    agree = float((labels == labels32).mean())
+    check(agree >= PUNC_MIN_AGREE, f"(j3) bf16 labels agree {agree} < {PUNC_MIN_AGREE}")
+    hist = np.bincount(labels, minlength=len(m.punc_list)).tolist()
+    rec = dict(calls=len(texts) + 1, words=n_words, label_agreement_f32=agree,
+               labels_by_class=hist, ms_a_call=float(np.mean(ms)),
+               ms_a_call_median=float(np.median(ms)), ms_first_call=ms[0],
+               ms_a_call_f32=float(np.mean(ms32)), launches=launches)
+    log(f"e2e (j3) streaming punctuation on {card}: {json.dumps(rec)}")
+    del am, am32
+    torch.cuda.empty_cache()
+    return launches, {"stream_punc_j3": rec}
 
 
 def profile(torch, run, out_dir, batch_ms, fname):
@@ -6324,6 +6823,13 @@ def main(argv=None) -> int:
     launches_e2v, e2e_e2v = end_to_end_emotion2vec(torch, FK, A, CP, args.profile, smi)
     e2e.update(e2e_e2v)
     log(f"phase (i) done in {time.time() - t1:.1f} s")
+    t1 = time.time()
+    scama_cases = check_scama_kernels(torch, G, RQ, FF, Q)
+    launches_j, e2e_j = end_to_end_scama(torch, FK, A, CP, args.profile, smi)
+    e2e.update(e2e_j)
+    launches_j3, e2e_j3 = end_to_end_stream_punc(torch, FK, A, CP, smi)
+    e2e.update(e2e_j3)
+    log(f"phase (j) done in {time.time() - t1:.1f} s")
     log(f"end to end done in {time.time() - t0:.1f} s")
     log(f"e2e summary {json.dumps(e2e, sort_keys=True)}")
 
@@ -6344,7 +6850,9 @@ def main(argv=None) -> int:
                    "sanm_family": launches_g.get(name, 0),
                    "whisper": launches_h.get(name, 0),
                    "transducer": launches_tr.get(name, 0),
-                   "emotion2vec": launches_e2v.get(name, 0)}
+                   "emotion2vec": launches_e2v.get(name, 0),
+                   "scama": launches_j.get(name, 0),
+                   "stream_punc": launches_j3.get(name, 0)}
         return dict(name=name, route="cuda", source=sources[0], sources=sources,
                     replaces=replaces, launches=sum(by_path.values()),
                     launches_by_path=by_path, shape=main_case["case"],
@@ -6383,13 +6891,14 @@ def main(argv=None) -> int:
               layer_cases["decoder_layer"] + f32ctx_cases["decoder_layer"] + seaco_cases
               + ctx_cases["decoder_layer"] + d64["layers"]["decoder_layer"]),
         entry("ffn", gemm_src, "funasr_tpu/ops/ffn_pallas.py:113",
-              layer_cases["ffn"][0], layer_cases["ffn"] + d64["layers"]["ffn"]),
+              layer_cases["ffn"][0],
+              layer_cases["ffn"] + d64["layers"]["ffn"] + scama_cases["ffn"]),
         # the building block of rows sanm_layer, decoder_layer and ffn (and
         # QDense): the int8 contraction inside each of those TPU kernels
         entry("int8_gemm", ["funasr_torch/csrc/int8_gemm.cu",
                             "funasr_torch/csrc/int8_wgmma.cuh"],
               "funasr_tpu/ops/sanm_layer_pallas.py:89", gemm_cases[1],
-              gemm_cases + sv_cases["int8_gemm"],
+              gemm_cases + sv_cases["int8_gemm"] + scama_cases["int8_gemm"],
               also_replaces=["funasr_tpu/ops/decoder_layer_pallas.py:49",
                              "funasr_tpu/ops/ffn_pallas.py:54",
                              "funasr_tpu/ops/quant.py int8_dot_general"]),
@@ -6420,7 +6929,7 @@ def main(argv=None) -> int:
         entry("fsmn_ln", ["funasr_torch/csrc/fsmn.cu"],
               "funasr_tpu/ops/decoder_layer_pallas.py:74", fsmn_ln_cases[0], fsmn_ln_cases),
         entry("rowquant", ["funasr_torch/csrc/rowquant.cu"], "funasr_tpu/ops/quant.py:150",
-              block_cases["rowquant"][0], block_cases["rowquant"]),
+              block_cases["rowquant"][0], block_cases["rowquant"] + scama_cases["rowquant"]),
         entry("fsmn", ["funasr_torch/csrc/fsmn.cu"], "funasr_tpu/ops/sanm_layer_pallas.py:93",
               block_cases["fsmn"][0], block_cases["fsmn"]),
         # port-only kernels: what they replace is XLA code, not a TPU kernel

@@ -27,14 +27,18 @@ speaker count) into ``spk_info`` and gives each sentence of
 Main models: Paraformer and EParaformer (their config's ``encoder`` and
 ``decoder`` by registry name, as in the JAX package: the aishell
 Paraformer-Conformer and E-Paraformer recipes), BiCifParaformer,
-SeacoParaformer, ContextualParaformer, SenseVoiceSmall and the CTC/attention
+SeacoParaformer, ContextualParaformer, SenseVoiceSmall, the CTC/attention
 hybrids Conformer, Transformer, SANM, Branchformer and EBranchformer, whose
 config's ``encoder`` (Conformer, Transformer and SANM), ``decoder``
 (``TransformerDecoder`` or ``TransformerRWKVDecoder``) and
 ``decoding_conf`` are honoured as in the JAX package (``ParaformerEngine``
 (EParaformer too, sos/eos filtered by id), ``BiCifEngine``,
 ``HotwordEngine`` (``seaco=False`` for ContextualParaformer),
-``SenseVoiceEngine``, ``HybridEngine``); the RNN-T models Transducer, BAT and
+``SenseVoiceEngine``, ``HybridEngine``), and SCAMA (``HybridEngine`` with
+``decoding_conf``'s beam 5, maxlen 96 and CTC weight 0 by default, as the JAX
+AutoModel builds it; no timestamps: ``with_timestamp=True``, the pipeline's
+default, raises as the JAX engine fails there, so serve it with
+``generate(..., with_timestamp=False)``); the RNN-T models Transducer, BAT and
 RWKVBAT (``TransducerEngine``: ``decoder_conf``, ``joint_conf``; behind a VAD
 the segment texts joined, no timestamps, as the JAX pipeline gives them);
 Emotion2vec (``SerEngine``: ``model_conf`` to the model, float32 always;
@@ -45,9 +49,12 @@ AutoModel routes them (``size``, ``model_path_hf`` an openai ``.pt``,
 say; ``WhisperEngine``, which behind a VAD runs each batch when it is
 finalized, as the JAX pipeline does for an engine without an async entry;
 a tokenizer raises ``NotImplementedError``); a
-FsmnVADStreaming or CTTransformer config as the main model serves VAD or
-punctuation alone.  ``generate(hotword=...)`` decodes a SeacoParaformer or
-a ContextualParaformer with its bias; as in the JAX package a call with a
+FsmnVADStreaming, CTTransformer or CTTransformerStreaming config as the main
+model serves VAD or punctuation alone (``generate(text)`` the offline
+punctuation; the streaming model's ``punctuate_streaming`` with its
+tokenizer attached, which the JAX AutoModel leaves out).
+``generate(hotword=...)`` decodes a SeacoParaformer or a
+ContextualParaformer with its bias; as in the JAX package a call with a
 hotword takes the waveform path, not the shared fbank grid, and another
 main model ignores the hotword.  Only an engine with ``from_fbank`` (BiCif,
 SeACo) takes the shared grid: ContextualParaformer decodes the waveform
@@ -83,7 +90,7 @@ segment's text before "segment" punctuation.  ``merge_vad`` is accepted and
 ignored.
 
 Not ported, and raising ``NotImplementedError`` rather than skipped: the
-``CTC``, ``SCAMA`` and ``CTTransformerStreaming`` model classes, the
+``CTC`` model class (the JAX AutoModel has no engine for it either), the
 convolution Transformer decoders, ``output_dir``, URL inputs; the JAX
 package's meshes and parallel serving options are not arguments here.
 """
@@ -134,7 +141,9 @@ _WHISPERS = ("Whisper", "WhisperWrap", "WhisperLID")
 _TRANSDUCERS = ("Transducer", "BAT", "RWKVBAT")
 _PORTED = ("Paraformer", "EParaformer", "BiCifParaformer", "SeacoParaformer",
            "ContextualParaformer", "SenseVoiceSmall") + _HYBRIDS + _TRANSDUCERS + (
-               "Emotion2vec",) + _WHISPERS
+               "Emotion2vec",) + _WHISPERS + ("SCAMA",)
+# punctuation as the main model: text in (auto_model.py:194)
+_PUNCS = ("CTTransformer", "CTTransformerStreaming")
 
 
 def _resolve_cfg(model: Union[str, Dict, None], conf: Optional[Dict]) -> Dict:
@@ -188,16 +197,16 @@ def _build_tokenizer(cfg: Dict):
     return tables.get("tokenizer_classes", cfg.get("tokenizer", "CharTokenizer"))(**conf)
 
 
-def _build_frontend(cfg: Dict) -> FrontendConfig:
-    """The serving frontend of a config (dither is a training setting: the
-    serving extractor is deterministic)."""
+def _build_frontend(cfg: Dict, device) -> FrontendConfig:
+    """The serving frontend of a config on ``device`` (dither is a training
+    setting: the serving extractor is deterministic)."""
     conf = dict(cfg.get("frontend_conf") or {})
     cmvn = None
     cmvn_file = conf.pop("cmvn_file", None) or cfg.get("cmvn_file")
     if cmvn_file and os.path.exists(cmvn_file):
         cmvn = load_cmvn_file(cmvn_file)
     conf.pop("dither", None)
-    return FrontendConfig(cmvn=cmvn, **conf)
+    return FrontendConfig(cmvn=cmvn, device=device, **conf)
 
 
 class AutoModel:
@@ -234,7 +243,7 @@ class AutoModel:
     # ------------------------------------------------------------- builders
     def _build_main(self, cfg: Dict):
         name = cfg.get("model", "Paraformer")
-        if name == "CTTransformer":  # punctuation as the main model: text in
+        if name in _PUNCS:
             return self._build_punc(cfg)
         if name == "FsmnVADStreaming":  # standalone VAD: segment lists out
             return self._build_vad(cfg)
@@ -245,10 +254,10 @@ class AutoModel:
         if name not in _PORTED:
             raise NotImplementedError(
                 f"AutoModel: no engine for model class {name!r} in the port (ported: "
-                f"{', '.join(_PORTED)}; not yet: CTC, SCAMA, CTTransformerStreaming and "
-                "the convolution Transformer decoders, ROADMAP.md Queue 1)")
+                f"{', '.join(_PORTED)}; not yet: CTC, which the JAX AutoModel does not "
+                "build either, and the convolution Transformer decoders)")
         tokenizer = _build_tokenizer(cfg)
-        frontend = _build_frontend(cfg)
+        frontend = _build_frontend(cfg, self.device)
         dtype = cfg.get("dtype") or ("bfloat16" if self._quantize else "float32")
         if dtype not in _DTYPES:
             raise ValueError(f"unsupported dtype {dtype!r}")
@@ -273,6 +282,8 @@ class AutoModel:
             kw = {}
             if name in ("Paraformer", "EParaformer"):  # by name (auto_model.py:281-310)
                 kw = dict(encoder_name=cfg.get("encoder"), decoder_name=cfg.get("decoder"))
+            elif name == "SCAMA":  # its decoder by the class (auto_model.py:259-264)
+                kw = dict(encoder_name=cfg.get("encoder"))
             else:
                 dec = ("ContextualParaformerDecoder" if name == "ContextualParaformer"
                        else "ParaformerSANMDecoder")
@@ -285,11 +296,15 @@ class AutoModel:
         _weights(module, _load_state(cfg), self.seed, self.device)
         if self._quantize:
             module.quantize_weights()
-        if name in _HYBRIDS:
+        if name in _HYBRIDS or name == "SCAMA":
+            # SCAMA: the JAX route's beam defaults (auto_model.py:255-279)
             dec = cfg.get("decoding_conf") or {}
-            return HybridEngine(module, frontend, tokenizer, beam=dec.get("beam_size", 10),
+            scama = name == "SCAMA"
+            return HybridEngine(module, frontend, tokenizer,
+                                beam=dec.get("beam_size", 5 if scama else 10),
                                 maxlen=dec.get("maxlenratio_tokens", 96),
-                                decoding_ctc_weight=dec.get("decoding_ctc_weight", 0.3),
+                                decoding_ctc_weight=dec.get("decoding_ctc_weight",
+                                                            0.0 if scama else 0.3),
                                 device=self.device)
         if name in ("SeacoParaformer", "ContextualParaformer"):
             return HotwordEngine(module, frontend, tokenizer, blank_id=module.blank_id,
@@ -360,7 +375,7 @@ class AutoModel:
         model = cls(encoder=cfg.get("encoder", "FSMN"), encoder_conf=cfg.get("encoder_conf"),
                     device=self.device, **(cfg.get("model_conf") or {}))
         _weights(model.scorer, _load_state(cfg), self.seed, self.device, prefix="encoder.")
-        return VadEngine(model, _build_frontend(cfg))
+        return VadEngine(model, _build_frontend(cfg, self.device))
 
     def _build_punc(self, cfg: Dict) -> PuncEngine:
         tokenizer = _build_tokenizer(cfg)
@@ -373,6 +388,10 @@ class AutoModel:
                     dtype=cfg.get("dtype", "bfloat16" if self._quantize else "float32"),
                     device=self.device)
         _weights(model.module, _load_state(cfg), self.seed, self.device)
+        if hasattr(model, "set_tokenizer"):
+            # the streaming model's words -> ids; the JAX _build_punc attaches
+            # none, so its punctuate_streaming raises there
+            model.set_tokenizer(tokenizer)
         return PuncEngine(model, tokenizer)
 
     def _build_spk(self, cfg: Dict) -> SpkEngine:

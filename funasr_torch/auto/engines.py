@@ -53,6 +53,7 @@ Meshes and sequence parallelism are later slices.
 
 from __future__ import annotations
 
+import copy
 from itertools import groupby
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Union
 
@@ -84,10 +85,13 @@ def quantize(n: int, step: int = 2000, minimum: int = 4000) -> int:
 
 class FrontendConfig:
     """Serving feature extractor: fbank (dither 0) -> LFR -> CMVN -> frame
-    padding to a multiple of 128."""
+    padding to a multiple of 128.  The CMVN lives on ``device`` (the CPU by
+    default) from construction; an engine takes the frontend through
+    :meth:`on` with its own device when it is built, so no feature call
+    copies the CMVN or the fbank tables to the card."""
 
     def __init__(self, fs: int = 16000, n_mels: int = 80, lfr_m: int = 7,
-                 lfr_n: int = 6, cmvn=None, window: str = "hamming"):
+                 lfr_n: int = 6, cmvn=None, window: str = "hamming", device="cpu"):
         self.fs = fs
         self.n_mels = n_mels
         self.lfr_m = lfr_m
@@ -96,8 +100,22 @@ class FrontendConfig:
         if cmvn is None:
             dim = n_mels * lfr_m
             cmvn = np.stack([np.zeros(dim, np.float32), np.ones(dim, np.float32)])
-        self.cmvn = torch.as_tensor(np.asarray(cmvn, np.float32))
-        self._cmvn_on: Dict[torch.device, torch.Tensor] = {}
+        self.cmvn = torch.as_tensor(np.asarray(cmvn, np.float32), device=device)
+        if self.fs == FK.SAMPLE_RATE:
+            FK.prepare(self.cmvn.device, n_mels, window)
+
+    def on(self, device) -> "FrontendConfig":
+        """This frontend with its CMVN (and the fbank kernel's tables) on
+        ``device``: itself when it is there, else a copy that holds them
+        there."""
+        device = torch.device(device)
+        if self.cmvn.device == device:
+            return self
+        fe = copy.copy(self)
+        fe.cmvn = self.cmvn.to(device)
+        if fe.fs == FK.SAMPLE_RATE:
+            FK.prepare(device, fe.n_mels, fe.window)
+        return fe
 
     def raw_fbank(self, wav: torch.Tensor, lengths: torch.Tensor,
                   with_energy: bool = False):
@@ -123,10 +141,7 @@ class FrontendConfig:
         """LFR + CMVN + frame padding on a precomputed raw fbank grid."""
         if self.lfr_m != 1 or self.lfr_n != 1:
             feats, flens = F.apply_lfr(feats, flens, self.lfr_m, self.lfr_n)
-        cmvn = self._cmvn_on.get(feats.device)
-        if cmvn is None:
-            cmvn = self._cmvn_on[feats.device] = self.cmvn.to(feats.device)
-        feats = F.apply_cmvn(feats, cmvn)
+        feats = F.apply_cmvn(feats, self.cmvn)
         return F.pad_frames(feats, 128), flens
 
     def device_features(self, wav: torch.Tensor, lengths: torch.Tensor):
@@ -138,9 +153,9 @@ class BatchedAsrEngine:
     """Shared batching scaffold for offline ASR engines."""
 
     def __init__(self, frontend: FrontendConfig, tokenizer, device=None):
-        self.frontend = frontend
-        self.tokenizer = tokenizer
         self.device = resolve_device(device)
+        self.frontend = frontend.on(self.device)
+        self.tokenizer = tokenizer
 
     def _pack(self, wavs: Sequence[np.ndarray]):
         """-> (B, quantize(max len)) float32 batch and (B,) int32 lengths on
@@ -752,8 +767,8 @@ class VadEngine:
 
     def __init__(self, model, frontend: FrontendConfig):
         self.model = model
-        self.frontend = frontend
         self.device = model.device
+        self.frontend = frontend.on(self.device)
 
     @torch.inference_mode()
     def front(self, wav: torch.Tensor, lens: torch.Tensor):
@@ -804,7 +819,8 @@ class SpkEngine:
     def __init__(self, model, fs: int = 16000):
         self.model = model
         self.device = model.device
-        self.frontend = FrontendConfig(fs=fs, n_mels=model.feat_dim, lfr_m=1, lfr_n=1)
+        self.frontend = FrontendConfig(fs=fs, n_mels=model.feat_dim, lfr_m=1, lfr_n=1,
+                                       device=self.device)
 
     @torch.inference_mode()
     def run(self, wav: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:

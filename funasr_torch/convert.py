@@ -1,7 +1,7 @@
 """Flax variables -> FunASR torch ``state_dict`` for the port's models.
 
 The inverses of funasr_tpu/convert.py ``paraformer_from_torch`` (:205),
-``bicif_paraformer_from_torch`` (:228),
+``bicif_paraformer_from_torch`` (:228), ``scama_from_torch`` (:669),
 ``contextual_paraformer_from_torch`` (:238), ``seaco_paraformer_from_torch``
 (:292), ``conformer_from_torch`` (:398) with ``_std_transformer_decoder_tree``
 (:1383), ``fsmn_vad_from_torch`` (:332), ``whisper_from_openai_pt`` (:1133),
@@ -134,6 +134,14 @@ def paraformer_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     if "ctc_lo" in tree:
         _dense(sd, "ctc.ctc_lo", tree["ctc_lo"])
     return sd
+
+
+def scama_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """funasr_tpu's SCAMA -> the port's float32 ``state_dict``: the
+    Paraformer's layout key for key (funasr_tpu/convert.py:669
+    ``scama_from_torch``), the ``FsmnDecoderSCAMAOpt``'s token embedding as
+    ``decoder.embed.0.weight`` and a ``ctc_lo`` as ``ctc.ctc_lo``."""
+    return paraformer_from_jax(params)
 
 
 def _predictor(sd, p: str, pred: Mapping):

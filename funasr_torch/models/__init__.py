@@ -3,4 +3,4 @@
 from funasr_torch.models import (  # noqa: F401
     bicif_paraformer, branchformer, campplus, conformer, contextual_paraformer, ct_transformer,
     e_paraformer, emotion2vec, fsmn_vad, paraformer, paraformer_streaming, rwkv,
-    seaco_paraformer, sense_voice, transducer, transformer, whisper)
+    scama, seaco_paraformer, sense_voice, transducer, transformer, whisper)

@@ -28,7 +28,7 @@ from torch import nn
 
 from funasr_torch.device import resolve_device, upload
 from funasr_torch.models.sanm import Dense, SANMEncoder
-from funasr_torch.registry import not_ported, tables
+from funasr_torch.registry import tables
 
 #  one CJK char | a run of non-CJK non-space chars (single-char class from
 #  U+3001: U+3000 is whitespace)
@@ -71,10 +71,13 @@ class CTTransformer(nn.Module):
                                    sanm_shift=sanm_shift, dtype=dtype, **conf)
         self.decoder = Dense(att_unit, punc_size, dtype=dtype)
 
-    def forward(self, text: torch.Tensor, text_lengths: torch.Tensor) -> torch.Tensor:
+    def forward(self, text: torch.Tensor, text_lengths: torch.Tensor,
+                attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """text (B, W) token ids, text_lengths (B,) -> logits (B, W, punc_size)
-        in ``dtype``."""
-        h, _ = self.encoder(self.embed(text), text_lengths)
+        in ``dtype``.  ``attn_mask`` (B, W, W) restricts the attention further
+        (the streaming model's ``vad_mask``), on the encoder's module path;
+        without it the attention runs through the kernel."""
+        h, _ = self.encoder(self.embed(text), text_lengths, attn_mask)
         return self.decoder(h)
 
 
@@ -257,6 +260,3 @@ class CTTransformerModel:
                 parts.append(p)
         return "".join(parts)
 
-
-tables.register("model_classes", "CTTransformerStreaming")(not_ported(
-    "model class", "CTTransformerStreaming", "streaming punctuation"))

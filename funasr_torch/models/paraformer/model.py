@@ -43,7 +43,7 @@ from funasr_torch.models.paraformer.predictor import CifPredictorV2
 from funasr_torch.models.sanm import (Dense, LayerNormF32, PlainDense, SANMEncoder,
                                       quantize_dense_layers)
 from funasr_torch.ops.masks import sequence_mask
-from funasr_torch.registry import not_ported, tables
+from funasr_torch.registry import tables
 
 
 # training-only fields of funasr_tpu's Paraformer (and the reference template,
@@ -244,6 +244,3 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                     normal_(p, 1.0 / math.sqrt(p.shape[-1]))
     return module
 
-
-tables.register("model_classes", "SCAMA")(not_ported(
-    "model class", "SCAMA", "the chunk-aware streaming encoder-decoder"))

@@ -187,6 +187,27 @@ def masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.where(valid, torch.softmax(scores, dim=-1), 0.0)
 
 
+def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     valid: torch.Tensor, n_head: int) -> torch.Tensor:
+    """Attention under a per-query mask, the XLA code the JAX package runs
+    for any mask its kernel does not take (funasr_tpu sanm.py:168-190, the
+    masked cross-attention of paraformer/decoder.py:186-203): q (B, U, F)
+    scaled by d_k^-0.5 and scored against k (B, T, F) in the compute dtype,
+    :func:`masked_softmax` in float32 over ``valid`` (B, 1 or U, T) bool,
+    the context in the compute dtype -> (B, U, F)."""
+    B, U, F_ = q.shape
+    d_k = F_ // n_head
+
+    def heads(x):
+        return x.reshape(B, x.shape[1], n_head, d_k).transpose(1, 2)
+
+    scores = rounded_once(torch.matmul, heads(q) * (d_k ** -0.5),
+                          heads(k).transpose(-1, -2))  # (B, H, U, T)
+    attn = masked_softmax(scores, valid[:, None])
+    ctx = rounded_once(torch.matmul, attn.to(v.dtype), heads(v))
+    return ctx.transpose(1, 2).reshape(B, U, F_)
+
+
 def fsmn_memory(v: torch.Tensor, weight: torch.Tensor,
                 mask: Optional[torch.Tensor], left: int,
                 right: int) -> torch.Tensor:
@@ -227,14 +248,22 @@ class MultiHeadedAttentionSANM(nn.Module):
         self.linear_out = Dense(n_feat, n_feat, dtype=dtype, param_dtype=param_dtype)
         self.left, self.right = fsmn_padding(kernel_size, sanm_shift)
 
-    def forward(self, x: torch.Tensor, mask_t: torch.Tensor,
-                bias: torch.Tensor) -> torch.Tensor:
-        """x (B, T, in_feat); mask_t (B, T, 1) float; bias (B, T) float32."""
+    def forward(self, x: torch.Tensor, mask_t: torch.Tensor, bias: torch.Tensor,
+                attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x (B, T, in_feat); mask_t (B, T, 1) float; bias (B, T) float32.
+        ``attn_mask`` (B, T, T), nonzero = may attend: the attention runs
+        :func:`masked_attention` over the key mask and it (the JAX package's
+        XLA path, sanm.py:168-190); the FSMN memory stays gated by the key
+        mask alone."""
         d_k = self.n_feat // self.n_head
         q, k, v = self.linear_q_k_v(x).split(self.n_feat, dim=-1)
         mem = fsmn_memory(v, self.fsmn_block.weight, mask_t, self.left,
                           self.right)
-        ctx = A.fused_attention(q * (d_k ** -0.5), k, v, bias, self.n_head)
+        if attn_mask is None:
+            ctx = A.fused_attention(q * (d_k ** -0.5), k, v, bias, self.n_head)
+        else:
+            valid = (mask_t[:, None, :, 0] != 0) & (attn_mask != 0)
+            ctx = masked_attention(q, k, v, valid, self.n_head)
         return self.linear_out(ctx) + mem
 
 
@@ -277,7 +306,11 @@ class EncoderLayerSANM(nn.Module):
     """Pre-norm SANM encoder layer (sanm/encoder.py:44).  When
     ``in_size != size`` (the first layer, 560 -> 512 for Paraformer-large)
     the attention residual is skipped (encoder.py:120-137).  ``int8_attn``:
-    int8 q.k scores in the fused int8 layer."""
+    int8 q.k scores in the fused int8 layer.  ``fused_int8`` set to False
+    keeps the layer on the module path under int8 (the JAX package leaves
+    the fused layer whenever an attention mask comes with the key mask,
+    sanm.py:510): :meth:`quantize_weights` then quantizes its QDense
+    projections and its FFN."""
 
     def __init__(self, in_size: int, size: int, n_head: int, linear_units: int,
                  kernel_size: int = 11, sanm_shift: int = 0,
@@ -285,6 +318,7 @@ class EncoderLayerSANM(nn.Module):
                  param_dtype: Optional[torch.dtype] = None, int8_attn: bool = False):
         super().__init__()
         self.int8_attn = int8_attn
+        self.fused_int8 = True
         self.in_size = in_size
         self.size = size
         self.n_head = n_head
@@ -298,9 +332,10 @@ class EncoderLayerSANM(nn.Module):
         self.int8 = None
 
     def quantize_weights(self) -> None:
-        """int8 operands for the fused layer (``in_size == size``), else the
-        QDense projections and the fused FFN of the module path."""
-        if self.in_size != self.size:
+        """int8 operands for the fused layer (``in_size == size`` and
+        ``fused_int8``), else the QDense projections and the fused FFN of the
+        module path."""
+        if self.in_size != self.size or not self.fused_int8:
             self.self_attn.linear_q_k_v.quantize_weights()
             self.self_attn.linear_out.quantize_weights()
             self.feed_forward.quantize_weights()
@@ -315,13 +350,16 @@ class EncoderLayerSANM(nn.Module):
         self.int8 = int8_buffers(self, "sanm_", w)
 
     def forward(self, x: torch.Tensor, mask_t: torch.Tensor,
-                bias: torch.Tensor, lengths: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                bias: torch.Tensor, lengths: Optional[torch.Tensor] = None,
+                attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.int8 is not None:
+            if attn_mask is not None:
+                raise RuntimeError("EncoderLayerSANM: an attention mask needs the module "
+                                   "path; set fused_int8 = False before quantize_weights()")
             return SL.fused_sanm_layer(x.to(self.dtype), lengths, self.int8(self),
                                        self.n_head, self.self_attn.left, bias,
                                        self.int8_attn)
-        attn = self.self_attn(self.norm1(x), mask_t, bias)
+        attn = self.self_attn(self.norm1(x), mask_t, bias, attn_mask)
         x = x + attn if self.in_size == self.size else attn
         return x + self.feed_forward(self.norm2(x))
 
@@ -375,8 +413,12 @@ class SANMEncoder(nn.Module):
         for layer in list(self.encoders0) + list(self.encoders):
             layer.quantize_weights()
 
-    def forward(self, xs: torch.Tensor, lengths: torch.Tensor):
-        """xs (B, T, input_size); lengths (B,) -> (out (B, T, D), lengths)."""
+    def forward(self, xs: torch.Tensor, lengths: torch.Tensor,
+                attn_mask: Optional[torch.Tensor] = None):
+        """xs (B, T, input_size); lengths (B,) -> (out (B, T, D), lengths).
+        ``attn_mask`` (B, T, T), nonzero = may attend: every layer's
+        attention is restricted to it as well as to the key mask
+        (funasr_tpu sanm.py:123-128, :573), on the module path."""
         B, T, _ = xs.shape
         mask_t = sequence_mask(lengths, T)[:, :, None]  # (B, T, 1)
         bias = key_bias(lengths, T)  # (B, T) float32
@@ -384,10 +426,8 @@ class SANMEncoder(nn.Module):
         if self.input_layer == "pe":
             pe = sinusoidal_encoding(T, self.input_size, device=xs.device)
             x = x + pe[None].to(self.dtype)
-        for layer in self.encoders0:
-            x = layer(x, mask_t, bias, lengths)
-        for layer in self.encoders:
-            x = layer(x, mask_t, bias, lengths)
+        for layer in list(self.encoders0) + list(self.encoders):
+            x = layer(x, mask_t, bias, lengths, attn_mask)
         if self.normalize_before:
             x = self.after_norm(x)
         return x, lengths

@@ -151,6 +151,17 @@ def _kernel_device_tables(device: torch.device, num_mel_bins: int, window: str):
     return _kernel_tables[key]
 
 
+def prepare(device, num_mel_bins: int, window: str) -> None:
+    """Put the kernel's and the twin's tables for ``(num_mel_bins, window)``
+    on ``device`` now: an engine does it when it is built, so its first
+    batch copies nothing from pageable host memory (a copy that would wait
+    on the card's queued work)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        _kernel_device_tables(device, num_mel_bins, window)
+        _device_tables(device, num_mel_bins, window)
+
+
 def check_args(waveform: torch.Tensor, num_mel_bins: int, window: str) -> None:
     """Raise ValueError for arguments the kernel does not take: a (B, N)
     float32 waveform, 1 <= n_mels <= 256, a window of

@@ -28,3 +28,16 @@ def key_bias(lengths: torch.Tensor, maxlen: int) -> torch.Tensor:
     keys, -1e30 for padding (the attention kernel's mask contract,
     funasr_tpu/models/sanm.py:162)."""
     return (1.0 - sequence_mask(lengths, maxlen, torch.float32)) * -1e30
+
+
+def chunk_attn_mask(T: int, chunk_size: int, left_chunks: int = -1,
+                    device=None) -> torch.Tensor:
+    """(T, T) float32 chunkwise attention mask (funasr_tpu/models/uniasr/
+    model.py:47 ``chunk_attn_mask``): frame t sees the frames of its own chunk
+    and of ``left_chunks`` chunks before it (every earlier chunk if -1), the
+    SCAMA/UniASR streaming context limit (reference scama/chunk_utilis.py)."""
+    idx = torch.arange(T, device=device) // chunk_size
+    same_or_past = idx[:, None] >= idx[None, :]
+    if left_chunks >= 0:
+        same_or_past = same_or_past & (idx[:, None] - idx[None, :] <= left_chunks)
+    return same_or_past.to(torch.float32)

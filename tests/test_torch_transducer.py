@@ -348,10 +348,8 @@ def test_automodel_matches_jax(tmp_path, name, with_vad):
 
 
 def test_automodel_names_what_is_not_ported():
-    for name in ("CTC", "SCAMA", "CTTransformerStreaming"):
-        with pytest.raises(NotImplementedError, match=name):
-            AutoModel(model=dict(model=name, tokenizer_conf={"token_list": TOKENS}),
-                      device="cpu")
+    with pytest.raises(NotImplementedError, match="CTC"):
+        AutoModel(model=dict(model="CTC", tokenizer_conf={"token_list": TOKENS}), device="cpu")
     with pytest.raises(NotImplementedError, match="Transducer, BAT, RWKVBAT, Emotion2vec"):
         AutoModel(model=dict(model="NoSuchModel", tokenizer_conf={"token_list": TOKENS}),
                   device="cpu")
