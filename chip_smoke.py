@@ -296,7 +296,22 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    names the cause; (j3) the streaming CT-Transformer at
    ``configs/ct_transformer_punc.yaml``'s widths in bf16, 60 calls of 5-25
    words and the flush, each masked forward under the guard, no kernel
-   launched, labels equal to float32's on >= 0.99, the ms a call.  Every
+   launched, labels equal to float32's on >= 0.99, the ms a call; then (k)
+   Paraformer training (``end_to_end_training``, ``end_to_end_train_smoke``):
+   (k0) three ``accum_grad`` = 2 float32 steps of the width-512, depth
+   4 + 2 Paraformer on the card and on the CPU from the same weights, losses
+   and ``grad_norm`` within 1e-4, the parameter updates within 1 % in
+   2-norm; (k1) bench_train.py's Paraformer-large (remat, dropout 0.1, the
+   sampler at 0.75) in bf16 on float32 parameters, AdamW, clip 5, 2 x 32
+   raw 15 s waveforms a step featurized by the fbank kernel: one warm-up and
+   five timed steps dispatched under the sync guard, the step's ms,
+   audio-s/s, peak memory, launches and idle share, every loss and grad
+   norm finite; (k2) the eval step on the attention kernel (66 launches),
+   its loss within the bf16 attention bar of the twin's; (k3) the
+   examples/smoke recipe (the port's data generator, CMVN on the fbank
+   kernel, ``python -m funasr_torch.bin.train`` on the tiny config at 128
+   wide, two epochs), the loss falling, ``model.avg.pt`` served int8
+   through ``AutoModel`` with tokens equal to the int8 twins'.  Every
    phase's first call dispatches under the sync guard as its timed calls
    do;
 4. print one ``{"kernels": [...]}`` line and, last,
@@ -313,8 +328,9 @@ step, ``DIR/profile_streaming.txt`` and, for one SenseVoice README call,
 ``DIR/profile_sensevoice.txt`` and, for one contextual ``generate`` with
 hotwords, ``DIR/profile_contextual.txt``, for one Whisper batch,
 ``DIR/profile_whisper.txt``, for one int8 Transducer batch,
-``DIR/profile_transducer.txt`` and, for one emotion2vec batch,
-``DIR/profile_emotion2vec.txt`` (those six are profiled in every run).  Device
+``DIR/profile_transducer.txt``, for one emotion2vec batch,
+``DIR/profile_emotion2vec.txt`` and, for one Paraformer-large training
+step, ``DIR/profile_train.txt`` (those seven are profiled in every run).  Device
 time by kernel group, and the share of each batch's span spent in kernels,
 is printed for every batch profiled;
 the beam batch is always profiled (its device time beside its host time).
@@ -6628,6 +6644,379 @@ def end_to_end_stream_punc(torch, FK, A, CP, card):
     return launches, {"stream_punc_j3": rec}
 
 
+# Phase (k): Paraformer training.  bench_train.py:102-124's Paraformer-large
+# (FLAGSHIP with the encoder's remat), bf16 compute on float32 parameters,
+# AdamW 1e-4 with weight decay 1e-6, clip 5, accum_grad 2 x 32 utterances of
+# 15 s with 48 tokens each.
+TRAIN_LARGE = dict(FLAGSHIP, encoder_conf=dict(FLAGSHIP["encoder_conf"], remat=True))
+TRAIN_OPTIM = ("adamw", dict(lr=1e-4, weight_decay=1e-6), "constant", {}, 5.0)
+TRAIN_MICRO_B, TRAIN_ACCUM, TRAIN_UTT_S, TRAIN_TOKENS = 32, 2, 15, 48
+TRAIN_TIMED = 5  # timed steps after one warm-up step
+TRAIN_SEED = 2080
+# (k0): width 512 at depth 4 + 2, float32, dropout 0, card against CPU
+TRAIN_K0 = dict(FLAGSHIP, encoder_conf=dict(FLAGSHIP["encoder_conf"], num_blocks=4,
+                                            dropout_rate=0.0, attention_dropout_rate=0.0),
+                decoder_conf=dict(FLAGSHIP["decoder_conf"], num_blocks=2, att_layer_num=2,
+                                  dropout_rate=0.0, self_attention_dropout_rate=0.0,
+                                  src_attention_dropout_rate=0.0),
+                predictor_conf=dict(FLAGSHIP["predictor_conf"], dropout=0.0),
+                sampling_ratio=0.0)
+TRAIN_K0_SHAPE = (2, 4, 60, 12)  # accum, B, LFR frames, tokens
+# The three steps take SGD with momentum, whose update is linear in the
+# gradient: Adam's first updates are sign(g) * lr, so an element whose
+# gradient is float noise (the key projections' biases, to which softmax is
+# invariant) moves a whole learning rate either way in two correct runs.
+# The AdamW update itself is held apart: card and CPU given the same
+# gradients.
+TRAIN_K0_OPTIM = ("sgd", dict(lr=0.01, momentum=0.9), "constant", {}, 5.0)
+# Card against CPU, float32 with TF32 off: the first step's losses (a
+# forward on equal weights), then every loss and ``grad_norm``, rtol; the
+# parameter updates apart by at most this share of their 2-norm; the AdamW
+# update on equal gradients, abs against its largest element.  Measured
+# (NVIDIA H100 80GB HBM3): 1.0e-7, 3.9e-7, 6.0e-6 and 3.6e-7.
+TRAIN_K0_FIRST_RTOL = 1e-5
+TRAIN_K0_RTOL = 1e-4
+TRAIN_K0_UPDATE_TOL = 1e-3
+TRAIN_K0_ADAM_TOL = 1e-5
+# (k2): the eval call on the attention kernel against the same call on its
+# twin, on the valid rows: the encoder output's and the decoder logits'
+# relative 2-norm error, and the loss's abs error, on the model (k1)
+# trained.  Measured (NVIDIA H100 80GB HBM3, two runs, equal to the last
+# digit): encoder 8.2e-3, logits 1.1e-2 (max abs 0.109 and 0.0625), loss
+# 6.0e-5.
+TRAIN_K2_ENC_TOL = 3e-2
+TRAIN_K2_LOGITS_TOL = 4e-2
+TRAIN_K2_LOSS_TOL = 2e-3
+# (k3): the examples/smoke recipe; the tiny config's widths run 2 heads of 16,
+# which no attention kernel instance takes (head sizes 32, 64, 128; the int8
+# layers 64, 128), so the encoder and predictor are 128 wide (2 heads of 64)
+SMOKE_YAML = "examples/smoke/conf/tiny_paraformer.yaml"
+SMOKE_TOKENS = ["<blank>", "<s>", "</s>", "一", "二", "三", "四", "五", "<unk>"]
+SMOKE_WIDTHS = {"encoder_conf": {"output_size": 128}, "predictor_conf": {"idim": 128},
+                "tokenizer_conf": {"token_list": SMOKE_TOKENS}}
+
+
+def train_waveforms(rng, B: int, seconds: float, tokens: int, vocab: int):
+    """A collated batch of B raw waveforms of up to ``seconds`` (the last
+    0-2 s of some rows padding) with ``tokens`` random targets each."""
+    import numpy as np
+
+    n = int(seconds * FS)
+    lens = (n - rng.integers(0, 2 * FS, B) * (rng.random(B) < 0.5)).astype(np.int32)
+    lens[0] = n
+    wav = (0.1 * rng.standard_normal((B, n))).astype(np.float32)
+    wav *= np.arange(n)[None] < lens[:, None]
+    return {"speech": wav, "speech_lengths": lens,
+            "text": rng.integers(3, vocab, (B, tokens)).astype(np.int32),
+            "text_lengths": np.full(B, tokens, np.int32)}
+
+
+def train_k0(torch, card):
+    """(k0): three ``accum_grad`` = 2 steps (``TRAIN_K0_OPTIM``) of the
+    width-512, depth 4 + 2 Paraformer in float32 (dropout 0, no sampler) on
+    the card and on the CPU from the same weights and features: the bars
+    ``TRAIN_K0_*`` on losses, ``grad_norm`` and updates; then two
+    ``TRAIN_OPTIM`` (AdamW) updates of those parameters from the same
+    gradients on both, within ``TRAIN_K0_ADAM_TOL``."""
+    import numpy as np
+
+    from funasr_torch.models.paraformer.model import Paraformer, init_random_
+    from funasr_torch.train.optim import build_optimizer
+    from funasr_torch.train.train_step import create_train_state, make_train_step
+
+    acc, B, T, U = TRAIN_K0_SHAPE
+    rng = np.random.default_rng(TRAIN_SEED)
+    feats = rng.standard_normal((acc, B, T, 560)).astype(np.float32)
+    flens = np.array([[T, T - 7, T - 20, T - 33], [T - 3, T, T - 11, T - 41]], np.int32)
+    text = rng.integers(3, 8404, (acc, B, U)).astype(np.int32)
+    tlens = np.array([[U, U - 2, U - 5, U - 1], [U - 3, U, U, U - 7]], np.int32)
+    text[np.arange(U)[None, None] >= tlens[..., None]] = -1
+    runs = []
+    sd = None
+    for dev in ("cuda", "cpu"):
+        model = Paraformer(**TRAIN_K0, dtype=torch.float32, param_dtype=torch.float32,
+                           device=dev)
+        if sd is None:
+            init_random_(model, torch.Generator(device=dev).manual_seed(TRAIN_SEED))
+            sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(sd)
+        tx, _ = build_optimizer(*TRAIN_K0_OPTIM)
+        state = create_train_state(model, tx)
+        start = state.params.detach().cpu().clone()
+        step = make_train_step(model, tx, accum_grad=acc)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in dict(
+            speech=feats, speech_lengths=flens, text=text, text_lengths=tlens).items()}
+        stats = []
+        for i in range(3):
+            state, st = step(state, batch, i)
+            stats.append({k: float(v) for k, v in st.items()})
+        runs.append((state, stats, start, model))
+    (sk, stk, start, mk), (sc, stc, _, mc) = runs
+    err = {k: [abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for a, b in zip(stk, stc)]
+           for k in ("loss", "loss_att", "loss_pre", "grad_norm")}
+    upd_k, upd_c = (sk.params.cpu() - start).double(), (sc.params - start).double()
+    rel = float((upd_k - upd_c).norm() / upd_c.norm())
+    # AdamW on equal gradients, twice (the moments and the count in play)
+    tx, _ = build_optimizer(*TRAIN_OPTIM)
+    gen = torch.Generator().manual_seed(TRAIN_SEED)
+    grads = [1e-3 * torch.randn(start.shape, generator=gen) for _ in range(2)]
+    adam = []
+    for dev in ("cuda", "cpu"):
+        p = sc.params.to(dev)
+        st = tx.init(p)
+        for g in grads:
+            u, st = tx.update(g.to(dev), st, p)
+        adam.append(u.cpu())
+    adam_err = float((adam[0] - adam[1]).abs().max() / adam[1].abs().max())
+    rec = dict(steps=3, accum_grad=acc, micro_batch=B, frames=T, tokens=U,
+               optimizer=TRAIN_K0_OPTIM[0], rel_err=err, update_rel_err=rel,
+               adamw_update_rel_err=adam_err,
+               losses_card=[s["loss"] for s in stk], losses_cpu=[s["loss"] for s in stc],
+               n_params=int(sk.params.numel()))
+    log(f"e2e (k0) training, card against CPU on {card}: {json.dumps(rec)}")
+    check(all(np.isfinite(s["loss"]) and s["finite"] == 1.0 for s in stk),
+          "(k0) finite steps on the card")
+    check(max(err[k][0] for k in ("loss", "loss_att", "loss_pre")) <= TRAIN_K0_FIRST_RTOL,
+          f"(k0) the first step's losses: {err}")
+    check(max(max(v) for v in err.values()) <= TRAIN_K0_RTOL,
+          f"(k0) losses and grad_norm: {err}")
+    check(rel <= TRAIN_K0_UPDATE_TOL, f"(k0) parameter updates: {rel} (bar "
+          f"{TRAIN_K0_UPDATE_TOL})")
+    check(adam_err <= TRAIN_K0_ADAM_TOL, f"(k0) AdamW update on equal gradients: "
+          f"{adam_err} (bar {TRAIN_K0_ADAM_TOL})")
+    check(int(sk.step) == 3 and int(sk.opt_state["count"]) == 3, "(k0) step and count")
+    del runs, sk, sc, mk, mc
+    return rec
+
+
+def end_to_end_training(torch, FK, A, CP, profile_dir, card):
+    """Phase (k): Paraformer training.  (k0) ``train_k0``; (k1)
+    ``TRAIN_LARGE`` (bench_train.py:102-124: vocab 8404, 50 + 16 layers,
+    dropout 0.1, sampling_ratio 0.75, remat) in bf16 on float32 parameters
+    through ``make_train_step`` with ``TRAIN_OPTIM``, each step
+    ``TRAIN_ACCUM`` x ``TRAIN_MICRO_B`` raw 15 s waveforms featurized by the
+    fbank kernel (``FrontendConfig.featurize``) with 48 random tokens each:
+    one warm-up step, ``TRAIN_TIMED`` timed steps, every one dispatched
+    under the sync guard; the step's ms, audio-s/s, peak memory, kernel
+    launches and idle share (profiled step); every loss and ``grad_norm``
+    finite.  (k2) the eval step (``make_eval_step``: the attention kernel
+    in all 50 encoder layers and the 16 cross-attentions) on one micro-batch
+    of those features against the same eval with the attention twin: the
+    encoder output and the decoder logits on their valid rows, and the
+    loss, within ``TRAIN_K2_*``.  Counters: zero before (k1), read
+    after (k2): fbank one a featurize, attention 66 an eval call.
+    Returns (launches, e2e record)."""
+    import numpy as np
+
+    from funasr_torch.auto.engines import FrontendConfig
+    from funasr_torch.bin.train import split_micro
+    from funasr_torch.models.paraformer.model import Paraformer, init_random_
+    from funasr_torch.train.optim import build_optimizer
+    from funasr_torch.train.train_step import (create_train_state, make_eval_step,
+                                               make_train_step)
+
+    t_k = time.time()
+    rec0 = train_k0(torch, card)
+    torch.cuda.empty_cache()
+    log(f"(k0) done in {time.time() - t_k:.1f} s")
+
+    # ---- (k1) full width
+    t1 = time.time()
+    model = Paraformer(**TRAIN_LARGE, dtype=torch.bfloat16, param_dtype=torch.float32,
+                       device="cuda")
+    init_random_(model, torch.Generator(device="cuda").manual_seed(TRAIN_SEED))
+    enc, dec = model.encoder, model.decoder
+    check(len(enc.encoders0) + len(enc.encoders) == 50 and len(dec.decoders) == 16
+          and enc.remat and enc.encoders[0].dropout_rate == 0.1
+          and model.sampling_ratio == 0.75 and dec.output_layer.out_features == 8404,
+          "(k1) bench_train.py's Paraformer-large")
+    optim, conf, sched, sconf, clip = TRAIN_OPTIM
+    tx, _ = build_optimizer(optim, conf, sched, sconf, clip)
+    state = create_train_state(model, tx)
+    n_params = int(state.params.numel())
+    step = make_train_step(model, tx, accum_grad=TRAIN_ACCUM)
+    frontend = FrontendConfig(device="cuda")
+    rng = np.random.default_rng(TRAIN_SEED)
+    B = TRAIN_MICRO_B * TRAIN_ACCUM
+    batches = [train_waveforms(rng, B, TRAIN_UTT_S, TRAIN_TOKENS, 8404) for _ in range(2)]
+    guarded_featurize = sync_guarded(torch, frontend.featurize)
+    guarded_step = sync_guarded(torch, step)
+    zero, read = hybrid_counters(FK, A, CP)
+    seeds = iter(range(10 ** 6))
+
+    def one_step(i):
+        feats = guarded_featurize(batches[i % 2])
+        return guarded_step(state, split_micro(feats, TRAIN_ACCUM), next(seeds))
+
+    zero()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, warm = one_step(0)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    stats = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    for i in range(TRAIN_TIMED):
+        stats.append(one_step(i + 1)[1])
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / TRAIN_TIMED
+    device_ms = start.elapsed_time(end) / TRAIN_TIMED
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    stats = [{k: float(v) for k, v in s.items()} for s in [warm] + stats]
+    check(all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) and s["finite"] == 1.0
+              for s in stats), f"(k1) finite losses and grad norms: {stats}")
+    groups = profile(torch, lambda: one_step(0), profile_dir, wall_ms, "profile_train.txt")
+    rec1 = dict(n_params=n_params, global_batch=B, accum_grad=TRAIN_ACCUM,
+                micro_batch=TRAIN_MICRO_B, utt_s=TRAIN_UTT_S, tokens=TRAIN_TOKENS,
+                step_ms=wall_ms, step_device_span_ms=device_ms,
+                audio_s_per_s=B * TRAIN_UTT_S / (wall_ms / 1e3), warmup_step_s=warm_s,
+                peak_memory_gib=peak_gb, kernel_launches_a_step=groups["kernel launches"],
+                kernel_ms_a_step=groups["kernels total"],
+                idle_share=1.0 - groups["kernel share of batch_ms"],
+                losses=[s["loss"] for s in stats], grad_norms=[s["grad_norm"] for s in stats],
+                accs=[s["acc"] for s in stats], groups=groups)
+    log(f"e2e (k1) training step, Paraformer-large on {card}: {json.dumps(rec1)}")
+    log(f"(k1) done in {time.time() - t1:.1f} s")
+
+    # ---- (k2) the eval step on the kernels, and on the attention twin
+    t1 = time.time()
+    eval_step = make_eval_step(model)
+    feats = {k: v[0] for k, v in split_micro(frontend.featurize(batches[0]),
+                                             TRAIN_ACCUM).items()}
+    caught = {}  # what the eval call's encoder and decoder give, on their valid rows
+    hooks = [model.encoder.register_forward_hook(
+                 lambda mod, args, out: caught.update(enc=out[0], enc_lens=out[1])),
+             model.decoder.register_forward_hook(
+                 lambda mod, args, out: caught.update(logits=out, ys_lens=args[3]))]
+    try:
+        before = A.fused_attention.launches_by_head[128]
+        out_k = sync_guarded(torch, eval_step)(feats)
+        eval_attention = A.fused_attention.launches_by_head[128] - before
+        launches = read()
+        kern = dict(caught)
+        with swapped([(A, "fused_attention", A.attention_ref)]):
+            out_t = eval_step(feats)
+        twin = dict(caught)
+    finally:
+        for h in hooks:
+            h.remove()
+
+    def valid_err(key, lens_key):
+        rows = torch.arange(twin[key].shape[1], device="cuda")[None] < twin[lens_key][:, None]
+        a, b = kern[key][rows].double(), twin[key][rows].double()
+        return float((a - b).norm() / b.norm()), float((a - b).abs().max())
+
+    enc_rel, enc_abs = valid_err("enc", "enc_lens")
+    logit_rel, logit_abs = valid_err("logits", "ys_lens")
+    loss_k, loss_t = float(out_k["loss"]), float(out_t["loss"])
+    rec2 = dict(batch=TRAIN_MICRO_B, loss=loss_k, loss_twin=loss_t, acc=float(out_k["acc"]),
+                acc_twin=float(out_t["acc"]), attention_launches=eval_attention,
+                encoder_rel_err=enc_rel, encoder_max_abs_err=enc_abs,
+                logits_rel_err=logit_rel, logits_max_abs_err=logit_abs)
+    log(f"e2e (k2) eval step on {card}: {json.dumps(rec2)}")
+    check(eval_attention == 50 + 16, f"(k2) attention launches {eval_attention}, want 66")
+    check(torch.equal(kern["enc_lens"], twin["enc_lens"])
+          and torch.equal(kern["ys_lens"], twin["ys_lens"]), "(k2) equal lengths")
+    check(enc_rel <= TRAIN_K2_ENC_TOL and logit_rel <= TRAIN_K2_LOGITS_TOL,
+          f"(k2) kernel against twin: encoder output {enc_rel} (bar {TRAIN_K2_ENC_TOL}), "
+          f"decoder logits {logit_rel} (bar {TRAIN_K2_LOGITS_TOL})")
+    check(abs(loss_k - loss_t) <= TRAIN_K2_LOSS_TOL and np.isfinite(loss_k),
+          f"(k2) eval loss {loss_k} against the attention twin's {loss_t} "
+          f"(bar {TRAIN_K2_LOSS_TOL})")
+    n_feat = 1 + TRAIN_TIMED + 2 + 1  # warm-up, timed, profiled twice, (k2)
+    check(launches["fbank"] == n_feat and launches["attention"] == eval_attention
+          and sum(launches.values()) == n_feat + eval_attention,
+          f"(k1)-(k2) launches {launches}: fbank {n_feat}, attention {eval_attention}")
+    log(f"(k2) done in {time.time() - t1:.1f} s")
+    del state, model, step, eval_step, feats, batches
+    torch.cuda.empty_cache()
+    return launches, {"train_k0": rec0, "train_k1": rec1, "train_k2": rec2}
+
+
+def end_to_end_train_smoke(torch, FK, A, CP, card):
+    """Phase (k3): the examples/smoke recipe through the port's entry points:
+    ``bin.make_smoke_data`` (the recipe's generator, copied) ->
+    ``bin.scp2jsonl`` -> ``bin.compute_audio_cmvn`` (the fbank kernel) ->
+    ``bin.train`` on the tiny config (``SMOKE_WIDTHS``) for its two epochs,
+    validating on the training set -> ``model.avg.pt`` served int8 through
+    ``AutoModel(quantize=True)``: the training loss at the end below the
+    start, the served tokens equal to the int8 twins' (token agreement >=
+    ``E2E_INT8_MIN_AGREE``, the lengths equal).  Returns (launches, record)."""
+    import shutil
+
+    import numpy as np
+
+    from funasr_torch.auto.auto_model import AutoModel
+    from funasr_torch.bin import compute_audio_cmvn, make_smoke_data, scp2jsonl
+    from funasr_torch.bin import train as bin_train
+    from funasr_torch.utils.audio import load_audio
+
+    t1 = time.time()
+    work = "build/train_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    data = os.path.join(work, "data")
+    make_smoke_data.main(data)
+    jsonl = os.path.join(data, "train.jsonl")
+    scp2jsonl.main(["--scp_file_list", os.path.join(data, "wav.scp"),
+                    os.path.join(data, "text"), "--jsonl_file_out", jsonl])
+    cmvn = os.path.join(data, "am.mvn")
+    zero, read = hybrid_counters(FK, A, CP)
+    zero()
+    compute_audio_cmvn.main(["--train-jsonl", jsonl, "--output", cmvn, "--device", "cuda"])
+    overrides = [f"++frontend_conf.cmvn_file={cmvn}", "++encoder_conf.output_size=128",
+                 "++predictor_conf.idim=128", "++train_conf.log_interval=1",
+                 "++tokenizer_conf.token_list=[" + ",".join(SMOKE_TOKENS) + "]"]
+    trainer = bin_train.main(["--config", SMOKE_YAML, "--train-jsonl", jsonl,
+                              "--valid-jsonl", jsonl, "--output-dir",
+                              os.path.join(work, "exp"), "--device", "cuda"] + overrides)
+    losses = [r["loss"] for r in trainer.history if "loss" in r]
+    valid = [r["valid_loss"] for r in trainer.history if "valid_loss" in r]
+    steps = int(trainer.state.step)
+    check(len(losses) == steps and steps > 0 and all(np.isfinite(losses)),
+          f"(k3) {steps} logged steps: {losses}")
+    check(losses[-1] < losses[0], f"(k3) the training loss falls: {losses}")
+    train_launches = read()
+    del trainer
+    with open(os.path.join(data, "wav.scp"), encoding="utf-8") as f:
+        wavs = [load_audio(line.split()[1]) for line in f if line.strip()]
+    am = AutoModel(model=SMOKE_YAML, model_conf=dict(
+        SMOKE_WIDTHS, frontend_conf={"cmvn_file": cmvn}), quantize=True,
+        init_param=os.path.join(work, "exp", "model.avg.pt"), device="cuda")
+    eng = am.engine
+    check(eng.module.quantize and eng.module._int8_ready, "(k3) served int8")
+    wav_d, lens_d = eng._pack(wavs)
+    max_tokens = eng._max_tokens(wav_d.shape[1])
+    zero()
+    out_k = sync_guarded(torch, eng.run)(wav_d, lens_d, max_tokens)
+    serve_launches = read()
+    with int8_twins():
+        out_t = eng.run(wav_d, lens_d, max_tokens)
+    texts = [r["text"] for r in am.generate(wavs[0])] + [
+        r["text"] for r in eng.transcribe(wavs)]
+    valid_tok = torch.arange(max_tokens, device="cuda")[None] < out_k[1][:, None]
+    agree = float((out_k[0] == out_t[0])[valid_tok].float().mean()) if valid_tok.any() else 1.0
+    rec = dict(steps=steps, losses=losses, valid_losses=valid, utterances=len(wavs),
+               token_lengths=out_k[1].tolist(), token_agreement_twins=agree,
+               lengths_equal=bool(torch.equal(out_k[1], out_t[1])), texts=texts[:4],
+               train_launches=train_launches, serve_launches=serve_launches,
+               seconds=time.time() - t1)
+    log(f"e2e (k3) train then serve, the smoke recipe on {card}: {json.dumps(rec)}")
+    check(rec["lengths_equal"] and agree >= E2E_INT8_MIN_AGREE,
+          f"(k3) served tokens against the int8 twins: {agree}")
+    check(train_launches["fbank"] > 0 and train_launches["attention"] > 0,
+          f"(k3) the recipe ran the fbank and attention kernels: {train_launches}")
+    del am, eng
+    torch.cuda.empty_cache()
+    launches = {k: train_launches[k] + serve_launches[k] for k in train_launches}
+    return launches, {"train_k3": rec}
+
+
 def profile(torch, run, out_dir, batch_ms, fname):
     """Device kernel time by group for one batch (``run()``), and the share
     of the batch's span (``batch_ms``, CUDA events) spent in kernels.  The
@@ -6741,6 +7130,9 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 means float32
     torch.backends.cudnn.allow_tf32 = False
+    # serving computes no gradients (the engines run under inference mode);
+    # phase (k), training, turns grad mode on for itself
+    torch.set_grad_enabled(False)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -6830,6 +7222,13 @@ def main(argv=None) -> int:
     launches_j3, e2e_j3 = end_to_end_stream_punc(torch, FK, A, CP, smi)
     e2e.update(e2e_j3)
     log(f"phase (j) done in {time.time() - t1:.1f} s")
+    t1 = time.time()
+    with torch.enable_grad():
+        launches_k, e2e_k = end_to_end_training(torch, FK, A, CP, args.profile, smi)
+        launches_k3, e2e_k3 = end_to_end_train_smoke(torch, FK, A, CP, smi)
+    e2e.update(e2e_k)
+    e2e.update(e2e_k3)
+    log(f"phase (k) done in {time.time() - t1:.1f} s")
     log(f"end to end done in {time.time() - t0:.1f} s")
     log(f"e2e summary {json.dumps(e2e, sort_keys=True)}")
 
@@ -6852,7 +7251,9 @@ def main(argv=None) -> int:
                    "transducer": launches_tr.get(name, 0),
                    "emotion2vec": launches_e2v.get(name, 0),
                    "scama": launches_j.get(name, 0),
-                   "stream_punc": launches_j3.get(name, 0)}
+                   "stream_punc": launches_j3.get(name, 0),
+                   "train": launches_k.get(name, 0),
+                   "train_smoke": launches_k3.get(name, 0)}
         return dict(name=name, route="cuda", source=sources[0], sources=sources,
                     replaces=replaces, launches=sum(by_path.values()),
                     launches_by_path=by_path, shape=main_case["case"],

@@ -72,7 +72,9 @@ JAX package's ``FUNASR_TPU_PALLAS_QMM`` / ``FUNASR_TPU_INT8_ATTN``).
 Punctuation computes in bf16 when ``quantize=True`` and never takes the
 int8 route.
 
-Weights load from ``init_param``: a ``.pt`` state dict or a ``.npz`` of
+Weights load from ``init_param`` (a key of the main model's config, or an
+argument, as the reference's ``AutoModel(model=..., init_param=...)``): a
+``.pt`` state dict (``bin/train.py``'s ``model.avg.pt``) or a ``.npz`` of
 FunASR torch-layout names (``convert.*_from_jax`` produce them).  Without
 weights every model gets seeded random weights (``seed``).  ``device=None``
 means the card (raises without one unless ``device="cpu"``).
@@ -221,7 +223,10 @@ class AutoModel:
                  **kwargs):
         """``shared_frontend=False`` keeps the waveform path in the pipeline
         (the JAX package's ``FUNASR_TPU_DISABLE_SHARED_FRONTEND``);
-        ``use_itn=True`` here normalizes every pipeline text, as there."""
+        ``use_itn=True`` here normalizes every pipeline text, as there;
+        ``init_param`` goes into the main model's config."""
+        if "init_param" in kwargs:
+            model_conf = dict(model_conf or {}, init_param=kwargs.pop("init_param"))
         self.kwargs = kwargs
         self.seed = seed
         self.device = resolve_device(device)

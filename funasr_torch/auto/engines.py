@@ -91,8 +91,10 @@ class FrontendConfig:
     copies the CMVN or the fbank tables to the card."""
 
     def __init__(self, fs: int = 16000, n_mels: int = 80, lfr_m: int = 7,
-                 lfr_n: int = 6, cmvn=None, window: str = "hamming", device="cpu"):
+                 lfr_n: int = 6, cmvn=None, window: str = "hamming", device="cpu",
+                 dither: float = 0.0):
         self.fs = fs
+        self.dither = dither
         self.n_mels = n_mels
         self.lfr_m = lfr_m
         self.lfr_n = lfr_n
@@ -147,6 +149,26 @@ class FrontendConfig:
     def device_features(self, wav: torch.Tensor, lengths: torch.Tensor):
         feats, flens = self.raw_fbank(wav, lengths)
         return self.features_from_fbank(feats, flens)
+
+    def featurize(self, batch: Dict[str, Any], train: bool = True) -> Dict[str, torch.Tensor]:
+        """A collated training batch (numpy ``speech``, ``speech_lengths``,
+        ``text``, ``text_lengths``) -> its tensors on the CMVN's device, the
+        speech as features: fbank (the kernel on the card) -> LFR -> CMVN,
+        with no padding to 128 frames (funasr_tpu/bin/train.py:144-160).
+        ``dither`` != 0 on the training path needs a noise input to the
+        fbank kernel, which no shipped config uses: it raises."""
+        if train and self.dither:
+            raise NotImplementedError(
+                f"featurize: dither={self.dither} needs a noise input to the fbank "
+                "kernel (csrc/fbank.cu; ROADMAP.md, Queue 1: training)")
+        dev = self.cmvn.device
+        feats, flens = self.raw_fbank(upload(batch["speech"], dev),
+                                      upload(batch["speech_lengths"], dev))
+        if self.lfr_m != 1 or self.lfr_n != 1:
+            feats, flens = F.apply_lfr(feats, flens, self.lfr_m, self.lfr_n)
+        return {"speech": F.apply_cmvn(feats, self.cmvn), "speech_lengths": flens,
+                "text": upload(batch["text"], dev),
+                "text_lengths": upload(batch["text_lengths"], dev)}
 
 
 class BatchedAsrEngine:

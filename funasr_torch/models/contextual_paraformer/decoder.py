@@ -104,6 +104,7 @@ class ContextualParaformerSANMDecoder(ParaformerSANMDecoder):
             param_dtype)
         self.bias_decoder = ContextualBiasDecoder(d, attention_heads, dtype, param_dtype)
         self.bias_output = nn.Conv1d(2 * d, d, 1, bias=False, dtype=param_dtype or dtype)
+        self.eval()
 
     def quantize_weights(self) -> None:
         """The fused layers' int8 weights; the QDense rule for the Dense

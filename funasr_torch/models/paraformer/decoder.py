@@ -18,6 +18,14 @@ row-quantized once per batch for all of them; the other layers
 (``decoders2``, ``decoders3``) and ``output_layer`` keep the module path,
 whose Dense layers follow the QDense rule (``models/sanm.py`` ``Dense``).
 
+Training is the module's ``self.training`` (the JAX package's
+``deterministic=False``, decoder.py:49,154,182-205,232-244 there): dropout on
+the FFN's hidden units, on the FSMN memory (self-attention rate), on the
+cross-attention weights (source-attention rate) and on the FSMN and
+cross-attention outputs (the layer's rate); the cross-attention in plain
+PyTorch (``models/sanm.py`` ``masked_attention``), never the kernel.  The
+decoders are built in ``eval()`` mode.
+
 ``use_output_layer=False`` builds no projection and returns the hiddens
 (``after_norm(x)``): SeACo's bias decoder over its hotword memory;
 ``return_hidden=True`` returns them from a model that has one, and
@@ -42,6 +50,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from funasr_torch.models.sanm import (
@@ -50,6 +59,7 @@ from funasr_torch.models.sanm import (
     fsmn_memory,
     fsmn_padding,
     int8_buffers,
+    masked_attention,
     quantize_dense_layers,
 )
 from funasr_torch.models.transformer.decoder import TransformerDecoderLayer
@@ -65,15 +75,18 @@ class FeedForwardDecoderSANM(nn.Module):
 
     def __init__(self, idim: int, hidden_units: int,
                  dtype: torch.dtype = torch.float32,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.w_1 = Dense(idim, hidden_units, dtype=dtype, param_dtype=param_dtype)
         self.norm = LayerNormF32(hidden_units, dtype)
         self.w_2 = Dense(hidden_units, idim, bias=False, dtype=dtype,
                          param_dtype=param_dtype)
+        self.dropout_rate = dropout_rate
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.w_2(self.norm(torch.relu(self.w_1(x))))
+        h = F.dropout(torch.relu(self.w_1(x)), self.dropout_rate, self.training)
+        return self.w_2(self.norm(h))
 
 
 class FsmnSelfAttention(nn.Module):
@@ -82,15 +95,18 @@ class FsmnSelfAttention(nn.Module):
 
     def __init__(self, n_feat: int, kernel_size: int = 11, sanm_shift: int = 0,
                  dtype: torch.dtype = torch.float32,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.fsmn_block = nn.Conv1d(n_feat, n_feat, kernel_size, groups=n_feat,
                                     bias=False, dtype=param_dtype or dtype)
         self.left, self.right = fsmn_padding(kernel_size, sanm_shift)
+        self.dropout_rate = dropout_rate
 
     def forward(self, x: torch.Tensor, tgt_mask: torch.Tensor) -> torch.Tensor:
-        return fsmn_memory(x, self.fsmn_block.weight, tgt_mask, self.left,
-                           self.right)
+        out = fsmn_memory(x, self.fsmn_block.weight, tgt_mask, self.left,
+                          self.right)
+        return F.dropout(out, self.dropout_rate, self.training)
 
 
 class CrossAttention(nn.Module):
@@ -99,10 +115,12 @@ class CrossAttention(nn.Module):
 
     def __init__(self, n_head: int, n_feat: int,
                  dtype: torch.dtype = torch.float32,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.n_head = n_head
         self.n_feat = n_feat
+        self.dropout_rate = dropout_rate
         self.linear_q = Dense(n_feat, n_feat, dtype=dtype, param_dtype=param_dtype)
         self.linear_k_v = Dense(n_feat, 2 * n_feat, dtype=dtype,
                                 param_dtype=param_dtype)
@@ -110,11 +128,16 @@ class CrossAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, memory: torch.Tensor,
                 bias: torch.Tensor) -> torch.Tensor:
-        """x (B, U, D); memory (B, T, D); bias (B, T) float32 key bias."""
+        """x (B, U, D); memory (B, T, D); bias (B, T) float32 key bias
+        (0 valid, -1e30 padding)."""
         d_k = self.n_feat // self.n_head
         q = self.linear_q(x)
         k, v = self.linear_k_v(memory).split(self.n_feat, dim=-1)
-        ctx = A.fused_attention(q * (d_k ** -0.5), k, v, bias, self.n_head)
+        if self.training:
+            ctx = masked_attention(q, k, v, (bias == 0)[:, None, :], self.n_head,
+                                   self.dropout_rate)
+        else:
+            ctx = A.fused_attention(q * (d_k ** -0.5), k, v, bias, self.n_head)
         return self.linear_out(ctx)
 
 
@@ -126,22 +149,27 @@ class DecoderLayerSANM(nn.Module):
                  kernel_size: int = 11, sanm_shift: int = 0,
                  has_self_attn: bool = True, has_src_attn: bool = True,
                  dtype: torch.dtype = torch.float32,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None,
+                 dropout_rate: float = 0.0, self_attention_dropout_rate: float = 0.0,
+                 src_attention_dropout_rate: float = 0.0):
         super().__init__()
         self.n_head = n_head
         self.dtype = dtype
+        self.dropout_rate = dropout_rate
         self.norm1 = LayerNormF32(size, dtype)
         self.feed_forward = FeedForwardDecoderSANM(size, linear_units, dtype,
-                                                   param_dtype)
+                                                   param_dtype, dropout_rate)
         self.self_attn = None
         self.src_attn = None
         if has_self_attn:
             self.norm2 = LayerNormF32(size, dtype)
             self.self_attn = FsmnSelfAttention(size, kernel_size, sanm_shift,
-                                               dtype, param_dtype)
+                                               dtype, param_dtype,
+                                               self_attention_dropout_rate)
         if has_src_attn:
             self.norm3 = LayerNormF32(size, dtype)
-            self.src_attn = CrossAttention(n_head, size, dtype, param_dtype)
+            self.src_attn = CrossAttention(n_head, size, dtype, param_dtype,
+                                           src_attention_dropout_rate)
         self.int8 = None
 
     def quantize_weights(self) -> None:
@@ -176,11 +204,12 @@ class DecoderLayerSANM(nn.Module):
                 tgt.to(self.dtype), memory.to(self.dtype), tgt_lengths, mem_lengths,
                 self.int8(self), self.n_head, self.self_attn.left, mem_bias,
                 memory_q)
+        p, train = self.dropout_rate, self.training
         x = self.feed_forward(self.norm1(tgt))
         if self.self_attn is not None:
-            x = tgt + self.self_attn(self.norm2(x), tgt_mask)
+            x = tgt + F.dropout(self.self_attn(self.norm2(x), tgt_mask), p, train)
         if self.src_attn is not None:
-            x = x + self.src_attn(self.norm3(x), memory, mem_bias)
+            x = x + F.dropout(self.src_attn(self.norm3(x), memory, mem_bias), p, train)
         return x
 
 
@@ -199,35 +228,39 @@ class ParaformerSANMDecoder(nn.Module):
                  num_blocks: int = 6, att_layer_num: int = 6,
                  kernel_size: int = 11, sanm_shift: int = 0,
                  dtype: torch.dtype = torch.float32,
-                 dropout_rate: float = 0.0,
+                 dropout_rate: float = 0.1,
                  self_attention_dropout_rate: float = 0.0,
                  src_attention_dropout_rate: float = 0.0,
                  param_dtype: Optional[torch.dtype] = None,
                  use_output_layer: bool = True):
-        """The dropout rates are the reference's training-only settings;
-        inference ignores them.  ``param_dtype``: storage of the Dense and
-        FSMN weights (default ``dtype``; float32 for int8 serving)."""
+        """The dropout rates act in training only (defaults: the JAX
+        package's).  ``param_dtype``: storage of the Dense and FSMN weights
+        (default ``dtype``; float32 for int8 serving)."""
         super().__init__()
         d = encoder_output_size
         self.dtype = dtype
         pd = param_dtype
+        rates = dict(dropout_rate=dropout_rate,
+                     self_attention_dropout_rate=self_attention_dropout_rate,
+                     src_attention_dropout_rate=src_attention_dropout_rate)
         self.embed = nn.Sequential(nn.Embedding(vocab_size, d))
         self.decoders = nn.ModuleList([
             DecoderLayerSANM(d, attention_heads, linear_units, kernel_size,
-                             sanm_shift, True, True, dtype, pd)
+                             sanm_shift, True, True, dtype, pd, **rates)
             for _ in range(att_layer_num)])
         self.decoders2: Optional[nn.ModuleList] = None
         if num_blocks - att_layer_num > 0:
             self.decoders2 = nn.ModuleList([
                 DecoderLayerSANM(d, attention_heads, linear_units, kernel_size,
-                                 0, True, False, dtype, pd)
+                                 0, True, False, dtype, pd, **rates)
                 for _ in range(num_blocks - att_layer_num)])
         self.decoders3 = nn.ModuleList([DecoderLayerSANM(
             d, attention_heads, linear_units, kernel_size, sanm_shift,
-            False, False, dtype, pd)])
+            False, False, dtype, pd, **rates)])
         self.after_norm = LayerNormF32(d, dtype)
         self.output_layer = (Dense(d, vocab_size, dtype=dtype, param_dtype=pd)
                              if use_output_layer else None)
+        self.eval()  # built for inference; train() switches to the training path
 
     def _layers(self):
         return list(self.decoders) + list(self.decoders2 or []) + list(self.decoders3)
@@ -266,6 +299,11 @@ class ParaformerSANMDecoder(nn.Module):
     def project(self, hidden: torch.Tensor) -> torch.Tensor:
         """The output projection of :meth:`forward`'s hiddens."""
         return self.output_layer(hidden)
+
+    def embed_tokens(self, ids: torch.Tensor) -> torch.Tensor:
+        """Token embedding lookup in the compute dtype (the training
+        sampler's ground-truth embeddings)."""
+        return self.embed(ids).to(self.dtype)
 
 
 @tables.register("decoder_classes", "ParaformerSANDecoder")

@@ -1,10 +1,22 @@
-"""Paraformer: non-autoregressive ASR, inference path (port of
+"""Paraformer: non-autoregressive ASR (port of
 funasr_tpu/models/paraformer/model.py; reference
 funasr/models/paraformer/model.py:30).
 
 encoder -> CIF predictor (one acoustic embedding per token) -> one
 bidirectional decoder pass -> argmax.  The token grid is padded to
-``max_tokens``; real counts travel as lengths.  No training forward.
+``max_tokens``; real counts travel as lengths.
+
+Training: :meth:`Paraformer.forward` ``(speech, speech_lengths, text,
+text_lengths)`` -> ``(loss, stats)`` (model.py:151-220 of the JAX package):
+eos appended to the targets (``predictor_bias == 1``), the predictor's alphas
+rescaled to the target length, the glancing-LM sampler (``sampling_ratio``,
+:meth:`Paraformer._glm_sampler`) in training mode, label-smoothing loss, the
+MAE token-count loss and, with ``ctc_weight > 0``, CTC on the raw targets.
+In ``train()`` mode every module takes its dropout and plain PyTorch
+attention; in ``eval()`` mode (validation) the attention kernel runs, under
+``torch.no_grad()``.  Training covers the SANM encoder and SANM decoder of
+this class; a subclass, another encoder or another decoder raises
+``NotImplementedError`` (ROADMAP.md, Queue 1).
 
 The encoder and decoder are picked by registry name as the JAX
 ``Paraformer.setup`` picks them (model.py:75-127 of the JAX package):
@@ -37,6 +49,7 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
+from funasr_torch import losses
 from funasr_torch.device import resolve_device
 from funasr_torch.models.paraformer.decoder import ParaformerSANMDecoder
 from funasr_torch.models.paraformer.predictor import CifPredictorV2
@@ -46,10 +59,37 @@ from funasr_torch.ops.masks import sequence_mask
 from funasr_torch.registry import tables
 
 
-# training-only fields of funasr_tpu's Paraformer (and the reference template,
-# E-Paraformer's first-pass decoder loss included)
-_TRAINING_FIELDS = {"lsm_weight", "length_normalized_loss", "predictor_weight",
-                    "predictor_bias", "sampling_ratio", "ignore_id", "use_1st_decoder_loss"}
+# training-only fields of funasr_tpu's Paraformer with its defaults (and the
+# reference template's E-Paraformer first-pass decoder loss)
+_TRAINING_FIELDS = {"lsm_weight": 0.1, "length_normalized_loss": True,
+                    "predictor_weight": 1.0, "predictor_bias": 1, "sampling_ratio": 0.75,
+                    "ignore_id": -1, "use_1st_decoder_loss": False}
+
+
+def add_eos(text: torch.Tensor, text_lengths: torch.Tensor, eos: int,
+            ignore_id: int = -1):
+    """Append ``eos`` at position ``len`` of each row (reference
+    ``add_sos_eos`` ys_out with predictor_bias=1, paraformer/model.py:297-299):
+    one column wider, ``ignore_id`` at the pads."""
+    B, U = text.shape
+    valid = sequence_mask(text_lengths, U, torch.bool)
+    body = torch.where(valid, text, ignore_id)
+    padded = torch.cat([body, torch.full_like(body[:, :1], ignore_id)], dim=1)
+    pos = torch.arange(U + 1, device=text.device)[None, :]
+    padded = torch.where(pos == text_lengths[:, None], eos, padded)
+    return padded, text_lengths + 1
+
+
+def glancing_swap(noise: torch.Tensor, nonpad: torch.Tensor,
+                  target_num: torch.Tensor) -> torch.Tensor:
+    """The glancing sampler's choice (model.py:249-253 of the JAX package):
+    the ``target_num[b]`` non-pad positions of row b with the smallest
+    ``noise`` (pads sort last) -> (B, U) bool, True where the ground-truth
+    embedding replaces the CIF embedding."""
+    noise = torch.where(nonpad, noise, torch.inf)
+    order = torch.argsort(noise, dim=-1, stable=True)
+    ranks = torch.argsort(order, dim=-1, stable=True)
+    return (ranks < target_num[:, None]) & nonpad
 
 
 def accepted_args(cls, conf: Dict[str, Any]) -> Dict[str, Any]:
@@ -65,6 +105,8 @@ class Paraformer(nn.Module):
     ``device`` (default: the GPU, raising without one; ``"cpu"`` only when
     asked).  ``dtype`` is the compute dtype (bfloat16 in serving);
     ``quantize`` selects int8 serving (see the module docstring);
+    ``param_dtype`` stores the Dense and FSMN weights (default ``dtype``;
+    float32 with ``quantize``, and for training);
     ``encoder_name`` / ``decoder_name`` pick the encoder and decoder."""
 
     def __init__(self, vocab_size: int, input_size: int = 560,
@@ -75,11 +117,12 @@ class Paraformer(nn.Module):
                  dtype: torch.dtype = torch.float32, device=None,
                  quantize: bool = False, qmm: bool = False, int8_attn: bool = False,
                  encoder_name: Optional[str] = None, decoder_name: Optional[str] = None,
-                 ctc_weight: float = 0.0, **training_conf):
+                 ctc_weight: float = 0.0, param_dtype: Optional[torch.dtype] = None,
+                 **training_conf):
         """``training_conf`` takes the template's training-only settings
-        (``lsm_weight``, ``sampling_ratio``, ``predictor_bias``...), which
-        the inference path ignores."""
-        unknown = set(training_conf) - _TRAINING_FIELDS
+        (``lsm_weight``, ``sampling_ratio``, ``predictor_bias``...; the JAX
+        package's defaults), which only :meth:`forward` reads."""
+        unknown = set(training_conf) - set(_TRAINING_FIELDS)
         if unknown:
             raise TypeError(f"Paraformer: unexpected arguments {sorted(unknown)}")
         if (qmm or int8_attn) and not quantize:
@@ -94,8 +137,11 @@ class Paraformer(nn.Module):
         self.quantize = quantize
         self.ctc_weight = ctc_weight
         self.decoder_name = decoder_name
+        self.encoder_name = encoder_name
+        for key, default in _TRAINING_FIELDS.items():
+            setattr(self, key, training_conf.get(key, default))
         self._int8_ready = False
-        param_dtype = torch.float32 if quantize else None
+        param_dtype = torch.float32 if quantize else param_dtype
         dev = resolve_device(device)
 
         enc_conf = dict(encoder_conf or {})
@@ -168,6 +214,86 @@ class Paraformer(nn.Module):
             raise RuntimeError("Paraformer(quantize=True): call quantize_weights() "
                                "after loading the weights")
         return self.encoder(speech, speech_lengths)
+
+    def forward(self, speech: torch.Tensor, speech_lengths: torch.Tensor,
+                text: torch.Tensor, text_lengths: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
+        """Training forward -> ``(loss, stats)`` (reference model.py:168):
+        speech (B, T, input_size) features, text (B, U) ids padded with
+        ``ignore_id``.  ``stats`` holds 0-d device tensors: ``loss_att``,
+        ``loss_pre``, ``acc``, ``loss_ctc`` (with ``ctc_weight > 0``),
+        ``loss`` and ``batch_size``.  ``generator`` draws the sampler's noise
+        (training mode, ``sampling_ratio > 0``); dropout draws from the
+        device's default generator."""
+        if type(self) is not Paraformer or self.encoder_name not in (None, "SANMEncoder") \
+                or self.decoder_name not in (None, "ParaformerSANMDecoder"):
+            raise NotImplementedError(
+                f"{type(self).__name__} (encoder {self.encoder_name or 'SANMEncoder'}, "
+                f"decoder {self.decoder_name or 'ParaformerSANMDecoder'}): training is "
+                "ported for Paraformer with the SANM encoder and decoder only "
+                "(ROADMAP.md, Queue 1: training of the other model classes)")
+        if self._int8_ready and self.training:
+            raise RuntimeError("Paraformer: the int8 weights of quantize_weights() are for "
+                               "serving; train the float32 model and quantize it afterwards")
+        B = speech.shape[0]
+        enc, enc_lens = self.encode(speech, speech_lengths)
+        if self.predictor_bias == 1:
+            ys_pad, ys_lens = add_eos(text, text_lengths, self.eos, self.ignore_id)
+        else:
+            ys_pad, ys_lens = text, text_lengths
+        U = ys_pad.shape[1]
+        pred = self.predictor(enc, enc_lens, U, target_length=ys_lens.to(torch.float32))
+        semantic, glat_logits = pred.acoustic_embeds, None
+        if self.sampling_ratio > 0.0 and self.training:
+            semantic, glat_logits = self._glm_sampler(
+                enc, enc_lens, ys_pad, ys_lens, pred.acoustic_embeds, generator)
+        logits = self.decoder(enc, enc_lens, semantic, ys_lens)
+
+        loss_att = losses.label_smoothing_loss(logits, ys_pad, self.ignore_id,
+                                               self.lsm_weight,
+                                               self.length_normalized_loss)
+        loss_pre = losses.mae_length_loss(ys_lens, pred.token_num,
+                                          self.length_normalized_loss)
+        acc = losses.th_accuracy(logits if glat_logits is None else glat_logits,
+                                 ys_pad, self.ignore_id)
+        stats = {"loss_att": loss_att, "loss_pre": loss_pre, "acc": acc}
+        if self.ctc_weight > 0.0:
+            # CTC trains on the raw targets, not the eos-augmented ys_pad
+            # (reference model.py:199)
+            loss_ctc = losses.ctc_loss(self.ctc.ctc_lo(enc), enc_lens, text,
+                                       text_lengths, self.ignore_id, self.blank_id)
+            loss = (self.ctc_weight * loss_ctc + (1.0 - self.ctc_weight) * loss_att
+                    + self.predictor_weight * loss_pre)
+            stats["loss_ctc"] = loss_ctc
+        else:
+            loss = loss_att + self.predictor_weight * loss_pre
+        stats["loss"] = loss
+        stats["batch_size"] = torch.full((), B, device=loss.device)
+        return loss, stats
+
+    def _glm_sampler(self, enc, enc_lens, ys_pad, ys_lens, acoustic_embeds,
+                     generator: Optional[torch.Generator] = None):
+        """Glancing-LM sampler (reference model.py:339 ``sampler``): decode
+        the CIF embeddings without grad (dropout live, as the reference's
+        ``torch.no_grad()`` in ``train()`` mode), count the wrong tokens, and
+        give a random ``sampling_ratio * wrong`` of the positions their
+        ground-truth embedding (:func:`glancing_swap` on uniform noise from
+        ``generator``) -> (semantic embeddings, first-pass logits)."""
+        U = ys_pad.shape[1]
+        tgt_mask = sequence_mask(ys_lens, U)[:, :, None]
+        nonpad = ys_pad != self.ignore_id
+        ys_embed = self.decoder.embed_tokens(torch.where(nonpad, ys_pad, 0))
+        with torch.no_grad():
+            logits = self.decoder(enc, enc_lens, acoustic_embeds, ys_lens)
+        pred = torch.argmax(logits, dim=-1)
+        same = ((pred == ys_pad) & nonpad).sum(dim=-1)
+        wrong = nonpad.sum(dim=-1) - same
+        target_num = (wrong.to(torch.float32) * self.sampling_ratio).to(torch.int32)
+        noise = torch.rand(ys_pad.shape, generator=generator, device=ys_pad.device)
+        swap = glancing_swap(noise, nonpad, target_num)
+        semantic = torch.where(swap[:, :, None], ys_embed.to(acoustic_embeds.dtype),
+                               acoustic_embeds)
+        return semantic * tgt_mask.to(semantic.dtype), logits
 
     def _infer_raw_logits(self, speech, speech_lengths, max_tokens: int = 128):
         enc, enc_lens = self.encode(speech, speech_lengths)

@@ -13,8 +13,20 @@ funasr_tpu/models/sanm.py; reference funasr/models/sanm/attention.py:140
 
 Dense and FSMN weights are stored in ``param_dtype``, by default the
 compute ``dtype`` (the JAX modules cast their float32 parameters to it at
-use); layer-norm parameters stay float32.  Inference only: no dropout, no
-pipeline-parallel branch.
+use); layer-norm parameters stay float32.  No pipeline-parallel branch.
+
+Training (the JAX modules' ``deterministic=False``) is the module's
+``self.training``: dropout where the JAX package puts it (the FSMN memory
+and the attention weights at the attention dropout rate, the FFN's hidden
+units, the attention and FFN outputs at the layer's rate; none after the
+positional encoding), and the attention in plain PyTorch
+(:func:`masked_attention`, the XLA path of sanm.py:168-190), never the
+kernel: a kernel wrapper has no backward, and refuses inputs that require
+grad.  ``SANMEncoder(remat=True)`` recomputes each of ``encoders``' layers in
+the backward pass (``torch.utils.checkpoint``, the RNG state kept, so the
+dropout masks are the same), as ``nn.remat`` does there.  The modules are
+built in ``eval()`` mode; the int8 weights are for serving
+(``Paraformer.forward`` refuses them in training mode).
 
 int8 serving (the JAX package's ``quantize=True`` path, sanm.py:329-344,
 :430-467, :503-550): a model built with ``param_dtype=float32`` and then
@@ -45,6 +57,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from funasr_torch.ops import attention as A
 from funasr_torch.ops import ffn as FF
@@ -188,13 +201,15 @@ def masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     valid: torch.Tensor, n_head: int) -> torch.Tensor:
+                     valid: torch.Tensor, n_head: int,
+                     attn_dropout: float = 0.0) -> torch.Tensor:
     """Attention under a per-query mask, the XLA code the JAX package runs
     for any mask its kernel does not take (funasr_tpu sanm.py:168-190, the
     masked cross-attention of paraformer/decoder.py:186-203): q (B, U, F)
     scaled by d_k^-0.5 and scored against k (B, T, F) in the compute dtype,
     :func:`masked_softmax` in float32 over ``valid`` (B, 1 or U, T) bool,
-    the context in the compute dtype -> (B, U, F)."""
+    dropout at ``attn_dropout`` on its weights (training), the context in
+    the compute dtype -> (B, U, F)."""
     B, U, F_ = q.shape
     d_k = F_ // n_head
 
@@ -203,7 +218,7 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     scores = rounded_once(torch.matmul, heads(q) * (d_k ** -0.5),
                           heads(k).transpose(-1, -2))  # (B, H, U, T)
-    attn = masked_softmax(scores, valid[:, None])
+    attn = F.dropout(masked_softmax(scores, valid[:, None]), attn_dropout, attn_dropout > 0)
     ctx = rounded_once(torch.matmul, attn.to(v.dtype), heads(v))
     return ctx.transpose(1, 2).reshape(B, U, F_)
 
@@ -237,10 +252,12 @@ class MultiHeadedAttentionSANM(nn.Module):
     def __init__(self, n_head: int, in_feat: int, n_feat: int,
                  kernel_size: int = 11, sanm_shift: int = 0,
                  dtype: torch.dtype = torch.float32,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.n_head = n_head
         self.n_feat = n_feat
+        self.dropout_rate = dropout_rate
         self.linear_q_k_v = Dense(in_feat, 3 * n_feat, dtype=dtype,
                                   param_dtype=param_dtype)
         self.fsmn_block = nn.Conv1d(n_feat, n_feat, kernel_size, groups=n_feat,
@@ -254,16 +271,21 @@ class MultiHeadedAttentionSANM(nn.Module):
         ``attn_mask`` (B, T, T), nonzero = may attend: the attention runs
         :func:`masked_attention` over the key mask and it (the JAX package's
         XLA path, sanm.py:168-190); the FSMN memory stays gated by the key
-        mask alone."""
+        mask alone.  In training the attention always takes that path, with
+        dropout on its weights and on the memory."""
         d_k = self.n_feat // self.n_head
         q, k, v = self.linear_q_k_v(x).split(self.n_feat, dim=-1)
         mem = fsmn_memory(v, self.fsmn_block.weight, mask_t, self.left,
                           self.right)
-        if attn_mask is None:
+        mem = F.dropout(mem, self.dropout_rate, self.training)
+        if attn_mask is None and not self.training:
             ctx = A.fused_attention(q * (d_k ** -0.5), k, v, bias, self.n_head)
         else:
-            valid = (mask_t[:, None, :, 0] != 0) & (attn_mask != 0)
-            ctx = masked_attention(q, k, v, valid, self.n_head)
+            valid = mask_t[:, None, :, 0] != 0
+            if attn_mask is not None:
+                valid = valid & (attn_mask != 0)
+            ctx = masked_attention(q, k, v, valid, self.n_head,
+                                   self.dropout_rate if self.training else 0.0)
         return self.linear_out(ctx) + mem
 
 
@@ -274,11 +296,13 @@ class PositionwiseFeedForward(nn.Module):
 
     def __init__(self, idim: int, hidden_units: int,
                  dtype: torch.dtype = torch.float32,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.w_1 = Dense(idim, hidden_units, dtype=dtype, param_dtype=param_dtype)
         self.w_2 = Dense(hidden_units, idim, dtype=dtype, param_dtype=param_dtype)
         self.dtype = dtype
+        self.dropout_rate = dropout_rate
         self.int8 = None
 
     def quantize_weights(self) -> None:
@@ -289,7 +313,8 @@ class PositionwiseFeedForward(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.int8 is not None:
             return FF.fused_ffn_int8(x.to(self.dtype), self.int8(self))
-        return self.w_2(torch.relu(self.w_1(x)))
+        h = F.dropout(torch.relu(self.w_1(x)), self.dropout_rate, self.training)
+        return self.w_2(h)
 
 
 def int8_buffers(module: nn.Module, prefix: str, weights) -> callable:
@@ -315,7 +340,8 @@ class EncoderLayerSANM(nn.Module):
     def __init__(self, in_size: int, size: int, n_head: int, linear_units: int,
                  kernel_size: int = 11, sanm_shift: int = 0,
                  dtype: torch.dtype = torch.float32,
-                 param_dtype: Optional[torch.dtype] = None, int8_attn: bool = False):
+                 param_dtype: Optional[torch.dtype] = None, int8_attn: bool = False,
+                 dropout_rate: float = 0.0, attention_dropout_rate: float = 0.0):
         super().__init__()
         self.int8_attn = int8_attn
         self.fused_int8 = True
@@ -323,12 +349,14 @@ class EncoderLayerSANM(nn.Module):
         self.size = size
         self.n_head = n_head
         self.dtype = dtype
+        self.dropout_rate = dropout_rate
         self.norm1 = LayerNormF32(in_size, dtype)
         self.self_attn = MultiHeadedAttentionSANM(
-            n_head, in_size, size, kernel_size, sanm_shift, dtype, param_dtype)
+            n_head, in_size, size, kernel_size, sanm_shift, dtype, param_dtype,
+            attention_dropout_rate)
         self.norm2 = LayerNormF32(size, dtype)
         self.feed_forward = PositionwiseFeedForward(size, linear_units, dtype,
-                                                    param_dtype)
+                                                    param_dtype, dropout_rate)
         self.int8 = None
 
     def quantize_weights(self) -> None:
@@ -359,9 +387,10 @@ class EncoderLayerSANM(nn.Module):
             return SL.fused_sanm_layer(x.to(self.dtype), lengths, self.int8(self),
                                        self.n_head, self.self_attn.left, bias,
                                        self.int8_attn)
-        attn = self.self_attn(self.norm1(x), mask_t, bias, attn_mask)
+        p, train = self.dropout_rate, self.training
+        attn = F.dropout(self.self_attn(self.norm1(x), mask_t, bias, attn_mask), p, train)
         x = x + attn if self.in_size == self.size else attn
-        return x + self.feed_forward(self.norm2(x))
+        return x + F.dropout(self.feed_forward(self.norm2(x)), p, train)
 
 
 @tables.register("encoder_classes", "SANMEncoder")
@@ -377,13 +406,15 @@ class SANMEncoder(nn.Module):
                  sanm_shift: int = 0, input_layer: Optional[str] = "pe",
                  normalize_before: bool = True,
                  dtype: torch.dtype = torch.float32,
-                 dropout_rate: float = 0.0,
+                 dropout_rate: float = 0.1,
                  attention_dropout_rate: float = 0.0,
-                 param_dtype: Optional[torch.dtype] = None, int8_attn: bool = False):
-        """The dropout rates are the reference's training-only settings;
-        inference ignores them.  ``param_dtype``: storage of the Dense and
-        FSMN weights (default ``dtype``; float32 for int8 serving);
-        ``int8_attn``: int8 q.k scores in the fused int8 layers."""
+                 param_dtype: Optional[torch.dtype] = None, int8_attn: bool = False,
+                 remat: bool = False):
+        """The dropout rates act in training only (defaults: the JAX
+        package's).  ``param_dtype``: storage of the Dense and FSMN weights
+        (default ``dtype``; float32 for int8 serving); ``int8_attn``: int8
+        q.k scores in the fused int8 layers; ``remat``: recompute
+        ``encoders``' layers in the backward pass."""
         super().__init__()
         if input_layer not in ("pe", None):
             raise NotImplementedError(
@@ -393,16 +424,20 @@ class SANMEncoder(nn.Module):
         self.input_layer = input_layer
         self.normalize_before = normalize_before
         self.dtype = dtype
+        self.remat = remat
+        rates = dict(dropout_rate=dropout_rate,
+                     attention_dropout_rate=attention_dropout_rate)
         self.encoders0 = nn.ModuleList([EncoderLayerSANM(
             input_size, output_size, attention_heads, linear_units,
-            kernel_size, sanm_shift, dtype, param_dtype)])
+            kernel_size, sanm_shift, dtype, param_dtype, **rates)])
         self.encoders = nn.ModuleList([
             EncoderLayerSANM(output_size, output_size, attention_heads,
                              linear_units, kernel_size, sanm_shift, dtype,
-                             param_dtype, int8_attn)
+                             param_dtype, int8_attn, **rates)
             for _ in range(num_blocks - 1)])
         if normalize_before:
             self.after_norm = LayerNormF32(output_size, dtype)
+        self.eval()  # built for inference; train() switches to the training path
 
     def output_size(self) -> int:
         return self._output_size
@@ -426,8 +461,14 @@ class SANMEncoder(nn.Module):
         if self.input_layer == "pe":
             pe = sinusoidal_encoding(T, self.input_size, device=xs.device)
             x = x + pe[None].to(self.dtype)
-        for layer in list(self.encoders0) + list(self.encoders):
-            x = layer(x, mask_t, bias, lengths, attn_mask)
+        x = self.encoders0[0](x, mask_t, bias, lengths, attn_mask)
+        remat = self.remat and self.training and torch.is_grad_enabled()
+        for layer in self.encoders:
+            if remat:
+                x = checkpoint(layer, x, mask_t, bias, lengths, attn_mask,
+                               use_reentrant=False, preserve_rng_state=True)
+            else:
+                x = layer(x, mask_t, bias, lengths, attn_mask)
         if self.normalize_before:
             x = self.after_norm(x)
         return x, lengths

@@ -134,6 +134,7 @@ class FsmnDecoderSCAMAOpt(nn.Module):
         self.after_norm = LayerNormF32(d, dtype)
         self.output_layer = (Dense(d, vocab_size, dtype=dtype, param_dtype=pd)
                              if use_output_layer else None)
+        self.eval()
 
     def fsmn_layers(self):
         """The layers with an FSMN memory, in order: ``decoders`` then

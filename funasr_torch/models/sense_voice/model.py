@@ -91,6 +91,7 @@ class SenseVoiceEncoderSmall(SANMEncoder):
                              kernel_size, sanm_shift, dtype, param_dtype)
             for _ in range(tp_blocks)])
         self.tp_norm = LayerNormF32(output_size, dtype)
+        self.eval()
 
     def quantize_weights(self) -> None:
         super().quantize_weights()

@@ -259,6 +259,7 @@ def attention_f32ctx(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """float32 q (B, U, H*d), k/v (B, T, H*d) (any row stride, unit column
     stride), key_bias (B, T) float32, v_lengths None or (B,) -> float32
     (B, U, H*d)."""
+    cuda_build.refuse_autograd("attention_f32ctx", q, k, v, key_bias, v_lengths)
     if q.device.type == "cpu":
         return attention_f32ctx_ref(q, k, v, key_bias, n_head, q_scale, v_lengths)
     if q.device.type != "cuda":
@@ -279,6 +280,7 @@ def attention_i8qk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    v_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The arguments and output of :func:`attention_f32ctx`, with int8 q.k
     scores (the SANM layer's ``int8_attn``)."""
+    cuda_build.refuse_autograd("attention_i8qk", q, k, v, key_bias, v_lengths)
     if q.device.type == "cpu":
         return attention_i8qk_ref(q, k, v, key_bias, n_head, q_scale, v_lengths)
     if q.device.type != "cuda":
@@ -314,6 +316,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     symmetric ALiBi term ``-(slope[h] |u - j|)`` to every score but those of
     the first ``extra`` rows and columns (emotion2vec's AltAttention; float32
     at head size 64 only, ``ValueError`` otherwise, on every device)."""
+    cuda_build.refuse_autograd("fused_attention", q, k, v, key_bias, alibi_slopes)
     if alibi_slopes is not None:
         _check_alibi(q, n_head, alibi_slopes, extra)
     if q.device.type == "cpu":

@@ -96,7 +96,9 @@ def cif(hidden: torch.Tensor, alphas: torch.Tensor, max_tokens: int) -> CifOutpu
                         device=alphas.device)[None, :, None]  # (1, U, 1)
     lo = torch.maximum(P[:, None, :], grid)
     hi = torch.minimum(S[:, None, :], grid + 1.0)
-    w = torch.clamp(hi - lo, 0.0, 1.0)  # (B, U, T)
+    # jnp.clip's form, so a gradient at a bound splits as there
+    zero = torch.zeros((), device=alphas.device)
+    w = torch.minimum(torch.maximum(hi - lo, zero), zero + 1.0)  # (B, U, T)
     embeds = torch.bmm(w, hidden.to(torch.float32))
 
     token_num = S[:, -1]

@@ -100,6 +100,7 @@ def ctc_prefix_step(x_t: torch.Tensor, r_prev: torch.Tensor, last: torch.Tensor,
     K, W) int64 candidate extensions in [0, V); prefix_empty: the prefixes
     hold no token yet (step 0).  Returns (sigma (B, K, W) total prefix
     scores, r_new (B, K, W, T, 2)), both float32."""
+    cuda_build.refuse_autograd("ctc_prefix_step", x_t, r_prev, last, cand)
     if x_t.device.type == "cpu":
         return ctc_prefix_step_ref(x_t, r_prev, last, cand, prefix_empty, blank_id)
     if x_t.device.type != "cuda":
@@ -161,6 +162,7 @@ def ctc_recurrence(xg: torch.Tensor, xb: torch.Tensor,
                    phi_shift: torch.Tensor) -> torch.Tensor:
     """xg, phi_shift (B, K, W, T) float32; xb (B, T) float32 -> (B, K, W,
     T, 2) float32 (r_nb, r_b)."""
+    cuda_build.refuse_autograd("ctc_recurrence", xg, xb, phi_shift)
     if xg.device.type == "cpu":
         return ctc_recurrence_ref(xg, xb, phi_shift)
     if xg.device.type != "cuda":

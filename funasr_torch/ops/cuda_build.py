@@ -25,6 +25,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("fbank", "attention", "int8_gemm", "rowquant", "fsmn", "ctc_prefix", "qmm",
@@ -109,6 +111,22 @@ def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
         fn.restype = ctypes.c_int
         _bound[(name, symbol)] = fn
     return fn
+
+
+def refuse_autograd(fn: str, *inputs) -> None:
+    """Raise when grad mode is on and any tensor among ``inputs`` (or inside
+    a tuple of them, such as a layer's weights) requires grad: a kernel
+    wrapper has no backward, and a result it computed would silently cut
+    the graph.  Every wrapper calls this first, on every device; with grad
+    mode off it costs one call."""
+    if not torch.is_grad_enabled():
+        return
+    for t in inputs:
+        if getattr(t, "requires_grad", False) or (isinstance(t, tuple) and any(
+                getattr(x, "requires_grad", False) for x in t)):
+            raise RuntimeError(f"{fn}: an input requires grad, and the kernel has no "
+                               "backward; call it under torch.no_grad(), or use the "
+                               "module's training path")
 
 
 def check(status: int, what: str) -> None:

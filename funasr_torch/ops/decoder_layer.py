@@ -45,6 +45,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from funasr_torch.ops import attention as A
+from funasr_torch.ops import cuda_build
 from funasr_torch.ops import fsmn as FS
 from funasr_torch.ops import int8_gemm as G
 from funasr_torch.ops import rowquant as RQ
@@ -150,6 +151,8 @@ def fused_decoder_layer(x: torch.Tensor, memory: torch.Tensor,
     ``mem_lengths`` (built when None), ``memory_q`` the memory's
     :func:`quantize_memory` (made here when None) -> (B, U, D) in x's
     dtype."""
+    cuda_build.refuse_autograd("fused_decoder_layer", x, memory, tgt_lengths, mem_lengths, w,
+                               mem_bias, memory_q)
     if x.device.type == "cpu":
         return decoder_layer_ref(x, memory, tgt_lengths, mem_lengths, w, n_head,
                                  left, mem_bias, memory_q)

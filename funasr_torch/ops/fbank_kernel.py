@@ -210,6 +210,7 @@ def fused_fbank(waveform: torch.Tensor, lengths: torch.Tensor,
     """Fused kaldi fbank (16 kHz, dither 0, 25 ms / 10 ms, snip_edges):
     same contract as :func:`fbank_ref`.  CUDA tensor -> the kernel
     (float32 (B, N) waveform required); CPU tensor -> the twin."""
+    cuda_build.refuse_autograd("fused_fbank", waveform, lengths)
     if waveform.device.type == "cpu":
         return fbank_ref(waveform, lengths, num_mel_bins, with_energy, window)
     if waveform.device.type != "cuda":

@@ -97,6 +97,7 @@ def ffn_int8_ref(x: torch.Tensor, w: FfnInt8Weights) -> torch.Tensor:
 
 def fused_ffn_int8(x: torch.Tensor, w: FfnInt8Weights) -> torch.Tensor:
     """x (..., K) -> (..., N) in x's dtype."""
+    cuda_build.refuse_autograd("fused_ffn_int8", x, w)
     if x.device.type == "cpu":
         return ffn_int8_ref(x, w)
     if x.device.type != "cuda":
@@ -242,6 +243,7 @@ def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Ten
     """x (..., K) bf16 or float32, w1 (H, K), b1 (H,), w2 (N, H), b2 (N,)
     -> (..., N) in x's dtype.  On the card the operands must pass
     :func:`ffn_operands`; the plan is :func:`ffn_plan`'s for the card."""
+    cuda_build.refuse_autograd("fused_ffn", x, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return ffn_ref(x, w1, b1, w2, b2)
     if x.device.type != "cuda":

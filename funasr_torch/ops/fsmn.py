@@ -66,6 +66,7 @@ def fsmn(v: torch.Tensor, lengths: torch.Tensor, taps: torch.Tensor, left: int,
          res: Optional[torch.Tensor] = None) -> torch.Tensor:
     """v (B, T, D) float32 with a unit column stride; lengths (B,) int;
     taps (K, D) float32; res None or (B, T, D) -> (B, T, D) float32."""
+    cuda_build.refuse_autograd("fsmn", v, lengths, taps, res)
     if v.device.type == "cpu":
         return fsmn_ref(v, lengths, taps, left, res)
     if v.device.type != "cuda":
@@ -121,6 +122,7 @@ def fsmn_ln(h: torch.Tensor, ln: Tuple[torch.Tensor, torch.Tensor], lengths: tor
     """h (B, T, D) float32, ``ln`` its float32 (weight, bias) of width D,
     lengths (B,), taps (K, D) float32, res None or (B, T, D) float32/bf16
     -> res + FSMN(LN(h)), (B, T, D) float32."""
+    cuda_build.refuse_autograd("fsmn_ln", h, ln, lengths, taps, res)
     if h.device.type == "cpu":
         return fsmn_ln_ref(h, ln, lengths, taps, left, res)
     if h.device.type != "cuda":

@@ -210,6 +210,7 @@ def int8_gemm(a: torch.Tensor, sa: torch.Tensor, b: torch.Tensor,
     multiple of 4 the result is a view of rows padded to one, so that the
     epilogue keeps its 4-wide stores (at an odd row stride every store is
     scalar: SenseVoice's ``ctc_lo``, N = 25055)."""
+    cuda_build.refuse_autograd("int8_gemm", a, sa, b, sb, bias, res, add)
     if not a.is_cuda:
         if a.device.type == "cpu":
             return int8_gemm_ref(a, sa, b, sb, bias, relu, res, add, round_bf16,
@@ -420,6 +421,7 @@ def int8_gemm_rq(x: torch.Tensor, w8: torch.Tensor, sw: torch.Tensor, fsmn: Fsmn
     the rows of x quantized in the "mul" form, then :func:`int8_gemm`'s
     epilogue with ``res``, ``bias`` and the FSMN memory of ``fsmn`` where
     ``add`` would be.  On the card: :func:`check_rq_args`."""
+    cuda_build.refuse_autograd("int8_gemm_rq", x, w8, sw, fsmn, bias, res)
     if x.device.type == "cpu":
         return int8_gemm_rq_ref(x, w8, sw, fsmn, bias, res)
     if x.device.type != "cuda":

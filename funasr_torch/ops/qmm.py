@@ -166,6 +166,7 @@ def quant_matmul(x: torch.Tensor, w8: torch.Tensor, sw: torch.Tensor,
     """x (..., K) bf16 or float32, w8 (N, K) int8, sw (N,) float32, bias
     (N,) float32 holding x-dtype values or None -> (..., N) in x's dtype.
     On the card K must be a multiple of 16 and at most ``MAX_K``."""
+    cuda_build.refuse_autograd("quant_matmul", x, w8, sw, bias)
     if x.device.type == "cpu":
         return quant_matmul_ref(x, w8, sw, bias)
     if x.device.type != "cuda":

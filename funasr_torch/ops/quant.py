@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from funasr_torch.ops import cuda_build
 from funasr_torch.ops import int8_gemm as G
 from funasr_torch.ops import rowquant as RQ
 
@@ -67,6 +68,7 @@ def int8_linear(x: torch.Tensor, w8: torch.Tensor, sw: torch.Tensor,
 
     out = cast(acc * sx * sw) + bias, the cast and the add in x's dtype.
     """
+    cuda_build.refuse_autograd("int8_linear", x, w8, sw, bias)
     lead, K = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, K)
     if x.device.type == "cuda":

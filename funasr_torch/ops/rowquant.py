@@ -78,6 +78,7 @@ def rowquant(x: torch.Tensor, ln: Optional[Tuple[torch.Tensor, torch.Tensor]] = 
     """x (M, W) float32 or bf16, contiguous.  Returns ``(q (M, W) int8,
     scale (M,) float32)``; with ``quantize=False`` the float32 ``y`` alone.
     ``ln``: float32 (weight, bias) of width W, or None for no norm."""
+    cuda_build.refuse_autograd("rowquant", x, ln)
     if x.device.type == "cpu":
         return rowquant_ref(x, ln, form, quantize)
     if x.device.type != "cuda":

@@ -51,6 +51,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from funasr_torch.ops import attention as A
+from funasr_torch.ops import cuda_build
 from funasr_torch.ops import int8_gemm as G
 from funasr_torch.ops import rowquant as RQ
 from funasr_torch.ops.masks import key_bias as make_key_bias
@@ -131,6 +132,7 @@ def fused_sanm_layer(x: torch.Tensor, lengths: torch.Tensor, w: SanmLayerWeights
     """x (B, T, D), lengths (B,) valid frames, ``left`` FSMN padding,
     ``key_bias`` the (B, T) float32 key bias of ``lengths`` (built when
     None), ``int8_attn`` the int8 q.k scores -> (B, T, D) in x's dtype."""
+    cuda_build.refuse_autograd("fused_sanm_layer", x, lengths, w, key_bias)
     if x.device.type == "cpu":
         return sanm_layer_ref(x, lengths, w, n_head, left, key_bias, int8_attn)
     if x.device.type != "cuda":

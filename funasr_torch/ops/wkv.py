@@ -53,6 +53,7 @@ _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 def wkv(k: torch.Tensor, v: torch.Tensor, w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """RWKV WKV recurrence: k, v (B, T, C) float32; w (C,) the decay (> 0);
     u (C,) the bonus of the current token -> (B, T, C) float32."""
+    cuda_build.refuse_autograd("wkv", k, v, w, u)
     if k.device.type == "cpu":
         return wkv_ref(k, v, w, u)
     if k.device.type != "cuda":

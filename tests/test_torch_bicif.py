@@ -49,6 +49,7 @@ from funasr_torch.convert import bicif_paraformer_from_jax
 from funasr_torch.models.bicif_paraformer.model import BiCifParaformer
 from funasr_torch.tokenizer.char_tokenizer import CharTokenizer
 from tests.test_torch_paraformer_int8 import LOGP_ATOL, MIN_AGREE
+from tests.test_torch_vad import built_once
 from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 V = 32
@@ -69,6 +70,11 @@ def _conf(D, heads, units, enc_layers, dec_layers, upsample_type="cnn", vocab_si
 
 
 def _init(conf, seed):
+    return built_once(("_init", repr(conf), seed),
+                      lambda: _init_uncached(conf, seed))
+
+
+def _init_uncached(conf, seed):
     jm = JaxBiCif(**conf)
     p = jax.jit(lambda key: jm.init(
         {"params": key}, jnp.zeros((1, 16, 560)), jnp.array([16]), max_tokens=8,

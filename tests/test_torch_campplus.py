@@ -30,6 +30,7 @@ from funasr_tpu.models.campplus.model import CAMPPlus as JaxCAMPPlus
 from funasr_torch.convert import campplus_from_jax
 from funasr_torch.models.campplus import cluster as TC
 from funasr_torch.models.campplus.model import CAMPPlus
+from tests.test_torch_vad import built_once
 from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CONF = dict(feat_dim=80, embedding_size=24, growth_rate=8, bn_size=2, init_channels=16,
@@ -40,6 +41,11 @@ ENGINE_RTOL = 1e-3
 
 def init_campplus(conf=CONF, seed=0):
     """Jitted JAX init; batch statistics drawn away from mean 0, var 1."""
+    return built_once(("init_campplus", repr(conf), seed),
+                      lambda: _init_campplus_uncached(conf, seed))
+
+
+def _init_campplus_uncached(conf=CONF, seed=0):
     jm = JaxCAMPPlus(**conf)
     v = jax.jit(lambda k: jm.init(k, jnp.zeros((1, 150, conf["feat_dim"]))))(
         jax.random.PRNGKey(seed))

@@ -23,6 +23,7 @@ from funasr_torch.convert import hybrid_from_jax
 from funasr_torch.models import conformer as TC
 from funasr_torch.models.transformer.model import Conformer
 from funasr_torch.ops.posenc import transformer_encoding
+from tests.test_torch_vad import built_once
 from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CONF = dict(
@@ -48,6 +49,11 @@ def perturb_batch_stats(variables, seed=7):
 
 
 def jax_variables(seed=0):
+    return built_once(("jax_variables", seed),
+                      lambda: _jax_variables_uncached(seed))
+
+
+def _jax_variables_uncached(seed=0):
     jm = JaxConformer(**CONF)
     rng = np.random.default_rng(seed)
     B, T, U = 2, 40, 5

@@ -53,7 +53,8 @@ from tests.test_torch_bicif import TOKENS, _conf, _wavs
 from tests.test_torch_paraformer_int8 import LOGP_ATOL, MIN_AGREE
 from tests.test_torch_pipeline import (PUNC_CFG, VAD_CFG, _port_frontend, _save,
                                        _save_flax)
-from tests.test_torch_vad import CONF as VAD_CONF, calibrated_params, init_params, recording
+from tests.test_torch_vad import (CONF as VAD_CONF, built_once, calibrated_params,
+                                  init_params, recording)
 from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 LOGP_F32_ATOL = 1e-4
@@ -70,6 +71,11 @@ def contextual_conf(D=32, heads=2, units=48, dec_layers=3):
 def init_contextual(conf, seed):
     """Jitted JAX init through ``decode_with_hotwords`` (which creates the
     bias branch), numpy leaves."""
+    return built_once(("init_contextual", repr(conf), seed),
+                      lambda: _init_contextual_uncached(conf, seed))
+
+
+def _init_contextual_uncached(conf, seed):
     jm = JaxContextual(**conf)
     p = jax.jit(lambda key: jm.init(
         {"params": key}, jnp.zeros((1, 16, 560)), jnp.array([16]),

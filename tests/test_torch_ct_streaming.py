@@ -100,7 +100,7 @@ def test_masked_logits_match_jax(dtype, monkeypatch):
         got = tm.module(torch.from_numpy(text), torch.from_numpy(lens),
                         torch.from_numpy(am)).float().numpy()[0, :21]
         assert calls == []  # the mask takes the module path
-        tm.module(torch.from_numpy(text), torch.from_numpy(lens))
+        unmasked = tm.module(torch.from_numpy(text), torch.from_numpy(lens)).float()
         assert len(calls) == 2  # without it, the kernel wrapper a layer
     if dtype == "float32":
         np.testing.assert_allclose(got, want, atol=F32_ATOL, rtol=0)
@@ -108,7 +108,6 @@ def test_masked_logits_match_jax(dtype, monkeypatch):
         ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
         np.testing.assert_allclose(got, want, atol=BF16_ULPS * ulp, rtol=0)
     # the mask is live: the unmasked logits differ
-    unmasked = tm.module(torch.from_numpy(text), torch.from_numpy(lens)).float()
     assert float((unmasked[0, :21] - torch.from_numpy(got)).abs().max()) > 1e-3
 
 

@@ -57,6 +57,7 @@ from funasr_torch.tokenizer.char_tokenizer import CharTokenizer
 from tests.test_torch_bicif import TOKENS
 from tests.test_torch_pipeline import (PUNC_CFG, VAD_CFG, _save, _save_flax, _save_variables,
                                        punc_params, vad_params)
+from tests.test_torch_vad import built_once
 from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -88,6 +89,13 @@ def move_pif(pred, seed=3):
 
 
 def jax_init(jm, seed=0, T=32):
+    """A jitted greedy-decode init of a JAX Paraformer-family module -> its
+    variables as numpy (writable)."""
+    return built_once(("jax_init", repr(jm), seed, T),
+                      lambda: _jax_init_uncached(jm, seed, T))
+
+
+def _jax_init_uncached(jm, seed=0, T=32):
     """A jitted greedy-decode init of a JAX Paraformer-family module -> its
     variables as numpy (writable)."""
     p = jax.jit(lambda key: jm.init({"params": key}, jnp.zeros((1, T, IN)), jnp.array([T]),
@@ -159,8 +167,9 @@ def test_pif_predictor_matches_jax(l_order, r_order):
     h = rng.standard_normal((3, 20, 16)).astype(np.float32)
     lens = np.array([20, 13, 0], np.int32)
     jp = JaxPif(**conf, dropout=0.0)
-    p = jax.tree_util.tree_map(np.array, jp.init(jax.random.PRNGKey(0), jnp.asarray(h),
-                                                 jnp.asarray(lens), max_tokens=10))
+    init = jax.jit(functools.partial(jp.init, max_tokens=10))
+    p = jax.tree_util.tree_map(np.array, init(jax.random.PRNGKey(0), jnp.asarray(h),
+                                              jnp.asarray(lens)))
     p["params"]["cif_output"]["bias"] += 1.0  # alphas near 0.7: tokens to count
     move_pif(p["params"])
     want = jp.apply(p, jnp.asarray(h), jnp.asarray(lens), max_tokens=10)

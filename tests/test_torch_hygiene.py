@@ -380,3 +380,71 @@ def test_generated_token_list_and_optional_tokenizers():
     if importlib.util.find_spec("tiktoken") is None:
         with pytest.raises(ImportError):
             tables.get("tokenizer_classes", "SenseVoiceTokenizer")(vocab_path="x.tiktoken")
+
+
+def _autograd_cases():
+    """Each ctypes kernel wrapper with CPU tensors of valid shapes, one float
+    input requiring grad (``g``)."""
+    from funasr_torch.ops import attention as A
+    from funasr_torch.ops import ctc_prefix as CP
+    from funasr_torch.ops import decoder_layer as DL
+    from funasr_torch.ops import fbank_kernel as FK
+    from funasr_torch.ops import ffn as FF
+    from funasr_torch.ops import fsmn as FS
+    from funasr_torch.ops import int8_gemm as G
+    from funasr_torch.ops import qmm as QM
+    from funasr_torch.ops import quant as Q
+    from funasr_torch.ops import rowquant as RQ
+    from funasr_torch.ops import sanm_layer as SL
+    from funasr_torch.ops import wkv as W
+
+    def g(*s):
+        return torch.randn(*s, requires_grad=True)
+
+    i8 = lambda *s: torch.zeros(s, dtype=torch.int8)
+    f = lambda *s: torch.ones(s)
+    B, T, D = 2, 8, 64
+    lens = torch.tensor([8, 5], dtype=torch.int32)
+    ffn8 = FF.FfnInt8Weights(i8(32, 16), f(32), f(32), i8(16, 32), f(16), f(16))
+    sanm = SL.SanmLayerWeights(*[f(1)] * 17)
+    dec = DL.DecoderLayerWeights(*[f(1)] * 23)
+    return [
+        ("fused_attention", lambda: A.fused_attention(g(B, T, D), f(B, T, D), f(B, T, D),
+                                                      torch.zeros(B, T), 2)),
+        ("attention_f32ctx", lambda: A.attention_f32ctx(f(B, T, D), g(B, T, D), f(B, T, D),
+                                                        torch.zeros(B, T), 1, 0.125)),
+        ("attention_i8qk", lambda: A.attention_i8qk(f(B, T, D), f(B, T, D), g(B, T, D),
+                                                    torch.zeros(B, T), 1, 0.125)),
+        ("fused_fbank", lambda: FK.fused_fbank(g(B, 1600), torch.tensor([1600, 900]))),
+        ("ctc_prefix_step", lambda: CP.ctc_prefix_step(
+            g(B, 5, T), f(B, 3, T, 2), torch.zeros(B, 3, dtype=torch.int64),
+            torch.zeros(B, 3, 4, dtype=torch.int64), False)),
+        ("ctc_recurrence", lambda: CP.ctc_recurrence(g(B, 3, 4, T), f(B, T), f(B, 3, 4, T))),
+        ("fused_ffn", lambda: FF.fused_ffn(g(4, 32), f(64, 32), f(64), f(16, 64), f(16))),
+        ("fused_ffn_int8", lambda: FF.fused_ffn_int8(g(4, 16), ffn8)),
+        ("fsmn", lambda: FS.fsmn(g(B, T, D), lens, f(3, D), 1)),
+        ("fsmn_ln", lambda: FS.fsmn_ln(f(B, T, D), (g(D), f(D)), lens, f(3, D), 1)),
+        ("int8_gemm", lambda: G.int8_gemm(i8(4, 16), g(4), i8(8, 16), f(8))),
+        ("int8_gemm_rq", lambda: G.int8_gemm_rq(g(4, 16), i8(8, 16), f(8), None)),
+        ("quant_matmul", lambda: QM.quant_matmul(g(4, 16), i8(8, 16), f(8))),
+        ("int8_linear", lambda: Q.int8_linear(g(4, 16), i8(8, 16), f(8))),
+        ("rowquant", lambda: RQ.rowquant(g(4, 16))),
+        ("fused_sanm_layer", lambda: SL.fused_sanm_layer(g(B, T, D), lens, sanm, 2, 1)),
+        ("fused_decoder_layer", lambda: DL.fused_decoder_layer(
+            f(B, T, D), g(B, T, D), lens, lens, dec, 2, 1)),
+        ("wkv", lambda: W.wkv(f(B, T, 4), f(B, T, 4), g(4), f(4))),
+    ]
+
+
+@pytest.mark.parametrize("case", range(18))
+def test_wrappers_refuse_autograd(case):
+    """Every ctypes kernel wrapper raises, naming itself, when grad mode is on
+    and an input requires grad: its result would carry no ``grad_fn`` and cut
+    the graph silently.  The check comes before the device choice, so it
+    holds on the CPU (the twin) as on the card."""
+    name, call = _autograd_cases()[case]
+    with pytest.raises(RuntimeError, match=f"^{name}: an input requires grad"):
+        call()
+    if name in ("fused_attention", "rowquant", "wkv", "fsmn"):
+        with torch.no_grad():
+            call()  # the twin runs once grad is off

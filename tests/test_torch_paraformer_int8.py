@@ -192,7 +192,7 @@ def test_int8_first_layer_rows(monkeypatch):
     conf = dict(input_size=IN, output_size=D, attention_heads=2, linear_units=256,
                 num_blocks=1, kernel_size=11)
     je = JaxEncoder(**conf, dropout_rate=0.0)
-    p = je.init(jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(lens))
+    p = jax.jit(je.init)(jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(lens))
     with JQ.quantized(True), pltpu.force_tpu_interpret_mode():
         want, _ = jax.jit(je.apply)(p, jnp.asarray(x), jnp.asarray(lens))
     assert calls["ffn"]

@@ -28,6 +28,7 @@ from funasr_torch.auto import engines as TE
 from funasr_torch.convert import ct_transformer_from_jax
 from funasr_torch.models.ct_transformer import model as TM
 from funasr_torch.tokenizer.char_tokenizer import CharTokenizer
+from tests.test_torch_vad import built_once
 from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 WORDS = ["hello", "world", "ok", "go"]
@@ -42,6 +43,11 @@ BF16_ULPS = 4
 def jax_params(jm, seed=0):
     """Random params of a JAX ``CTTransformerModel`` (its ``init_params``,
     jitted)."""
+    return built_once(("jax_params", repr(jm.module), seed),
+                      lambda: _jax_params_uncached(jm, seed))
+
+
+def _jax_params_uncached(jm, seed=0):
     t, n = jnp.zeros((1, 8), jnp.int32), jnp.array([8])
     p = jax.jit(lambda key: jm.module.init(key, t, n))(jax.random.PRNGKey(seed))
     return jax.tree_util.tree_map(np.asarray, p)

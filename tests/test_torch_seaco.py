@@ -45,6 +45,7 @@ from funasr_torch.models.seaco_paraformer.model import SeacoParaformer
 from funasr_torch.tokenizer.char_tokenizer import CharTokenizer
 from tests.test_torch_bicif import TOKENS, US_ATOL, _conf, _jax_fires, _wavs
 from tests.test_torch_paraformer_int8 import LOGP_ATOL, MIN_AGREE
+from tests.test_torch_vad import built_once
 from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 NB = len(TOKENS) - 1  # the no-bias class: the vocabulary's last id
@@ -65,6 +66,11 @@ def seaco_conf(D=32, heads=2, units=48, vocab_size=len(TOKENS)):
 def init_seaco(conf, seed, shift=NO_BIAS_SHIFT):
     """Jitted JAX init through ``decode_with_hotwords`` (which creates the
     bias branch), numpy leaves, the no-bias logit raised by ``shift``."""
+    return built_once(("init_seaco", repr(conf), seed, shift),
+                      lambda: _init_seaco_uncached(conf, seed, shift))
+
+
+def _init_seaco_uncached(conf, seed, shift=NO_BIAS_SHIFT):
     jm = JaxSeaco(**conf)
     hw = jnp.asarray([[conf["no_bias_id"]]], jnp.int32)
     p = jax.jit(lambda key: jm.init(

@@ -58,6 +58,7 @@ from funasr_torch.ops.ctc_align import align_emissions, viterbi
 from funasr_torch.ops.ctc_decode import ctc_greedy_decode
 from funasr_torch.tokenizer.char_tokenizer import CharTokenizer
 from funasr_torch.tokenizer.sensevoice_tokenizer import generated_token_list
+from tests.test_torch_vad import built_once
 from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 V = 40
@@ -76,6 +77,11 @@ INT8_MIN_AGREE_ALL = 0.9
 
 def init_sense_voice(conf=CONF, seed=0):
     """A jitted JAX init (eager flax init is slow) -> (module, numpy tree)."""
+    return built_once(("init_sense_voice", repr(conf), seed),
+                      lambda: _init_sense_voice_uncached(conf, seed))
+
+
+def _init_sense_voice_uncached(conf=CONF, seed=0):
     jm = JaxSenseVoice(**conf)
     n = conf["input_size"]
     z = jnp.zeros((1,), jnp.int32)

@@ -28,6 +28,7 @@ from funasr_torch.auto.engines import FrontendConfig
 from funasr_torch.frontends.streaming import StreamingFrontend
 from funasr_torch.models.paraformer_streaming import functional as SF
 from funasr_torch.models.paraformer_streaming.model import ParaformerStreaming
+from tests.test_torch_vad import built_once
 from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 1e-4  # float32 activations, caches, embeds, log-probs
@@ -45,6 +46,11 @@ FE = dict(n_mels=8, lfr_m=3, lfr_n=2)
 
 
 def jax_paraformer_params(conf, seed=0):
+    return built_once(("jax_paraformer_params", repr(conf), seed),
+                      lambda: _jax_paraformer_params_uncached(conf, seed))
+
+
+def _jax_paraformer_params_uncached(conf, seed=0):
     jm = JaxParaformer(**conf)
     return jax.tree_util.tree_map(np.asarray, jax.jit(lambda key: jm.init(
         {"params": key}, jnp.zeros((1, 16, conf["input_size"])), jnp.array([16]),

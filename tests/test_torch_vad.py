@@ -37,6 +37,19 @@ from funasr_torch.models.fsmn_vad import model as TM
 from funasr_torch.models.fsmn_vad.encoder import FSMN
 from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
+_BUILT = {}
+
+
+def built_once(key, build):
+    """``build()`` once a process for ``key``, so a jitted JAX init compiles
+    once for every test (of any port test file) that asks; each caller gets
+    its own copy of the numpy leaves."""
+    if key not in _BUILT:
+        _BUILT[key] = build()
+    return jax.tree_util.tree_map(
+        lambda a: np.array(a) if isinstance(a, np.ndarray) else a, _BUILT[key])
+
+
 CONF = dict(input_dim=400, input_affine_dim=32, fsmn_layers=2, linear_dim=32, proj_dim=16,
             lorder=20, rorder=0, lstride=1, rstride=1, output_affine_dim=32, output_dim=248)
 POST_ATOL = 1e-5
@@ -59,6 +72,11 @@ def recording(seed=0):
 
 
 def init_params(conf=CONF, seed=0):
+    return built_once(("init_params", repr(conf), seed),
+                      lambda: _init_params_uncached(conf, seed))
+
+
+def _init_params_uncached(conf=CONF, seed=0):
     jm = JaxFSMN(**conf)
     x = jnp.zeros((1, 8, conf["input_dim"]))
     p = jax.jit(lambda key: jm.init(key, x))(jax.random.PRNGKey(seed))

@@ -96,6 +96,32 @@ def _remove_tmpdirs():
         shutil.rmtree(_TMPDIRS.pop(), ignore_errors=True)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _jitted_holder_init():
+    """``funasr_tpu.convert.whisper_from_openai_pt`` initialises a flax
+    model only to read its parameter layout, then takes every value from
+    the checkpoint.  Flax initialises it op by op: about 15 s of small
+    compiles at TINY.  Here each configuration's init is one jitted program,
+    built once for the module's every JAX build."""
+    from transformers.models.whisper.modeling_flax_whisper import (
+        FlaxWhisperForConditionalGeneration as Flax)
+
+    real = Flax.init_weights
+    programs = {}
+
+    def init_weights(self, rng, input_shape, params=None):
+        if params is not None:
+            return real(self, rng, input_shape, params)
+        key = (self.config.to_json_string(), str(self.dtype), tuple(input_shape))
+        if key not in programs:
+            programs[key] = jax.jit(lambda r, model=self: real(model, r, input_shape))
+        return programs[key](rng)
+
+    Flax.init_weights = init_weights
+    yield
+    Flax.init_weights = real
+
+
 def draw_checkpoint(conf, seed=0):
     """An openai-whisper checkpoint of seeded numpy weights (see the module
     docstring)."""
