@@ -18,7 +18,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      (``fbank_fft_route``), timed also in a CUDA graph (bar 0.40 ms) and
      beside the float32 cuFFT route (several library calls);
      encoder self-attention and decoder cross-attention in bf16 and
-     float32 (yardstick ``scaled_dot_product_attention``);
+     float32 (yardstick ``scaled_dot_product_attention``), the float32
+     encoder self-attention within ``F32_SDPA_BAR`` (1.25) x SDPA's time
+     (here at d = 128, in ``check_head64_kernels`` at d = 64); every
+     float32 case records beside ``bound_ms`` the split-TF32 tensor-core
+     bound (``split_tf32_bound_ms``);
    - the int8 GEMM at every (M, K, N) of the int8 path and at edge
      shapes (ragged M, K below one stage, fewer tiles than SMs), its int32
      accumulator and its epilogue bit-equal to the twin (yardstick
@@ -50,7 +54,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      by CUDA graph), one kernel a call in a profile, its only launches in
      this script;
    - edge shapes: ragged T and U, one frame, lengths of 0, fbank at 40
-     mels and with fewer samples than a frame; for the CTC
+     mels and with fewer samples than a frame; every float32 attention
+     instance (d = 128, 64, 32, ALiBi) at its tiles' edges
+     (``check_f32_edges``) and a misaligned float32 k refused; for the CTC
      kernel rows not a multiple of its block, T=1, rows NEG_INF throughout
      and T=1500 (60 s);
    - the int8 GEMM's row-quantizing entry (``int8_gemm_rq``: the SANM
@@ -237,7 +243,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    ``attention_forward<64>`` at its three shapes (the encoder's (8, 1500,
    1280), one query over the 1500 encoder states, one over the 65-key
    cache) in bf16 and float32 against its twin, timed by events and CUDA
-   graph beside SDPA; (h1) ``WhisperEngine.transcribe`` of B = 8 windows of
+   graph beside SDPA, the float32 encoder self-attention within 1.25 x
+   SDPA's time; (h1) ``WhisperEngine.transcribe`` of B = 8 windows of
    30-2 s audio, 64 tokens, the d = 64 kernel launched exactly 32 + 64 x 32
    x 2 times and nothing else, no host sync in the frontend's or the
    decode's dispatch, the kernels' tokens against the twins' (fed the
@@ -258,7 +265,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    d = 64 attention with ALiBi at emotion2vec base's (8, 759, 768), 12
    heads, 10 extra tokens, ragged keys, within 1e-4 of its twin (at zero
    slopes bit-equal to the kernel without ALiBi) beside SDPA with the same
-   float bias; (i1) the Transducer over the aishell Conformer encoder
+   float bias, at or under SDPA's time; (i1) the Transducer over the aishell Conformer encoder
    (``TRANSDUCER_YAML``: 12 x 256, conv2d; the JAX prediction network and
    joint at 256; vocab 4234) through ``AutoModel``,
    ``TransducerEngine.transcribe`` of the beam cell's B = 32 x 15 s batch
@@ -351,7 +358,8 @@ import time
 # H100 SXM peaks (NVIDIA data sheet; dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12,
-            "float64": 67e12}  # float64: the tensor cores' rate
+            "float64": 67e12,  # float64: the tensor cores' rate
+            "tf32": 495e12}
 
 FBANK_TOL = 1e-3  # log-mel and dB, abs (the JAX package's "highest" bar)
 # the fbank kernel against the float64 exact value (chip_smoke.fbank_fft_route
@@ -359,6 +367,10 @@ FBANK_TOL = 1e-3  # log-mel and dB, abs (the JAX package's "highest" bar)
 FBANK_EXACT_TOL = 1e-4
 FBANK_MS_BAR = 0.40  # the fbank kernel at B=64 x 15 s, CUDA graph, ms
 ATTN_TOL = {"float32": 1e-4, "bfloat16": 3e-2}  # abs, output in that dtype
+# the float32 attention (split TF32 on the tensor cores) at the served
+# encoder self-attention shapes: ms <= this x SDPA's in the same run; at
+# emotion2vec's ALiBi shape ms <= SDPA's with its (B, H, T, T) float bias
+F32_SDPA_BAR = 1.25
 E2E_F32_LOGP_TOL = 1e-2  # kernels vs twins through 66 float32 layers
 E2E_F32_MIN_AGREE = 0.99  # greedy-token agreement, kernels vs twins
 # int8 layers against their twins, bf16 output, abs.  Kernel and twin do the
@@ -468,6 +480,13 @@ def bound_ms(nbytes: float, ops: dict):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def split_tf32_bound_ms(ops: float) -> float:
+    """The float32 attention's tensor-core bound, labelled as such beside
+    ``bound_ms``: its products as three tf32 products of split operands (3 x
+    ``ops``) at the tf32 peak."""
+    return 3.0 * ops / PEAK_OPS["tf32"] * 1e3
+
+
 def fbank_ops_per_frame(n_mels: int, with_energy: bool) -> float:
     """Least float32 operations of kaldi log-mel fbank for one 400-sample
     frame, whatever the algorithm: DC removal, preemphasis and window (5
@@ -574,7 +593,8 @@ def check_fbank(torch, FK, rng):
 def check_attention(torch, A, B=64, D=512, seed=0):
     """The fused attention against its twin at the served shapes of width D
     with 4 heads (d = 128 at Paraformer-large's B=64 batch; d = 64 at the
-    256-wide models' B=32 one), timed beside the twin and SDPA."""
+    256-wide models' B=32 one), timed beside the twin and SDPA; the float32
+    encoder self-attention within ``F32_SDPA_BAR`` x SDPA's time."""
     import torch.nn.functional as F
 
     cases = []
@@ -624,7 +644,12 @@ def check_attention(torch, A, B=64, D=512, seed=0):
                              "keys 250/200",
                         max_abs_err=err, tolerance=ATTN_TOL[dn], ms=ms,
                         plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by)
+            if dn == "float32":
+                case["split_tf32_bound_ms"] = split_tf32_bound_ms(ops)
             log(f"attention {case}")
+            if dn == "float32" and name == "encoder self-attention":
+                check(ms <= F32_SDPA_BAR * lib, f"attention {name} float32 d={d}: {ms:.4f} ms "
+                      f"> {F32_SDPA_BAR} x SDPA {lib:.4f} ms")
             cases.append(case)
     return cases
 
@@ -708,6 +733,65 @@ def check_edges(torch, FK, A, rng):
     log(f"edge shapes: fbank (3 shapes, 4 windows, 40 mels, N=399) and attention "
         f"(5 shapes x 2 dtypes) within tolerance, worst abs err {worst:.3e}")
     return worst
+
+
+def check_f32_edges(torch, A):
+    """Every float32 instance of ``fused_attention`` (d = 128, 64 and 32, and
+    d = 64 with ALiBi and 3 extra tokens) against the twin (``ATTN_TOL``) at
+    the edges of its tiles: one query, queries not a multiple of 16 (or 3
+    blocks, the last ragged), keys not a multiple of 8, of the 64-key tile
+    or of the 32-key tile of d = 128, a single key, one key past two whole
+    tiles; in every shape a row with all keys, one with one valid key (B > 2)
+    and one with none (uniform weights), k and v strided column slices of one
+    (B, T, 3 H d) projection.  A float32 k whose rows are not 16-byte aligned
+    raises ``ValueError`` naming ``fused_attention`` and launches nothing.
+    Returns the case with the largest error."""
+    from funasr_torch.models.emotion2vec.model import alibi_slopes
+
+    H, extra = 4, 3
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    worst, n = 0.0, 0
+    for d, alibi in ((128, False), (64, False), (32, False), (64, True)):
+        D = H * d
+        for B, U, T in ((3, 1, 57), (3, 37, 203), (2, 19, 1), (4, 130, 95), (3, 66, 129)):
+            lens = torch.randint(1, T + 1, (B,), generator=gen, device="cuda")
+            lens[0] = T
+            if B > 2:
+                lens[1] = 1  # one valid key
+            lens[-1] = 0  # no valid key: uniform weights in kernel and twin
+            bias = torch.where(torch.arange(T, device="cuda")[None] < lens[:, None], 0.0, -1e30)
+            qkv = torch.randn((B, T, 3 * D), generator=gen, device="cuda")
+            k, v = qkv[..., D:2 * D], qkv[..., 2 * D:]
+            q = torch.randn((B, U, D), generator=gen, device="cuda") * d ** -0.5
+            kw = {}
+            if alibi:
+                kw = dict(alibi_slopes=torch.as_tensor(alibi_slopes(H), dtype=torch.float32,
+                                                       device="cuda"), extra=extra)
+            got = A.fused_attention(q, k, v, bias, H, **kw)
+            want = A.attention_ref(q, k, v, bias, H, **kw)
+            err = float((got - want).abs().max())
+            check(bool(torch.isfinite(got).all()) and err <= ATTN_TOL["float32"],
+                  f"attention float32 edge d={d}{' ALiBi' if alibi else ''} B={B} U={U} T={T}: "
+                  f"err {err} > {ATTN_TOL['float32']}")
+            worst, n = max(worst, err), n + 1
+    q = torch.randn((2, 20, 256), generator=gen, device="cuda")
+    buf = torch.randn((2, 20, 2 * 256 + 1), generator=gen, device="cuda")
+    bias = torch.zeros((2, 20), device="cuda")
+    before = A.fused_attention.launches
+    try:
+        A.fused_attention(q, buf[..., 1:257], buf[..., 257:], bias, H)
+        refused = ""
+    except ValueError as exc:
+        refused = str(exc)
+    check(refused.startswith("fused_attention") and A.fused_attention.launches == before,
+          f"attention float32 k at a 4-byte offset: not refused ({refused!r})")
+    torch.cuda.synchronize()
+    case = dict(case=f"float32 edges: d = 128, 64, 32 and ALiBi 64 at {n // 4} shapes each "
+                     "(U = 1, 37, 19, 130, 66; T = 57, 203, 1, 95, 129), strided k/v, a row "
+                     "with one key and one with none; a 4-byte offset k refused",
+                max_abs_err=worst, tolerance=ATTN_TOL["float32"])
+    log(f"attention {case}")
+    return case
 
 
 # (M, K, N) of every int8 GEMM of the int8 path at B=64 x 15 s: 64 x 256
@@ -2426,6 +2510,8 @@ def check_attention_d32(torch, A, B, T=208):
                     library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                         q4, k4, v4, attn_mask=mask, scale=1.0), iters=50, warmup=10),
                     bound_ms=bnd, bound_by=by)
+                if dn == "float32":
+                    case["split_tf32_bound_ms"] = split_tf32_bound_ms(4.0 * t * D * n_keys)
             log(f"attention d=32 {case}")
             cases.append(case)
     return cases
@@ -3187,7 +3273,8 @@ def check_streaming_kernels(torch, FK, A):
                     library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                         q4, k4, v4, attn_mask=bias[:, None, None, :], scale=1.0),
                         iters=50, warmup=10),
-                    bound_ms=bnd, bound_by=by)
+                    bound_ms=bnd, bound_by=by,
+                    split_tf32_bound_ms=split_tf32_bound_ms(4.0 * nq * D * n_keys))
         log(f"attention {case}")
         attn_cases.append(case)
 
@@ -5261,7 +5348,8 @@ def check_whisper_kernels(torch, A):
     <= 64, every key), bf16 and float32 against the twin, timed by events and
     CUDA graph beside the twin and SDPA.  The bar is ``ATTN_TOL`` of the
     output's scale: x min(1, max |twin|), since at 1500 keys an output
-    averages many values and is a few hundredths in size."""
+    averages many values and is a few hundredths in size.  The float32
+    encoder self-attention runs within ``F32_SDPA_BAR`` x SDPA's time."""
     import torch.nn.functional as F
 
     B, T, D, H, L = 8, 1500, 1280, 20, 65
@@ -5316,8 +5404,14 @@ def check_whisper_kernels(torch, A):
             if edges:
                 case["edges"] = [dict(keys=f"{lo}-{hi - 1}", max_abs_err=e, tolerance=t)
                                  for (lo, hi), e, t in zip(edges, errs[1:], bars[1:])]
+            if dn == "float32":
+                case["split_tf32_bound_ms"] = split_tf32_bound_ms(4.0 * B * U * n_keys * D)
             log(f"attention (h0) {case}")
             cases.append(case)
+            if dn == "float32" and name == "encoder self-attention":
+                check(case["ms"] <= F32_SDPA_BAR * case["library_ms"],
+                      f"(h0) attention {name} float32: {case['ms']:.4f} ms > {F32_SDPA_BAR} x "
+                      f"SDPA {case['library_ms']:.4f} ms")
     return cases
 
 
@@ -5705,7 +5799,8 @@ def check_alibi_attention(torch, A):
     of 64, ragged key masks), within ``ATTN_TOL`` of the twin; edges: no
     extra tokens, all slopes 0 (bit-equal to the kernel without ALiBi) and
     one valid key; the served shape timed by events and CUDA graph beside
-    the twin and SDPA with the same (B, H, T, T) float bias."""
+    the twin and SDPA with the same (B, H, T, T) float bias, and held at or
+    under SDPA's time by events."""
     import torch.nn.functional as F
 
     from funasr_torch.models.emotion2vec.model import alibi_slopes
@@ -5757,8 +5852,12 @@ def check_alibi_attention(torch, A):
                         plain_ms=cuda_ms(lambda: A.attention_ref(
                             q, k, v, kb, H, alibi_slopes=sl, extra=extra), iters=3, warmup=1),
                         library_ms=cuda_ms(sdpa, iters=10, warmup=3),
-                        library_graph_ms=graph_ms(sdpa, iters=10), bound_ms=bnd, bound_by=by)
+                        library_graph_ms=graph_ms(sdpa, iters=10), bound_ms=bnd, bound_by=by,
+                        split_tf32_bound_ms=split_tf32_bound_ms(4.0 * T * n_keys * D))
             del full
+            check(case["ms"] <= case["library_ms"],
+                  f"attention ALiBi (i0) {what}: {case['ms']:.4f} ms > SDPA "
+                  f"{case['library_ms']:.4f} ms with its float bias")
         log(f"attention ALiBi (i0) {case}")
         cases.append(case)
     return cases
@@ -7154,6 +7253,7 @@ def main(argv=None) -> int:
     fbank_cases = check_fbank(torch, FK, rng)
     attn_cases = check_attention(torch, A)
     check_edges(torch, FK, A, rng)
+    attn_cases.append(check_f32_edges(torch, A))
     gemm_cases = check_int8_gemm(torch, G)
     layer_cases = check_int8_layers(torch, SL, DL, FF)
     ctc_cases = check_ctc_prefix(torch, CP)

@@ -39,10 +39,37 @@
 //    loops run 2 k-steps of m16n8k16 for S (8 at d = 128) and 4 n-tiles of
 //    O, the tile rows are 80 bytes (still free of ldmatrix bank conflicts)
 //    and a 64-key stage of K and V is 10 KB; d = 64 runs 4 k-steps and 8
-//    n-tiles over rows of 144 bytes.  float32 inputs keep a
-//    CUDA-core body (float32 FMA, 4 x 4 score tile a thread; at d = 32 each
-//    of a row's 16 lanes owns 2 output columns, 8 at d = 128): TF32 would
-//    not hold the float32 bar.
+//    n-tiles over rows of 144 bytes.
+//
+//    float32 design (`attention_kernel_f32`): both products on the tensor
+//    cores with float32 accuracy, mma.sync m16n8k8 tf32 on split operands: x =
+//    hi + lo with hi = tf32(x), lo = tf32(x - hi) (rounded as cvt.rna.tf32.f32
+//    does, by two integer operations), and a b = hi hi + hi lo + lo hi
+//    accumulated in float32 (lo lo, under 2^-22 of the product, is dropped);
+//    one tf32 product alone keeps about 3 digits and misses the 1e-4 float32
+//    bar.  An mma rounds its sum toward zero, so a long chain of them into one
+//    accumulator drifts with the number of keys: each tile's p v goes to a
+//    fresh accumulator, folded into O by a float32 FMA.  Each value is split
+//    where a warp loads it into fragments: q once, into registers at d <= 64
+//    (64 registers a thread at d = 64 for hi and lo); at d = 128 q stays in
+//    shared memory and is split as each tile reloads it, so nothing spills.  A
+//    block of 4 warps owns 64 queries, 16 per warp; K and V arrive in 64-key
+//    tiles (32 at d = 128, where a block's 105 KB still lets two blocks share
+//    an SM) through a two-stage cp.async ring, 16-byte rows (k and v column
+//    slices must be 16-byte aligned).  One pass over the keys: the online
+//    softmax keeps the row max m and the rescaled sum l in float32, rescales O
+//    when m grows and divides by l once at the end (the float32 contract
+//    rounds p to no narrower type).  p never leaves registers: within each
+//    8-key step the keys are relabelled so that S's accumulator layout is p's
+//    A-operand layout, and V's rows are read in that order; the row strides
+//    keep every float4 fragment load free of bank conflicts.  Trailing keys
+//    whose bias is -1e30 or below add exact zeros and are skipped (a block
+//    scans its bias row first); a row with no other key gets uniform weights
+//    over all Tk.  Warps whose 16 rows are all past U only stage tiles.
+//    Bound: 3 tf32 products for each of the two, 6 x 2 U T d operations at 495
+//    TFLOP/s, 2.5x under the 2 x 2 U T d at 67 TFLOP/s of one float32 product
+//    on the CUDA cores; mma.sync reaches part of that peak, and the split's 5
+//    operations a value, once per warp, share the issue slots with it.
 //
 //    `attention_forward_alibi` is the float32 body at d = 64 with
 //    emotion2vec's symmetric ALiBi (funasr_tpu/models/emotion2vec/model.py:136
@@ -55,9 +82,10 @@
 //    extra tokens) get no term.  The term is computed in the block from
 //    (h, u, j), so no (B, H, T, T) bias reaches device memory; with all
 //    slopes 0 it adds -0.0 and gives the plain kernel's bits.  Bound at
-//    emotion2vec base (B = 8, T = 759, H = 12, d = 64): q, k, v and out,
-//    75 MB -> 22 us at 3.35 TB/s, below the 14.2 GFLOP of the two products
-//    (0.21 ms at 67 TFLOP/s float32): operations.
+//    emotion2vec base (B = 8, T = 759, H = 12, d = 64, ragged keys): q, k, v
+//    and out, 75 MB -> 22 us at 3.35 TB/s, below the 8.6 GFLOP of the two
+//    products over the valid keys (0.128 ms at 67 TFLOP/s float32; 0.052 ms
+//    for the split's 25.8 GFLOP of tf32 at 495 TFLOP/s): operations.
 //
 // 2. `attention_forward_f32ctx`: the attention inside the int8 layers
 //    (sanm_layer_pallas.py:118-129, decoder_layer_pallas.py:101-115).  q, k,
@@ -361,203 +389,326 @@ attention_kernel_bf16_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
 }
 
 // ======================================================================
-// 1b. float32 attention on the CUDA cores
+// 1b. float32 attention on the tensor cores: split TF32, one pass
 // ======================================================================
 
-constexpr int BQ = 64;   // queries per block
-constexpr int BK = 64;   // keys per tile
-constexpr int NT = 256;  // threads per block
-constexpr int LP = BK + 4;
+constexpr int FB_NT = 128;  // 4 warps, 16 queries each
+constexpr int FB_BQ = 64;   // queries per block
+// A key whose bias is at or below this is padding: past the last key above
+// it, exp(s - m) underflows to an exact 0, so the loop stops there.
+constexpr float DEAD_BIAS = -1e30f;
 
-// rows [r0, r0 + 64) of a (rows, D) head slice with row stride `rs` into
-// a tile with row stride D + 4; rows past `nrows` are zero
+// The float32 body's shapes at head size D.  Row strides make the float4
+// fragment loads free of bank conflicts: K rows (read at row sigma(g), column
+// 4t) 4 words past a multiple of 32, V rows (row t, column 4g) 8 past, q
+// rows (row g, column 4t) 16 past.
 template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, int64_t rs, int r0,
-                                          int nrows) {
-  constexpr int LD = D + 4;
-  for (int i = threadIdx.x; i < 64 * D; i += NT) {
-    const int r = i / D, c = i % D;
-    const int row = r0 + r;
-    dst[r * LD + c] = (row < nrows) ? src[(int64_t)row * rs + c] : 0.f;
+struct FB {
+  static constexpr bool QREG = D <= 64;          // q's split fragments in registers
+  static constexpr int BK = D == 128 ? 32 : 64;  // keys a tile
+  static constexpr int LDK = D + 4, LDV = D + 8, LDQ = D + 16;
+  static constexpr int KT = BK * LDK;            // floats: a K tile, then its V tile
+  static constexpr int STAGE = KT + BK * LDV;
+  static constexpr size_t SMEM = sizeof(float) * (2 * STAGE + (QREG ? 0 : FB_BQ * LDQ));
+};
+
+// rows [r0, r0 + R) of a (rows, D) float32 head slice with row stride `rs`
+// into a shared tile of row stride LD; rows past `nrows` are zero-filled
+template <int D, int R, int LD>
+__device__ __forceinline__ void fb_load(float* dst, const float* src, int64_t rs, int r0,
+                                        int nrows) {
+  constexpr int CPR = D / 4;  // 16-byte chunks a row
+  static_assert(R * CPR % FB_NT == 0, "whole passes of the block");
+#pragma unroll
+  for (int i = 0; i < R * CPR / FB_NT; ++i) {
+    const int c = threadIdx.x + i * FB_NT;
+    const int r = c / CPR, col = (c % CPR) * 4;
+    const bool ok = r0 + r < nrows;
+    cp_async16(dst + r * LD + col, ok ? src + (int64_t)(r0 + r) * rs + col : src, ok);
   }
 }
 
-// s[i][j] = q[4 ty + i] . k[tx + 16 j] over the d columns
-template <int D>
-__device__ __forceinline__ void scores(const float* sQ, const float* sK, int tx, int ty,
-                                       float s[4][4]) {
-  constexpr int LD = D + 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-  for (int c = 0; c < D; c += 4) {
-    float4 qv[4], kv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      qv[i] = *reinterpret_cast<const float4*>(&sQ[(4 * ty + i) * LD + c]);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      kv[j] = *reinterpret_cast<const float4*>(&sK[(tx + 16 * j) * LD + c]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float a = s[i][j];
-        a = fmaf(qv[i].x, kv[j].x, a);
-        a = fmaf(qv[i].y, kv[j].y, a);
-        a = fmaf(qv[i].z, kv[j].z, a);
-        a = fmaf(qv[i].w, kv[j].w, a);
-        s[i][j] = a;
-      }
-  }
+// tf32(x) as cvt.rna.tf32.f32 rounds it (to nearest, ties away from zero; 10
+// mantissa bits), by two integer operations: ptxas expands the cvt into a
+// longer sequence on sm_90a.  The carry of the add may reach the exponent,
+// as rounding up does.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
-
-// reductions over the 16 lanes (tx) that share a query row
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off, 16));
-  return x;
+// x = hi + lo to within 2^-22 |x|: hi = tf32(x), lo = tf32(x - hi)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(__fsub_rn(x, __uint_as_float(hi)));
 }
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off, 16);
-  return x;
+// D(16 x 8) += A(16 x 8) B(8 x 8), tf32 operands, float32 accumulator; the
+// layout of mma_f64 below
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// c += a b with float32 accuracy from split operands: the two small
+// products, then hi hi (lo lo, under 2^-22 of the product, is dropped)
+__device__ __forceinline__ void mma_split(float c[4], const uint32_t ah[4], const uint32_t al[4],
+                                          const uint32_t bh[2], const uint32_t bl[2]) {
+  mma_tf32(c, ah, bl[0], bl[1]);
+  mma_tf32(c, al, bh[0], bh[1]);
+  mma_tf32(c, ah, bh[0], bh[1]);
 }
 
 // The symmetric ALiBi term of query u and key j (emotion2vec's AltAttention):
 // -(slope * |u - j|), zero on the first `extra` rows and columns (the extra
-// tokens).  The product is rounded on its own, never contracted into the add.
-__device__ __forceinline__ float alibi_term(float slope, int u, int j, int extra) {
-  if (u < extra || j < extra) return 0.f;
-  return -__fmul_rn(slope, (float)(u > j ? u - j : j - u));
+// tokens).  u and j come as floats (exact below 2^24, so |u - j| is too);
+// the product is rounded on its own, never contracted into the add.
+__device__ __forceinline__ float alibi_term(float slope, float u, float j, bool extra_uj) {
+  return extra_uj ? 0.f : -__fmul_rn(slope, fabsf(__fsub_rn(u, j)));
 }
 
 // ALIBI = false is the plain kernel (slopes and extra unused); ALIBI = true
-// adds alibi_term(slopes[h], u, j, extra) to every score after the key bias.
+// adds alibi_term(slopes[h], u, j, ...) to every score after the key bias.
+//
+// Keys are relabelled within each 8-key step so that S's accumulator is P's
+// A operand: S's B column n is key (n >> 1) + 4 (n & 1), so a thread's
+// accumulator columns 2t and 2t + 1 hold keys t and t + 4, which are A's
+// columns t and t + 4 of p v, and V's B rows t and t + 4 are read as they
+// lie.  The d columns are relabelled within each 16: k-steps 2c and 2c + 1
+// take columns 16c + 4t + {0, 1} and {2, 3} as A's (and B's) t and t + 4,
+// one float4 of q and of k a thread.  O's column n of tile 4m + i is d
+// 32m + 4n + i, so V arrives as float4s and O leaves as them.
 template <int D, bool ALIBI>
-__global__ void __launch_bounds__(NT, 2)
-attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ bias,
-                 const float* __restrict__ slopes, int extra,
-                 float* __restrict__ out, int U, int Tk, int64_t q_bs, int64_t q_rs,
-                 int64_t k_bs, int64_t k_rs, int64_t v_bs, int64_t v_rs, int64_t o_bs,
-                 int64_t o_rs) {
-  constexpr int LD = D + 4;
-  // the 16 lanes of a query row split its D output columns: VW adjacent
-  // columns a lane (a float4 at D >= 64), in NG groups of 16 VW
-  constexpr int VW = D >= 64 ? 4 : D / 16;
-  constexpr int NG = D / (16 * VW);
-  extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;            // BQ x LD
-  float* sKV = sQ + BQ * LD;   // BK x LD (keys, then values)
-  float* sP = sKV + BK * LD;   // BQ x LP
-  float* sB = sP + BQ * LP;    // BK key biases
-
-  const int u0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+__global__ void __launch_bounds__(FB_NT, 2)
+attention_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ bias,
+                     const float* __restrict__ slopes, int extra, float* __restrict__ out, int U,
+                     int Tk, int64_t q_bs, int64_t q_rs, int64_t k_bs, int64_t k_rs,
+                     int64_t v_bs, int64_t v_rs, int64_t o_bs, int64_t o_rs) {
+  using F = FB<D>;
+  constexpr int BK = F::BK, NJ = BK / 8, NC = D / 16, NM = D / 32;
+  extern __shared__ __align__(16) float fbuf[];  // stage s: K at s STAGE, V after it; q last
+  __shared__ int s_last[FB_NT / 32];
+  float* sQ = fbuf + 2 * F::STAGE;
+  const int u0 = blockIdx.x * FB_BQ, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = warp * 16 + g;       // the thread's rows row0 and row0 + 8 of the block
+  const int krow = (g >> 1) + 4 * (g & 1);  // the key of S's B column g
   const float* qh = q + b * q_bs + (int64_t)h * D;
   const float* kh = k + b * k_bs + (int64_t)h * D;
   const float* vh = v + b * v_bs + (int64_t)h * D;
   const float* bb = bias + (int64_t)b * Tk;
-  const float slope = ALIBI ? slopes[h] : 0.f;
 
-  load_tile<D>(sQ, qh, q_rs, u0, U);
+  // the first tile (and q at d = 128) in flight while the keys are scanned
+  if constexpr (!F::QREG) fb_load<D, FB_BQ, F::LDQ>(sQ, qh, q_rs, u0, U);
+  fb_load<D, BK, F::LDK>(fbuf, kh, k_rs, 0, Tk);
+  fb_load<D, BK, F::LDV>(fbuf + F::KT, vh, v_rs, 0, Tk);
+  cp_async_commit();
+  int last = -1;  // the last key whose bias is above DEAD_BIAS
+  for (int i = threadIdx.x; i < Tk; i += FB_NT)
+    if (bb[i] > DEAD_BIAS) last = i;
+  last = __reduce_max_sync(0xffffffffu, last);
+  if (lane == 0) s_last[warp] = last;
 
-  // ---- pass 1: row max m and row sum l of exp(s - m)
-  float m_i[4], l_i[4];
+  // q's split A fragments (d <= 64): rows row0 and row0 + 8, 4 columns a
+  // 16-column block, split once
+  uint32_t qah[F::QREG ? 2 * NC : 1][4], qal[F::QREG ? 2 * NC : 1][4];
+  if constexpr (F::QREG) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_i[i] = -INFINITY;
-    l_i[i] = 0.f;
-  }
-  float s[4][4];
-  for (int k0 = 0; k0 < Tk; k0 += BK) {
-    __syncthreads();
-    load_tile<D>(sKV, kh, k_rs, k0, Tk);
-    if (tid < BK) sB[tid] = (k0 + tid < Tk) ? bb[k0 + tid] : -INFINITY;
-    __syncthreads();
-    scores<D>(sQ, sKV, tx, ty, s);
+    for (int c = 0; c < NC; ++c) {
+      float4 x[2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] += sB[tx + 16 * j];
-        if constexpr (ALIBI)
-          s[i][j] = __fadd_rn(s[i][j], alibi_term(slope, u0 + 4 * ty + i, k0 + tx + 16 * j, extra));
-        mx = fmaxf(mx, s[i][j]);
+      for (int hf = 0; hf < 2; ++hf) {
+        const int u = u0 + row0 + 8 * hf;
+        x[hf] = u < U ? *reinterpret_cast<const float4*>(qh + (int64_t)u * q_rs + 16 * c + 4 * t)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
       }
-      const float m_new = fmaxf(m_i[i], row_max(mx));
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sum += expf(s[i][j] - m_new);
-      l_i[i] = l_i[i] * expf(m_i[i] - m_new) + row_sum(sum);
-      m_i[i] = m_new;
+      split_tf32(x[0].x, qah[2 * c][0], qal[2 * c][0]);
+      split_tf32(x[1].x, qah[2 * c][1], qal[2 * c][1]);
+      split_tf32(x[0].y, qah[2 * c][2], qal[2 * c][2]);
+      split_tf32(x[1].y, qah[2 * c][3], qal[2 * c][3]);
+      split_tf32(x[0].z, qah[2 * c + 1][0], qal[2 * c + 1][0]);
+      split_tf32(x[1].z, qah[2 * c + 1][1], qal[2 * c + 1][1]);
+      split_tf32(x[0].w, qah[2 * c + 1][2], qal[2 * c + 1][2]);
+      split_tf32(x[1].w, qah[2 * c + 1][3], qal[2 * c + 1][3]);
     }
   }
+  __syncthreads();
+  last = max(max(s_last[0], s_last[1]), max(s_last[2], s_last[3]));
+  const int kend = last < 0 ? Tk : last + 1;  // no key above it: every key (uniform weights)
+  const int nt = (kend + BK - 1) / BK;
+  const bool active = u0 + warp * 16 < U;  // a warp whose rows are all past U only stages
+  const float slope = ALIBI ? slopes[h] : 0.f;
+  const float uf[2] = {(float)(u0 + row0), (float)(u0 + row0 + 8)};
+  const bool ux[2] = {u0 + row0 < extra, u0 + row0 + 8 < extra};
 
-  // ---- pass 2: p = exp(s - m) / l, out = p v
-  float o[4][VW * NG];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[D / 8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < D / 8; ++j)
 #pragma unroll
-    for (int c = 0; c < VW * NG; ++c) o[i][c] = 0.f;
-  for (int k0 = 0; k0 < Tk; k0 += BK) {
+    for (int c = 0; c < 4; ++c) o[j][c] = 0.f;
+  for (int kt = 0; kt < nt; ++kt) {
+    if (kt + 1 < nt) {
+      float* nxt = fbuf + ((kt + 1) & 1) * F::STAGE;
+      fb_load<D, BK, F::LDK>(nxt, kh, k_rs, (kt + 1) * BK, Tk);
+      fb_load<D, BK, F::LDV>(nxt + F::KT, vh, v_rs, (kt + 1) * BK, Tk);
+    }
+    cp_async_commit();
+    cp_async_wait1();
     __syncthreads();
-    load_tile<D>(sKV, kh, k_rs, k0, Tk);
-    if (tid < BK) sB[tid] = (k0 + tid < Tk) ? bb[k0 + tid] : -INFINITY;
-    __syncthreads();
-    scores<D>(sQ, sKV, tx, ty, s);
+    if (active) {
+      const float* sK = fbuf + (kt & 1) * F::STAGE;
+      const float* sV = sK + F::KT;
+      const int k0 = kt * BK;
+      float bv[NJ][2];  // the key biases, loaded ahead of the products
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if constexpr (ALIBI) {
-          const float sa = __fadd_rn(s[i][j] + sB[tx + 16 * j],
-                                     alibi_term(slope, u0 + 4 * ty + i, k0 + tx + 16 * j, extra));
-          sP[(4 * ty + i) * LP + tx + 16 * j] = expf(sa - m_i[i]) / l_i[i];
+        for (int e = 0; e < 2; ++e) {
+          const int key = k0 + 8 * j + t + 4 * e;
+          bv[j][e] = key < Tk ? bb[key] : -INFINITY;
+        }
+
+      // ---- S = q k^T, three tf32 products a step
+      float s[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        uint32_t ah[2][4], al[2][4];
+        if constexpr (F::QREG) {
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            ah[0][x] = qah[2 * c][x], al[0][x] = qal[2 * c][x];
+            ah[1][x] = qah[2 * c + 1][x], al[1][x] = qal[2 * c + 1][x];
+          }
         } else {
-          sP[(4 * ty + i) * LP + tx + 16 * j] = expf(s[i][j] + sB[tx + 16 * j] - m_i[i]) / l_i[i];
+          const float4 x0 = *reinterpret_cast<const float4*>(sQ + row0 * F::LDQ + 16 * c + 4 * t);
+          const float4 x1 =
+              *reinterpret_cast<const float4*>(sQ + (row0 + 8) * F::LDQ + 16 * c + 4 * t);
+          split_tf32(x0.x, ah[0][0], al[0][0]);
+          split_tf32(x1.x, ah[0][1], al[0][1]);
+          split_tf32(x0.y, ah[0][2], al[0][2]);
+          split_tf32(x1.y, ah[0][3], al[0][3]);
+          split_tf32(x0.z, ah[1][0], al[1][0]);
+          split_tf32(x1.z, ah[1][1], al[1][1]);
+          split_tf32(x0.w, ah[1][2], al[1][2]);
+          split_tf32(x1.w, ah[1][3], al[1][3]);
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const float4 kv =
+              *reinterpret_cast<const float4*>(sK + (8 * j + krow) * F::LDK + 16 * c + 4 * t);
+          uint32_t bh[2][2], bl[2][2];
+          split_tf32(kv.x, bh[0][0], bl[0][0]);
+          split_tf32(kv.y, bh[0][1], bl[0][1]);
+          split_tf32(kv.z, bh[1][0], bl[1][0]);
+          split_tf32(kv.w, bh[1][1], bl[1][1]);
+          mma_split(s[j], ah[0], al[0], bh[0], bl[0]);
+          mma_split(s[j], ah[1], al[1], bh[1], bl[1]);
         }
       }
-    __syncthreads();
-    load_tile<D>(sKV, vh, v_rs, k0, Tk);
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float p[4];
+
+      // ---- key bias (-inf past Tk), ALiBi, then the online softmax
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = sP[(4 * ty + i) * LP + kk];
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int g = 0; g < NG; ++g) {
-        float vv[VW];
-        if constexpr (VW == 4) {
-          const float4 v4 = *reinterpret_cast<const float4*>(&sKV[kk * LD + 64 * g + 4 * tx]);
-          vv[0] = v4.x, vv[1] = v4.y, vv[2] = v4.z, vv[3] = v4.w;
-        } else {
+        for (int e = 0; e < 2; ++e) {
+          s[j][e] = __fadd_rn(s[j][e], bv[j][e]);
+          s[j][2 + e] = __fadd_rn(s[j][2 + e], bv[j][e]);
+          if constexpr (ALIBI) {
+            const int key = k0 + 8 * j + t + 4 * e;
+            const float jf = (float)key;
+            s[j][e] = __fadd_rn(s[j][e], alibi_term(slope, uf[0], jf, ux[0] || key < extra));
+            s[j][2 + e] =
+                __fadd_rn(s[j][2 + e], alibi_term(slope, uf[1], jf, ux[1] || key < extra));
+          }
+        }
+      float alpha2[2];  // the rows' rescale of O
 #pragma unroll
-          for (int e = 0; e < VW; ++e) vv[e] = sKV[kk * LD + 16 * VW * g + VW * tx + e];
+      for (int hf = 0; hf < 2; ++hf) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * hf], s[j][2 * hf + 1]));
+        const float mn = fmaxf(m[hf], quad_max(mx));
+        const float alpha = m[hf] == -INFINITY ? 0.f : exp2f((m[hf] - mn) * LOG2E);
+        const float mref = mn == -INFINITY ? 0.f : mn;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = exp2f((s[j][2 * hf + e] - mref) * LOG2E);
+            s[j][2 * hf + e] = p;
+            sum += p;
+          }
+        l[hf] = l[hf] * alpha + sum;
+        m[hf] = mn;
+        alpha2[hf] = alpha;
+      }
+
+      // ---- O = O alpha + p V, 32 columns of O at a time: the tile's products
+      // go to a fresh accumulator (an mma rounds its sum toward zero, so a
+      // chain of them into one accumulator drifts with the number of keys),
+      // folded into O by one float32 FMA.  p is split from S's accumulator
+      // in place (again for each 32 columns); V is read as it lies.
+#pragma unroll
+      for (int mq = 0; mq < NM; ++mq) {
+        float pv[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) pv[i][c] = 0.f;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          uint32_t ph[4], pl[4];  // A: (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
+          split_tf32(s[j][0], ph[0], pl[0]);
+          split_tf32(s[j][2], ph[1], pl[1]);
+          split_tf32(s[j][1], ph[2], pl[2]);
+          split_tf32(s[j][3], ph[3], pl[3]);
+          const float4 v0 =
+              *reinterpret_cast<const float4*>(sV + (8 * j + t) * F::LDV + 32 * mq + 4 * g);
+          const float4 v1 =
+              *reinterpret_cast<const float4*>(sV + (8 * j + t + 4) * F::LDV + 32 * mq + 4 * g);
+          const float a0[4] = {v0.x, v0.y, v0.z, v0.w}, a1[4] = {v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            uint32_t bh[2], bl[2];
+            split_tf32(a0[i], bh[0], bl[0]);
+            split_tf32(a1[i], bh[1], bl[1]);
+            mma_split(pv[i], ph, pl, bh, bl);
+          }
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int e = 0; e < VW; ++e) o[i][VW * g + e] = fmaf(p[i], vv[e], o[i][VW * g + e]);
+          for (int c = 0; c < 4; ++c)
+            o[4 * mq + i][c] = fmaf(o[4 * mq + i][c], alpha2[c >> 1], pv[i][c]);
       }
     }
+    __syncthreads();  // the next step's copies overwrite this stage
   }
 
+  // divide by l once; row r, columns 32m + 8t + (0..3 | 4..7) as float4s
+  const float inv_l[2] = {1.f / quad_sum(l[0]), 1.f / quad_sum(l[1])};
   float* oh = out + b * o_bs + (int64_t)h * D;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int u = u0 + 4 * ty + i;
-    if (u >= U) continue;
+  for (int hf = 0; hf < 2; ++hf) {
+    const int u = u0 + row0 + 8 * hf;
+    if (!active || u >= U) continue;
+    const float inv = inv_l[hf];
 #pragma unroll
-    for (int g = 0; g < NG; ++g)
-#pragma unroll
-      for (int e = 0; e < VW; ++e)
-        oh[(int64_t)u * o_rs + 16 * VW * g + VW * tx + e] = o[i][VW * g + e];
+    for (int mq = 0; mq < NM; ++mq) {
+      float* dst = oh + (int64_t)u * o_rs + 32 * mq + 8 * t;
+      *reinterpret_cast<float4*>(dst) =
+          make_float4(o[4 * mq][2 * hf] * inv, o[4 * mq + 1][2 * hf] * inv,
+                      o[4 * mq + 2][2 * hf] * inv, o[4 * mq + 3][2 * hf] * inv);
+      *reinterpret_cast<float4*>(dst + 4) =
+          make_float4(o[4 * mq][2 * hf + 1] * inv, o[4 * mq + 1][2 * hf + 1] * inv,
+                      o[4 * mq + 2][2 * hf + 1] * inv, o[4 * mq + 3][2 * hf + 1] * inv);
+    }
   }
 }
 
@@ -1086,15 +1237,13 @@ template <int D, bool ALIBI>
 int launch_forward_f32(const float* q, const float* k, const float* v, const float* bias,
                        const float* slopes, int extra, float* out, int B, int U, int Tk, int H,
                        const long long* st, cudaStream_t s) {
-  constexpr int LD = D + 4;
-  const size_t smem = sizeof(float) * (BQ * LD + BK * LD + BQ * LP + BK);
-  auto kern = attention_kernel<D, ALIBI>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kern = attention_kernel_f32<D, ALIBI>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)FB<D>::SMEM);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((U + BQ - 1) / BQ, H, B);
-  kern<<<grid, NT, smem, s>>>(q, k, v, bias, slopes, extra, out, U, Tk, st[0], st[1], st[2],
-                              st[3], st[4], st[5], st[6], st[7]);
+  dim3 grid((U + FB_BQ - 1) / FB_BQ, H, B);
+  kern<<<grid, FB_NT, FB<D>::SMEM, s>>>(q, k, v, bias, slopes, extra, out, U, Tk, st[0], st[1],
+                                        st[2], st[3], st[4], st[5], st[6], st[7]);
   return (int)cudaGetLastError();
 }
 
@@ -1125,8 +1274,8 @@ int launch_forward(const void* q, const void* k, const void* v, const float* bia
 // Plain C entry point, called through ctypes.  `strides` holds the batch and
 // row strides (in elements) of q, k, v and out, in that order.  dtype: 0 =
 // float32, 1 = bfloat16; the head size d is 128, 64 or 32 (one instance each),
-// and bf16 q, k, v 16-byte aligned with strides that are multiples of 8 (the
-// wrapper checks).  Returns cudaGetLastError() (0 on success); 1
+// and q, k, v 16-byte aligned with strides that are multiples of 8 (bf16) or
+// 4 (float32) elements (the wrapper checks).  Returns cudaGetLastError() (0 on success); 1
 // (cudaErrorInvalidValue) for another head size or dtype.
 extern "C" int attention_forward(const void* q, const void* k, const void* v,
                                  const float* bias, void* out, int B, int U, int Tk,

@@ -32,13 +32,20 @@ tokens; XLA there, not a TPU kernel).  The kernel computes the term from
 A row whose keys are all masked gets uniform weights in the kernel (the
 XLA path of the JAX package gives zeros there).  The serving path never
 builds such a row: every packed utterance has at least 400 samples.  On
-the H100 the function is bound by its bytes (about 19 us at the encoder's
-B=64 x 15 s shape); the bf16 kernel runs both products on the tensor cores
-(mma.sync m16n8k16, q in registers, K and V through a cp.async ring, p in
-registers between the two products), so it holds the twin to the bf16
-tolerance, not bit for bit; float32 stays on the CUDA cores (TF32 would
-not hold the float32 bar).  Launches count in ``fused_attention.launches``
-(and by head size in ``fused_attention.launches_by_head``).
+the H100 the bf16 function is bound by its bytes (about 19 us at the
+encoder's B=64 x 15 s shape); the bf16 kernel runs both products on the
+tensor cores (mma.sync m16n8k16, q in registers, K and V through a cp.async
+ring, p in registers between the two products), so it holds the twin to
+the bf16 tolerance, not bit for bit.  The float32 kernel is bound by its
+operations: it runs both products on the tensor cores too, as three tf32
+products of split operands (x = tf32(x) + tf32(x - tf32(x)); hi hi + hi lo
++ lo hi in float32), which keeps float32 accuracy where one tf32 product
+would miss the float32 bar, in one pass over the keys (online softmax, p in
+registers); it stops at the last key whose bias is above -1e30, since the
+keys past it add exact zeros.  q, k and v rows must be 16-byte aligned at
+both dtypes (``ValueError`` otherwise).  Launches count in
+``fused_attention.launches`` (and by head size in
+``fused_attention.launches_by_head``).
 
 The int8 layers' attention (sanm_layer_pallas.py:118-129,
 decoder_layer_pallas.py:101-115) is :func:`attention_f32ctx` with its twin
@@ -213,8 +220,8 @@ def _check_aligned(fn: str, *tensors) -> None:
     every head's row 16-byte aligned."""
     for t in tensors:
         per = 16 // t.element_size()
-        strides = [st for st, n in zip(t.stride()[:2], t.shape[:2]) if n > 1]
-        if t.data_ptr() % 16 or any(st % per for st in strides):
+        (b, n), (sb, sn) = t.shape[:2], t.stride()[:2]
+        if t.data_ptr() % 16 or (b > 1 and sb % per) or (n > 1 and sn % per):
             raise ValueError(f"{fn}: q/k/v rows must be 16-byte aligned (strides "
                              f"{tuple(t.stride())}, dtype {t.dtype})")
 
@@ -311,11 +318,12 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     key_bias: torch.Tensor, n_head: int,
                     alibi_slopes: Optional[torch.Tensor] = None, extra: int = 0) -> torch.Tensor:
     """q (B, U, H*d), k/v (B, T, H*d), key_bias (B, T) float32 -> (B, U, H*d)
-    in q's dtype.  k and v may be column slices of one tensor (any row
-    stride, unit column stride).  ``alibi_slopes`` (H,) float32 adds the
-    symmetric ALiBi term ``-(slope[h] |u - j|)`` to every score but those of
-    the first ``extra`` rows and columns (emotion2vec's AltAttention; float32
-    at head size 64 only, ``ValueError`` otherwise, on every device)."""
+    in q's dtype.  k and v may be column slices of one tensor (unit column
+    stride; on the card start and row stride 16-byte aligned, ``ValueError``
+    otherwise).  ``alibi_slopes`` (H,) float32 adds the symmetric ALiBi term
+    ``-(slope[h] |u - j|)`` to every score but those of the first ``extra``
+    rows and columns (emotion2vec's AltAttention; float32 at head size 64
+    only, ``ValueError`` otherwise, on every device)."""
     cuda_build.refuse_autograd("fused_attention", q, k, v, key_bias, alibi_slopes)
     if alibi_slopes is not None:
         _check_alibi(q, n_head, alibi_slopes, extra)
@@ -327,8 +335,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"fused_attention: q/k/v must share bf16 or float32, got "
                          f"{q.dtype}/{k.dtype}/{v.dtype}")
     B, U, T, D = _check_qkv("fused_attention", q, k, v, key_bias, n_head, HEAD_SIZES)
-    if q.dtype == torch.bfloat16:
-        _check_aligned("fused_attention", q, k, v)
+    _check_aligned("fused_attention", q, k, v)
     bias = key_bias.to(torch.float32).contiguous()
     out = torch.empty((B, U, D), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 8)(q.stride(0), q.stride(1), k.stride(0),

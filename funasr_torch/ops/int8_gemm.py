@@ -58,6 +58,7 @@ from funasr_torch.ops import fsmn as FS
 from funasr_torch.ops import rowquant as RQ
 
 _OUT = {torch.float32: 0, torch.bfloat16: 1}
+_I8, _F32, _BF16 = torch.int8, torch.float32, torch.bfloat16
 
 
 def int8_gemm_ref(a: torch.Tensor, sa: torch.Tensor, b: torch.Tensor,
@@ -154,38 +155,45 @@ def check_args(a: torch.Tensor, sa: torch.Tensor, b: torch.Tensor,
                sb: torch.Tensor, bias: Optional[torch.Tensor] = None,
                res: Optional[torch.Tensor] = None,
                add: Optional[torch.Tensor] = None,
-               out_dtype: torch.dtype = torch.float32) -> None:
+               out_dtype: torch.dtype = torch.float32) -> Tuple[int, int, int, int]:
     """Raise ValueError for arguments the kernel does not take; runs on
     tensors of any device (the CPU tests call it directly).  TMA's rules
     for the int8 operands: (M, K) and (N, K), K a multiple of 16 (the
-    16-byte row stride), contiguous, 16-byte aligned bases.  Kept lean:
-    the wrapper runs it at every launch."""
-    if a.dtype != torch.int8 or b.dtype != torch.int8 or a.dim() != 2 or b.dim() != 2:
+    16-byte row stride), contiguous, 16-byte aligned bases.  Returns (M, N,
+    K) and a's device index.  Kept lean: the wrapper runs it at every
+    launch, and at the decoder's shapes its host time sets the pace."""
+    if a.dtype != _I8 or b.dtype != _I8 or a.dim() != 2 or b.dim() != 2:
         raise ValueError(f"int8_gemm: need int8 (M, K) x (N, K), got {a.dtype} "
                          f"{tuple(a.shape)} x {b.dtype} {tuple(b.shape)}")
-    (M, K), (N, Kb) = a.shape, b.shape
+    M, K = a.shape
+    N, Kb = b.shape
     if Kb != K or K <= 0 or K % 16:
         raise ValueError(f"int8_gemm: K={K} (b: {Kb}) must be a positive multiple of 16")
     if not (a.is_contiguous() and b.is_contiguous()) or (a.data_ptr() | b.data_ptr()) % 16:
         raise ValueError("int8_gemm: a and b must be contiguous and 16-byte aligned")
     if out_dtype not in _OUT:
         raise ValueError(f"int8_gemm: unsupported output dtype {out_dtype}")
-    if sa.dtype != torch.float32 or sb.dtype != torch.float32 or sa.shape != (M,) \
-            or sb.shape != (N,):
+    if sa.dtype != _F32 or sb.dtype != _F32 or sa.shape != (M,) or sb.shape != (N,):
         raise ValueError("int8_gemm: scales must be float32 (M,) and (N,)")
-    if bias is not None and (bias.dtype != torch.float32 or bias.shape != (N,)):
-        raise ValueError("int8_gemm: bias must be float32 (N,)")
-    if res is not None and (res.dtype not in _OUT or res.shape != (M, N)
-                            or res.stride(1) != 1):
-        raise ValueError("int8_gemm: res must be float32 or bf16 (M, N) with a unit "
-                         "column stride")
-    if add is not None and (add.dtype != torch.float32 or add.shape != (M, N)
-                            or add.stride(1) != 1):
-        raise ValueError("int8_gemm: add must be float32 (M, N) with a unit column stride")
     dev = a.get_device()
-    for t in (sa, b, sb, bias, res, add):
-        if t is not None and t.get_device() != dev:
-            raise ValueError("int8_gemm: inputs on different devices")
+    same = sa.get_device() == dev and b.get_device() == dev and sb.get_device() == dev
+    if bias is not None:
+        if bias.dtype != _F32 or bias.shape != (N,):
+            raise ValueError("int8_gemm: bias must be float32 (N,)")
+        same = same and bias.get_device() == dev
+    if res is not None:
+        if res.dtype not in _OUT or res.shape != (M, N) or res.stride(1) != 1:
+            raise ValueError("int8_gemm: res must be float32 or bf16 (M, N) with a unit "
+                             "column stride")
+        same = same and res.get_device() == dev
+    if add is not None:
+        if add.dtype != _F32 or add.shape != (M, N) or add.stride(1) != 1:
+            raise ValueError("int8_gemm: add must be float32 (M, N) with a unit column "
+                             "stride")
+        same = same and add.get_device() == dev
+    if not same:
+        raise ValueError("int8_gemm: inputs on different devices")
+    return M, N, K, dev
 
 
 # int8_gemm_forward's 23 arguments packed as int64 in its order, null
@@ -209,34 +217,56 @@ def int8_gemm(a: torch.Tensor, sa: torch.Tensor, b: torch.Tensor,
     16-byte aligned (:func:`check_args`).  On the card, where N is not a
     multiple of 4 the result is a view of rows padded to one, so that the
     epilogue keeps its 4-wide stores (at an odd row stride every store is
-    scalar: SenseVoice's ``ctc_lo``, N = 25055)."""
+    scalar: SenseVoice's ``ctc_lo``, N = 25055).
+
+    At the decoder's shapes a launch takes about as long on the host as on
+    the card, so the card's path does each step once: one check that also
+    returns the shape, no copy of a contiguous vector, and no view where N
+    is a multiple of 4."""
     cuda_build.refuse_autograd("int8_gemm", a, sa, b, sb, bias, res, add)
     if not a.is_cuda:
         if a.device.type == "cpu":
             return int8_gemm_ref(a, sa, b, sb, bias, relu, res, add, round_bf16,
                                  out_dtype)
         raise ValueError(f"int8_gemm: unsupported device {a.device}")
-    check_args(a, sa, b, sb, bias, res, add, out_dtype)
-    (M, K), N = a.shape, b.shape[0]
-    sa, sb = sa.contiguous(), sb.contiguous()
-    bias = None if bias is None else bias.contiguous()
-    dev = a.get_device()
-    ld = -(-N // 4) * 4
-    out = a.new_empty((M, ld), dtype=out_dtype)[:, :N]
+    M, N, K, dev = check_args(a, sa, b, sb, bias, res, add, out_dtype)
+    if sa.stride(0) != 1:
+        sa = sa.contiguous()
+    if sb.stride(0) != 1:
+        sb = sb.contiguous()
+    if bias is not None and bias.stride(0) != 1:
+        bias = bias.contiguous()
+    if N % 4:
+        ld = N + 4 - N % 4
+        out = a.new_empty((M, ld), dtype=out_dtype)[:, :N]
+    else:
+        ld = N
+        out = a.new_empty((M, N), dtype=out_dtype)
     plan = gemm_plan(M, N, K, sm_count(dev))
-    fn = cuda_build.function("int8_gemm", "int8_gemm_forward", _ARGTYPES)
+    fn = _FORWARD or _bind()
     status = fn(_PACK(a.data_ptr(), b.data_ptr(), M, N, K, sa.data_ptr(), sb.data_ptr(),
                       0 if bias is None else bias.data_ptr(),
                       0 if res is None else res.data_ptr(),
                       0 if res is None else res.stride(0),
-                      int(res is not None and res.dtype == torch.bfloat16),
+                      0 if res is None else int(res.dtype == _BF16),
                       0 if add is None else add.data_ptr(),
                       0 if add is None else add.stride(0), int(relu), int(round_bf16),
                       out.data_ptr(), ld, _OUT[out_dtype], plan.bn, plan.stages, plan.grid,
                       plan.smem, stream(dev)))
-    cuda_build.check(status, "int8 GEMM kernel launch")
+    if status:
+        cuda_build.check(status, "int8 GEMM kernel launch")
     int8_gemm.launches += 1
     return out
+
+
+_FORWARD = None
+
+
+def _bind():
+    """int8_gemm_forward, bound once (the library is built on first use)."""
+    global _FORWARD
+    _FORWARD = cuda_build.function("int8_gemm", "int8_gemm_forward", _ARGTYPES)
+    return _FORWARD
 
 
 int8_gemm.launches = 0

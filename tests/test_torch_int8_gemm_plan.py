@@ -117,6 +117,14 @@ def test_gemm_check_args_accepts_served_operands():
                  out_dtype=torch.bfloat16)
 
 
+def test_gemm_check_args_returns_the_shape():
+    """The wrapper takes (M, N, K) and the device from the check it runs
+    anyway, instead of reading them again."""
+    assert G.check_args(**_gemm_args()) == (64, 48, 32, -1)
+    assert G.check_args(**_gemm_args(M=37, K=560, N=100, bias=torch.zeros(100))) \
+        == (37, 100, 560, -1)
+
+
 @pytest.mark.parametrize("bad", ["k_not_16", "misaligned_a", "misaligned_b",
                                  "non_contiguous", "wrong_dtype", "res_shape",
                                  "out_dtype"])

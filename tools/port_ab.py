@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """A/B of the PyTorch/CUDA port between checkouts, on one NVIDIA GPU.
 
-    python3 tools/port_ab.py [--only ffn|gemm] LABEL=DIR [LABEL=DIR ...]
+    python3 tools/port_ab.py [--only ffn|gemm|attn] LABEL=DIR [LABEL=DIR ...]
 
 Runs one process per argument, in the order given (for two checkouts:
 parent, change, change, parent), each importing ``funasr_torch`` from its
@@ -34,7 +34,17 @@ call on one card:
   builds it): CUDA events around each of 5 batches after 2 warm-ups (the
   host's time included), then ``torch.profiler`` over one batch for its
   kernel total, its CTC prefix kernel's time and its kernel launches per
-  decode step.
+  decode step;
+- the float32 attention (``ops/attention.py`` ``fused_attention``) at each
+  served shape of its four instances, by events and by CUDA graph, beside
+  ``scaled_dot_product_attention`` on the same inputs (with the ALiBi
+  shape's (B, H, T, T) float bias): d = 128 at the encoder's (64, 256,
+  512) and the decoder's cross-attention, the streaming window step (15
+  queries over 55 keys); d = 64 at the 256-wide models' (32, 256, 256) and
+  Whisper large-v3's three shapes; d = 32 at punctuation's (54, 208, 256);
+  ALiBi at emotion2vec base's (8, 759, 768); at the streaming step also
+  the host's time a call (300 calls back to back); ``--only attn`` times
+  this alone.
 
 Prints one JSON object per process and, last, a table of the medians.
 Helpers and shapes come from ``chip_smoke.py`` beside this directory.
@@ -116,20 +126,84 @@ def gemm_times(torch, S, G) -> dict:
     return out
 
 
+def attn_times(torch, S, A) -> dict:
+    """The float32 attention and SDPA at the served shapes, on seeded
+    inputs (k and v column slices of one projection), by events and CUDA
+    graph."""
+    import torch.nn.functional as F
+
+    from funasr_torch.models.emotion2vec.model import alibi_slopes
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    out = {}
+    # (name, B, U, T, H, d, valid keys a row, ALiBi extra tokens or None)
+    e2v = [759, 700, 640, 555, 460, 300, 160, 110]
+    for name, B, U, T, H, d, lens, extra in (
+            ("d128 encoder self (64, 256, 512)", 64, 256, 256, 4, 128, [250, 200] * 32, None),
+            ("d128 decoder cross (64, 128, 512) over 256", 64, 128, 256, 4, 128,
+             [250, 200] * 32, None),
+            ("d128 streaming step (1, 15, 512) over 55", 1, 15, 55, 4, 128, [55], None),
+            ("d64 encoder self (32, 256, 256)", 32, 256, 256, 4, 64, [250, 200] * 16, None),
+            ("d64 whisper encoder self (8, 1500, 1280)", 8, 1500, 1500, 20, 64, [1500] * 8, None),
+            ("d64 whisper cross (8, 1, 1280) over 1500", 8, 1, 1500, 20, 64, [1500] * 8, None),
+            ("d64 whisper cache (8, 1, 1280) over 33 of 65", 8, 1, 65, 20, 64, [33] * 8, None),
+            ("d32 punctuation (54, 208, 256)", 54, 208, 208, 8, 32, None, None),
+            ("d64 ALiBi emotion2vec (8, 759, 768)", 8, 759, 759, 12, 64, e2v, 10)):
+        D = H * d
+        qkv = torch.randn((B, T, 3 * D), generator=gen, device="cuda")
+        k, v = qkv[..., D:2 * D], qkv[..., 2 * D:]
+        q = torch.randn((B, U, D), generator=gen, device="cuda") * d ** -0.5
+        n = (torch.randint(1, T + 1, (B,), generator=gen, device="cuda") if lens is None
+             else torch.tensor(lens, device="cuda"))
+        bias = torch.where(torch.arange(T, device="cuda")[None] < n[:, None], 0.0, -1e30)
+        kw, mask = {}, bias[:, None, None, :]
+        if extra is not None:
+            kw = dict(alibi_slopes=torch.as_tensor(alibi_slopes(H), dtype=torch.float32,
+                                                   device="cuda") * 0.8, extra=extra)
+            mask = (mask + A.alibi_bias(kw["alibi_slopes"], U, T, extra)[None]).contiguous()
+        run = lambda: A.fused_attention(q, k, v, bias, H, **kw)  # noqa: E731
+        q4, k4, v4 = (x.unflatten(-1, (H, d)).transpose(1, 2) for x in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q4, k4, v4, attn_mask=mask, scale=1.0)
+        out[f"attn f32 {name} event_ms"] = [S.cuda_ms(run, iters=20, warmup=5)
+                                            for _ in range(3)]
+        out[f"attn f32 {name} graph_ms"] = S.graph_ms(run)
+        if B == 1:  # the wrapper's host time a call, where the host sets the pace
+            host = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(300):
+                    run()
+                host.append((time.perf_counter() - t0) / 300 * 1e3)
+            torch.cuda.synchronize()
+            out[f"attn f32 {name} host_ms"] = host
+        out[f"attn f32 {name} sdpa event_ms"] = [S.cuda_ms(sdpa, iters=20, warmup=5)
+                                                 for _ in range(3)]
+        out[f"attn f32 {name} sdpa graph_ms"] = S.graph_ms(sdpa)
+        del mask
+    return out
+
+
 def one(label: str, tree: str, only: str = "") -> dict:
     import numpy as np
     import torch
 
     S = smoke()
     sys.path.insert(0, os.path.abspath(tree))
+    from funasr_torch.ops import attention as A
     from funasr_torch.ops import cuda_build
     from funasr_torch.ops import ffn as FF
     from funasr_torch.ops import int8_gemm as G
 
     t0 = time.time()
-    cuda_build.build({"ffn": ["ffn"], "gemm": ["int8_gemm"]}.get(only, cuda_build.SOURCES))
+    cuda_build.build({"ffn": ["ffn"], "gemm": ["int8_gemm"],
+                      "attn": ["attention"]}.get(only, cuda_build.SOURCES))
     out = {"label": label, "tree": tree, "build_s": time.time() - t0}
     torch.backends.cuda.matmul.allow_tf32 = False
+    if only == "attn":
+        out.update(attn_times(torch, S, A))
+        return out
     if only != "gemm":
         out.update(ffn_times(torch, S, FF))
     if only != "ffn":
